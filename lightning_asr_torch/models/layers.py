@@ -1,0 +1,170 @@
+"""Building blocks of QuartNet12Context (port of
+``lightning_asr_tpu/models/layers.py``), eval path.
+
+Modules take and return NCT tensors (B, C, T), the layout of ``F.conv1d``;
+the model's public functions keep the JAX package's (B, T, C).
+
+  * ``SepConv`` = depthwise conv -> pointwise conv -> [length mask] ->
+    BatchNorm -> ReLU (skipped when ``last``).  The mask runs BEFORE
+    BatchNorm.
+  * masking recovers frame counts as ``int(float32(T) · percents)``,
+    truncated in float32, at every application point.
+  * ``MaskedBatchNorm`` eval: ``inv = rsqrt(var + 1e-3) · scale`` in fp32,
+    then ``mean``, ``inv`` and ``bias`` are cast to the activation dtype.
+  * with a compute ``dtype`` (bf16), convs take bf16 input and weights and
+    give bf16 output; parameters stay float32.
+
+Parameters are created as zeros (BatchNorm scale and variance as ones);
+weights come from a checkpoint or from ``reset_parameters(generator)``,
+which draws torch's default U(±1/sqrt(fan_in)) as the JAX package does.
+Training-mode BatchNorm and dropout belong to the training slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.lstm import LSTMWeights, lstm
+
+
+def _uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> None:
+    with torch.no_grad():
+        t.copy_(torch.rand(t.shape, generator=generator, dtype=t.dtype) * (2 * bound) - bound)
+
+
+def _lengths_from_percents(T: int, percents: torch.Tensor) -> torch.Tensor:
+    """The reference's ``(T * percents).int()`` recovery, in float32."""
+    t = torch.full((), T, dtype=torch.float32, device=percents.device)
+    return (t * percents.to(torch.float32)).to(torch.int32)
+
+
+def mask_by_percents(x: torch.Tensor, percents: torch.Tensor) -> torch.Tensor:
+    """Zero frames >= int(T * percent). x: (B, C, T)."""
+    T = x.shape[-1]
+    lengths = _lengths_from_percents(T, percents)
+    keep = torch.arange(T, device=x.device)[None, :] < lengths[:, None]
+    return x * keep[:, None, :].to(x.dtype)
+
+
+class Conv(nn.Module):
+    """1-D convolution weight (out, in/groups, k) [+ bias], run in a compute
+    dtype; the holder the weight bridge maps flax ``kernel``/``bias`` onto."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int = 1, stride: int = 1,
+                 padding: int = 0, groups: int = 1, bias: bool = False,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(out_ch, in_ch // groups, k))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
+        self.stride, self.padding, self.groups, self.dtype = stride, padding, groups, dtype
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        bound = 1.0 / math.sqrt(self.weight.shape[1] * self.weight.shape[2])
+        _uniform_(self.weight, bound, generator)
+        if self.bias is not None:
+            _uniform_(self.bias, bound, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or x.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv1d(x.to(dt), self.weight.to(dt), bias, self.stride,
+                        self.padding, 1, self.groups)
+
+
+class MaskedBatchNorm(nn.Module):
+    """torch.nn.BatchNorm1d eval semantics over (B, C, T), eps 1e-3, with
+    the JAX package's cast order."""
+
+    def __init__(self, features: int, eps: float = 1e-3):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError("training-mode BatchNorm is not ported yet; call .eval()")
+        dt = x.dtype
+        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return ((x - self.running_mean.to(dt)[:, None]) * inv.to(dt)[:, None]
+                + self.bias.to(dt)[:, None])
+
+
+class SepConv(nn.Module):
+    """Time-channel separable conv block (``layers.py::SepConv``)."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int = 33, last: bool = False,
+                 mask: bool = True, stride: int = 1, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.last, self.mask = last, mask
+        self.depthwise_conv = Conv(in_ch, in_ch, k, stride=stride, padding=k // 2,
+                                   groups=in_ch, dtype=dtype)
+        self.pointwise_conv = Conv(in_ch, out_ch, 1, dtype=dtype)
+        self.bn = MaskedBatchNorm(out_ch)
+
+    def forward(self, x: torch.Tensor, percents: torch.Tensor) -> torch.Tensor:
+        x = self.pointwise_conv(self.depthwise_conv(x))
+        if self.mask:
+            x = mask_by_percents(x, percents)
+        x = self.bn(x)
+        return x if self.last else F.relu(x)
+
+
+class QuartNetBlock(nn.Module):
+    """Residual block (``layers.py::QuartNetBlock``): (repeat-1) SepConvs +
+    one last SepConv, summed with a 1x1-conv+BN residual branch, then ReLU.
+    The residual branch is NOT masked before its BN — reference behaviour."""
+
+    def __init__(self, repeat: int = 3, in_ch: int = 1, out_ch: int = 32, k: int = 33,
+                 mask: bool = True, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.seps = [f"sep{i}" for i in range(repeat - 1)] + ["sep_last"]
+        for i in range(repeat - 1):
+            self.add_module(f"sep{i}", SepConv(in_ch, in_ch, k, mask=mask, dtype=dtype))
+        self.sep_last = SepConv(in_ch, out_ch, k, last=True, mask=mask, dtype=dtype)
+        self.reside_conv = Conv(in_ch, out_ch, 1, dtype=dtype)
+        self.reside_bn = MaskedBatchNorm(out_ch)
+
+    def forward(self, x: torch.Tensor, percents: torch.Tensor) -> torch.Tensor:
+        start = x
+        for name in self.seps:
+            x = getattr(self, name)(x, percents)
+        return F.relu(x + self.reside_bn(self.reside_conv(start)))
+
+
+class BatchLSTM(nn.Module):
+    """Bidirectional LSTM with packed-sequence-equivalent masking on
+    (B, T, C) float32; the recurrence is kernel K2."""
+
+    def __init__(self, in_ch: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        for tag in ("f", "b"):
+            self.register_parameter(f"w_ih_{tag}", nn.Parameter(torch.zeros(4 * hidden, in_ch)))
+            self.register_parameter(f"w_hh_{tag}", nn.Parameter(torch.zeros(4 * hidden, hidden)))
+            self.register_parameter(f"b_ih_{tag}", nn.Parameter(torch.zeros(4 * hidden)))
+            self.register_parameter(f"b_hh_{tag}", nn.Parameter(torch.zeros(4 * hidden)))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for p in self.parameters():
+            _uniform_(p, 1.0 / math.sqrt(self.hidden), generator)
+
+    def weights(self, tag: str) -> LSTMWeights:
+        return LSTMWeights(*(getattr(self, f"{n}_{tag}") for n in ("w_ih", "w_hh", "b_ih", "b_hh")))
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        return lstm(x, lengths, self.weights("f"), self.weights("b"))

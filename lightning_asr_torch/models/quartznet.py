@@ -1,0 +1,107 @@
+"""QuartNet12Context + CTC head (port of
+``lightning_asr_tpu/models/quartznet.py``), eval path.
+
+``QuartNet12Context``: SepConv stem 64->256 k33 stride 2 (padding 16); 3
+blocks k33 and 3 blocks k39 at 256ch; a BiLSTM(256->2x40) context branch,
+run in float32 and cast back to the compute dtype, concatenated onto the
+256ch stream (336ch); 3 blocks k51 (336->512), 3 blocks k63, one k75, one
+k87; epilog 1x1 conv 512->1024 + BN + ReLU.  ``AsrModel`` adds the 1x1-conv
+decoder to (vocab+1) classes and log-softmax, both in float32.
+
+Module names follow the flax parameter tree, so ``utils/jax_params.py``
+maps one onto the other key by key.  The SE, 15x5 and 10x5 encoders, the
+LSTM head and the SSL feature mapping are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import BatchLSTM, Conv, MaskedBatchNorm, QuartNetBlock, SepConv, _lengths_from_percents
+
+MODEL_REGISTRY = ("quartznet12_context", "quartznet12_context_se", "quartznet15x5",
+                  "quartznet10x5")
+PORTED_ENCODERS = ("quartznet12_context",)
+
+_BLOCKS = ([(n, 256, 256, 33) for n in ("block1", "block12", "block13")]
+           + [(n, 256, 256, 39) for n in ("block2", "block22", "block23")])
+_CONTEXT_BLOCKS = ([("block3", None, 512, 51), ("block32", 512, 512, 51), ("block33", 512, 512, 51)]
+                   + [(n, 512, 512, 63) for n in ("block4", "block42", "block43")]
+                   + [("block5", 512, 512, 75), ("block6", 512, 512, 87)])
+
+
+class QuartNet12Context(nn.Module):
+    """QuartzNet 12x1 with BiLSTM context branch (the default encoder).
+    (B, C, T) -> (B, 1024, T') with T' = ceil(T / 2)."""
+
+    def __init__(self, in_c: int = 64, mask: bool = False, lstm_hidden: int = 40,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.first_cnn = SepConv(in_c, 256, k=33, stride=2, mask=mask, dtype=dtype)
+        ctx_ch = 256 + 2 * lstm_hidden
+        self.trunk = [name for name, *_ in _BLOCKS]
+        self.head = [name for name, *_ in _CONTEXT_BLOCKS]
+        for name, cin, cout, k in _BLOCKS + _CONTEXT_BLOCKS:
+            self.add_module(name, QuartNetBlock(repeat=1, in_ch=cin or ctx_ch, out_ch=cout,
+                                                k=k, mask=mask, dtype=dtype))
+        self.context_rnn = BatchLSTM(256, lstm_hidden)
+        self.last_conv = Conv(512, 1024, 1, dtype=dtype)
+        self.last_bn = MaskedBatchNorm(1024)
+
+    def forward(self, x: torch.Tensor, percents: torch.Tensor) -> torch.Tensor:
+        x = self.first_cnn(x, percents)
+        for name in self.trunk:
+            x = getattr(self, name)(x, percents)
+        # context branch: BiLSTM over true lengths in float32, on (B, T, C)
+        lengths = _lengths_from_percents(x.shape[-1], percents)
+        c = self.context_rnn(x.transpose(1, 2).float(), lengths)
+        x = torch.cat([x, c.to(x.dtype).transpose(1, 2)], dim=1)   # (B, 336, T)
+        for name in self.head:
+            x = getattr(self, name)(x, percents)
+        return F.relu(self.last_bn(self.last_conv(x)))
+
+
+class AsrModel(nn.Module):
+    """Encoder + CTC head (the reference's ``MyModel2``).
+
+    ``forward(feats (B, T, in_c), percents (B,))`` returns
+    ``(log_probs (B, T', num_classes), out_lengths (B,) int32)``."""
+
+    def __init__(self, num_classes: int, encoder_name: str = "quartznet12_context",
+                 in_c: int = 64, mask: bool = False, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if encoder_name not in PORTED_ENCODERS:
+            raise NotImplementedError(f"encoder {encoder_name!r} is not ported yet "
+                                      f"(ported: {PORTED_ENCODERS})")
+        self.encoder = QuartNet12Context(in_c=in_c, mask=mask, dtype=dtype)
+        self.decoder = Conv(1024, num_classes, 1, bias=True)       # float32 head
+
+    def forward(self, x: torch.Tensor, percents: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = self.encoder(x.transpose(1, 2), percents)
+        x = self.decoder(x.float())                                 # (B, V+1, T')
+        log_probs = F.log_softmax(x, dim=1).transpose(1, 2)
+        return log_probs, _lengths_from_percents(log_probs.shape[1], percents)
+
+
+def build_model(num_classes: int, encoder: str = "quartznet12_context", in_c: int = 64,
+                mask: bool = False, feature_in: Optional[int] = None,
+                dtype: Optional[torch.dtype] = None) -> AsrModel:
+    """``build_model`` of the JAX package for the ported encoders (eval path:
+    dropout is inert, so there is no ``drop_rate``)."""
+    if encoder not in MODEL_REGISTRY:
+        raise ValueError(f"unknown encoder {encoder!r}; choose from {sorted(MODEL_REGISTRY)}")
+    if feature_in is not None:
+        raise NotImplementedError("the SSL feature path (feature_in) is not ported yet")
+    return AsrModel(num_classes, encoder, in_c=in_c, mask=mask, dtype=dtype)
+
+
+def reset_parameters(model: nn.Module, generator: torch.Generator) -> None:
+    """Draw every weight as the JAX package's initializers do (torch's
+    default U(±1/sqrt(fan_in)); BatchNorm ones/zeros), from ``generator``."""
+    for m in model.modules():
+        if isinstance(m, (Conv, MaskedBatchNorm, BatchLSTM)):
+            m.reset_parameters(generator)

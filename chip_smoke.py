@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py
 
@@ -13,7 +14,7 @@ Phases, in order; any failed check exits non-zero before the last line:
      time, the plain version's and torch.stft's as a yardstick;
   4. K2, the BiLSTM recurrence kernel (B=8, T=801, C=256, H=40, ragged
      lengths, both directions), the same way, with cuDNN's packed LSTM as
-     the yardstick;
+     the yardstick; its cell-state output (training) leaves h bit for bit;
   5. serving: a full-width quartznet12_context checkpoint made from seeded
      weights (bf16 convs, "default" frontend tier) is loaded by
      AsrTranslator on the card and served over HTTP with dynamic batching;
@@ -23,10 +24,27 @@ Phases, in order; any failed check exits non-zero before the last line:
      the CPU, and the served texts must be the card's transcription of it;
   6. profile: one steady serving batch's host-clock latency and, from
      torch.profiler, its device time by kernel group;
-  7. a {"kernels": [...]} line: per kernel its launches while serving, its
-     error against the plain version, its time, the plain version's, the
-     library yardstick's, and the least time the card could take;
-  8. {"ok": true, "device": {...}} as the last line.
+  7. K3, the BiLSTM backward kernel, at the training shape (B=32, T'=836,
+     the 16.7 s bucket after the stride-2 stem), against its plain version,
+     with cuDNN's packed LSTM forward + backward as the yardstick;
+  8. K4 and K5, the CTC alpha and beta + gradient kernels (B=32, T'=836,
+     C=29, ~15 labels a second, one impossible alignment), against their
+     plain versions and against PyTorch's own CTC (its forward and backward
+     ops as the yardsticks);
+  9. training: a seeded full-width bf16 quartznet12_context takes 20 steps
+     of the recipe (dither, SpecAugment, fused NovoGrad, the NaN guard) on
+     one batch of 32 int16 waves of 2-16.7 s; the loss must be finite and
+     fall, nan_count stay 0, and K1-K5 launch once a step; the steady step's
+     host-clock time, audio-seconds trained per second, device time by
+     kernel group (torch.profiler) and peak memory;
+ 10. training parity: one float32 step from one state and one batch (B=4,
+     4 s bucket, no dither, augmentation or dropout) on the card and on the
+     CPU: loss, grad norm, per-tensor gradients, parameter updates;
+ 11. a {"kernels": [...]} line: per kernel its launches on the main paths
+     (the serving burst and the training steps), its error against the
+     plain version, its time, the plain version's, the library yardstick's,
+     and the least time the card could take;
+ 12. {"ok": true, "device": {...}} as the last line.
 
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -52,11 +70,17 @@ from lightning_asr_torch.inference.server import make_stdlib_server
 from lightning_asr_torch.models.layers import MaskedBatchNorm
 from lightning_asr_torch.models.quartznet import build_model, reset_parameters
 from lightning_asr_torch.ops import kernel_build
+from lightning_asr_torch.ops.ctc_kernels import (ctc_alpha, ctc_alpha_plain, ctc_beta,
+                                                 ctc_beta_plain, ctc_loss)
 from lightning_asr_torch.ops.frontend import (MelFrontendConfig, _extend_signal, _preemphasis,
                                               mel_filterbank, pad_for_frames)
 from lightning_asr_torch.ops.frontend_kernels import mel_from_extended, mel_from_extended_plain
-from lightning_asr_torch.ops.lstm_kernels import lstm_recurrence, lstm_recurrence_plain
+from lightning_asr_torch.ops.lstm_kernels import (lstm_backward, lstm_backward_plain,
+                                                  lstm_recurrence, lstm_recurrence_plain)
+from lightning_asr_torch.optim import cosine_annealing_warmup_restarts, novograd
+from lightning_asr_torch.optim.novograd import GradientTransformation
 from lightning_asr_torch.training.checkpoint import save_checkpoint
+from lightning_asr_torch.training.steps import create_train_state, make_train_step
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_S = 3.35e12
@@ -85,9 +109,29 @@ SERVE_BF16_GAP_RATIO = 1.25
 SERVE_MAX_CER = 0.5
 # transcribe_batch calls timed on the host clock, and calls profiled
 PROFILE_ITERS = (10, 3)
+# K3 against its plain version, float32: the gate recompute, dh_prev and
+# the dW_hh sums run in another order, through up to 836 dependent steps;
+# dW_hh sums 32 rows x 836 frames of products (bound relative to its max)
+K3_TOL_DX, K3_TOL_DW = 1e-4, 1e-4
+# K4/K5 against their plain versions: float32 log-space sums with the
+# card's expf/logf, a few ulps a step over 836 steps, relative to |ll| up
+# to ~3000; gradients are probabilities times the upstream 1/B
+K45_TOL_REL, K45_TOL_GRAD = 1e-5, 1e-5
+# the port's CTC losses against PyTorch's (another algorithm, float32)
+CTC_TORCH_TOL_REL = 1e-4
+# training: rows of the batch, steps on it, and steps profiled
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_PROFILE_STEPS = 32, 20, 3
+# training parity, card vs CPU, one float32 step (no TF32): conv sums in
+# another order through 16 blocks in train-mode BatchNorm; the CPU tests
+# saw this network's gradients move by up to 2% from 1e-6 input changes
+TRAIN_TOL = {"loss_rel": 1e-4, "grad_norm_rel": 1e-3, "grad_rel": 5e-2, "update_rel": 5e-2}
 
 SR = 16000
 LABELS = [" ", "'"] + [chr(ord("a") + i) for i in range(26)]
+BLANK = len(LABELS)
+TRAIN_BUCKET_S = 16.7                 # conf.yaml train_max_duration, a bucket
+T_TRAIN = 836                         # its frames after the stride-2 stem
+CHARS_PER_S = 15
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -188,6 +232,12 @@ def phase_k2(dev) -> dict:
     pad_zero = all(bool((got[b, n:] == 0).all()) for b, n in enumerate(lens_np))
     check(pad_zero, "K2 pad frames are not exactly zero")
     check(err <= K2_TOL, f"K2 max |kernel - plain| = {err} > {K2_TOL}")
+    # the training variant stores the cell states too, and changes no bit of h
+    h_c, cell = lstm_recurrence(xproj, lens, w_hh, with_cell=True)
+    _, want_cell = lstm_recurrence_plain(xproj, lens, w_hh, with_cell=True)
+    cell_err = (cell - want_cell).abs().max().item()
+    check(torch.equal(h_c, got), "K2 with the cell output changed h")
+    check(cell_err <= 10 * K2_TOL, f"K2 cell states: max |kernel - plain| = {cell_err}")
 
     ms = cuda_ms(lambda: lstm_recurrence(xproj, lens, w_hh), 20)
     plain_ms = cuda_ms(lambda: lstm_recurrence_plain(xproj, lens, w_hh), 2, warmup=1)
@@ -224,6 +274,7 @@ def phase_k2(dev) -> dict:
            "bound_by": bound_by, "library_ms": library_ms}
     print(json.dumps({"phase": "K2", "shape": [B, T, C, H, D], "tol": K2_TOL, "kernel_ms": ms,
                       "cudnn_max_abs_diff": lib_err, "sequential_steps": int(lens_np.max()),
+                      "cell_max_abs_err": cell_err,
                       "phase_launches": lstm_recurrence.launches, **res}), flush=True)
     return res
 
@@ -384,13 +435,14 @@ def phase_serving(dev) -> dict:
 
 def _category(name: str) -> str:
     low = name.lower()
-    if "log_mel_kernel" in low:
-        return "K1 log_mel"
-    if "lstm_fwd_kernel" in low:
-        return "K2 lstm"
-    if "memcpy" in low:
+    for tag, cat in (("log_mel_kernel", "K1 log_mel"), ("lstm_fwd_kernel", "K2 lstm"),
+                     ("lstm_bwd_kernel", "K3 lstm_bwd"), ("ctc_alpha_kernel", "K4 ctc_alpha"),
+                     ("ctc_beta_kernel", "K5 ctc_beta")):
+        if tag in low:
+            return cat
+    if "memcpy" in low or "memset" in low:
         return "copy"
-    if any(s in low for s in ("conv", "fprop", "cudnn", "implicit")):
+    if any(s in low for s in ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit")):
         return "conv"
     if "gemm" in low or "cutlass" in low:
         return "gemm"
@@ -408,8 +460,6 @@ def phase_profile(translator: AsrTranslator, waves) -> dict:
     PROFILE_ITERS[1] batches, grouped; the device's busy share is that
     device time over the unprofiled median latency (the profiler slows the
     host side)."""
-    from torch.profiler import ProfilerActivity, profile
-
     iters, prof_iters = PROFILE_ITERS
     for _ in range(2):
         translator.transcribe_batch(waves)
@@ -418,30 +468,348 @@ def phase_profile(translator: AsrTranslator, waves) -> dict:
         t0 = time.perf_counter()
         translator.transcribe_batch(waves)
         lat.append(time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(prof_iters):
-            translator.transcribe_batch(waves)
-        torch.cuda.synchronize()
+    device_ms, by_cat, top = device_time(lambda: translator.transcribe_batch(waves), prof_iters)
+    median_ms = 1e3 * statistics.median(lat)
+    res = {"phase": "profile", "batch": len(waves), "audio_s_per_batch": sum(len(w) for w in waves) / SR,
+           "steady_latency_ms": {"median": median_ms, "min": 1e3 * min(lat), "max": 1e3 * max(lat),
+                                 "n": iters},
+           "device_ms_per_batch": device_ms, "device_busy_share": device_ms / median_ms,
+           "device_ms_by_category": by_cat, "top_kernels_ms": top}
+    print(json.dumps(res), flush=True)
+    return res
 
+
+def device_time(fn, n: int):
+    """Device time per call of ``fn`` over ``n`` profiled calls, from
+    torch.profiler: (total ms, ms by kernel group, the 12 largest kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
     kernels = {}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0.0)
         if dev_us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us / 1e3 / prof_iters
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us / 1e3 / n
     check(bool(kernels), "torch.profiler recorded no device time")
     by_cat = {}
     for name, ms in kernels.items():
         by_cat[_category(name)] = by_cat.get(_category(name), 0.0) + ms
-    device_ms = sum(kernels.values())
-    median_ms = 1e3 * statistics.median(lat)
-    res = {"phase": "profile", "batch": len(waves), "audio_s_per_batch": sum(len(w) for w in waves) / SR,
-           "steady_latency_ms": {"median": median_ms, "min": 1e3 * min(lat), "max": 1e3 * max(lat),
-                                 "n": iters},
-           "device_ms_per_batch": device_ms, "device_busy_share": device_ms / median_ms,
-           "device_ms_by_category": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
-           "top_kernels_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:12])}
+    return (sum(kernels.values()), dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
+            dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:12]))
+
+
+def train_rows(rng, B: int):
+    """Seconds of B utterances of 2-16.7 s (one at 16.7 s), and their frame
+    counts after the stride-2 stem as the model recovers them, int(836 ·
+    float32(mel frames / 1671))."""
+    seconds = np.sort(rng.uniform(2.0, TRAIN_BUCKET_S, B))[::-1].copy()
+    seconds[0] = TRAIN_BUCKET_S
+    samples = (seconds * SR).astype(np.int64)
+    frames = 1 + (samples + 64) // 160
+    T_mel = 1 + (int(TRAIN_BUCKET_S * SR) + 64) // 160
+    percents = frames.astype(np.float32) / np.float32(T_mel)
+    return seconds, samples, (np.float32(T_TRAIN) * percents).astype(np.int32)
+
+
+def train_targets(rng, seconds, L_multiple: int = 32):
+    """~15 labels a second from the vocabulary (no blank), padded to a
+    multiple of 32 as the data pipeline pads them."""
+    tl = np.maximum(1, np.round(CHARS_PER_S * seconds)).astype(np.int32)
+    L = int(-(-tl.max() // L_multiple) * L_multiple)
+    return rng.integers(0, BLANK, (len(seconds), L)).astype(np.int32), tl
+
+
+def phase_k3(dev) -> dict:
+    rng = np.random.default_rng(3)
+    B, T, C, H, D = 32, T_TRAIN, 256, 40, 2
+    s = 1.0 / np.sqrt(H)
+    x = torch.from_numpy(rng.standard_normal((B, T, C)).astype(np.float32)).to(dev)
+    w_ih = torch.from_numpy(rng.uniform(-s, s, (D, 4 * H, C)).astype(np.float32)).to(dev)
+    w_hh = torch.from_numpy(rng.uniform(-s, s, (D, 4 * H, H)).astype(np.float32)).to(dev)
+    b_ih = torch.from_numpy(rng.uniform(-s, s, (D, 4 * H)).astype(np.float32)).to(dev)
+    b_hh = torch.from_numpy(rng.uniform(-s, s, (D, 4 * H)).astype(np.float32)).to(dev)
+    lens_np = train_rows(rng, B)[2]
+    lens = torch.from_numpy(lens_np).to(dev)
+    xproj = (torch.matmul(x, w_ih.reshape(D * 4 * H, C).t()) + b_ih.reshape(-1)
+             + b_hh.reshape(-1)).reshape(B, T, D, 4 * H).contiguous()
+    h, cell = lstm_recurrence(xproj, lens, w_hh, with_cell=True)
+    grad_h = torch.from_numpy(rng.standard_normal((B, T, D * H)).astype(np.float32)).to(dev)
+
+    lstm_backward.launches = 0
+    d_x, dw = lstm_backward(xproj, lens, w_hh, h, cell, grad_h)
+    want_dx, want_dw = lstm_backward_plain(xproj, lens, w_hh, h, cell, grad_h)
+    torch.cuda.synchronize()
+    err_dx = (d_x - want_dx).abs().max().item()
+    err_dw = (dw - want_dw).abs().max().item() / want_dw.abs().max().item()
+    check(bool(torch.isfinite(d_x).all()) and bool(torch.isfinite(dw).all()), "K3 outputs finite")
+    check(all(bool((d_x[b, n:] == 0).all()) for b, n in enumerate(lens_np)),
+          "K3 d_xproj at pad frames is not exactly zero")
+    check(err_dx <= K3_TOL_DX, f"K3 d_xproj max |kernel - plain| = {err_dx} > {K3_TOL_DX}")
+    check(err_dw <= K3_TOL_DW, f"K3 dW_hh max |kernel - plain| / max |plain| = {err_dw}")
+
+    ms = cuda_ms(lambda: lstm_backward(xproj, lens, w_hh, h, cell, grad_h), 10)
+    plain_ms = cuda_ms(lambda: lstm_backward_plain(xproj, lens, w_hh, h, cell, grad_h), 1, warmup=1)
+    # yardstick: cuDNN's bidirectional LSTM over the packed sequence, forward
+    # and backward, input projection included (the port never calls it)
+    ref = torch.nn.LSTM(C, H, batch_first=True, bidirectional=True).to(dev)
+    with torch.no_grad():
+        for d, sfx in enumerate(("", "_reverse")):
+            getattr(ref, f"weight_ih_l0{sfx}").copy_(w_ih[d])
+            getattr(ref, f"weight_hh_l0{sfx}").copy_(w_hh[d])
+            getattr(ref, f"bias_ih_l0{sfx}").copy_(b_ih[d])
+            getattr(ref, f"bias_hh_l0{sfx}").copy_(b_hh[d])
+    xg = x.clone().requires_grad_(True)
+    lens_cpu = torch.from_numpy(lens_np.astype(np.int64))
+
+    def library():
+        packed = torch.nn.utils.rnn.pack_padded_sequence(xg, lens_cpu, batch_first=True,
+                                                         enforce_sorted=False)
+        out = torch.nn.utils.rnn.pad_packed_sequence(ref(packed)[0], batch_first=True,
+                                                     total_length=T)[0]
+        torch.autograd.backward(out, grad_h)
+
+    library_ms = cuda_ms(library, 5)
+    G = 4 * H
+    steps = int(lens_np.sum()) * D
+    # bytes: per valid step its projection, h_prev, c_prev and dh in; W_hh
+    # and the lengths in; all of d_xproj (zeros at pad frames) and dW_hh out
+    nbytes = (steps * (G + 3 * H) * 4 + w_hh.numel() * 4 + lens.numel() * 4
+              + d_x.numel() * 4 + dw.numel() * 4)
+    # per valid step: the gate recompute, dh_prev and dW_hh (2·4H·H each),
+    # and the cell's elementwise backward (~30 a unit)
+    flops = steps * (3 * 2 * G * H + 30 * H)
+    bound_ms, bound_by = bound(nbytes, flops, "fp32")
+    res = {"name": "lstm_backward (K3)", "route": "cuda", "source": "lightning_asr_torch/csrc/lstm_bwd.cu",
+           "replaces": "lightning_asr_tpu/ops/lstm_pallas.py:89",
+           "max_abs_err": err_dx, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms}
+    print(json.dumps({"phase": "K3", "shape": [B, T, C, H, D], "tol_dx": K3_TOL_DX, "tol_dw_rel": K3_TOL_DW,
+                      "dw_max_rel_err": err_dw, "kernel_ms": ms, "sequential_steps": int(lens_np.max()),
+                      "valid_row_frames": int(lens_np.sum()),
+                      "phase_launches": lstm_backward.launches, **res}), flush=True)
+    return res
+
+
+def phase_k45(dev):
+    rng = np.random.default_rng(4)
+    B, T, C = 32, T_TRAIN, len(LABELS) + 1
+    seconds, _, in_np = train_rows(rng, B)
+    targets_np, tl_np = train_targets(rng, seconds)
+    tl_np[-1] = in_np[-1] + 10            # more labels than frames: an impossible alignment
+    logits = torch.from_numpy((rng.standard_normal((B, T, C)) * 2).astype(np.float32)).to(dev)
+    lp = torch.log_softmax(logits, dim=-1).contiguous()
+    il, tg, tl = (torch.from_numpy(a).to(dev) for a in (in_np, targets_np, tl_np))
+    S = 2 * targets_np.shape[1] + 1
+    possible = torch.arange(B, device=dev) < B - 1
+
+    ctc_alpha.launches = ctc_beta.launches = 0
+    alpha, ll = ctc_alpha(lp, il, tg, tl, BLANK)
+    want_alpha, want_ll = ctc_alpha_plain(lp, il, tg, tl, BLANK)
+    gbar = torch.full((B,), 1.0 / B, device=dev)
+    grad = ctc_beta(lp, il, tg, tl, alpha, ll, gbar, BLANK)
+    want_grad = ctc_beta_plain(lp, il, tg, tl, want_alpha, want_ll, gbar, BLANK)
+    torch.cuda.synchronize()
+    valid = (torch.arange(T, device=dev)[None, :] < il[:, None])[:, :, None]
+    live = valid & (want_alpha > -1e29)
+    scale = want_ll[possible].abs().max().item()
+    err_alpha = torch.where(live, alpha - want_alpha, 0.0).abs().max().item() / scale
+    err_ll_abs = (ll - want_ll)[possible].abs().max().item()
+    err_ll = err_ll_abs / scale
+    err_grad = (grad - want_grad).abs().max().item()
+    check(ll[-1].item() == want_ll[-1].item() == np.float32(-1e30),
+          f"impossible alignment: ll {ll[-1].item()}, plain {want_ll[-1].item()}, want -1e30")
+    check(bool(torch.isfinite(ll).all()) and bool(torch.isfinite(grad).all()), "K4/K5 outputs finite")
+    check(err_alpha <= K45_TOL_REL and err_ll <= K45_TOL_REL,
+          f"K4 against plain: alpha {err_alpha}, ll {err_ll} (relative to max |ll| {scale})")
+    check(err_grad <= K45_TOL_GRAD, f"K5 max |kernel - plain| = {err_grad} > {K45_TOL_GRAD}")
+    check(bool((torch.where(valid, 0.0, grad) == 0).all()), "K5 gradient past a row's length")
+
+    # the losses against PyTorch's CTC, and the gradients at the logits
+    ours = ctc_loss(lp, il, tg, tl, BLANK)
+    theirs = torch.nn.functional.ctc_loss(lp.transpose(0, 1), tg, il, tl, blank=BLANK,
+                                          reduction="none")
+    torch_rel = ((ours - theirs).abs() / theirs.abs())[possible].max().item()
+    check(ours[-1].item() == np.float32(1e30) and bool(torch.isinf(theirs[-1])),
+          f"impossible row: ours {ours[-1].item()}, torch {theirs[-1].item()}")
+    check(torch_rel <= CTC_TORCH_TOL_REL, f"CTC losses vs torch: max rel {torch_rel}")
+    weight = possible.to(torch.float32) / B
+    g_ours, g_theirs = (logits.clone().requires_grad_(True) for _ in range(2))
+    (ctc_loss(torch.log_softmax(g_ours, -1), il, tg, tl, BLANK) * weight).sum().backward()
+    (torch.nn.functional.ctc_loss(torch.log_softmax(g_theirs, -1).transpose(0, 1), tg, il, tl,
+                                  blank=BLANK, reduction="none").nan_to_num(0.0, 0.0, 0.0)
+     * weight).sum().backward()
+    torch_grad_err = (g_ours.grad - g_theirs.grad)[:-1].abs().max().item()
+    check(torch_grad_err <= 1e-4, f"CTC logit gradients vs torch: max {torch_grad_err}")
+    launches = {"alpha": ctc_alpha.launches, "beta": ctc_beta.launches}
+
+    lp_tbc = lp.transpose(0, 1)
+    il_l, tl_l = in_np.tolist(), tl_np.tolist()
+    nll, log_alpha = torch.ops.aten._ctc_loss(lp_tbc, tg, il_l, tl_l, BLANK, False)
+    ones = torch.ones(B, device=dev)
+    timing = {
+        "alpha": (cuda_ms(lambda: ctc_alpha(lp, il, tg, tl, BLANK), 10),
+                  cuda_ms(lambda: ctc_alpha_plain(lp, il, tg, tl, BLANK), 1, warmup=1),
+                  cuda_ms(lambda: torch.ops.aten._ctc_loss(lp_tbc, tg, il_l, tl_l, BLANK, False), 10)),
+        "beta": (cuda_ms(lambda: ctc_beta(lp, il, tg, tl, alpha, ll, gbar, BLANK), 10),
+                 cuda_ms(lambda: ctc_beta_plain(lp, il, tg, tl, alpha, ll, gbar, BLANK), 1, warmup=1),
+                 cuda_ms(lambda: torch.ops.aten._ctc_loss_backward(ones, lp_tbc, tg, il_l, tl_l, nll,
+                                                                   log_alpha, BLANK, False), 10)),
+    }
+    frames = int(in_np.sum())
+    small = (targets_np.size + 3 * B) * 4
+    # K4: the valid frames' log-probs in, alpha of the valid frames out; per
+    # (valid frame, state) three exp, a log and ~8 adds and maxes
+    b4 = bound(frames * C * 4 + small + frames * S * 4, frames * S * 12, "fp32")
+    # K5: log-probs and alpha of the valid frames in, all of grad_emit out;
+    # per (valid frame, state) the beta step and exp(alpha + beta - ll)
+    b5 = bound(frames * C * 4 + frames * S * 4 + small + grad.numel() * 4, frames * S * 16, "fp32")
+    rows = []
+    for key, name, line, err, (bms, bby) in (
+            ("alpha", "ctc_alpha (K4)", 67, err_ll_abs, b4),
+            ("beta", "ctc_beta (K5)", 130, err_grad, b5)):
+        ms, plain_ms, library_ms = timing[key]
+        rows.append({"name": name, "route": "cuda", "source": "lightning_asr_torch/csrc/ctc.cu",
+                     "replaces": f"lightning_asr_tpu/ops/ctc_pallas.py:{line}",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                     "bound_by": bby, "library_ms": library_ms})
+    print(json.dumps({"phase": "K4/K5", "shape": [B, T, C, S], "tol_rel": K45_TOL_REL,
+                      "tol_grad": K45_TOL_GRAD, "alpha_max_rel_err": err_alpha,
+                      "ll_max_rel_err": err_ll, "grad_max_abs_err": err_grad,
+                      "vs_torch_loss_max_rel": torch_rel, "vs_torch_logit_grad_max_abs": torch_grad_err,
+                      "impossible_row_loss": ours[-1].item(), "valid_row_frames": frames,
+                      "sequential_steps": int(in_np.max()), "phase_launches": launches,
+                      "kernels": rows}), flush=True)
+    return rows
+
+
+def train_batch(rng, B: int, bucket_s: float, max_s: float):
+    """B int16 waves of 2-``max_s`` s padded to the ``bucket_s`` bucket, with
+    ~15 labels a second; numpy."""
+    seconds = np.sort(rng.uniform(2.0, max_s, B))[::-1].copy()
+    seconds[0] = max_s
+    S = int(bucket_s * SR)
+    lens = (seconds * SR).astype(np.int32)
+    waves = np.zeros((B, S), np.int16)
+    for b, n in enumerate(lens):
+        waves[b, :n] = (rng.standard_normal(n) * 3000).astype(np.int16)
+    targets, tl = train_targets(rng, seconds)
+    return {"waves": waves, "wave_lens": lens, "targets": targets, "target_lens": tl}, float(seconds.sum())
+
+
+def phase_training(dev) -> dict:
+    """The recipe's train step at full width, 20 steps on one batch."""
+    gen = torch.Generator().manual_seed(5)
+    model = build_model(len(LABELS) + 1, "quartznet12_context", mask=True, dtype=torch.bfloat16)
+    reset_parameters(model, gen)
+    model.to(dev)
+    schedule = cosine_annealing_warmup_restarts(first_cycle_steps=1000, cycle_mult=2, max_lr=1e-2,
+                                                min_lr=1e-4, warmup_steps=5, gamma=0.5)
+    opt = novograd(schedule, betas=(0.8, 0.5), weight_decay=1e-3, fused=True)
+    step = make_train_step(model, opt, BLANK, MelFrontendConfig(precision="default"), augment=True,
+                           freq_mask=27, time_mask=0.07)
+    state = create_train_state(model, opt)
+    batch_np, audio_s = train_batch(np.random.default_rng(5), TRAIN_BATCH, TRAIN_BUCKET_S,
+                                    TRAIN_BUCKET_S)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+    rng = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    counters = (mel_from_extended, lstm_recurrence, lstm_backward, ctc_alpha, ctc_beta)
+    for fn in counters:
+        fn.launches = 0
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, rng)
+        losses.append(metrics["loss"].item())
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)), f"training losses not finite: {losses}")
+    check(int(state.nan_count) == 0 and int(state.step) == TRAIN_STEPS,
+          f"nan_count {int(state.nan_count)}, step {int(state.step)}")
+    check(int(state.opt_state.count) == TRAIN_STEPS, "the optimizer skipped a step")
+    check(np.mean(losses[-5:]) < np.mean(losses[:5]) and losses[-1] < losses[0],
+          f"the training loss did not fall: {losses}")
+    check(all(n == TRAIN_STEPS for n in launches.values()),
+          f"kernel launches over {TRAIN_STEPS} steps: {launches} (want one each a step)")
+
+    steady = times[2:]
+    median_ms = 1e3 * statistics.median(steady)
+    holder = {"state": state}
+
+    def one_step():
+        holder["state"], _ = step(holder["state"], batch, rng)
+
+    device_ms, by_cat, top = device_time(one_step, TRAIN_PROFILE_STEPS)
+    res = {"phase": "training", "batch": TRAIN_BATCH, "bucket_s": TRAIN_BUCKET_S, "audio_s_per_batch": audio_s,
+           "steps": TRAIN_STEPS, "losses": losses, "launches": launches,
+           "step_ms": {"median": median_ms, "min": 1e3 * min(steady), "max": 1e3 * max(steady),
+                       "first": 1e3 * times[0], "n": len(steady)},
+           "audio_s_trained_per_s": audio_s / (median_ms / 1e3),
+           "device_ms_per_step": device_ms, "device_busy_share": device_ms / median_ms,
+           "device_ms_by_category": by_cat, "top_kernels_ms": top,
+           "peak_memory_gb": peak_gb, "nan_count": int(state.nan_count)}
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def _capture(inner):
+    """The optimizer behind a transform that keeps the raw gradients."""
+    def update(grads, state, params):
+        updates, new_inner = inner.update(grads, state[1], params)
+        return updates, (grads, new_inner)
+
+    return GradientTransformation(lambda p: ({k: torch.zeros_like(v) for k, v in p.items()},
+                                             inner.init(p)), update)
+
+
+def phase_train_parity(dev) -> dict:
+    """One float32 step from one state and one batch, on the card and on
+    the CPU (plain versions of every kernel)."""
+    gen = torch.Generator().manual_seed(6)
+    cpu_model = build_model(len(LABELS) + 1, "quartznet12_context", mask=True)
+    reset_parameters(cpu_model, gen)
+    card_model = build_model(len(LABELS) + 1, "quartznet12_context", mask=True)
+    card_model.load_state_dict(cpu_model.state_dict())
+    card_model.to(dev)
+    batch_np, _ = train_batch(np.random.default_rng(6), 4, 4.0, 3.9)
+    out = {}
+    for name, model, where in (("cpu", cpu_model, "cpu"), ("card", card_model, dev)):
+        opt = _capture(novograd(1e-2, betas=(0.8, 0.5), weight_decay=1e-3, fused=True))
+        step = make_train_step(model, opt, BLANK, MelFrontendConfig(dither=0.0, precision="default"),
+                               augment=None)
+        state = create_train_state(model, opt)
+        new, metrics = step(state, {k: torch.from_numpy(v).to(where) for k, v in batch_np.items()})
+        out[name] = ({k: v.cpu() for k, v in state.params.items()},
+                     {k: v.cpu() for k, v in new.params.items()},
+                     {k: v.cpu() for k, v in new.opt_state[0].items()},
+                     {k: v.cpu() if torch.is_tensor(v) else v for k, v in metrics.items()})
+    old, cpu_new, cpu_g, cpu_m = out["cpu"]
+    _, card_new, card_g, card_m = out["card"]
+    rel = lambda a, b: (a - b).norm().item() / max(b.norm().item(), 1e-30)  # noqa: E731
+    errs = {
+        "loss_rel": abs(card_m["loss"].item() - cpu_m["loss"].item()) / abs(cpu_m["loss"].item()),
+        "grad_norm_rel": rel(card_m["grad_norm"], cpu_m["grad_norm"]),
+        "grad_rel": max(rel(card_g[k], cpu_g[k]) for k in cpu_g),
+        "update_rel": max(rel(card_new[k] - old[k], cpu_new[k] - old[k]) for k in old),
+    }
+    worst = max(cpu_g, key=lambda k: rel(card_g[k], cpu_g[k]))
+    check(bool(card_m["finite"]) and bool(cpu_m["finite"]), "training parity: loss not finite")
+    check(torch.equal(card_m["pred_lens"], cpu_m["pred_lens"]), "training parity: pred_lens differ")
+    for key, lim in TRAIN_TOL.items():
+        check(errs[key] <= lim, f"training parity: {key} {errs[key]} > {lim} (worst tensor {worst})")
+    res = {"phase": "training_parity", "batch": 4, "bucket_s": 4.0, "dtype": "float32",
+           "loss_card": card_m["loss"].item(), "loss_cpu": cpu_m["loss"].item(), **errs,
+           "limits": TRAIN_TOL, "worst_grad_tensor": worst,
+           "preds_agreement": float((card_m["preds"] == cpu_m["preds"]).float().mean())}
     print(json.dumps(res), flush=True)
     return res
 
@@ -469,11 +837,22 @@ def main() -> int:
     k2 = phase_k2(dev)
     serving, translator, served = phase_serving(dev)
     phase_profile(translator, served)
-    k1["launches"] = serving["launches"]["mel"]
-    k2["launches"] = serving["launches"]["lstm"]
+    del translator
+    k3 = phase_k3(dev)
+    k4, k5 = phase_k45(dev)
+    training = phase_training(dev)
+    phase_train_parity(dev)
+    # launches on the main paths: the serving burst and the training steps
+    train = training["launches"]
+    k1["launches"] = serving["launches"]["mel"] + train["mel_from_extended"]
+    k2["launches"] = serving["launches"]["lstm"] + train["lstm_recurrence"]
+    k3["launches"] = train["lstm_backward"]
+    k4["launches"] = train["ctc_alpha"]
+    k5["launches"] = train["ctc_beta"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in (k1, k2)]}), flush=True)
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in (k1, k2, k3, k4, k5)]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -6,11 +6,15 @@ tested against; this package imports neither it nor JAX.
 
 Layering (bottom → top):
   csrc/      hand-written CUDA C++ kernels for Hopper (sm_90a)
-  ops/       mel frontend (+ fused log-mel kernel), LSTM recurrence (+ kernel)
+  ops/       mel frontend (+ fused log-mel kernel), LSTM recurrence and its
+             backward (+ kernels), CTC loss (+ alpha / beta kernels),
+             SpecAugment
   data/      vocabulary, WAV decode
-  models/    QuartNet12Context + CTC head (nn.Modules)
+  models/    QuartNet12Context + CTC head (nn.Modules, eval and train)
+  optim/     NovoGrad, cosine warmup restarts, gradient clipping
   decoding/  greedy CTC decode
-  training/  the port's checkpoint format (state.pt + metadata.json)
+  training/  train and eval steps; the port's checkpoint format
+             (state.pt + metadata.json)
   utils/     device selection, flax <-> torch weight bridge
   inference/ AsrTranslator + HTTP server
 

@@ -16,6 +16,11 @@
 // Only a row's valid frames are stepped: direction 0 walks t = 0..len-1,
 // direction 1 walks t = len-1..0 from zero state (pack_padded_sequence
 // semantics).  Frames t >= len are written as exact zeros.
+//
+// For training, c_out (B, T, D, H) also receives each valid frame's cell
+// state (exact zeros at pad frames): the backward kernel K3 (lstm_bwd.cu)
+// reads h_prev / c_prev as the previous valid frame's h and c in the walk
+// order.  Serving passes a null c_out and stores nothing more.
 
 #include <cuda_runtime.h>
 
@@ -27,6 +32,7 @@ lstm_fwd_kernel(const float* __restrict__ xproj,   // (B, T, D, 4H)
                 const int* __restrict__ lengths,   // (B,)
                 const float* __restrict__ w_hh,    // (D, 4H, H)
                 float* __restrict__ out,           // (B, T, D*H)
+                float* __restrict__ c_out,         // (B, T, D, H) or null
                 int T, int D) {
   static_assert(H % 4 == 0, "H must be a multiple of 4");
   constexpr int G = 4 * H;
@@ -50,8 +56,10 @@ lstm_fwd_kernel(const float* __restrict__ xproj,   // (B, T, D, 4H)
   const float* xrow = xproj + (size_t)b * T * x_step + (size_t)d * G + g;
   float* orow = out + (size_t)b * T * o_step + (size_t)d * H;
 
+  float* crow = c_out ? c_out + (size_t)b * T * o_step + (size_t)d * H : nullptr;
   for (int i = g; i < (T - len) * H; i += G) {
     orow[(size_t)(len + i / H) * o_step + i % H] = 0.f;
+    if (crow) crow[(size_t)(len + i / H) * o_step + i % H] = 0.f;
   }
   const bool tanh_gate = g >= 2 * H && g < 3 * H;
   float x_next = len > 0 ? xrow[(size_t)(d ? len - 1 : 0) * x_step] : 0.f;
@@ -77,6 +85,7 @@ lstm_fwd_kernel(const float* __restrict__ xproj,   // (B, T, D, 4H)
       const float h = act_s[3 * H + g] * tanhf(c);
       h_s[g] = h;
       orow[(size_t)t * o_step + g] = h;
+      if (crow) crow[(size_t)t * o_step + g] = c;
     }
     __syncthreads();
   }
@@ -89,15 +98,16 @@ lstm_fwd_kernel(const float* __restrict__ xproj,   // (B, T, D, 4H)
 // tensors live on: this library links its own CUDA runtime, whose current
 // device is not the caller's.
 extern "C" int lasr_lstm_fwd(const float* xproj, const int* lengths,
-                             const float* w_hh, float* out, int B, int T, int D,
-                             int H, int device, cudaStream_t stream) {
+                             const float* w_hh, float* out, float* c_out, int B,
+                             int T, int D, int H, int device,
+                             cudaStream_t stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B, D);
   switch (H) {
     case 40:
       lstm_fwd_kernel<40><<<grid, 4 * 40, 0, stream>>>(xproj, lengths, w_hh,
-                                                       out, T, D);
+                                                       out, c_out, T, D);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -1,23 +1,31 @@
 """Building blocks of QuartNet12Context (port of
-``lightning_asr_tpu/models/layers.py``), eval path.
+``lightning_asr_tpu/models/layers.py``), eval and train paths.
 
 Modules take and return NCT tensors (B, C, T), the layout of ``F.conv1d``;
 the model's public functions keep the JAX package's (B, T, C).
 
   * ``SepConv`` = depthwise conv -> pointwise conv -> [length mask] ->
-    BatchNorm -> ReLU (skipped when ``last``).  The mask runs BEFORE
-    BatchNorm.
+    BatchNorm -> ReLU (skipped when ``last``) -> dropout.  The mask runs
+    BEFORE BatchNorm, so batch statistics see the zeroed pad frames.
   * masking recovers frame counts as ``int(float32(T) · percents)``,
     truncated in float32, at every application point.
   * ``MaskedBatchNorm`` eval: ``inv = rsqrt(var + 1e-3) · scale`` in fp32,
     then ``mean``, ``inv`` and ``bias`` are cast to the activation dtype.
+    Train mode takes the mean and the biased variance in fp32 over all B·T
+    frames instead and updates the running statistics (momentum 0.1, the
+    variance scaled by n/(n-1)) in place, without gradient; the same cast
+    order follows.  ``F.batch_norm`` is not used: it computes in the input
+    dtype.
+  * dropout (``drop_rate`` > 0, train mode only) draws its keep mask from
+    the ``torch.Generator`` passed down the forward call, as flax's
+    ``nn.Dropout`` draws from the ``dropout`` rng: ``x / keep`` where
+    ``U < keep``, else 0.
   * with a compute ``dtype`` (bf16), convs take bf16 input and weights and
     give bf16 output; parameters stay float32.
 
 Parameters are created as zeros (BatchNorm scale and variance as ones);
 weights come from a checkpoint or from ``reset_parameters(generator)``,
 which draws torch's default U(±1/sqrt(fan_in)) as the JAX package does.
-Training-mode BatchNorm and dropout belong to the training slice.
 """
 
 from __future__ import annotations
@@ -30,6 +38,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.lstm import LSTMWeights, lstm
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout`` in train mode: keep with probability 1 - rate and
+    scale the kept values by 1 / (1 - rate); the identity at rate 0."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator")
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=x.device, dtype=torch.float32)
+    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> None:
@@ -77,8 +97,10 @@ class Conv(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """torch.nn.BatchNorm1d eval semantics over (B, C, T), eps 1e-3, with
-    the JAX package's cast order."""
+    """torch.nn.BatchNorm1d semantics over (B, C, T), eps 1e-3, momentum
+    0.1, with the JAX package's cast order."""
+
+    MOMENTUM = 0.1
 
     def __init__(self, features: int, eps: float = 1e-3):
         super().__init__()
@@ -96,32 +118,45 @@ class MaskedBatchNorm(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("training-mode BatchNorm is not ported yet; call .eval()")
         dt = x.dtype
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x - self.running_mean.to(dt)[:, None]) * inv.to(dt)[:, None]
-                + self.bias.to(dt)[:, None])
+        if self.training:
+            xf = x.to(torch.float32)
+            n = x.shape[0] * x.shape[2]
+            mean = torch.mean(xf, dim=(0, 2))
+            var = torch.mean((xf - mean[:, None]) ** 2, dim=(0, 2))  # biased, for normalizing
+            with torch.no_grad():
+                unbiased = var * (n / max(n - 1, 1))
+                m = self.MOMENTUM
+                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.to(dt)[:, None]) * inv.to(dt)[:, None] + self.bias.to(dt)[:, None]
 
 
 class SepConv(nn.Module):
     """Time-channel separable conv block (``layers.py::SepConv``)."""
 
     def __init__(self, in_ch: int, out_ch: int, k: int = 33, last: bool = False,
-                 mask: bool = True, stride: int = 1, dtype: Optional[torch.dtype] = None):
+                 mask: bool = True, stride: int = 1, drop_rate: float = 0.1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.last, self.mask = last, mask
+        self.last, self.mask, self.drop_rate = last, mask, drop_rate
         self.depthwise_conv = Conv(in_ch, in_ch, k, stride=stride, padding=k // 2,
                                    groups=in_ch, dtype=dtype)
         self.pointwise_conv = Conv(in_ch, out_ch, 1, dtype=dtype)
         self.bn = MaskedBatchNorm(out_ch)
 
-    def forward(self, x: torch.Tensor, percents: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, percents: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.pointwise_conv(self.depthwise_conv(x))
         if self.mask:
             x = mask_by_percents(x, percents)
         x = self.bn(x)
-        return x if self.last else F.relu(x)
+        if not self.last:
+            x = F.relu(x)
+        return dropout(x, self.drop_rate, generator) if self.training else x
 
 
 class QuartNetBlock(nn.Module):
@@ -130,25 +165,28 @@ class QuartNetBlock(nn.Module):
     The residual branch is NOT masked before its BN — reference behaviour."""
 
     def __init__(self, repeat: int = 3, in_ch: int = 1, out_ch: int = 32, k: int = 33,
-                 mask: bool = True, dtype: Optional[torch.dtype] = None):
+                 mask: bool = True, drop_rate: float = 0.0, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.seps = [f"sep{i}" for i in range(repeat - 1)] + ["sep_last"]
         for i in range(repeat - 1):
-            self.add_module(f"sep{i}", SepConv(in_ch, in_ch, k, mask=mask, dtype=dtype))
-        self.sep_last = SepConv(in_ch, out_ch, k, last=True, mask=mask, dtype=dtype)
+            self.add_module(f"sep{i}", SepConv(in_ch, in_ch, k, mask=mask, drop_rate=drop_rate,
+                                               dtype=dtype))
+        self.sep_last = SepConv(in_ch, out_ch, k, last=True, mask=mask, drop_rate=drop_rate,
+                                dtype=dtype)
         self.reside_conv = Conv(in_ch, out_ch, 1, dtype=dtype)
         self.reside_bn = MaskedBatchNorm(out_ch)
 
-    def forward(self, x: torch.Tensor, percents: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, percents: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         start = x
         for name in self.seps:
-            x = getattr(self, name)(x, percents)
+            x = getattr(self, name)(x, percents, generator)
         return F.relu(x + self.reside_bn(self.reside_conv(start)))
 
 
 class BatchLSTM(nn.Module):
     """Bidirectional LSTM with packed-sequence-equivalent masking on
-    (B, T, C) float32; the recurrence is kernel K2."""
+    (B, T, C) float32; the recurrence is kernel K2, its backward K3."""
 
     def __init__(self, in_ch: int, hidden: int):
         super().__init__()

@@ -1,12 +1,14 @@
 """QuartNet12Context + CTC head (port of
-``lightning_asr_tpu/models/quartznet.py``), eval path.
+``lightning_asr_tpu/models/quartznet.py``), eval and train paths.
 
 ``QuartNet12Context``: SepConv stem 64->256 k33 stride 2 (padding 16); 3
 blocks k33 and 3 blocks k39 at 256ch; a BiLSTM(256->2x40) context branch,
 run in float32 and cast back to the compute dtype, concatenated onto the
 256ch stream (336ch); 3 blocks k51 (336->512), 3 blocks k63, one k75, one
-k87; epilog 1x1 conv 512->1024 + BN + ReLU.  ``AsrModel`` adds the 1x1-conv
-decoder to (vocab+1) classes and log-softmax, both in float32.
+k87; epilog 1x1 conv 512->1024 + BN + ReLU + dropout.  ``AsrModel`` adds
+the 1x1-conv decoder to (vocab+1) classes and log-softmax, both in float32.
+``module.train()`` selects batch statistics and dropout; a dropout rate
+above 0 needs a ``torch.Generator`` passed to ``forward``.
 
 Module names follow the flax parameter tree, so ``utils/jax_params.py``
 maps one onto the other key by key.  The SE, 15x5 and 10x5 encoders, the
@@ -21,7 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchLSTM, Conv, MaskedBatchNorm, QuartNetBlock, SepConv, _lengths_from_percents
+from .layers import (BatchLSTM, Conv, MaskedBatchNorm, QuartNetBlock, SepConv,
+                     _lengths_from_percents, dropout)
 
 MODEL_REGISTRY = ("quartznet12_context", "quartznet12_context_se", "quartznet15x5",
                   "quartznet10x5")
@@ -39,30 +42,34 @@ class QuartNet12Context(nn.Module):
     (B, C, T) -> (B, 1024, T') with T' = ceil(T / 2)."""
 
     def __init__(self, in_c: int = 64, mask: bool = False, lstm_hidden: int = 40,
-                 dtype: Optional[torch.dtype] = None):
+                 drop_rate: float = 0.0, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.first_cnn = SepConv(in_c, 256, k=33, stride=2, mask=mask, dtype=dtype)
+        self.drop_rate = drop_rate
+        self.first_cnn = SepConv(in_c, 256, k=33, stride=2, mask=mask, drop_rate=drop_rate,
+                                 dtype=dtype)
         ctx_ch = 256 + 2 * lstm_hidden
         self.trunk = [name for name, *_ in _BLOCKS]
         self.head = [name for name, *_ in _CONTEXT_BLOCKS]
         for name, cin, cout, k in _BLOCKS + _CONTEXT_BLOCKS:
             self.add_module(name, QuartNetBlock(repeat=1, in_ch=cin or ctx_ch, out_ch=cout,
-                                                k=k, mask=mask, dtype=dtype))
+                                                k=k, mask=mask, drop_rate=drop_rate, dtype=dtype))
         self.context_rnn = BatchLSTM(256, lstm_hidden)
         self.last_conv = Conv(512, 1024, 1, dtype=dtype)
         self.last_bn = MaskedBatchNorm(1024)
 
-    def forward(self, x: torch.Tensor, percents: torch.Tensor) -> torch.Tensor:
-        x = self.first_cnn(x, percents)
+    def forward(self, x: torch.Tensor, percents: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.first_cnn(x, percents, generator)
         for name in self.trunk:
-            x = getattr(self, name)(x, percents)
+            x = getattr(self, name)(x, percents, generator)
         # context branch: BiLSTM over true lengths in float32, on (B, T, C)
         lengths = _lengths_from_percents(x.shape[-1], percents)
         c = self.context_rnn(x.transpose(1, 2).float(), lengths)
         x = torch.cat([x, c.to(x.dtype).transpose(1, 2)], dim=1)   # (B, 336, T)
         for name in self.head:
-            x = getattr(self, name)(x, percents)
-        return F.relu(self.last_bn(self.last_conv(x)))
+            x = getattr(self, name)(x, percents, generator)
+        x = F.relu(self.last_bn(self.last_conv(x)))
+        return dropout(x, self.drop_rate, generator) if self.training else x
 
 
 class AsrModel(nn.Module):
@@ -72,31 +79,32 @@ class AsrModel(nn.Module):
     ``(log_probs (B, T', num_classes), out_lengths (B,) int32)``."""
 
     def __init__(self, num_classes: int, encoder_name: str = "quartznet12_context",
-                 in_c: int = 64, mask: bool = False, dtype: Optional[torch.dtype] = None):
+                 in_c: int = 64, drop_rate: float = 0.0, mask: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if encoder_name not in PORTED_ENCODERS:
             raise NotImplementedError(f"encoder {encoder_name!r} is not ported yet "
                                       f"(ported: {PORTED_ENCODERS})")
-        self.encoder = QuartNet12Context(in_c=in_c, mask=mask, dtype=dtype)
+        self.encoder = QuartNet12Context(in_c=in_c, mask=mask, drop_rate=drop_rate, dtype=dtype)
         self.decoder = Conv(1024, num_classes, 1, bias=True)       # float32 head
 
-    def forward(self, x: torch.Tensor, percents: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = self.encoder(x.transpose(1, 2), percents)
+    def forward(self, x: torch.Tensor, percents: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = self.encoder(x.transpose(1, 2), percents, generator)
         x = self.decoder(x.float())                                 # (B, V+1, T')
         log_probs = F.log_softmax(x, dim=1).transpose(1, 2)
         return log_probs, _lengths_from_percents(log_probs.shape[1], percents)
 
 
 def build_model(num_classes: int, encoder: str = "quartznet12_context", in_c: int = 64,
-                mask: bool = False, feature_in: Optional[int] = None,
+                drop_rate: float = 0.0, mask: bool = False, feature_in: Optional[int] = None,
                 dtype: Optional[torch.dtype] = None) -> AsrModel:
-    """``build_model`` of the JAX package for the ported encoders (eval path:
-    dropout is inert, so there is no ``drop_rate``)."""
+    """``build_model`` of the JAX package for the ported encoders."""
     if encoder not in MODEL_REGISTRY:
         raise ValueError(f"unknown encoder {encoder!r}; choose from {sorted(MODEL_REGISTRY)}")
     if feature_in is not None:
         raise NotImplementedError("the SSL feature path (feature_in) is not ported yet")
-    return AsrModel(num_classes, encoder, in_c=in_c, mask=mask, dtype=dtype)
+    return AsrModel(num_classes, encoder, in_c=in_c, drop_rate=drop_rate, mask=mask, dtype=dtype)
 
 
 def reset_parameters(model: nn.Module, generator: torch.Generator) -> None:

@@ -7,7 +7,10 @@ BiLSTM over ``pack_padded_sequence`` inputs does.  Gate order and math
 follow torch.nn.LSTM: gates [i, f, g, o], both b_ih and b_hh applied.
 
 The input projection for all frames and both directions is one matmul
-here; the recurrence is kernel K2 (``ops/lstm_kernels.py``).
+here; the recurrence is kernel K2 (``ops/lstm_kernels.py``).  The function
+is differentiable: autograd takes ``dx``, ``dW_ih`` and the biases'
+gradients through that matmul (as the JAX package leaves them to XLA,
+``lstm_pallas.py:416``), and the recurrence's backward is kernel K3.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .lstm_kernels import lstm_recurrence
+from .lstm_kernels import lstm_core
 
 
 class LSTMWeights(NamedTuple):
@@ -36,6 +39,6 @@ def lstm(x: torch.Tensor, lengths: torch.Tensor, forward: LSTMWeights,
     b_ih = torch.cat([w.b_ih for w in dirs])
     b_hh = torch.cat([w.b_hh for w in dirs])
     xproj = torch.matmul(x, w_ih.t()) + b_ih + b_hh              # (B, T, D·4H)
-    return lstm_recurrence(xproj.reshape(B, T, len(dirs), 4 * H).contiguous(),
-                           lengths.to(device=x.device, dtype=torch.int32),
-                           torch.stack([w.w_hh for w in dirs]).contiguous())
+    return lstm_core(xproj.reshape(B, T, len(dirs), 4 * H).contiguous(),
+                     lengths.to(device=x.device, dtype=torch.int32),
+                     torch.stack([w.w_hh for w in dirs]).contiguous())

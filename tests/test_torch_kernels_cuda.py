@@ -11,7 +11,10 @@ import torch
 
 from lightning_asr_torch.ops.frontend import MelFrontendConfig
 from lightning_asr_torch.ops.frontend_kernels import mel_from_extended, mel_from_extended_plain
-from lightning_asr_torch.ops.lstm_kernels import lstm_recurrence, lstm_recurrence_plain
+from lightning_asr_torch.ops.ctc_kernels import (ctc_alpha, ctc_alpha_plain, ctc_beta,
+                                                 ctc_beta_plain, ctc_loss)
+from lightning_asr_torch.ops.lstm_kernels import (lstm_backward, lstm_backward_plain,
+                                                  lstm_recurrence, lstm_recurrence_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -76,3 +79,94 @@ def test_k2_rejects_what_it_cannot_run(dev):
     with pytest.raises(ValueError):        # lengths on another device
         lstm_recurrence(torch.zeros((2, 5, 2, 160), device=dev), lens.cpu(),
                         torch.zeros((2, 160, 40), device=dev))
+
+
+def _lstm_case(dev, D, T, lengths, seed):
+    H = 40
+    g = torch.Generator().manual_seed(seed)
+    B = len(lengths)
+    xproj = torch.randn((B, T, D, 4 * H), generator=g).to(dev)
+    w_hh = (torch.rand((D, 4 * H, H), generator=g) * 2 - 1).div(H ** 0.5).to(dev)
+    grad_h = torch.randn((B, T, D * H), generator=g).to(dev)
+    return xproj, torch.tensor(lengths, dtype=torch.int32, device=dev), w_hh, grad_h
+
+
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("T,lengths", [(1, [1, 0]), (37, [37, 0, 1, 20])])
+def test_k2_cell_output(dev, D, T, lengths):
+    xproj, lens, w_hh, _ = _lstm_case(dev, D, T, lengths, T + 10 * D)
+    h_only = lstm_recurrence(xproj, lens, w_hh)
+    h, c = lstm_recurrence(xproj, lens, w_hh, with_cell=True)
+    assert torch.equal(h, h_only)                   # the cell output changes no bit of h
+    want_h, want_c = lstm_recurrence_plain(xproj, lens, w_hh, with_cell=True)
+    assert (h - want_h).abs().max().item() <= 1e-5
+    assert (c - want_c).abs().max().item() <= 1e-4  # |c| grows past 1; same float32 math
+    for b, n in enumerate(lengths):
+        assert bool((c[b, n:] == 0).all())
+
+
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("T,lengths", [(1, [1, 0]), (37, [37, 0, 1, 20]), (300, [300, 299, 7])])
+def test_k3_against_plain(dev, D, T, lengths):
+    xproj, lens, w_hh, grad_h = _lstm_case(dev, D, T, lengths, T + 20 * D)
+    h, c = lstm_recurrence(xproj, lens, w_hh, with_cell=True)
+    before = lstm_backward.launches
+    d_xproj, dw = lstm_backward(xproj, lens, w_hh, h, c, grad_h)
+    assert lstm_backward.launches == before + 1
+    want_dx, want_dw = lstm_backward_plain(xproj, lens, w_hh, h, c, grad_h)
+    # float32; the dots and the dW sums over (row, frame) in another order
+    assert (d_xproj - want_dx).abs().max().item() <= 1e-4
+    assert (dw - want_dw).abs().max().item() <= 1e-3 * max(1.0, want_dw.abs().max().item())
+    for b, n in enumerate(lengths):
+        assert bool((d_xproj[b, n:] == 0).all())
+
+
+def _ctc_case(dev, B, T, C, L, seed):
+    g = torch.Generator().manual_seed(seed)
+    lp = torch.log_softmax(torch.randn((B, T, C), generator=g) * 3, dim=-1).to(dev)
+    in_lens = torch.randint(0, T + 1, (B,), generator=g, dtype=torch.int32)
+    in_lens[0] = T
+    tl = torch.randint(0, L + 1, (B,), generator=g, dtype=torch.int32)
+    tl[-1] = 0                                           # an empty target
+    targets = torch.randint(0, C - 1, (B, L), generator=g, dtype=torch.int32)
+    if L > 1:
+        targets[0, 1] = targets[0, 0]                    # a repeat
+    return lp, in_lens.to(dev), targets.to(dev), tl.to(dev)
+
+
+@pytest.mark.parametrize("B,T,C,L", [(3, 1, 5, 1), (5, 40, 7, 6), (4, 200, 29, 96),
+                                     (2, 500, 29, 600)])
+def test_k4_k5_against_plain(dev, B, T, C, L):
+    """Block sizes from one warp to 1024 threads with 2 states a thread."""
+    lp, il, tg, tl = _ctc_case(dev, B, T, C, L, T + L)
+    before = (ctc_alpha.launches, ctc_beta.launches)
+    alpha, ll = ctc_alpha(lp, il, tg, tl, C - 1)
+    want_alpha, want_ll = ctc_alpha_plain(lp, il, tg, tl, C - 1)
+    valid = (torch.arange(T, device=dev)[None, :] < il[:, None])[:, :, None]
+    # float32 log-space sums with the card's expf/logf: a few ulps a step
+    # over up to 500 steps, relative to |alpha| up to ~2000; states at the
+    # -1e30 sentinel (unreachable) are compared by that alone
+    live = valid & (want_alpha > -1e29)
+    tol = 1e-5 * max([1.0] + want_ll[want_ll > -1e29].abs().tolist())
+    assert (torch.where(live, alpha - want_alpha, 0.0)).abs().max().item() <= tol
+    assert bool(((alpha > -1e29) == (want_alpha > -1e29))[valid.expand_as(alpha)].all())
+    assert (torch.where(want_ll > -1e29, ll - want_ll, 0.0)).abs().max().item() <= tol
+    assert torch.equal(ll <= -1e29, want_ll <= -1e29)
+    gbar = torch.rand((B,), device=dev) + 0.5
+    grad = ctc_beta(lp, il, tg, tl, alpha, ll, gbar, C - 1)
+    want = ctc_beta_plain(lp, il, tg, tl, want_alpha, want_ll, gbar, C - 1)
+    assert (ctc_alpha.launches, ctc_beta.launches) == (before[0] + 1, before[1] + 1)
+    assert (grad - want).abs().max().item() <= 1e-4
+    assert bool((torch.where(valid, 0.0, grad) == 0).all())  # zero past each row's length
+
+
+def test_ctc_loss_function_on_the_card(dev):
+    lp, il, tg, tl = _ctc_case(dev, 4, 60, 29, 20, 3)
+    x = lp.clone().requires_grad_(True)
+    loss = ctc_loss(x, il, tg, tl, 28)
+    loss.sum().backward()
+    xc = lp.cpu().clone().requires_grad_(True)
+    want = ctc_loss(xc, il.cpu(), tg.cpu(), tl.cpu(), 28)
+    want.sum().backward()
+    assert (loss.detach().cpu() - want.detach()).abs().max().item() <= 1e-3
+    assert (x.grad.cpu() - xc.grad).abs().max().item() <= 1e-4

@@ -9,9 +9,11 @@ Phases, in order; any failed check exits non-zero before the last line:
   1. the card's name and power limit (nvidia-smi);
   2. the build of every CUDA kernel from lightning_asr_torch/csrc (time, and
      whether it came from the cache);
-  3. K1, the fused log-mel kernel, at the serving shapes (8 rows of 16 s,
-     1601 frames) against its plain PyTorch version on the card, with its
-     time, the plain version's and torch.stft's as a yardstick;
+  3. K1, the fused log-mel kernel, at the serving shape (8 float32 rows of
+     16 s, 1601 frames) and at the training shape (32 dithered int16 rows
+     padded to 16.7 s, 1671 frames), against its plain PyTorch version on
+     the card, with its time, the plain version's and torch.stft's as a
+     yardstick;
   4. K2, the BiLSTM recurrence kernel (B=8, T=801, C=256, H=40, ragged
      lengths, both directions), the same way, with cuDNN's packed LSTM as
      the yardstick; its cell-state output (training) leaves h bit for bit;
@@ -26,7 +28,8 @@ Phases, in order; any failed check exits non-zero before the last line:
      torch.profiler, its device time by kernel group;
   7. K3, the BiLSTM backward kernel, at the training shape (B=32, T'=836,
      the 16.7 s bucket after the stride-2 stem), against its plain version,
-     with cuDNN's packed LSTM forward + backward as the yardstick;
+     with cuDNN's packed LSTM forward + backward as the yardstick; K2 with
+     its cell-state output at that shape against its plain version too;
   8. K4 and K5, the CTC alpha and beta + gradient kernels (B=32, T'=836,
      C=29, ~15 labels a second, one impossible alignment), against their
      plain versions and against PyTorch's own CTC (its forward and backward
@@ -34,16 +37,18 @@ Phases, in order; any failed check exits non-zero before the last line:
   9. training: a seeded full-width bf16 quartznet12_context takes 20 steps
      of the recipe (dither, SpecAugment, fused NovoGrad, the NaN guard) on
      one batch of 32 int16 waves of 2-16.7 s; the loss must be finite and
-     fall, nan_count stay 0, and K1-K5 launch once a step; the steady step's
-     host-clock time, audio-seconds trained per second, device time by
-     kernel group (torch.profiler) and peak memory;
+     fall, nan_count stay 0, and K1-K5 launch once a step; the steady
+     steps' host-clock times, audio-seconds trained per second (the audio of
+     the steady steps over their summed time), device time by kernel group
+     (torch.profiler) and peak memory;
  10. training parity: one float32 step from one state and one batch (B=4,
      4 s bucket, no dither, augmentation or dropout) on the card and on the
      CPU: loss, grad norm, per-tensor gradients, parameter updates;
  11. a {"kernels": [...]} line: per kernel its launches on the main paths
      (the serving burst and the training steps), its error against the
      plain version, its time, the plain version's, the library yardstick's,
-     and the least time the card could take;
+     and the least time the card could take (K1 and K2 at the serving
+     shape, K3-K5 at the training shape);
  12. {"ok": true, "device": {...}} as the last line.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -72,8 +77,8 @@ from lightning_asr_torch.models.quartznet import build_model, reset_parameters
 from lightning_asr_torch.ops import kernel_build
 from lightning_asr_torch.ops.ctc_kernels import (ctc_alpha, ctc_alpha_plain, ctc_beta,
                                                  ctc_beta_plain, ctc_loss)
-from lightning_asr_torch.ops.frontend import (MelFrontendConfig, _extend_signal, _preemphasis,
-                                              mel_filterbank, pad_for_frames)
+from lightning_asr_torch.ops.frontend import (MelFrontendConfig, _preemphasis, expand_wire,
+                                              extended_batch, mel_filterbank)
 from lightning_asr_torch.ops.frontend_kernels import mel_from_extended, mel_from_extended_plain
 from lightning_asr_torch.ops.lstm_kernels import (lstm_backward, lstm_backward_plain,
                                                   lstm_recurrence, lstm_recurrence_plain)
@@ -90,7 +95,7 @@ PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 # 10·log10(1 + 2^-8) = 0.017 dB; the narrowest mel filters span two bins.
 K1_TOL_DB = 2 * 10 * np.log10(1 + 2.0 ** -8)
 # float32 recurrence: dot sums in another order and the card's expf/tanhf,
-# carried through up to 801 dependent steps with |h| < 1
+# carried through up to 836 dependent steps with |h| < 1
 K2_TOL = 1e-4
 # bf16 model, card vs CPU, over the valid frames of the served batch: cuDNN
 # and oneDNN round each conv's bf16 output from different fp32 sums (2^-8
@@ -158,29 +163,25 @@ def check(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def phase_k1(dev) -> dict:
-    cfg = MelFrontendConfig(precision="default")
-    rng = np.random.default_rng(0)
-    B, S = 8, 16 * SR
-    waves = torch.from_numpy((rng.standard_normal((B, S)) * 0.1).astype(np.float32)).to(dev)
-    lens = torch.tensor([S, S - 1, 15 * SR, 12 * SR + 7, 9 * SR, 6 * SR, 3 * SR, 2 * SR + 289],
-                        dtype=torch.int32, device=dev)
-    T = (S + 2 * cfg.pad) // cfg.hop_length + 1
-    pre = _preemphasis(waves, None, cfg.preemph)
-    q = pad_for_frames(_extend_signal(pre, lens, cfg), cfg, T).contiguous()
-
-    mel_from_extended.launches = 0
+def _k1_at(dev, cfg: MelFrontendConfig, waves, lens, generator=None) -> dict:
+    """K1 against its plain version on the signal the frontend builds from
+    ``waves`` (wire expansion, dither with ``generator``, preemphasis,
+    extension), with times and bound."""
+    q, T = extended_batch(waves, lens, cfg, generator)
+    q = q.contiguous()
+    B = waves.shape[0]
     got = mel_from_extended(q, cfg, T)
     want = mel_from_extended_plain(q, cfg, T)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     check(got.shape == (B, T, cfg.n_mels) and bool(torch.isfinite(got).all()), "K1 output shape/finite")
-    check(err <= K1_TOL_DB, f"K1 max |kernel - plain| = {err} dB > {K1_TOL_DB}")
+    check(err <= K1_TOL_DB, f"K1 at {list(waves.shape)}: max |kernel - plain| = {err} dB > {K1_TOL_DB}")
 
     ms = cuda_ms(lambda: mel_from_extended(q, cfg, T), 20)
     plain_ms = cuda_ms(lambda: mel_from_extended_plain(q, cfg, T), 10)
     # yardstick: torch.stft + power + filterbank matmul + dB on the
     # zero-padded preemphasized rows (reflect padding by stft itself)
+    pre = _preemphasis(expand_wire(waves), None, cfg.preemph)
     x = torch.nn.functional.pad(pre, (cfg.pad, cfg.pad))
     window = torch.hann_window(cfg.win_length, periodic=True, device=dev)
     fb = torch.from_numpy(mel_filterbank(cfg)).to(dev)
@@ -200,12 +201,30 @@ def phase_k1(dev) -> dict:
     nbytes = B * span * 4 + (2 * F * cfg.n_fft + F * cfg.n_mels) * 2 + got.numel() * 4
     flops = B * T * (2 * 2 * F * cfg.n_fft + 3 * F + 2 * F * cfg.n_mels)
     bound_ms, bound_by = bound(nbytes, flops, "bf16")
+    return {"shape": [B, waves.shape[1], T], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def phase_k1(dev) -> dict:
+    cfg = MelFrontendConfig(precision="default")
+    rng = np.random.default_rng(0)
+    B, S = 8, 16 * SR
+    waves = torch.from_numpy((rng.standard_normal((B, S)) * 0.1).astype(np.float32)).to(dev)
+    lens = torch.tensor([S, S - 1, 15 * SR, 12 * SR + 7, 9 * SR, 6 * SR, 3 * SR, 2 * SR + 289],
+                        dtype=torch.int32, device=dev)
+    mel_from_extended.launches = 0
+    serve = _k1_at(dev, cfg, waves, lens)
+    # the training step's batch: the training phase's int16 waves, dithered
+    batch, _ = train_batch(np.random.default_rng(5), TRAIN_BATCH, TRAIN_BUCKET_S, TRAIN_BUCKET_S)
+    train = _k1_at(dev, cfg, torch.from_numpy(batch["waves"]).to(dev),
+                   torch.from_numpy(batch["wave_lens"]).to(dev),
+                   torch.Generator(device=dev).manual_seed(0))
     res = {"name": "log_mel (K1)", "route": "cuda", "source": "lightning_asr_torch/csrc/mel.cu",
            "replaces": "lightning_asr_tpu/ops/frontend_pallas.py:194",
-           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "library_ms": library_ms}
-    print(json.dumps({"phase": "K1", "shape": [B, S, T], "tol_db": K1_TOL_DB, "kernel_ms": ms,
-                      "phase_launches": mel_from_extended.launches, **res}), flush=True)
+           **{k: serve[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+           "max_abs_err": max(serve["max_abs_err"], train["max_abs_err"])}
+    print(json.dumps({"phase": "K1", "tol_db": K1_TOL_DB, "serving": serve, "training": train,
+                      "phase_launches": mel_from_extended.launches}), flush=True)
     return res
 
 
@@ -539,6 +558,16 @@ def phase_k3(dev) -> dict:
              + b_hh.reshape(-1)).reshape(B, T, D, 4 * H).contiguous()
     h, cell = lstm_recurrence(xproj, lens, w_hh, with_cell=True)
     grad_h = torch.from_numpy(rng.standard_normal((B, T, D * H)).astype(np.float32)).to(dev)
+    # K2 with the cell output, whose h and c K3 takes, at this shape
+    want_h, want_cell = lstm_recurrence_plain(xproj, lens, w_hh, with_cell=True)
+    torch.cuda.synchronize()
+    k2_err = (h - want_h).abs().max().item()
+    k2_cell_err = (cell - want_cell).abs().max().item()
+    check(torch.equal(h, lstm_recurrence(xproj, lens, w_hh)), "K2 with the cell output changed h")
+    check(k2_err <= K2_TOL, f"K2 at the training shape: max |kernel - plain| = {k2_err} > {K2_TOL}")
+    check(k2_cell_err <= 10 * K2_TOL,
+          f"K2 cell states at the training shape: max |kernel - plain| = {k2_cell_err}")
+    k2_ms = cuda_ms(lambda: lstm_recurrence(xproj, lens, w_hh, with_cell=True), 20)
 
     lstm_backward.launches = 0
     d_x, dw = lstm_backward(xproj, lens, w_hh, h, cell, grad_h)
@@ -584,6 +613,10 @@ def phase_k3(dev) -> dict:
     # and the cell's elementwise backward (~30 a unit)
     flops = steps * (3 * 2 * G * H + 30 * H)
     bound_ms, bound_by = bound(nbytes, flops, "fp32")
+    # K2 with the cell output: the valid frames' projections, W_hh and the
+    # lengths in; all of h and the valid frames' cell states out
+    k2_bound = bound(steps * G * 4 + w_hh.numel() * 4 + lens.numel() * 4 + h.numel() * 4
+                     + steps * H * 4, steps * (2 * G * H + 2 * G + 5 * H), "fp32")
     res = {"name": "lstm_backward (K3)", "route": "cuda", "source": "lightning_asr_torch/csrc/lstm_bwd.cu",
            "replaces": "lightning_asr_tpu/ops/lstm_pallas.py:89",
            "max_abs_err": err_dx, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -591,6 +624,8 @@ def phase_k3(dev) -> dict:
     print(json.dumps({"phase": "K3", "shape": [B, T, C, H, D], "tol_dx": K3_TOL_DX, "tol_dw_rel": K3_TOL_DW,
                       "dw_max_rel_err": err_dw, "kernel_ms": ms, "sequential_steps": int(lens_np.max()),
                       "valid_row_frames": int(lens_np.sum()),
+                      "k2_with_cell": {"max_abs_err": k2_err, "cell_max_abs_err": k2_cell_err,
+                                       "ms": k2_ms, "bound_ms": k2_bound[0], "bound_by": k2_bound[1]},
                       "phase_launches": lstm_backward.launches, **res}), flush=True)
     return res
 
@@ -743,6 +778,7 @@ def phase_training(dev) -> dict:
 
     steady = times[2:]
     median_ms = 1e3 * statistics.median(steady)
+    steady_s = sum(steady)
     holder = {"state": state}
 
     def one_step():
@@ -752,9 +788,10 @@ def phase_training(dev) -> dict:
     res = {"phase": "training", "batch": TRAIN_BATCH, "bucket_s": TRAIN_BUCKET_S, "audio_s_per_batch": audio_s,
            "steps": TRAIN_STEPS, "losses": losses, "launches": launches,
            "step_ms": {"median": median_ms, "min": 1e3 * min(steady), "max": 1e3 * max(steady),
-                       "first": 1e3 * times[0], "n": len(steady)},
-           "audio_s_trained_per_s": audio_s / (median_ms / 1e3),
-           "device_ms_per_step": device_ms, "device_busy_share": device_ms / median_ms,
+                       "mean": 1e3 * steady_s / len(steady), "first": 1e3 * times[0],
+                       "n": len(steady)},
+           "audio_s_trained_per_s": audio_s * len(steady) / steady_s,
+           "device_ms_per_step": device_ms, "device_busy_share": device_ms / (1e3 * steady_s / len(steady)),
            "device_ms_by_category": by_cat, "top_kernels_ms": top,
            "peak_memory_gb": peak_gb, "nan_count": int(state.nan_count)}
     print(json.dumps(res), flush=True)

@@ -1,18 +1,13 @@
-"""CTC loss as a plain log-space alpha recursion (port of
-``lightning_asr_tpu/ops/ctc.py``), differentiable by autograd.
+"""CTC lattice helpers shared by the kernel path (``ops/ctc_kernels.py``,
+K4 and K5) and its plain versions; the semantics are those of
+``lightning_asr_tpu/ops/ctc.py``.
 
-Semantics match ``torch.nn.CTCLoss(blank=V, reduction='none')`` as the
-reference uses it: blank is the LAST index, per-sample losses are
-un-normalized ``-log p(y|x)``, and the training step takes their batch mean
-with no division by target length.  States are the 2L+1 blank-interleaved
-extended labels; the recursion runs over the padded time axis with
-per-sample length masking.  The sentinel is the finite ``NEG_INF = -1e30``,
-so an impossible alignment gives a large finite loss, not ``inf``.
-
-This is the semantic reference; the training step uses the kernel path
-(``ops/ctc_kernels.py``, K4 and K5), as the JAX step uses
-``ctc_loss_pallas``.  The two differ only where ``input_lengths == 0``: this
-one returns the loss of frame 0, the kernel path 0.
+Blank may be any index (the reference uses the LAST one), per-sample losses
+are un-normalized ``-log p(y|x)`` (``reduction='none'``), and the training
+step takes their batch mean with no division by target length.  States are
+the 2L+1 blank-interleaved extended labels.  The sentinel is the finite
+``NEG_INF = -1e30``, so an impossible alignment gives a large finite loss,
+not ``inf``.
 """
 
 from __future__ import annotations
@@ -38,49 +33,3 @@ def shift_right(x: torch.Tensor, n: int = 1) -> torch.Tensor:
 def lse3(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     m = torch.maximum(torch.maximum(a, b), c)
     return m + torch.log(torch.exp(a - m) + torch.exp(b - m) + torch.exp(c - m))
-
-
-def ctc_loss(log_probs: torch.Tensor, input_lengths: torch.Tensor, targets: torch.Tensor,
-             target_lengths: torch.Tensor, blank_id: int) -> torch.Tensor:
-    """Per-sample CTC negative log likelihood.
-
-    Args:
-      log_probs: (B, T, C) log-softmax outputs.
-      input_lengths: (B,) valid frame counts (<= T).
-      targets: (B, L) padded label sequences.
-      target_lengths: (B,) valid label counts (<= L).
-      blank_id: index of the CTC blank (the reference uses C-1).
-
-    Returns:
-      (B,) float32 losses.
-    """
-    log_probs = log_probs.to(torch.float32)
-    B, T, C = log_probs.shape
-    ext = extended_labels(targets, blank_id)                           # (B, S)
-    ext_m2 = torch.cat([torch.full_like(ext[:, :2], blank_id), ext[:, :-2]], dim=1)
-    allow_skip = (ext != blank_id) & (ext != ext_m2)
-    emit_all = torch.gather(log_probs, 2, ext[:, None, :].expand(B, T, ext.shape[1]))
-
-    lens = input_lengths.to(log_probs.device)
-    has_label = (target_lengths > 0).to(log_probs.device)
-    alpha = torch.full_like(emit_all[:, 0], NEG_INF)
-    alpha[:, 0] = emit_all[:, 0, 0]
-    alpha[:, 1] = torch.where(has_label, emit_all[:, 0, 1], torch.full_like(emit_all[:, 0, 1], NEG_INF))
-    for t in range(1, T):
-        a_m1 = shift_right(alpha)
-        a_m2 = torch.where(allow_skip, shift_right(alpha, 2), torch.full_like(alpha, NEG_INF))
-        new = lse3(alpha, a_m1, a_m2) + emit_all[:, t]
-        alpha = torch.where((t < lens)[:, None], new, alpha)
-
-    # final states: 2·tl (last blank) and 2·tl - 1 (last label)
-    idx_last = (2 * target_lengths).to(device=log_probs.device, dtype=torch.int64)
-    a_last = torch.gather(alpha, 1, idx_last[:, None])[:, 0]
-    a_prev = torch.gather(alpha, 1, torch.clamp(idx_last - 1, min=0)[:, None])[:, 0]
-    a_prev = torch.where(has_label, a_prev, torch.full_like(a_prev, NEG_INF))
-    m = torch.maximum(a_last, a_prev)
-    return -(m + torch.log(torch.exp(a_last - m) + torch.exp(a_prev - m)))
-
-
-def ctc_loss_mean(log_probs, input_lengths, targets, target_lengths, blank_id) -> torch.Tensor:
-    """Batch-mean CTC loss, the reference's training objective."""
-    return torch.mean(ctc_loss(log_probs, input_lengths, targets, target_lengths, blank_id))

@@ -12,9 +12,11 @@ and a valid state; ``ll`` is the log-sum-exp of alpha at ``t = len-1`` over
 the final states (2·tl, and 2·tl-1 when tl > 0); rows with ``input_lengths
 == 0`` have loss 0 and zero gradient; ``grad_emit[t, s] = -g·exp(alpha_t(s)
 + beta_t(s) - ll)`` with beta excluding the emission of its own frame.  The
-gradient reaches the classes by one-hot products outside the kernels (a
-batched matmul, deterministic), as the JAX package leaves that scatter to
-XLA.
+gradient reaches the classes outside the kernels, as the JAX package leaves
+that scatter to XLA: one float32 batched matmul of ``grad_emit`` with the
+(B, S, C) one-hot of the state labels, which sums each class's states in a
+fixed order.  It is exact only while float32 matmuls do not run in TF32;
+``make_train_step`` pins that on a CUDA model.
 
 What bounds them on the H100: at the training shape (B=32, T=836 frames,
 S=513 states, C=29) alpha is 32·836·513·4 B = 55 MB, written by K4 and read
@@ -26,8 +28,8 @@ What the design does about it (``csrc/ctc.cu``): one block per row, all
 rows in one launch, threads over the states (up to four states a thread);
 the recursion vector is double-buffered in shared memory with one barrier a
 step; each step reads its emissions straight from the row's 29 log-probs
-(116 bytes, L1-resident) through the state's label, so no (B, T, S)
-emission tensor and no one-hot matmul exists; rows stop at their own length,
+(116 bytes, L1-resident) through the state's label, so the kernels build no
+(B, T, S) emission tensor; rows stop at their own length,
 and K4 stores alpha only for valid frames.  The TPU kernels' 128-lane
 rounding of S, their 32-step time blocks and their batch tiling (a VMEM cap)
 do not carry over.

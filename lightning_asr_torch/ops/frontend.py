@@ -199,6 +199,27 @@ def pad_for_frames(q: torch.Tensor, cfg: MelFrontendConfig, T: int) -> torch.Ten
     return q
 
 
+def extended_batch(
+    waves: torch.Tensor,
+    wave_lens: torch.Tensor,
+    cfg: MelFrontendConfig,
+    generator: Optional[torch.Generator] = None,
+    prev_samples: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, int]:
+    """The signal the mel stage reads: wire expansion, dither (with a
+    generator), preemphasis, the per-row extension and the zero tail the
+    frames need.  Returns (q (B, >= (T + n_chunks)·hop) float32, T)."""
+    waves = expand_wire(waves)
+    if generator is not None and cfg.dither > 0:
+        waves = waves + cfg.dither * torch.randn(
+            waves.shape, generator=generator, device=waves.device, dtype=torch.float32)
+    S_ext = waves.shape[1] + 2 * cfg.pad + cfg.n_fft
+    T = (S_ext - cfg.n_fft) // cfg.hop_length + 1
+    q = _extend_signal(_preemphasis(waves, prev_samples, cfg.preemph),
+                       wave_lens.to(waves.device), cfg)
+    return pad_for_frames(q, cfg, T), T
+
+
 def log_mel_spectrogram(
     waves: torch.Tensor,
     wave_lens: torch.Tensor,
@@ -218,18 +239,8 @@ def log_mel_spectrogram(
       mels: (B, T, n_mels) float32 log-mel (dB), un-normalized.
       mel_lens: (B,) int32 valid frame counts.
     """
-    waves = expand_wire(waves)
-    if generator is not None and cfg.dither > 0:
-        waves = waves + cfg.dither * torch.randn(
-            waves.shape, generator=generator, device=waves.device, dtype=torch.float32)
-    wave_lens = wave_lens.to(waves.device)
-
-    hop, n_fft = cfg.hop_length, cfg.n_fft
-    S_ext = waves.shape[1] + 2 * cfg.pad + n_fft
-    T = (S_ext - n_fft) // hop + 1
-    q = _extend_signal(_preemphasis(waves, prev_samples, cfg.preemph), wave_lens, cfg)
-    q = pad_for_frames(q, cfg, T)
-    mel_lens = mel_num_frames(wave_lens.to(torch.int64), cfg).to(torch.int32)
+    q, T = extended_batch(waves, wave_lens, cfg, generator, prev_samples)
+    mel_lens = mel_num_frames(wave_lens.to(device=q.device, dtype=torch.int64), cfg).to(torch.int32)
 
     if cfg.precision == "default":
         from .frontend_kernels import mel_from_extended

@@ -42,6 +42,7 @@ from ..ops.augment import cutout, spec_augment
 from ..ops.ctc_kernels import ctc_loss
 from ..ops.frontend import MelFrontendConfig, log_mel_spectrogram, normalize_features
 from ..optim.novograd import GradientTransformation, apply_updates, global_norm
+from ..utils.device import resolve_device
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -151,9 +152,15 @@ def make_train_step(
     ``accum_steps`` > 1 splits the batch into that many micro-batches, run
     in order: BatchNorm statistics carry from one to the next, the summed
     gradients and losses are divided by the count, and the optimizer
-    updates once.  The batch size must divide by ``accum_steps``."""
+    updates once.  The batch size must divide by ``accum_steps``.
+
+    On a CUDA model this turns TF32 off for float32 matmuls and convolutions
+    (``resolve_device``): the CTC gradient's one-hot scatter to classes and
+    NovoGrad's segment sums are float32 matmuls that TF32 would round to 10
+    mantissa bits.  A caller must not turn TF32 back on while it trains."""
     if crop:
         raise NotImplementedError("wave_crop (crop=True, device_cache mode) is not ported yet")
+    resolve_device(next(model.parameters()).device)
     augment = "specaugment" if augment is True else (augment or None)
 
     def grad_fn(params, stats, feats, percents, targets, target_lens, generator):
@@ -202,7 +209,9 @@ def make_eval_step(model: torch.nn.Module, blank_id: int,
                    from_features: bool = False, normalize: bool = True) -> Callable:
     """``eval_step(state, batch) -> {losses, log_probs, preds, pred_lens}``:
     the forward in eval mode (running statistics, no dropout, no dither or
-    augmentation) and per-sample CTC losses."""
+    augmentation) and per-sample CTC losses.  Pins float32 precision on a
+    CUDA model as ``make_train_step`` does."""
+    resolve_device(next(model.parameters()).device)
 
     def eval_step(state: AsrTrainState, batch: dict) -> dict:
         model.eval()

@@ -1,8 +1,8 @@
 """Parity: the port's CTC loss (``lightning_asr_torch/ops/ctc_kernels.py``,
-the autograd Function over the plain versions of kernels K4 and K5) and its
-scan reference (``ops/ctc.py``) against the JAX package's ``ops.ctc.ctc_loss``
-and ``ctc_loss_pallas`` (interpret mode), on the same numpy inputs, on the
-CPU: per-sample losses and their gradient with respect to ``log_probs``."""
+the autograd Function over the plain versions of kernels K4 and K5) against
+the JAX package's ``ops.ctc.ctc_loss`` (the scan) and ``ctc_loss_pallas``
+(interpret mode), on the same numpy inputs, on the CPU: per-sample losses
+and their gradient with respect to ``log_probs``."""
 
 import jax
 import jax.numpy as jnp
@@ -12,7 +12,6 @@ import torch
 
 from lightning_asr_tpu.ops.ctc import ctc_loss as jax_ctc_scan
 from lightning_asr_tpu.ops.ctc_pallas import ctc_loss_pallas
-from lightning_asr_torch.ops import ctc as port_scan
 from lightning_asr_torch.ops.ctc_kernels import (ctc_alpha, ctc_alpha_plain, ctc_beta,
                                                  ctc_loss)
 
@@ -86,16 +85,13 @@ def test_ctc_loss_matches_jax(name):
     for b, n in enumerate(in_lens):
         assert np.all(grad[b, n:] == 0.0)             # no gradient past a row's length
 
-    # the scan references (JAX's and the port's): the same losses where a row
-    # has frames (the scan path keeps frame 0's loss at input_len == 0); the
-    # gradients agree where the alignment is possible
-    scan_loss, scan_grad = _port(port_scan.ctc_loss, *args)
+    # JAX's scan CTC: the same losses where a row has frames (the scan keeps
+    # frame 0's loss at input_len == 0); the gradients agree where the
+    # alignment is possible
     jscan_loss, jscan_grad = _jax(jax_ctc_scan, *args)
     live = in_lens > 0
-    np.testing.assert_allclose(scan_loss, jscan_loss, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(loss[live], jscan_loss[live], rtol=1e-5, atol=1e-5)
     possible = live & (want_loss < 1e29)
-    np.testing.assert_allclose(scan_grad[possible], jscan_grad[possible], rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(grad[possible], jscan_grad[possible], rtol=1e-4, atol=1e-5)
 
 

@@ -17,39 +17,54 @@ Phases, in order; any failed check exits non-zero before the last line:
   4. K2, the BiLSTM recurrence kernel (B=8, T=801, C=256, H=40, ragged
      lengths, both directions), the same way, with cuDNN's packed LSTM as
      the yardstick; its cell-state output (training) leaves h bit for bit;
-  5. serving: a full-width quartznet12_context checkpoint made from seeded
+  5. K6, the fused preemphasis + extension kernel, at the serving and the
+     training shapes, against its plain version, bit for bit;
+  6. K9, K10 and K11, the separable-conv forward and backward and the
+     depthwise weight gradient, in bf16 at B=32, T'=836 for three layers of
+     the model (256->256 k33, 336->512 k51, 512->512 k87), against their
+     plain versions (K9 and K10's dx within one bf16 ulp, the weight
+     gradients relative to their largest value), run twice for the same
+     bits, with cuDNN's F.conv1d pair, its autograd backward and its
+     depthwise weight gradient as the yardsticks;
+  7. serving: a full-width quartznet12_context checkpoint made from seeded
      weights (bf16 convs, "default" frontend tier) is loaded by
      AsrTranslator on the card and served over HTTP with dynamic batching;
      8 concurrent WAV requests of 2-16 s must answer 200 as one device
-     batch, a wrong form field 400, both kernels must launch; the served
-     batch's log-probs on the card must agree with the same translator on
-     the CPU, and the served texts must be the card's transcription of it;
-  6. profile: one steady serving batch's host-clock latency and, from
+     batch, a wrong form field 400, K1, K2 and K6 must launch once; the
+     served batch's log-probs on the card must agree with the same
+     translator on the CPU, and the served texts must be the card's
+     transcription of it; then serving_sepconv: the same with
+     AsrTranslator(conv_kernel="sepconv"), K9 launched 14 times;
+  8. profile: one steady serving batch's host-clock latency and, from
      torch.profiler, its device time by kernel group;
-  7. K3, the BiLSTM backward kernel, at the training shape (B=32, T'=836,
+  9. K3, the BiLSTM backward kernel, at the training shape (B=32, T'=836,
      the 16.7 s bucket after the stride-2 stem), against its plain version,
      with cuDNN's packed LSTM forward + backward as the yardstick; K2 with
      its cell-state output at that shape against its plain version too;
-  8. K4 and K5, the CTC alpha and beta + gradient kernels (B=32, T'=836,
+ 10. K4 and K5, the CTC alpha and beta + gradient kernels (B=32, T'=836,
      C=29, ~15 labels a second, one impossible alignment), against their
      plain versions and against PyTorch's own CTC (its forward and backward
      ops as the yardsticks);
-  9. training: a seeded full-width bf16 quartznet12_context takes 20 steps
+ 11. training: a seeded full-width bf16 quartznet12_context takes 20 steps
      of the recipe (dither, SpecAugment, fused NovoGrad, the NaN guard) on
      one batch of 32 int16 waves of 2-16.7 s; the loss must be finite and
-     fall, nan_count stay 0, and K1-K5 launch once a step; the steady
+     fall, nan_count stay 0, and K1-K6 launch once a step; the steady
      steps' host-clock times, audio-seconds trained per second (the audio of
      the steady steps over their summed time), device time by kernel group
-     (torch.profiler) and peak memory;
- 10. training parity: one float32 step from one state and one batch (B=4,
+     (torch.profiler) and peak memory; then training_sepconv and
+     training_dw_wgrad, 8 steps each of the model built with that
+     conv_kernel, K9 and K10 (or K11) launched 14 times a step;
+ 12. training parity: one float32 step from one state and one batch (B=4,
      4 s bucket, no dither, augmentation or dropout) on the card and on the
-     CPU: loss, grad norm, per-tensor gradients, parameter updates;
- 11. a {"kernels": [...]} line: per kernel its launches on the main paths
-     (the serving burst and the training steps), its error against the
-     plain version, its time, the plain version's, the library yardstick's,
-     and the least time the card could take (K1 and K2 at the serving
-     shape, K3-K5 at the training shape);
- 12. {"ok": true, "device": {...}} as the last line.
+     CPU: loss, grad norm, per-tensor gradients, parameter updates; for each
+     of the three configurations;
+ 13. a {"kernels": [...]} line: per kernel its launches on the main paths
+     (the two serving bursts and the training steps of the three
+     configurations), its error against the plain version, its time, the
+     plain version's, the library yardstick's, and the least time the card
+     could take (K1 and K2 at the serving shape, K3-K6 at the training
+     shape, K9-K11 at the widest layer);
+ 14. {"ok": true, "device": {...}} as the last line.
 
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -79,9 +94,13 @@ from lightning_asr_torch.ops.ctc_kernels import (ctc_alpha, ctc_alpha_plain, ctc
                                                  ctc_beta_plain, ctc_loss)
 from lightning_asr_torch.ops.frontend import (MelFrontendConfig, _preemphasis, expand_wire,
                                               extended_batch, mel_filterbank)
-from lightning_asr_torch.ops.frontend_kernels import mel_from_extended, mel_from_extended_plain
+from lightning_asr_torch.ops.depthwise_kernels import depthwise_wgrad, depthwise_wgrad_plain
+from lightning_asr_torch.ops.frontend_kernels import (extend_preemph, extend_preemph_plain,
+                                                      mel_from_extended, mel_from_extended_plain)
 from lightning_asr_torch.ops.lstm_kernels import (lstm_backward, lstm_backward_plain,
                                                   lstm_recurrence, lstm_recurrence_plain)
+from lightning_asr_torch.ops.sepconv_kernels import (sepconv_backward, sepconv_backward_plain,
+                                                     sepconv_forward, sepconv_forward_plain)
 from lightning_asr_torch.optim import cosine_annealing_warmup_restarts, novograd
 from lightning_asr_torch.optim.novograd import GradientTransformation
 from lightning_asr_torch.training.checkpoint import save_checkpoint
@@ -130,6 +149,22 @@ TRAIN_BATCH, TRAIN_STEPS, TRAIN_PROFILE_STEPS = 32, 20, 3
 # another order through 16 blocks in train-mode BatchNorm; the CPU tests
 # saw this network's gradients move by up to 2% from 1e-6 input changes
 TRAIN_TOL = {"loss_rel": 1e-4, "grad_norm_rel": 1e-3, "grad_rel": 5e-2, "update_rel": 5e-2}
+
+# K9/K10 against their plain versions: the depthwise sums run in the plain
+# version's order, so only the pointwise (and dz) products' float32 sums
+# differ before the rounding to bf16: at most one bf16 ulp of the value, plus
+# a float32 slack of 2^-17 of the largest value where a sum cancels; the
+# float32 weight gradients sum 26,752 row-frames in another order, bounded
+# relative to their largest value
+SEPCONV_SLACK, SEPCONV_TOL_GRAD = 2.0 ** -17, 1e-4
+# K11: the same bf16-rounded products as its plain version, summed in
+# another order within each 256-frame chunk
+K11_TOL = 1e-4
+# the separable layers K9-K11 are checked and timed at (Cin, Cout, k): the
+# narrowest trunk block, the context block and the widest
+SEPCONV_LAYERS = ((256, 256, 33), (336, 512, 51), (512, 512, 87))
+# steps of each conv-kernel training configuration
+CONV_TRAIN_STEPS = 8
 
 SR = 16000
 LABELS = [" ", "'"] + [chr(ord("a") + i) for i in range(26)]
@@ -298,6 +333,163 @@ def phase_k2(dev) -> dict:
     return res
 
 
+def _k6_at(cfg: MelFrontendConfig, waves, lens) -> dict:
+    """K6 against its plain version on float32 ``waves``, with times and
+    bound; the output length is the one the frontend asks for."""
+    B, S = waves.shape
+    S_ext = S + 2 * cfg.pad + cfg.n_fft
+    T = (S_ext - cfg.n_fft) // cfg.hop_length + 1
+    out_total = max(S_ext, (T + -(-cfg.n_fft // cfg.hop_length)) * cfg.hop_length)
+    got = extend_preemph(waves, lens, None, cfg, out_total)
+    want = extend_preemph_plain(waves, lens, None, cfg, out_total)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"K6 at {[B, S]}: not bit for bit its plain version "
+                                  f"(max |diff| {(got - want).abs().max().item()})")
+    ms = cuda_ms(lambda: extend_preemph(waves, lens, None, cfg, out_total), 20)
+    plain_ms = cuda_ms(lambda: extend_preemph_plain(waves, lens, None, cfg, out_total), 10)
+    # bytes: the waves and lengths read once, q written once; a multiply and
+    # a subtract per body sample
+    bound_ms, bound_by = bound(waves.numel() * 4 + B * 4 + got.numel() * 4, 2 * waves.numel(), "fp32")
+    return {"shape": [B, S, out_total], "max_abs_err": (got - want).abs().max().item(), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def phase_k6(dev) -> dict:
+    cfg = MelFrontendConfig(precision="default")
+    rng = np.random.default_rng(0)
+    B, S = 8, 16 * SR
+    waves = torch.from_numpy((rng.standard_normal((B, S)) * 0.1).astype(np.float32)).to(dev)
+    lens = torch.tensor([S, S - 1, 15 * SR, 12 * SR + 7, 9 * SR, 6 * SR, 3 * SR, 2 * SR + 289],
+                        dtype=torch.int32, device=dev)
+    extend_preemph.launches = 0
+    serve = _k6_at(cfg, waves, lens)
+    # the training step's batch: the training phase's int16 waves, dithered
+    batch, _ = train_batch(np.random.default_rng(5), TRAIN_BATCH, TRAIN_BUCKET_S, TRAIN_BUCKET_S)
+    w = expand_wire(torch.from_numpy(batch["waves"]).to(dev))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w = w + cfg.dither * torch.randn(w.shape, generator=gen, device=dev, dtype=torch.float32)
+    train = _k6_at(cfg, w.contiguous(), torch.from_numpy(batch["wave_lens"]).to(dev))
+    res = {"name": "extend_preemph (K6)", "route": "cuda", "source": "lightning_asr_torch/csrc/extend.cu",
+           "replaces": "lightning_asr_tpu/ops/frontend_pallas.py:48",
+           **{k: train[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+           "max_abs_err": max(serve["max_abs_err"], train["max_abs_err"])}
+    print(json.dumps({"phase": "K6", "serving": serve, "training": train,
+                      "phase_launches": extend_preemph.launches}), flush=True)
+    return res
+
+
+def _bf16_ulp(a: torch.Tensor) -> torch.Tensor:
+    return torch.exp2(torch.floor(torch.log2(a.abs().float().clamp_min(2.0 ** -126))) - 7)
+
+
+def _bf16_err(got: torch.Tensor, want: torch.Tensor):
+    """(max |got - want|, its largest share of one bf16 ulp of the value, and
+    whether every element lies within one ulp plus the float32 slack)."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    ulp = _bf16_ulp(torch.maximum(g.abs(), w.abs()))
+    ok = bool((d <= ulp + SEPCONV_SLACK * w.abs().max()).all())
+    return d.max().item(), (d / ulp).max().item(), ok
+
+
+def _sepconv_layer(dev, Cin: int, Cout: int, k: int, seed: int) -> dict:
+    """K9, K10 and K11 at one layer of the training step (B=32, T'=836,
+    bf16) against their plain versions, with times, bounds and the cuDNN
+    calls they stand in for."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, T, P = TRAIN_BATCH, T_TRAIN, k // 2
+    x = torch.randn((B, Cin, T), generator=g, device=dev).bfloat16()
+    dy = torch.randn((B, Cout, T), generator=g, device=dev).bfloat16()
+    dyx = torch.randn((B, Cin, T), generator=g, device=dev).bfloat16()   # K11's dy
+    wd = (torch.rand((Cin, 1, k), generator=g, device=dev) * 2 - 1) / k ** 0.5
+    wp = (torch.rand((Cout, Cin, 1), generator=g, device=dev) * 2 - 1) / Cin ** 0.5
+    y = sepconv_forward(x, wd, wp)
+    dx, gwd, gwp = sepconv_backward(x, wd, wp, dy)
+    gk = depthwise_wgrad(x, dyx, k)
+    want_y = sepconv_forward_plain(x, wd, wp)
+    want_dx, want_gwd, want_gwp = sepconv_backward_plain(x, wd, wp, dy)
+    want_gk = depthwise_wgrad_plain(x, dyx, k)
+    torch.cuda.synchronize()
+    rel = lambda a, b: (a - b).abs().max().item() / b.abs().max().item()  # noqa: E731
+    y_err, y_ulps, y_ok = _bf16_err(y, want_y)
+    dx_err, dx_ulps, dx_ok = _bf16_err(dx, want_dx)
+    errs = {"K9_y_max_abs": y_err, "K9_y_max_ulps": y_ulps, "K10_dx_max_abs": dx_err,
+            "K10_dx_max_ulps": dx_ulps, "K10_wd_grad_rel": rel(gwd, want_gwd),
+            "K10_wp_grad_rel": rel(gwp, want_gwp), "K11_rel": rel(gk, want_gk),
+            "K11_max_abs": (gk - want_gk).abs().max().item()}
+    shape = f"Cin={Cin}, Cout={Cout}, k={k}"
+    check(all(bool(torch.isfinite(t).all()) for t in (y, dx, gwd, gwp, gk)), f"{shape}: K9-K11 finite")
+    check(y_ok, f"{shape}: K9 against plain beyond one bf16 ulp: {errs}")
+    check(dx_ok, f"{shape}: K10 dx against plain beyond one bf16 ulp: {errs}")
+    check(errs["K10_wd_grad_rel"] <= SEPCONV_TOL_GRAD and errs["K10_wp_grad_rel"] <= SEPCONV_TOL_GRAD,
+          f"{shape}: K10 weight gradients against plain: {errs}")
+    check(errs["K11_rel"] <= K11_TOL, f"{shape}: K11 against plain: {errs}")
+    again = sepconv_backward(x, wd, wp, dy)
+    check(all(torch.equal(a, b) for a, b in zip(again, (dx, gwd, gwp)))
+          and torch.equal(gk, depthwise_wgrad(x, dyx, k)), f"{shape}: K10/K11 not deterministic")
+
+    # the cuDNN calls they stand in for: the F.conv1d pair in bf16, its
+    # autograd backward, and the depthwise weight gradient alone
+    wdb, wpb = wd.bfloat16(), wp.bfloat16()
+    conv1d = torch.nn.functional.conv1d
+    pair = lambda a, u, v: conv1d(conv1d(a, u, None, 1, P, 1, Cin), v)  # noqa: E731
+    xg, wdg, wpg = (t.clone().requires_grad_(True) for t in (x, wdb, wpb))
+    yg = pair(xg, wdg, wpg)
+    times = {
+        "K9": (cuda_ms(lambda: sepconv_forward(x, wd, wp), 10),
+               cuda_ms(lambda: sepconv_forward_plain(x, wd, wp), 2, warmup=1),
+               cuda_ms(lambda: pair(x, wdb, wpb), 10)),
+        "K10": (cuda_ms(lambda: sepconv_backward(x, wd, wp, dy), 10),
+                cuda_ms(lambda: sepconv_backward_plain(x, wd, wp, dy), 2, warmup=1),
+                cuda_ms(lambda: torch.autograd.grad(yg, (xg, wdg, wpg), dy, retain_graph=True), 10)),
+        "K11": (cuda_ms(lambda: depthwise_wgrad(x, dyx, k), 10),
+                cuda_ms(lambda: depthwise_wgrad_plain(x, dyx, k), 2, warmup=1),
+                cuda_ms(lambda: torch.ops.aten.convolution_backward(
+                    dyx, x, wdb, None, [1], [P], [1], False, [0], Cin, [False, True, False]), 10)),
+    }
+    BT, n2 = B * T, 2          # row-frames; bytes a bf16 value
+    bounds = {
+        # x in, y out, the weights in bf16; the depthwise taps and the
+        # pointwise product
+        "K9": bound((x.numel() + y.numel() + wd.numel() + wp.numel()) * n2,
+                    2 * BT * Cin * (k + Cout), "bf16"),
+        # x and dy in, dx out, the weights in, both float32 gradients out; dz,
+        # dx, dwr and wd_grad (k taps each) and wp_grad
+        "K10": bound((x.numel() + dy.numel() + dx.numel() + wd.numel() + wp.numel()) * n2
+                     + (gwd.numel() + gwp.numel()) * 4, 2 * BT * Cin * (2 * Cout + 3 * k), "bf16"),
+        # x and dy in, the float32 gradient out; k taps
+        "K11": bound((x.numel() + dyx.numel()) * n2 + gk.numel() * 4, 2 * BT * Cin * k, "bf16"),
+    }
+    return {"shape": [B, Cin, Cout, T, k], **errs,
+            **{f"{n}_{m}": v for n, (ms, pms, lms) in times.items()
+               for m, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms))},
+            **{f"{n}_bound_ms": b[0] for n, b in bounds.items()},
+            **{f"{n}_bound_by": b[1] for n, b in bounds.items()}}
+
+
+def phase_sepconv(dev):
+    """K9, K10 and K11 at the training step's layers, bf16."""
+    sepconv_forward.launches = sepconv_backward.launches = depthwise_wgrad.launches = 0
+    layers = [_sepconv_layer(dev, cin, cout, k, i) for i, (cin, cout, k) in enumerate(SEPCONV_LAYERS)]
+    widest = layers[-1]
+    rows = []
+    for key, name, src, line, err in (
+            ("K9", "sepconv_forward (K9)", "sepconv.cu", "sepconv_pallas.py:80", "K9_y_max_abs"),
+            ("K10", "sepconv_backward (K10)", "sepconv.cu", "sepconv_pallas.py:148", "K10_dx_max_abs"),
+            ("K11", "depthwise_wgrad (K11)", "depthwise.cu", "depthwise_pallas.py:90", "K11_max_abs")):
+        rows.append({"name": name, "route": "cuda", "source": f"lightning_asr_torch/csrc/{src}",
+                     "replaces": f"lightning_asr_tpu/ops/{line}",
+                     "max_abs_err": max(layer[err] for layer in layers),
+                     **{m: widest[f"{key}_{m}"] for m in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                          "library_ms")}})
+    print(json.dumps({"phase": "K9/K10/K11", "dtype": "bfloat16", "slack": SEPCONV_SLACK,
+                      "tol_grad_rel": SEPCONV_TOL_GRAD, "k11_tol_rel": K11_TOL, "layers": layers,
+                      "phase_launches": {"K9": sepconv_forward.launches, "K10": sepconv_backward.launches,
+                                         "K11": depthwise_wgrad.launches},
+                      "kernels": rows}), flush=True)
+    return rows
+
+
 def with_teeth(model, gen: torch.Generator, decoder_scale: float = 50.0) -> None:
     """Non-trivial BatchNorm statistics and affine terms and a scaled-up
     decoder: freshly initialised weights give nearly uniform log-probs.
@@ -352,7 +544,11 @@ def _post(port: int, payload: bytes, field: str = "audio"):
         conn.close()
 
 
-def phase_serving(dev) -> dict:
+def phase_serving(dev):
+    """The seeded full-width bf16 checkpoint served over HTTP twice: by
+    ``AsrTranslator`` as built by default, then with
+    ``conv_kernel="sepconv"`` (phase ``serving_sepconv``); each against the
+    same translator on the CPU."""
     gen = torch.Generator().manual_seed(0)
     model = build_model(len(LABELS) + 1, "quartznet12_context", mask=True, dtype=torch.bfloat16)
     reset_parameters(model, gen)
@@ -374,8 +570,26 @@ def phase_serving(dev) -> dict:
         cpu = AsrTranslator(ckpt, device="cpu")
         cpu32 = AsrTranslator(save_checkpoint(f"{tmp}/fp32", model.state_dict(),
                                               {**hparams, "compute_dtype": "float32"}), device="cpu")
-    check(translator.device.type == "cuda", "translator is not on the card")
+        sep = AsrTranslator(ckpt, device="cuda", conv_kernel="sepconv")
+        sep_cpu = AsrTranslator(ckpt, device="cpu", conv_kernel="sepconv")
+    check(translator.device.type == "cuda" and sep.device.type == "cuda", "translator is not on the card")
+    base = _serve_and_check(dev, "serving", translator, cpu, cpu32, blobs, {}, load_s=load_s,
+                            seconds=seconds)
+    # K9 runs the 14 stride-1 block convs of each device batch
+    sepconv = _serve_and_check(dev, "serving_sepconv", sep, sep_cpu, cpu32, blobs,
+                               {"sepconv_forward": (sepconv_forward, 14)})
+    return base, sepconv, translator, base["served"]
 
+
+def _serve_and_check(dev, name: str, translator, cpu, cpu32, blobs, extra: dict, **info) -> dict:
+    """8 concurrent requests and a wrong form field over HTTP, served as one
+    device batch; the kernels' launches during the burst (K1, K2 and K6 once,
+    ``extra``'s as many times as given); the served batch's log-probs on the
+    card against ``cpu``'s (the same model on the CPU) over valid frames, the
+    card's and the CPU's gap to ``cpu32`` (float32 on the CPU), and the
+    served texts."""
+    counters = {"mel": (mel_from_extended, 1), "lstm": (lstm_recurrence, 1),
+                "extend": (extend_preemph, 1), **extra}
     # the window outlasts the burst's arrival, and the batcher dispatches as
     # soon as it holds max_batch requests: the 8 requests form one device
     # batch, the one checked below
@@ -384,8 +598,8 @@ def phase_serving(dev) -> dict:
     thread.start()
     try:
         port = server.server_address[1]
-        mel_from_extended.launches = 0
-        lstm_recurrence.launches = 0
+        for fn, _ in counters.values():
+            fn.launches = 0
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(blobs) + 1) as pool:
             futs = [pool.submit(_post, port, b) for b in blobs]
@@ -394,53 +608,54 @@ def phase_serving(dev) -> dict:
             bad_status = bad.result()[0]
         torch.cuda.synchronize()
         burst_s = time.perf_counter() - t0
-        launches = {"mel": mel_from_extended.launches, "lstm": lstm_recurrence.launches}
+        launches = {key: fn.launches for key, (fn, _) in counters.items()}
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
-    check(not thread.is_alive(), "server thread did not stop")
+    check(not thread.is_alive(), f"{name}: server thread did not stop")
     statuses = [a[0] for a in answers]
-    check(all(s == 200 for s in statuses), f"request statuses {statuses}")
-    check(bad_status == 400, f"wrong form field answered {bad_status}, not 400")
-    check(launches == {"mel": 1, "lstm": 1},
-          f"kernel launches while serving {launches}: the burst did not run as one device batch")
+    check(all(s == 200 for s in statuses), f"{name}: request statuses {statuses}")
+    check(bad_status == 400, f"{name}: wrong form field answered {bad_status}, not 400")
+    want = {key: n for key, (_, n) in counters.items()}
+    check(launches == want, f"{name}: kernel launches while serving {launches}, want {want}: "
+                            "the burst did not run as one device batch through the kernels")
 
     # the served batch, as the server decoded it (16-bit PCM), on the card
     # against the same translator on the CPU, over each row's valid frames
     served = [read_audio(b, mono=True)[0][0] for b in blobs]
     batch, lens = translator.pad_batch(served)
-    check(batch.shape == (8, 16 * SR), f"served batch shape {batch.shape}")
+    check(batch.shape == (8, 16 * SR), f"{name}: served batch shape {batch.shape}")
     lp, out_lens = translator._forward(torch.from_numpy(batch).to(dev), torch.from_numpy(lens).to(dev))
     lp_cpu, out_lens_cpu = cpu._forward(torch.from_numpy(batch), torch.from_numpy(lens))
     lp_fp32 = cpu32._forward(torch.from_numpy(batch), torch.from_numpy(lens))[0].numpy()
     lp, lp_cpu = lp.float().cpu().numpy(), lp_cpu.float().numpy()
     out_lens, out_lens_cpu = out_lens.cpu().numpy(), out_lens_cpu.numpy()
-    check(bool(np.isfinite(lp).all()) and lp.shape == lp_cpu.shape, "serving log-probs shape/finite")
-    check(np.array_equal(out_lens, out_lens_cpu), "out_lens differ card vs CPU")
+    check(bool(np.isfinite(lp).all()) and lp.shape == lp_cpu.shape, f"{name}: log-probs shape/finite")
+    check(np.array_equal(out_lens, out_lens_cpu), f"{name}: out_lens differ card vs CPU")
     valid = np.arange(lp.shape[1])[None, :] < out_lens_cpu[:, None]
     class_std = float(np.mean(np.std(lp_cpu[valid], axis=-1)))
     err = np.abs(lp - lp_cpu)[valid]
     agree = float(np.mean(lp.argmax(-1)[valid] == lp_cpu.argmax(-1)[valid]))
-    check(class_std >= 0.5, f"log-prob class std {class_std} < 0.5: weights without teeth")
+    check(class_std >= 0.5, f"{name}: log-prob class std {class_std} < 0.5: weights without teeth")
     check(err.max() <= SERVE_TOL_MAX and err.mean() <= SERVE_TOL_MEAN,
-          f"card vs CPU log-probs: max {err.max()}, mean {err.mean()}")
-    check(agree >= SERVE_MIN_ARGMAX, f"greedy argmax agreement {agree}")
+          f"{name}: card vs CPU log-probs: max {err.max()}, mean {err.mean()}")
+    check(agree >= SERVE_MIN_ARGMAX, f"{name}: greedy argmax agreement {agree}")
     gap_card = float(np.abs(lp - lp_fp32)[valid].mean())
     gap_cpu = float(np.abs(lp_cpu - lp_fp32)[valid].mean())
     check(gap_card <= SERVE_BF16_GAP_RATIO * gap_cpu,
-          f"card bf16 vs float32: mean {gap_card}, CPU bf16 vs float32: mean {gap_cpu}")
+          f"{name}: card bf16 vs float32: mean {gap_card}, CPU bf16 vs float32: mean {gap_cpu}")
 
     # the served texts are the card's transcription of that batch; against
     # the CPU's, by character error rate
     texts = [a[1] for a in answers]
     card_texts = translator.transcribe_batch(served)
     cpu_texts = cpu.transcribe_batch(served)
-    check(texts == card_texts, f"served texts {texts} differ from the card's {card_texts}")
+    check(texts == card_texts, f"{name}: served texts {texts} differ from the card's {card_texts}")
     cer = sum(_edits(a, b) for a, b in zip(card_texts, cpu_texts)) / max(1, sum(map(len, cpu_texts)))
-    check(cer <= SERVE_MAX_CER, f"card vs CPU texts: character error rate {cer}")
-    res = {"phase": "serving", "requests": len(blobs), "seconds": seconds, "statuses": statuses,
-           "wrong_field_status": bad_status, "launches": launches, "load_s": load_s,
+    check(cer <= SERVE_MAX_CER, f"{name}: card vs CPU texts: character error rate {cer}")
+    res = {"phase": name, "requests": len(blobs), **info, "statuses": statuses,
+           "wrong_field_status": bad_status, "launches": launches,
            "burst_s": burst_s, "latency_s": [a[2] for a in answers],
            "texts_chars": [len(t) for t in texts], "class_std": class_std,
            "card_vs_cpu_max_abs": float(err.max()), "card_vs_cpu_mean_abs": float(err.mean()),
@@ -449,14 +664,18 @@ def phase_serving(dev) -> dict:
            "texts_equal_cpu": sum(a == b for a, b in zip(card_texts, cpu_texts)),
            "batch_shape": list(batch.shape)}
     print(json.dumps(res), flush=True)
-    return res, translator, served
+    return {**res, "served": served}
 
 
 def _category(name: str) -> str:
     low = name.lower()
     for tag, cat in (("log_mel_kernel", "K1 log_mel"), ("lstm_fwd_kernel", "K2 lstm"),
                      ("lstm_bwd_kernel", "K3 lstm_bwd"), ("ctc_alpha_kernel", "K4 ctc_alpha"),
-                     ("ctc_beta_kernel", "K5 ctc_beta")):
+                     ("ctc_beta_kernel", "K5 ctc_beta"), ("extend_kernel", "K6 extend_preemph"),
+                     ("sepconv_fwd_kernel", "K9 sepconv_fwd"), ("sepconv_dz_kernel", "K10 sepconv_bwd"),
+                     ("sepconv_bwd_dw_kernel", "K10 sepconv_bwd"),
+                     ("sepconv_wp_grad_kernel", "K10 sepconv_bwd"),
+                     ("dw_wgrad_kernel", "K11 dw_wgrad"), ("sum_partials_kernel", "K10/K11 partial sums")):
         if tag in low:
             return cat
     if "memcpy" in low or "memset" in low:
@@ -736,10 +955,14 @@ def train_batch(rng, B: int, bucket_s: float, max_s: float):
     return {"waves": waves, "wave_lens": lens, "targets": targets, "target_lens": tl}, float(seconds.sum())
 
 
-def phase_training(dev) -> dict:
-    """The recipe's train step at full width, 20 steps on one batch."""
+def phase_training(dev, conv_kernel=None, steps: int = TRAIN_STEPS) -> dict:
+    """The recipe's train step at full width, ``steps`` steps on one batch,
+    the model built with ``conv_kernel`` (phase ``training`` or
+    ``training_<conv_kernel>``)."""
+    name = "training" if conv_kernel is None else f"training_{conv_kernel}"
     gen = torch.Generator().manual_seed(5)
-    model = build_model(len(LABELS) + 1, "quartznet12_context", mask=True, dtype=torch.bfloat16)
+    model = build_model(len(LABELS) + 1, "quartznet12_context", mask=True, dtype=torch.bfloat16,
+                        conv_kernel=conv_kernel)
     reset_parameters(model, gen)
     model.to(dev)
     schedule = cosine_annealing_warmup_restarts(first_cycle_steps=1000, cycle_mult=2, max_lr=1e-2,
@@ -755,26 +978,33 @@ def phase_training(dev) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    counters = (mel_from_extended, lstm_recurrence, lstm_backward, ctc_alpha, ctc_beta)
-    for fn in counters:
+    # launches a step: K1-K6 once; the 14 stride-1 block convs each run K9
+    # and K10 (sepconv) or K11 (dw_wgrad) once
+    per_step = {mel_from_extended: 1, lstm_recurrence: 1, lstm_backward: 1, ctc_alpha: 1,
+                ctc_beta: 1, extend_preemph: 1,
+                sepconv_forward: 14 * (conv_kernel == "sepconv"),
+                sepconv_backward: 14 * (conv_kernel == "sepconv"),
+                depthwise_wgrad: 14 * (conv_kernel == "dw_wgrad")}
+    for fn in per_step:
         fn.launches = 0
     losses, times = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         state, metrics = step(state, batch, rng)
         losses.append(metrics["loss"].item())
         times.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = {fn.__name__: fn.launches for fn in per_step}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(all(np.isfinite(losses)), f"training losses not finite: {losses}")
-    check(int(state.nan_count) == 0 and int(state.step) == TRAIN_STEPS,
-          f"nan_count {int(state.nan_count)}, step {int(state.step)}")
-    check(int(state.opt_state.count) == TRAIN_STEPS, "the optimizer skipped a step")
-    check(np.mean(losses[-5:]) < np.mean(losses[:5]) and losses[-1] < losses[0],
-          f"the training loss did not fall: {losses}")
-    check(all(n == TRAIN_STEPS for n in launches.values()),
-          f"kernel launches over {TRAIN_STEPS} steps: {launches} (want one each a step)")
+    check(all(np.isfinite(losses)), f"{name}: losses not finite: {losses}")
+    check(int(state.nan_count) == 0 and int(state.step) == steps,
+          f"{name}: nan_count {int(state.nan_count)}, step {int(state.step)}")
+    check(int(state.opt_state.count) == steps, f"{name}: the optimizer skipped a step")
+    w = min(5, steps // 2)
+    check(np.mean(losses[-w:]) < np.mean(losses[:w]) and losses[-1] < losses[0],
+          f"{name}: the training loss did not fall: {losses}")
+    want = {fn.__name__: n * steps for fn, n in per_step.items()}
+    check(launches == want, f"{name}: kernel launches over {steps} steps: {launches}, want {want}")
 
     steady = times[2:]
     median_ms = 1e3 * statistics.median(steady)
@@ -785,8 +1015,8 @@ def phase_training(dev) -> dict:
         holder["state"], _ = step(holder["state"], batch, rng)
 
     device_ms, by_cat, top = device_time(one_step, TRAIN_PROFILE_STEPS)
-    res = {"phase": "training", "batch": TRAIN_BATCH, "bucket_s": TRAIN_BUCKET_S, "audio_s_per_batch": audio_s,
-           "steps": TRAIN_STEPS, "losses": losses, "launches": launches,
+    res = {"phase": name, "batch": TRAIN_BATCH, "bucket_s": TRAIN_BUCKET_S, "audio_s_per_batch": audio_s,
+           "steps": steps, "losses": losses, "launches": launches,
            "step_ms": {"median": median_ms, "min": 1e3 * min(steady), "max": 1e3 * max(steady),
                        "mean": 1e3 * steady_s / len(steady), "first": 1e3 * times[0],
                        "n": len(steady)},
@@ -808,24 +1038,28 @@ def _capture(inner):
                                              inner.init(p)), update)
 
 
-def phase_train_parity(dev) -> dict:
+def phase_train_parity(dev, conv_kernel=None) -> dict:
     """One float32 step from one state and one batch, on the card and on
-    the CPU (plain versions of every kernel)."""
+    the CPU (plain versions of every kernel), the model built with
+    ``conv_kernel``."""
+    name = "training_parity" + ("" if conv_kernel is None else f"_{conv_kernel}")
     gen = torch.Generator().manual_seed(6)
-    cpu_model = build_model(len(LABELS) + 1, "quartznet12_context", mask=True)
+    cpu_model = build_model(len(LABELS) + 1, "quartznet12_context", mask=True,
+                            conv_kernel=conv_kernel)
     reset_parameters(cpu_model, gen)
-    card_model = build_model(len(LABELS) + 1, "quartznet12_context", mask=True)
+    card_model = build_model(len(LABELS) + 1, "quartznet12_context", mask=True,
+                             conv_kernel=conv_kernel)
     card_model.load_state_dict(cpu_model.state_dict())
     card_model.to(dev)
     batch_np, _ = train_batch(np.random.default_rng(6), 4, 4.0, 3.9)
     out = {}
-    for name, model, where in (("cpu", cpu_model, "cpu"), ("card", card_model, dev)):
+    for side, model, where in (("cpu", cpu_model, "cpu"), ("card", card_model, dev)):
         opt = _capture(novograd(1e-2, betas=(0.8, 0.5), weight_decay=1e-3, fused=True))
         step = make_train_step(model, opt, BLANK, MelFrontendConfig(dither=0.0, precision="default"),
                                augment=None)
         state = create_train_state(model, opt)
         new, metrics = step(state, {k: torch.from_numpy(v).to(where) for k, v in batch_np.items()})
-        out[name] = ({k: v.cpu() for k, v in state.params.items()},
+        out[side] = ({k: v.cpu() for k, v in state.params.items()},
                      {k: v.cpu() for k, v in new.params.items()},
                      {k: v.cpu() for k, v in new.opt_state[0].items()},
                      {k: v.cpu() if torch.is_tensor(v) else v for k, v in metrics.items()})
@@ -839,11 +1073,11 @@ def phase_train_parity(dev) -> dict:
         "update_rel": max(rel(card_new[k] - old[k], cpu_new[k] - old[k]) for k in old),
     }
     worst = max(cpu_g, key=lambda k: rel(card_g[k], cpu_g[k]))
-    check(bool(card_m["finite"]) and bool(cpu_m["finite"]), "training parity: loss not finite")
-    check(torch.equal(card_m["pred_lens"], cpu_m["pred_lens"]), "training parity: pred_lens differ")
+    check(bool(card_m["finite"]) and bool(cpu_m["finite"]), f"{name}: loss not finite")
+    check(torch.equal(card_m["pred_lens"], cpu_m["pred_lens"]), f"{name}: pred_lens differ")
     for key, lim in TRAIN_TOL.items():
-        check(errs[key] <= lim, f"training parity: {key} {errs[key]} > {lim} (worst tensor {worst})")
-    res = {"phase": "training_parity", "batch": 4, "bucket_s": 4.0, "dtype": "float32",
+        check(errs[key] <= lim, f"{name}: {key} {errs[key]} > {lim} (worst tensor {worst})")
+    res = {"phase": name, "batch": 4, "bucket_s": 4.0, "dtype": "float32",
            "loss_card": card_m["loss"].item(), "loss_cpu": cpu_m["loss"].item(), **errs,
            "limits": TRAIN_TOL, "worst_grad_tensor": worst,
            "preds_agreement": float((card_m["preds"] == cpu_m["preds"]).float().mean())}
@@ -872,24 +1106,36 @@ def main() -> int:
 
     k1 = phase_k1(dev)
     k2 = phase_k2(dev)
-    serving, translator, served = phase_serving(dev)
+    k6 = phase_k6(dev)
+    k9, k10, k11 = phase_sepconv(dev)
+    serving, serving_sep, translator, served = phase_serving(dev)
     phase_profile(translator, served)
     del translator
     k3 = phase_k3(dev)
     k4, k5 = phase_k45(dev)
-    training = phase_training(dev)
-    phase_train_parity(dev)
-    # launches on the main paths: the serving burst and the training steps
-    train = training["launches"]
-    k1["launches"] = serving["launches"]["mel"] + train["mel_from_extended"]
-    k2["launches"] = serving["launches"]["lstm"] + train["lstm_recurrence"]
+    trainings = [phase_training(dev), phase_training(dev, "sepconv", CONV_TRAIN_STEPS),
+                 phase_training(dev, "dw_wgrad", CONV_TRAIN_STEPS)]
+    for conv_kernel in (None, "sepconv", "dw_wgrad"):
+        phase_train_parity(dev, conv_kernel)
+    # launches on the main paths: the two serving bursts and the training
+    # steps of the three configurations
+    serve = {key: serving["launches"].get(key, 0) + serving_sep["launches"].get(key, 0)
+             for key in ("mel", "lstm", "extend", "sepconv_forward")}
+    train = {name: sum(t["launches"][name] for t in trainings) for name in trainings[0]["launches"]}
+    k1["launches"] = serve["mel"] + train["mel_from_extended"]
+    k2["launches"] = serve["lstm"] + train["lstm_recurrence"]
     k3["launches"] = train["lstm_backward"]
     k4["launches"] = train["ctc_alpha"]
     k5["launches"] = train["ctc_beta"]
+    k6["launches"] = serve["extend"] + train["extend_preemph"]
+    k9["launches"] = serve["sepconv_forward"] + train["sepconv_forward"]
+    k10["launches"] = train["sepconv_backward"]
+    k11["launches"] = train["depthwise_wgrad"]
+    rows = (k1, k2, k3, k4, k5, k6, k9, k10, k11)
+    check(all(r["launches"] > 0 for r in rows), "a kernel of the main paths was never launched")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in (k1, k2, k3, k4, k5)]}),
-          flush=True)
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

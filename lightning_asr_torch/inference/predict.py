@@ -16,7 +16,7 @@ import io
 import logging
 import time
 from pathlib import Path
-from typing import List, Sequence, Union
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -42,6 +42,10 @@ class AsrTranslator:
       model_path: port checkpoint directory (``training/checkpoint.py``).
       device: ``cuda`` unless given; ``"cpu"`` runs the plain versions of
         the kernels.  Raises when CUDA is asked for and absent.
+      conv_kernel: what runs the blocks' separable convs (``build_model``):
+        None the ``F.conv1d`` pair, ``"sepconv"`` the fused kernel K9, as
+        the JAX package's ``LASR_SEPCONV_PALLAS=1``; ``"dw_wgrad"`` changes
+        only the weight gradient, so it serves as None does.
 
     Labels, frontend (precision tier included), compute dtype and model
     options come from the checkpoint's hparams.
@@ -49,7 +53,8 @@ class AsrTranslator:
 
     EN_LABELS = [" ", "'"] + [chr(ord("a") + i) for i in range(26)]
 
-    def __init__(self, model_path: Union[str, Path], device=None):
+    def __init__(self, model_path: Union[str, Path], device=None,
+                 conv_kernel: Optional[str] = None):
         t0 = time.time()
         self.device = resolve_device(device)
         state_dict, meta = load_checkpoint(model_path)
@@ -73,6 +78,7 @@ class AsrTranslator:
             mask=bool(hparams.get("mask", True)),
             feature_in=hparams.get("feature_in"),
             dtype=_COMPUTE_DTYPES[dtype_name],
+            conv_kernel=conv_kernel,
         )
         self.model.load_state_dict(state_dict, strict=True)
         self.model.to(self.device).eval()

@@ -238,11 +238,13 @@ def make_stdlib_server(translator, host: str = "127.0.0.1", port: int = 0,
 
 def serve(model_path: str, host: str = "0.0.0.0", port: int = 5000, device=None, batching="auto",
           max_batch: int = 8, max_wait_ms: float = 20.0,
-          warmup_seconds: Optional[Sequence[float]] = None, max_queue: int = 64):
-    """Load the checkpoint (on ``cuda`` unless ``device`` says otherwise)
-    and serve until interrupted."""
+          warmup_seconds: Optional[Sequence[float]] = None, max_queue: int = 64,
+          conv_kernel: Optional[str] = None):
+    """Load the checkpoint (on ``cuda`` unless ``device`` says otherwise;
+    ``conv_kernel`` as ``AsrTranslator`` takes it) and serve until
+    interrupted."""
     batching = resolve_batching(batching)
-    translator = AsrTranslator(model_path, device=device)
+    translator = AsrTranslator(model_path, device=device, conv_kernel=conv_kernel)
     server = make_stdlib_server(translator, host, port, batching=batching, max_batch=max_batch,
                                 max_wait_ms=max_wait_ms, warmup_seconds=warmup_seconds,
                                 max_queue=max_queue)
@@ -270,11 +272,15 @@ def _main() -> None:
     ap.add_argument("--warmup-seconds", type=float, nargs="*", default=None,
                     help="run the (batch, bucket) ladder for these request "
                          "durations at startup")
+    ap.add_argument("--conv-kernel", choices=["sepconv", "dw_wgrad"], default=None,
+                    help="run the blocks' separable convs through the fused kernels "
+                         "(default: the F.conv1d pair)")
     args = ap.parse_args()
     logging.basicConfig(level=logging.INFO)
     serve(args.model, host=args.host, port=args.port, device=args.device,
           batching=args.batching, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
-          warmup_seconds=args.warmup_seconds, max_queue=args.max_queue)
+          warmup_seconds=args.warmup_seconds, max_queue=args.max_queue,
+          conv_kernel=args.conv_kernel)
 
 
 if __name__ == "__main__":

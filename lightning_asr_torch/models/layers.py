@@ -22,6 +22,14 @@ the model's public functions keep the JAX package's (B, T, C).
     ``U < keep``, else 0.
   * with a compute ``dtype`` (bf16), convs take bf16 input and weights and
     give bf16 output; parameters stay float32.
+  * ``conv_kernel`` picks what runs the separable convs of an eligible
+    ``SepConv`` (stride 1, odd k; the JAX package's rule, so the stride-2
+    stem keeps ``F.conv1d``): None the ``F.conv1d`` pair (JAX's default);
+    ``"sepconv"`` the fused kernels K9/K10 (``LASR_SEPCONV_PALLAS=1``), with
+    float32 weight gradients; ``"dw_wgrad"`` ``F.conv1d`` with K11 as the
+    depthwise weight gradient (``LASR_DW_WGRAD_PALLAS=1``), the weight cast
+    to the compute type before it, as JAX does.  The parameters are the same
+    in every case.
 
 Parameters are created as zeros (BatchNorm scale and variance as ones);
 weights come from a checkpoint or from ``reset_parameters(generator)``,
@@ -37,7 +45,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.depthwise_kernels import depthwise_conv
 from ..ops.lstm import LSTMWeights, lstm
+from ..ops.sepconv_kernels import sepconv
+
+CONV_KERNELS = (None, "sepconv", "dw_wgrad")
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -140,9 +152,12 @@ class SepConv(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, k: int = 33, last: bool = False,
                  mask: bool = True, stride: int = 1, drop_rate: float = 0.1,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, conv_kernel: Optional[str] = None):
         super().__init__()
+        if conv_kernel not in CONV_KERNELS:
+            raise ValueError(f"conv_kernel must be one of {CONV_KERNELS}, got {conv_kernel!r}")
         self.last, self.mask, self.drop_rate = last, mask, drop_rate
+        self.conv_kernel = conv_kernel if stride == 1 and k % 2 == 1 else None
         self.depthwise_conv = Conv(in_ch, in_ch, k, stride=stride, padding=k // 2,
                                    groups=in_ch, dtype=dtype)
         self.pointwise_conv = Conv(in_ch, out_ch, 1, dtype=dtype)
@@ -150,7 +165,15 @@ class SepConv(nn.Module):
 
     def forward(self, x: torch.Tensor, percents: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = self.pointwise_conv(self.depthwise_conv(x))
+        dt = self.depthwise_conv.dtype or x.dtype
+        if self.conv_kernel == "sepconv":
+            x = sepconv(x.to(dt).contiguous(), self.depthwise_conv.weight,
+                        self.pointwise_conv.weight)
+        elif self.conv_kernel == "dw_wgrad":
+            x = self.pointwise_conv(depthwise_conv(x.to(dt).contiguous(),
+                                                   self.depthwise_conv.weight.to(dt)))
+        else:
+            x = self.pointwise_conv(self.depthwise_conv(x))
         if self.mask:
             x = mask_by_percents(x, percents)
         x = self.bn(x)
@@ -165,14 +188,15 @@ class QuartNetBlock(nn.Module):
     The residual branch is NOT masked before its BN — reference behaviour."""
 
     def __init__(self, repeat: int = 3, in_ch: int = 1, out_ch: int = 32, k: int = 33,
-                 mask: bool = True, drop_rate: float = 0.0, dtype: Optional[torch.dtype] = None):
+                 mask: bool = True, drop_rate: float = 0.0, dtype: Optional[torch.dtype] = None,
+                 conv_kernel: Optional[str] = None):
         super().__init__()
         self.seps = [f"sep{i}" for i in range(repeat - 1)] + ["sep_last"]
         for i in range(repeat - 1):
             self.add_module(f"sep{i}", SepConv(in_ch, in_ch, k, mask=mask, drop_rate=drop_rate,
-                                               dtype=dtype))
+                                               dtype=dtype, conv_kernel=conv_kernel))
         self.sep_last = SepConv(in_ch, out_ch, k, last=True, mask=mask, drop_rate=drop_rate,
-                                dtype=dtype)
+                                dtype=dtype, conv_kernel=conv_kernel)
         self.reside_conv = Conv(in_ch, out_ch, 1, dtype=dtype)
         self.reside_bn = MaskedBatchNorm(out_ch)
 

@@ -207,17 +207,20 @@ def extended_batch(
     prev_samples: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, int]:
     """The signal the mel stage reads: wire expansion, dither (with a
-    generator), preemphasis, the per-row extension and the zero tail the
-    frames need.  Returns (q (B, >= (T + n_chunks)·hop) float32, T)."""
-    waves = expand_wire(waves)
+    generator), then preemphasis, the per-row extension and the zero tail the
+    frames need in one pass (kernel K6, ``ops/frontend_kernels.py``).
+    Returns (q (B, max(S + 2·pad + n_fft, (T + n_chunks)·hop)) float32, T)."""
+    from .frontend_kernels import extend_preemph
+
+    waves = expand_wire(waves).contiguous()
     if generator is not None and cfg.dither > 0:
         waves = waves + cfg.dither * torch.randn(
             waves.shape, generator=generator, device=waves.device, dtype=torch.float32)
     S_ext = waves.shape[1] + 2 * cfg.pad + cfg.n_fft
     T = (S_ext - cfg.n_fft) // cfg.hop_length + 1
-    q = _extend_signal(_preemphasis(waves, prev_samples, cfg.preemph),
-                       wave_lens.to(waves.device), cfg)
-    return pad_for_frames(q, cfg, T), T
+    needed = (T + -(-cfg.n_fft // cfg.hop_length)) * cfg.hop_length
+    q = extend_preemph(waves, wave_lens, prev_samples, cfg, max(S_ext, needed))
+    return q, T
 
 
 def log_mel_spectrogram(

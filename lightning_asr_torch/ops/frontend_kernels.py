@@ -1,4 +1,5 @@
-"""Fused log-mel kernel K1: windowed DFT + power + mel + dB in one pass.
+"""The frontend's kernels: K1, the fused log-mel (windowed DFT + power + mel
++ dB in one pass), and K6, the fused preemphasis + signal extension.
 
 Replaces ``lightning_asr_tpu/ops/frontend_pallas.py::_mel_kernel`` (wrapper
 ``mel_from_extended``), the ``"default"`` frontend tier that
@@ -28,6 +29,21 @@ only the (32, 64) log-mel tile is written.  Products of bf16-rounded values
 are exact in fp32, so scalar FMAs give the tier's bf16-multiply /
 fp32-accumulate numerics; tensor cores (``mma.sync``/``wgmma``) are the
 next step for speed.
+
+K6 replaces ``lightning_asr_tpu/ops/frontend_pallas.py::_kernel`` (wrapper
+``extend_preemph``): preemphasis (c = float32(0.97), the first sample
+against ``prev_samples`` or nothing), the per-row zero-pad + reflect
+extension around each true length, and the zero tail the frames read, as
+one write of the extended signal.  Its plain version is the composition
+``_extend_signal(_preemphasis(...))`` zero-extended to ``out_total``.  What
+bounds it: bytes, one read of the waves and one write of q (~68 MB for 32
+rows of 16.7 s: ~20 µs); it does two flops a sample.  The design
+(``csrc/extend.cu``): one thread per output sample, a gather from the raw
+row, so nothing is written twice and no intermediate reaches device memory.
+The multiply and the subtract round separately, as PyTorch's two ops do:
+the result equals the plain version bit for bit, so K1's bf16 roundings see
+the same signal.  The TPU kernel's 128-lane alignment of the tail is TPU
+layout and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -35,16 +51,17 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+from typing import Optional
 
 import torch
 
-from .frontend import (MelFrontendConfig, _frame_dft, dft_filters, mel_filterbank,
-                       pad_for_frames)
+from .frontend import (MelFrontendConfig, _extend_signal, _frame_dft, _preemphasis,
+                       dft_filters, mel_filterbank, pad_for_frames)
+from .kernel_build import SMEM_LIMIT
 
 _LOCK = threading.Lock()
 _TILE_FRAMES = 32           # frames per block (csrc/mel.cu TT)
 _BIN_CHUNK = 64             # bins per block pass (csrc/mel.cu: 32 lanes × 2)
-_SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block may use
 
 
 def _round_up(x: int, m: int) -> int:
@@ -108,8 +125,8 @@ def mel_from_extended(q: torch.Tensor, cfg: MelFrontendConfig, T: int) -> torch.
     if q.device.type != "cuda":
         raise ValueError(f"mel_from_extended runs on cpu or cuda, not {q.device}")
     smem = smem_bytes(cfg)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"config needs {smem} B of shared memory per block (> {_SMEM_LIMIT})")
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"config needs {smem} B of shared memory per block (> {SMEM_LIMIT})")
 
     from .kernel_build import library
 
@@ -135,3 +152,64 @@ def mel_from_extended(q: torch.Tensor, cfg: MelFrontendConfig, T: int) -> torch.
 
 
 mel_from_extended.launches = 0
+
+
+def extend_preemph_plain(waves: torch.Tensor, wave_lens: torch.Tensor,
+                         prev_samples: Optional[torch.Tensor], cfg: MelFrontendConfig,
+                         out_total: int) -> torch.Tensor:
+    """Plain PyTorch version of K6: preemphasis, then the extension, then
+    zeros up to ``out_total`` samples."""
+    q = _extend_signal(_preemphasis(waves, prev_samples, cfg.preemph), wave_lens, cfg)
+    if out_total > q.shape[1]:
+        q = torch.cat([q, q.new_zeros((q.shape[0], out_total - q.shape[1]))], dim=1)
+    return q
+
+
+def extend_preemph(waves: torch.Tensor, wave_lens: torch.Tensor,
+                   prev_samples: Optional[torch.Tensor], cfg: MelFrontendConfig,
+                   out_total: int) -> torch.Tensor:
+    """K6: (B, S) float32 waves (after wire expansion and dither), (B,)
+    true lengths in [0, S], optional (B,) samples preceding each row
+    -> (B, out_total) float32 extended, preemphasized signal;
+    ``out_total >= S + 2·pad + n_fft``.  Rows of L <= n_fft//2 + pad samples
+    lie outside the reference's support.  A CPU tensor runs the plain
+    version; a CUDA tensor launches the kernel or raises."""
+    if waves.dim() != 2 or waves.dtype != torch.float32 or not waves.is_contiguous():
+        raise ValueError(f"waves must be a contiguous 2-D float32 tensor, got "
+                         f"{tuple(waves.shape)} {waves.dtype}")
+    B, S = waves.shape
+    if tuple(wave_lens.shape) != (B,):
+        raise ValueError(f"wave_lens must be ({B},), got {tuple(wave_lens.shape)}")
+    if prev_samples is not None:
+        if tuple(prev_samples.shape) != (B,):
+            raise ValueError(f"prev_samples must be ({B},), got {tuple(prev_samples.shape)}")
+        prev_samples = prev_samples.to(device=waves.device, dtype=torch.float32).contiguous()
+    if out_total < S + 2 * cfg.pad + cfg.n_fft:
+        raise ValueError(f"out_total {out_total} < S + 2·pad + n_fft = {S + 2 * cfg.pad + cfg.n_fft}")
+    if waves.device.type == "cpu":
+        return extend_preemph_plain(waves, wave_lens, prev_samples, cfg, out_total)
+    if waves.device.type != "cuda":
+        raise ValueError(f"extend_preemph runs on cpu or cuda, not {waves.device}")
+    lens = wave_lens.to(device=waves.device, dtype=torch.int32).contiguous()
+
+    from .kernel_build import library
+
+    fn = library("extend").lasr_extend_preemph
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
+                                                                ctypes.c_void_p]
+    out = torch.empty((B, out_total), dtype=torch.float32, device=waves.device)
+    if B:
+        stream = torch.cuda.current_stream(waves.device).cuda_stream
+        err = fn(waves.data_ptr(), lens.data_ptr(),
+                 None if prev_samples is None else prev_samples.data_ptr(),
+                 out.data_ptr(), B, S, out_total, cfg.n_fft // 2, cfg.pad, float(cfg.preemph),
+                 waves.device.index, stream)
+        if err != 0:
+            raise RuntimeError(f"extend_preemph kernel launch failed: CUDA error {err}")
+        with _LOCK:
+            extend_preemph.launches += 1
+    return out
+
+
+extend_preemph.launches = 0

@@ -2,10 +2,10 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 a plain C shared library, ``build/torch_kernels/<name>-<hash>.so`` under the
-repository root, and loaded with ``ctypes``.  The hash covers the source and
-the compiler flags, so an edited source is rebuilt and an unchanged one is
-reused.  All missing libraries are compiled together, one ``nvcc`` process
-per source.
+repository root, and loaded with ``ctypes``.  The hash covers the source, the
+shared headers (``csrc/*.cuh``) and the compiler flags, so an edited source
+is rebuilt and an unchanged one is reused.  All missing libraries are
+compiled together, one ``nvcc`` process per source.
 
 Nothing here runs at import time: the CPU tests import every module, and
 this machine class has no ``nvcc``.
@@ -23,9 +23,15 @@ import time
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("mel", "lstm", "lstm_bwd", "ctc")
+SOURCES = ("mel", "lstm", "lstm_bwd", "ctc", "extend", "sepconv", "depthwise")
+# bytes of shared memory a Hopper block may use (dynamic, after opting in)
+SMEM_LIMIT = 232448
+# the ``dtype`` argument of the convolution kernels' C entry points
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,6 +51,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):        # an edited header rebuilds its users
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

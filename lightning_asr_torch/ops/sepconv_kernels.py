@@ -1,0 +1,235 @@
+"""Fused separable convolution kernels: the forward K9 and the backward K10.
+
+K9 replaces ``lightning_asr_tpu/ops/sepconv_pallas.py::_fwd_kernel`` (wrapper
+``sepconv``) and K10 ``::_bwd_kernel`` (``_sepconv_vjp_bwd``): a depthwise
+k-tap convolution (same padding k//2, stride 1, odd k) followed by a
+pointwise 1x1 convolution, the body of every block of ``QuartNet12Context``
+when the model is built with ``conv_kernel="sepconv"``
+(``models/layers.py``).  ``sepconv`` is the ``torch.autograd.Function`` that
+pairs them.
+
+Layout NCT, the port's: x (B, Cin, T), depthwise weight (Cin, 1, k),
+pointwise weight (Cout, Cin, 1), y (B, Cout, T).  The kernels read a
+channel's frames as one contiguous run; nothing is transposed to the JAX
+package's NWC.
+
+Numerics, those of the TPU kernels (x float32 or bf16, the weights cast to
+x's type first):
+
+  forward   acc = Σ_j float32(x[t+j-P]·wd[j]) in tap order j = 0..k-1, each
+            product taken in x's type (in bf16, rounded to bf16); dw =
+            acc rounded to x's type; y = Σ_c wp[o, c]·dw[c] with float32 sums,
+            rounded to x's type.
+  backward  in float32: dz = wpᵀ·dy; dx[t] = Σ_j dz[t+j-P]·wd[k-1-j], rounded
+            to x's type; wd_grad[c, j] = Σ_{b,t} x[t+j-P]·dz[t]; the depthwise
+            output recomputed with float32 products, rounded to x's type, as
+            dwr; wp_grad = Σ_{b,t} dy·dwrᵀ.  Both weight gradients are summed
+            over the batch and returned in float32, not rounded to x's type.
+
+What bounds them on the H100: at B=32, T=836, 512→512, k=87 in bf16, K9
+moves ~55 MB (x in, y out: ~16 µs) and does 2·B·T·Cin·(k + Cout) = 16 GFLOP
+(~17 µs at the bf16 tensor-core peak); K10 moves ~82 MB and does
+2·B·T·Cin·(2·Cout + 3k) = 35 GFLOP.  Both sit near the balance point, so the
+intermediates must stay on chip and the products want tensor cores.
+
+What the designs do about it (``csrc/sepconv.cu``): K9 takes one block per
+(32 frames, row); it computes the depthwise output of all input channels of
+its tile once into shared memory (never to device memory), then the
+pointwise product against streamed weight chunks with a 4 x 4 register tile
+of float32 sums a thread.  K10 is five launches: dz as a tiled product; one
+block per (32 channels, row) walking the frames for dx, dwr and its row's
+wd_grad (held in shared memory by the thread that owns each tap); wp_grad
+as a tiled product split over the rows; and two fixed-order sums of the
+partials, so two runs give the same bits.  The products run on the CUDA
+cores in float32 (bf16 products are exact there); ``mma.sync``/``wgmma`` are
+the next step for speed.  The TPU kernels' sequential batch grid, which
+carries the weight gradients in VMEM, becomes the per-row and per-split
+partials.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+import torch.nn.functional as F
+
+from .kernel_build import DTYPE_CODES, SMEM_LIMIT
+
+_LOCK = threading.Lock()
+_WP_TILE = 64               # csrc/sepconv.cu PT: wp_grad tile edge
+_WP_BLOCKS = 264            # wp_grad blocks to aim for: two per SM of an H100
+
+
+def _check(x: torch.Tensor, wd: torch.Tensor, wp: torch.Tensor):
+    """(B, Cin, T, Cout, k) of a valid call; raises on anything the kernels
+    do not take."""
+    if x.dim() != 3 or x.dtype not in DTYPE_CODES:
+        raise ValueError(f"x must be (B, Cin, T) float32 or bfloat16, got {tuple(x.shape)} {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    B, Cin, T = x.shape
+    if wd.dim() != 3 or wd.shape[:2] != (Cin, 1) or wd.shape[2] % 2 == 0:
+        raise ValueError(f"wd must be ({Cin}, 1, k) with k odd, got {tuple(wd.shape)}")
+    if wp.dim() != 3 or wp.shape[1:] != (Cin, 1):
+        raise ValueError(f"wp must be (Cout, {Cin}, 1), got {tuple(wp.shape)}")
+    for name, w in (("wd", wd), ("wp", wp)):
+        if w.dtype not in (torch.float32, x.dtype):
+            raise ValueError(f"{name} must be float32 or {x.dtype}, got {w.dtype}")
+    if len({x.device, wd.device, wp.device}) != 1:
+        raise ValueError("x, wd and wp must be on one device")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the sepconv kernels run on cpu or cuda, not {x.device}")
+    return B, Cin, T, wp.shape[0], wd.shape[2]
+
+
+def sepconv_forward_plain(x: torch.Tensor, wd: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K9, in the kernel's operation order."""
+    B, Cin, T = x.shape
+    k = wd.shape[-1]
+    dt = x.dtype
+    w = wd.reshape(Cin, k).to(dt)
+    xp = F.pad(x, (k // 2, k // 2))
+    acc = torch.zeros((B, Cin, T), dtype=torch.float32, device=x.device)
+    for j in range(k):
+        acc = acc + (xp[:, :, j:j + T] * w[:, j:j + 1]).float()
+    dw = acc.to(dt).float()
+    return torch.matmul(wp.reshape(-1, Cin).to(dt).float(), dw).to(dt)
+
+
+def sepconv_forward(x: torch.Tensor, wd: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:
+    """K9: x (B, Cin, T) float32 or bf16, wd (Cin, 1, k) with k odd, wp
+    (Cout, Cin, 1) -> y (B, Cout, T) in x's type.  A CPU tensor runs the
+    plain version; a CUDA tensor launches the kernel or raises."""
+    B, Cin, T, Cout, k = _check(x, wd, wp)
+    if x.device.type == "cpu":
+        return sepconv_forward_plain(x, wd, wp)
+
+    from .kernel_build import library
+
+    lib = library("sepconv")
+    lib.lasr_sepconv_fwd_smem.restype = ctypes.c_size_t
+    lib.lasr_sepconv_fwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    smem = lib.lasr_sepconv_fwd_smem(Cin, k)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"Cin={Cin}, k={k} need {smem} B of shared memory per block (> {SMEM_LIMIT})")
+    fn = lib.lasr_sepconv_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    wd_t = wd.reshape(Cin, k).to(x.dtype).contiguous()
+    wpt = wp.reshape(Cout, Cin).t().to(x.dtype).contiguous()          # (Cin, Cout)
+    y = torch.empty((B, Cout, T), dtype=x.dtype, device=x.device)
+    if B and T:
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), wd_t.data_ptr(), wpt.data_ptr(), y.data_ptr(), B, Cin, Cout, T, k,
+                 DTYPE_CODES[x.dtype], x.device.index, stream)
+        if err != 0:
+            raise RuntimeError(f"sepconv forward kernel launch failed: CUDA error {err}")
+        with _LOCK:
+            sepconv_forward.launches += 1
+    return y
+
+
+sepconv_forward.launches = 0
+
+
+def sepconv_backward_plain(x: torch.Tensor, wd: torch.Tensor, wp: torch.Tensor,
+                           dy: torch.Tensor):
+    """Plain PyTorch version of K10: (dx in x's type, wd_grad (Cin, 1, k)
+    float32, wp_grad (Cout, Cin, 1) float32)."""
+    B, Cin, T = x.shape
+    k = wd.shape[-1]
+    P = k // 2
+    dt = x.dtype
+    w = wd.reshape(Cin, k).to(dt).float()
+    p = wp.reshape(-1, Cin).to(dt).float()                          # (Cout, Cin)
+    dz = torch.matmul(p.t(), dy.float())                            # (B, Cin, T)
+    dzp, xp = F.pad(dz, (P, P)), F.pad(x.float(), (P, P))
+    dx = torch.zeros_like(dz)
+    dwr = torch.zeros_like(dz)
+    taps = []
+    for j in range(k):
+        xs = xp[:, :, j:j + T]
+        dx = dx + dzp[:, :, j:j + T] * w[:, k - 1 - j:k - j]
+        taps.append((xs * dz).sum(dim=(0, 2)))
+        dwr = dwr + xs * w[:, j:j + 1]
+    wp_grad = torch.einsum("bot,bct->oc", dy.float(), dwr.to(dt).float())
+    return dx.to(dt), torch.stack(taps, dim=1)[:, None, :], wp_grad[:, :, None]
+
+
+def sepconv_backward(x: torch.Tensor, wd: torch.Tensor, wp: torch.Tensor, dy: torch.Tensor):
+    """K10: the forward's inputs and dy (B, Cout, T) in x's type -> (dx (B,
+    Cin, T) in x's type, wd_grad (Cin, 1, k) float32, wp_grad (Cout, Cin, 1)
+    float32).  A CPU tensor runs the plain version; a CUDA tensor launches
+    the kernel or raises."""
+    B, Cin, T, Cout, k = _check(x, wd, wp)
+    if tuple(dy.shape) != (B, Cout, T) or dy.dtype != x.dtype or not dy.is_contiguous():
+        raise ValueError(f"dy must be contiguous {(B, Cout, T)} {x.dtype}, got "
+                         f"{tuple(dy.shape)} {dy.dtype}")
+    if dy.device != x.device:
+        raise ValueError(f"dy is on {dy.device}, x on {x.device}")
+    if x.device.type == "cpu":
+        return sepconv_backward_plain(x, wd, wp, dy)
+
+    from .kernel_build import library
+
+    lib = library("sepconv")
+    lib.lasr_sepconv_bwd_smem.restype = ctypes.c_size_t
+    lib.lasr_sepconv_bwd_smem.argtypes = [ctypes.c_int]
+    smem = lib.lasr_sepconv_bwd_smem(k)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"k={k} needs {smem} B of shared memory per block (> {SMEM_LIMIT})")
+    fn = lib.lasr_sepconv_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    dev = x.device
+    tiles = -(-Cin // _WP_TILE) * -(-Cout // _WP_TILE)
+    S = max(1, min(B, -(-_WP_BLOCKS // tiles)))                     # splits of the rows
+    wd_t = wd.reshape(Cin, k).to(x.dtype).contiguous()
+    wp_t = wp.reshape(Cout, Cin).to(x.dtype).contiguous()
+    dx = torch.empty_like(x)
+    wd_grad = torch.zeros((Cin, 1, k), dtype=torch.float32, device=dev)
+    wp_grad = torch.zeros((Cout, Cin, 1), dtype=torch.float32, device=dev)
+    if B and T:
+        dz = torch.empty((B, Cin, T), dtype=torch.float32, device=dev)
+        dwr = torch.empty_like(x)
+        wd_part = torch.empty((B, Cin, k), dtype=torch.float32, device=dev)
+        wp_part = torch.empty((S, Cout, Cin), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(x.data_ptr(), wd_t.data_ptr(), wp_t.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                 wd_grad.data_ptr(), wp_grad.data_ptr(), dz.data_ptr(), dwr.data_ptr(),
+                 wd_part.data_ptr(), wp_part.data_ptr(), B, Cin, Cout, T, k, S,
+                 DTYPE_CODES[x.dtype], dev.index, stream)
+        if err != 0:
+            raise RuntimeError(f"sepconv backward kernel launch failed: CUDA error {err}")
+        with _LOCK:
+            sepconv_backward.launches += 1
+    else:
+        dx.zero_()
+    return dx, wd_grad, wp_grad
+
+
+sepconv_backward.launches = 0
+
+
+class _SepConv(torch.autograd.Function):
+    """y = K9(x, wd, wp), with K10 as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, wd, wp):
+        ctx.save_for_backward(x, wd, wp)
+        return sepconv_forward(x, wd, wp)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, wd, wp = ctx.saved_tensors
+        dx, wd_grad, wp_grad = sepconv_backward(x, wd, wp, dy.contiguous())
+        return dx, wd_grad.to(wd.dtype), wp_grad.to(wp.dtype)
+
+
+def sepconv(x: torch.Tensor, wd: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:
+    """The separable convolution as autograd sees it: x (B, Cin, T) in the
+    compute type, wd (Cin, 1, k) and wp (Cout, Cin, 1) the float32
+    parameters, which receive float32 gradients."""
+    return _SepConv.apply(x, wd, wp)

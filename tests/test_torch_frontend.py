@@ -8,8 +8,9 @@ import pytest
 import torch
 
 from lightning_asr_tpu.ops import frontend as jf
+from lightning_asr_tpu.ops import frontend_pallas as jf_pallas
 from lightning_asr_torch.ops import frontend as tf
-from lightning_asr_torch.ops.frontend_kernels import mel_from_extended
+from lightning_asr_torch.ops.frontend_kernels import extend_preemph, mel_from_extended
 
 # one bf16 rounding flip of one power term moves a mel value by at most
 # 10·log10(1 + 2^-8) = 0.017 dB; the narrowest mel filters span two FFT bins
@@ -120,3 +121,65 @@ def test_k1_wrapper_checks_and_cpu_route():
     with pytest.raises(ValueError):
         mel_from_extended(q, cfg, 0)
     assert mel_from_extended.launches == launches  # CPU runs never count
+
+
+def _preemph_once(waves, prev, coeff):
+    """``y - c·prev`` rounded once, as a fused multiply-add gives it: the
+    product of two float32 values is exact in float64, and the difference
+    rounded there then to float32 lands on the same float32 value for
+    these inputs."""
+    w = waves.astype(np.float64)
+    before = np.concatenate([np.zeros_like(w[:, :1]), w[:, :-1]], axis=1)
+    if prev is not None:
+        before[:, 0] = prev
+    return (w - np.float64(np.float32(coeff)) * before).astype(np.float32)
+
+
+@pytest.mark.parametrize("pad,with_prev", [(32, False), (32, True), (0, True)])
+def test_k6_plain_matches_jax_extend_preemph(pad, with_prev):
+    """K6's plain version (a CPU tensor) against JAX's ``extend_preemph`` in
+    interpret mode and the XLA composition it fuses, with and without
+    ``prev_samples``, zero tail included.
+
+    The TPU kernel, the composition, the port's plain version and its CUDA
+    kernel all round ``y - c·prev`` twice (product, then difference).  In
+    the jitted interpret run XLA on the CPU contracts most of these into one
+    fused multiply-add, which rounds once (tests/test_frontend_pallas.py
+    allows for it), so each of that run's samples must equal the port's bit
+    for bit or the once-rounded value."""
+    waves, lens = _inputs(3)
+    B, S = waves.shape
+    prev = np.random.default_rng(4).standard_normal(B).astype(np.float32) if with_prev else None
+    jcfg, tcfg = jf.MelFrontendConfig(pad=pad), tf.MelFrontendConfig(pad=pad)
+    out_len = S + 2 * pad + tcfg.n_fft
+    out_total = out_len + 128 + 160                     # >= JAX's out_len + 128
+    jprev = None if prev is None else jnp.asarray(prev)
+    got = extend_preemph(torch.from_numpy(waves), torch.from_numpy(lens),
+                         None if prev is None else torch.from_numpy(prev), tcfg, out_total).numpy()
+    assert got.shape == (B, out_total)
+    np.testing.assert_array_equal(got[:, out_len:], 0.0)
+    composition = jf._extend_signal(jf._preemphasis(jnp.asarray(waves), jprev, jcfg.preemph),
+                                    jnp.asarray(lens), jcfg)
+    np.testing.assert_array_equal(got[:, :out_len], np.asarray(composition))
+
+    kernel = np.asarray(jf_pallas.extend_preemph(jnp.asarray(waves), jnp.asarray(lens), jprev, jcfg,
+                                                 out_total=out_total, interpret=True))
+    once = tf._extend_signal(torch.from_numpy(_preemph_once(waves, prev, jcfg.preemph)),
+                             torch.from_numpy(lens), tcfg).numpy()
+    once = np.concatenate([once, np.zeros((B, out_total - out_len), np.float32)], axis=1)
+    assert np.all((kernel == got) | (kernel == once))
+
+
+def test_k6_wrapper_checks_and_cpu_route():
+    cfg = tf.MelFrontendConfig()
+    waves, lens = torch.zeros((2, 1000)), torch.tensor([1000, 400], dtype=torch.int32)
+    out_len = 1000 + 2 * cfg.pad + cfg.n_fft
+    launches = extend_preemph.launches
+    assert extend_preemph(waves, lens, None, cfg, out_len + 7).shape == (2, out_len + 7)
+    for args in ((waves.double(), lens, None), (waves.t().contiguous().t(), lens, None),
+                 (waves, lens[:1], None), (waves, lens, torch.zeros(3))):
+        with pytest.raises(ValueError):
+            extend_preemph(*args, cfg, out_len)
+    with pytest.raises(ValueError):                     # shorter than the extension
+        extend_preemph(waves, lens, None, cfg, out_len - 1)
+    assert extend_preemph.launches == launches          # CPU runs never count

@@ -9,12 +9,16 @@ import numpy as np
 import pytest
 import torch
 
-from lightning_asr_torch.ops.frontend import MelFrontendConfig
-from lightning_asr_torch.ops.frontend_kernels import mel_from_extended, mel_from_extended_plain
 from lightning_asr_torch.ops.ctc_kernels import (ctc_alpha, ctc_alpha_plain, ctc_beta,
                                                  ctc_beta_plain, ctc_loss)
+from lightning_asr_torch.ops.depthwise_kernels import depthwise_wgrad, depthwise_wgrad_plain
+from lightning_asr_torch.ops.frontend import MelFrontendConfig
+from lightning_asr_torch.ops.frontend_kernels import (extend_preemph, extend_preemph_plain,
+                                                      mel_from_extended, mel_from_extended_plain)
 from lightning_asr_torch.ops.lstm_kernels import (lstm_backward, lstm_backward_plain,
                                                   lstm_recurrence, lstm_recurrence_plain)
+from lightning_asr_torch.ops.sepconv_kernels import (sepconv_backward, sepconv_backward_plain,
+                                                     sepconv_forward, sepconv_forward_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -170,3 +174,112 @@ def test_ctc_loss_function_on_the_card(dev):
     want.sum().backward()
     assert (loss.detach().cpu() - want.detach()).abs().max().item() <= 1e-3
     assert (x.grad.cpu() - xc.grad).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("pad", [32, 0])
+@pytest.mark.parametrize("with_prev", [False, True])
+def test_k6_equals_plain_bit_for_bit(dev, pad, with_prev):
+    """One row and several, full and ragged lengths down to the support
+    limit, a zero tail longer than the frames need."""
+    cfg = MelFrontendConfig(pad=pad)
+    g = torch.Generator().manual_seed(pad + with_prev)
+    for lens in ([3000], [3000, 2999, 1700, cfg.n_fft // 2 + pad + 1]):
+        B, S = len(lens), 3000
+        waves = torch.randn((B, S), generator=g).to(dev)
+        wl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        prev = torch.randn((B,), generator=g).to(dev) if with_prev else None
+        out_total = S + 2 * pad + cfg.n_fft + 333
+        before = extend_preemph.launches
+        got = extend_preemph(waves, wl, prev, cfg, out_total)
+        assert extend_preemph.launches == before + 1
+        assert torch.equal(got, extend_preemph_plain(waves, wl, prev, cfg, out_total))
+
+
+def test_k6_rejects_what_it_cannot_run(dev):
+    cfg = MelFrontendConfig()
+    lens = torch.tensor([900], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        extend_preemph(torch.zeros((1, 900), dtype=torch.float16, device=dev), lens, None, cfg, 2000)
+    with pytest.raises(ValueError):
+        extend_preemph(torch.zeros((1, 1800), device=dev)[:, ::2], lens, None, cfg, 2000)
+
+
+def _bf16_ulp(a: torch.Tensor) -> torch.Tensor:
+    return torch.exp2(torch.floor(torch.log2(a.abs().float().clamp_min(2.0 ** -126))) - 7)
+
+
+def _close_to_plain(got: torch.Tensor, want: torch.Tensor) -> None:
+    """At most one rounding to bf16 apart (for bf16 outputs), after float32
+    sums in another order (slack: 2^-17 of the largest value)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    g, w = got.float(), want.float()
+    ulp = _bf16_ulp(torch.maximum(g.abs(), w.abs())) if got.dtype == torch.bfloat16 else 0.0
+    slack = 2.0 ** -17 * w.abs().max()
+    assert bool(((g - w).abs() <= ulp + slack).all()), (g - w).abs().max().item()
+
+
+def _conv_case(dev, B, T, Cin, Cout, k, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, Cin, T), generator=g).to(dtype).to(dev)
+    wd = ((torch.rand((Cin, 1, k), generator=g) * 2 - 1) / k ** 0.5).to(dev)
+    wp = ((torch.rand((Cout, Cin, 1), generator=g) * 2 - 1) / Cin ** 0.5).to(dev)
+    dy = torch.randn((B, Cout, T), generator=g).to(dtype).to(dev)
+    return x, wd, wp, dy
+
+
+CONV_CASES = [(1, 40, 16, 24, 5),        # one row
+              (2, 5, 8, 8, 33),          # T < k
+              (3, 70, 40, 136, 9),       # T, Cin, Cout off the tiles
+              (2, 100, 64, 48, 87),      # the largest k of the model
+              (2, 64, 336, 512, 51)]     # the context block's widths
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,Cin,Cout,k", CONV_CASES)
+def test_k9_k10_against_plain(dev, B, T, Cin, Cout, k, dtype):
+    x, wd, wp, dy = _conv_case(dev, B, T, Cin, Cout, k, dtype, T + k)
+    before = (sepconv_forward.launches, sepconv_backward.launches)
+    y = sepconv_forward(x, wd, wp)
+    dx, gwd, gwp = sepconv_backward(x, wd, wp, dy)
+    assert (sepconv_forward.launches, sepconv_backward.launches) == (before[0] + 1, before[1] + 1)
+    want_dx, want_gwd, want_gwp = sepconv_backward_plain(x, wd, wp, dy)
+    # the depthwise sums run in the plain version's order, so only the
+    # pointwise and dz products' float32 order differs before the rounding
+    _close_to_plain(y, sepconv_forward_plain(x, wd, wp))
+    _close_to_plain(dx, want_dx)
+    for got, want in ((gwd, want_gwd), (gwp, want_gwp)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert (got - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+    again = sepconv_backward(x, wd, wp, dy)       # fixed-order sums: the same bits
+    assert all(torch.equal(a, b) for a, b in zip(again, (dx, gwd, gwp)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,C,k", [(1, 40, 16, 5), (2, 5, 8, 33), (3, 300, 40, 9),
+                                     (2, 600, 64, 87)])
+def test_k11_against_plain(dev, B, T, C, k, dtype):
+    x, _, _, dy = _conv_case(dev, B, T, C, C, k, dtype, T + 3 * k)
+    before = depthwise_wgrad.launches
+    got = depthwise_wgrad(x, dy, k)
+    assert depthwise_wgrad.launches == before + 1
+    want = depthwise_wgrad_plain(x, dy, k)
+    # the same products (rounded to bf16 in bf16) summed in another order
+    # within each 256-frame chunk
+    assert (got - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+    assert torch.equal(got, depthwise_wgrad(x, dy, k))
+
+
+def test_conv_kernels_reject_what_they_cannot_run(dev):
+    x, wd, wp, dy = _conv_case(dev, 2, 30, 8, 8, 5, torch.float32, 0)
+    for args in ((x.half(), wd, wp), (x, wd[:, :, :4].contiguous(), wp),
+                 (x.transpose(1, 2).contiguous().transpose(1, 2), wd, wp)):
+        with pytest.raises(ValueError):
+            sepconv_forward(*args)
+    with pytest.raises(ValueError):
+        sepconv_backward(x, wd, wp, dy.bfloat16())
+    with pytest.raises(ValueError):
+        depthwise_wgrad(x.half(), dy.half(), 5)
+    with pytest.raises(ValueError):
+        depthwise_wgrad(x, x, 4)
+    with pytest.raises(ValueError):
+        depthwise_wgrad(x[:, :, ::2], x[:, :, ::2], 5)

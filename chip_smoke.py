@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU and
-check them.
+"""Drive the PyTorch port's serving, training and trainer paths on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py
 
@@ -41,38 +41,57 @@ Phases, in order; any failed check exits non-zero before the last line:
      the 16.7 s bucket after the stride-2 stem), against its plain version,
      with cuDNN's packed LSTM forward + backward as the yardstick; K2 with
      its cell-state output at that shape against its plain version too;
- 10. K4 and K5, the CTC alpha and beta + gradient kernels (B=32, T'=836,
+ 10. K7 and K8, the batch-stacked BiLSTM recurrence (both directions as the
+     2B rows of one walk) and its backward, at that shape against their
+     plain versions and against K2 / K3 on the same inputs, run twice for
+     the same bits, with cuDNN's packed LSTM forward (and forward +
+     backward) as the yardsticks;
+ 11. K4 and K5, the CTC alpha and beta + gradient kernels (B=32, T'=836,
      C=29, ~15 labels a second, one impossible alignment), against their
      plain versions and against PyTorch's own CTC (its forward and backward
      ops as the yardsticks);
- 11. training: a seeded full-width bf16 quartznet12_context takes 20 steps
+ 12. training: a seeded full-width bf16 quartznet12_context takes 20 steps
      of the recipe (dither, SpecAugment, fused NovoGrad, the NaN guard) on
      one batch of 32 int16 waves of 2-16.7 s; the loss must be finite and
      fall, nan_count stay 0, and K1-K6 launch once a step; the steady
      steps' host-clock times, audio-seconds trained per second (the audio of
      the steady steps over their summed time), device time by kernel group
-     (torch.profiler) and peak memory; then training_sepconv and
-     training_dw_wgrad, 8 steps each of the model built with that
-     conv_kernel, K9 and K10 (or K11) launched 14 times a step;
- 12. training parity: one float32 step from one state and one batch (B=4,
+     (torch.profiler) and peak memory; then training_sepconv,
+     training_dw_wgrad and training_fused_bidir, 8 steps each of the model
+     built with that conv_kernel or with fuse_directions, K9 and K10 (or
+     K11) launched 14 times a step, or K7 and K8 once in place of K2 and K3;
+ 13. training parity: one float32 step from one state and one batch (B=4,
      4 s bucket, no dither, augmentation or dropout) on the card and on the
      CPU: loss, grad norm, per-tensor gradients, parameter updates; for each
-     of the three configurations;
- 13. a {"kernels": [...]} line: per kernel its launches on the main paths
-     (the two serving bursts and the training steps of the three
-     configurations), its error against the plain version, its time, the
-     plain version's, the library yardstick's, and the least time the card
-     could take (K1 and K2 at the serving shape, K3-K6 at the training
-     shape, K9-K11 at the widest layer);
- 14. {"ok": true, "device": {...}} as the last line.
+     of the four configurations;
+ 14. trainer: ``python -m lightning_asr_torch.train`` (its ``main``) with
+     LASR_LSTM_FUSED_BIDIR=1 on a tone-language corpus of 128 + 32 WAVs of
+     0.5-3 s written to a temporary directory, the default full-width model
+     in bf16, batch 32, 3 epochs validated each, then one more epoch resumed
+     from ``last`` under torch.profiler: losses finite and the epoch mean
+     falling, val_wer finite, at most 3 top-k checkpoints and ``last``, the
+     resumed run starting at the saved step + 1, K7 launched once a train
+     step and evaluation batch and K8 once a train step (K2, K3 never);
+     AsrTranslator on the card transcribes an utterance from ``last``;
+     epoch times, audio-seconds per second and the step's share of them;
+ 15. a {"kernels": [...]} line: per kernel K1-K11 its launches on the main
+     paths (the two serving bursts, the training steps of the four
+     configurations and the trainer's runs), its error against the plain
+     version, its time, the plain version's, the library yardstick's, and
+     the least time the card could take (K1 and K2 at the serving shape,
+     K3-K8 at the training shape, K9-K11 at the widest layer);
+ 16. {"ok": true, "device": {...}} as the last line.
 
 Without a CUDA device it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import http.client
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -80,11 +99,12 @@ import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from lightning_asr_torch.data.audio import read_audio, wav_bytes
+from lightning_asr_torch.data.audio import read_audio, wav_bytes, write_wav
 from lightning_asr_torch.inference.predict import AsrTranslator
 from lightning_asr_torch.inference.server import make_stdlib_server
 from lightning_asr_torch.models.layers import MaskedBatchNorm
@@ -97,13 +117,18 @@ from lightning_asr_torch.ops.frontend import (MelFrontendConfig, _preemphasis, e
 from lightning_asr_torch.ops.depthwise_kernels import depthwise_wgrad, depthwise_wgrad_plain
 from lightning_asr_torch.ops.frontend_kernels import (extend_preemph, extend_preemph_plain,
                                                       mel_from_extended, mel_from_extended_plain)
+from lightning_asr_torch.ops.lstm import stack_directions, stacked_valid, unstack_directions
 from lightning_asr_torch.ops.lstm_kernels import (lstm_backward, lstm_backward_plain,
-                                                  lstm_recurrence, lstm_recurrence_plain)
+                                                  lstm_backward_stacked, lstm_backward_stacked_plain,
+                                                  lstm_recurrence, lstm_recurrence_plain,
+                                                  lstm_recurrence_stacked,
+                                                  lstm_recurrence_stacked_plain)
 from lightning_asr_torch.ops.sepconv_kernels import (sepconv_backward, sepconv_backward_plain,
                                                      sepconv_forward, sepconv_forward_plain)
 from lightning_asr_torch.optim import cosine_annealing_warmup_restarts, novograd
 from lightning_asr_torch.optim.novograd import GradientTransformation
-from lightning_asr_torch.training.checkpoint import save_checkpoint
+from lightning_asr_torch.train import main as train_main
+from lightning_asr_torch.training.checkpoint import TRAIN_STATE_FILE, save_checkpoint
 from lightning_asr_torch.training.steps import create_train_state, make_train_step
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -163,8 +188,15 @@ K11_TOL = 1e-4
 # the separable layers K9-K11 are checked and timed at (Cin, Cout, k): the
 # narrowest trunk block, the context block and the widest
 SEPCONV_LAYERS = ((256, 256, 33), (336, 512, 51), (512, 512, 87))
-# steps of each conv-kernel training configuration
+# steps of each conv-kernel training configuration, and of fuse_directions
 CONV_TRAIN_STEPS = 8
+# K7/K8 against their plain versions and against K2/K3 on the same inputs:
+# the bounds of K2 and K3 (the same float32 recurrences, sums in another
+# order); c_prev, whose |c| grows past 1, as K2's cell output
+# trainer phase: a tone-language corpus of 0.5-3 s utterances in one 3 s
+# bucket, batch 32, epochs before the resume and after it
+TRAINER_UTTS, TRAINER_DEV_UTTS, TRAINER_EPOCHS = 128, 32, 3
+FUSED_SWITCH = "LASR_LSTM_FUSED_BIDIR"
 
 SR = 16000
 LABELS = [" ", "'"] + [chr(ord("a") + i) for i in range(26)]
@@ -263,6 +295,19 @@ def phase_k1(dev) -> dict:
     return res
 
 
+def _cudnn_bilstm(dev, w_ih, w_hh, b_ih, b_hh):
+    """cuDNN's bidirectional LSTM with the given (2, ...) weights, the
+    yardstick of the recurrence kernels (the port never calls it)."""
+    ref = torch.nn.LSTM(w_ih.shape[2], w_hh.shape[2], batch_first=True, bidirectional=True).to(dev)
+    with torch.no_grad():
+        for d, sfx in enumerate(("", "_reverse")):
+            getattr(ref, f"weight_ih_l0{sfx}").copy_(w_ih[d])
+            getattr(ref, f"weight_hh_l0{sfx}").copy_(w_hh[d])
+            getattr(ref, f"bias_ih_l0{sfx}").copy_(b_ih[d])
+            getattr(ref, f"bias_hh_l0{sfx}").copy_(b_hh[d])
+    return ref
+
+
 def phase_k2(dev) -> dict:
     rng = np.random.default_rng(1)
     B, T, C, H, D = 8, 801, 256, 40, 2
@@ -297,13 +342,7 @@ def phase_k2(dev) -> dict:
     plain_ms = cuda_ms(lambda: lstm_recurrence_plain(xproj, lens, w_hh), 2, warmup=1)
     # yardstick: cuDNN's bidirectional LSTM over the packed sequence, input
     # projection included (the port never calls it)
-    ref = torch.nn.LSTM(C, H, batch_first=True, bidirectional=True).to(dev)
-    with torch.no_grad():
-        for d, sfx in enumerate(("", "_reverse")):
-            getattr(ref, f"weight_ih_l0{sfx}").copy_(w_ih[d])
-            getattr(ref, f"weight_hh_l0{sfx}").copy_(w_hh[d])
-            getattr(ref, f"bias_ih_l0{sfx}").copy_(b_ih[d])
-            getattr(ref, f"bias_hh_l0{sfx}").copy_(b_hh[d])
+    ref = _cudnn_bilstm(dev, w_ih, w_hh, b_ih, b_hh)
     lens_cpu = torch.from_numpy(lens_np.astype(np.int64))
 
     @torch.no_grad()
@@ -670,7 +709,8 @@ def _serve_and_check(dev, name: str, translator, cpu, cpu32, blobs, extra: dict,
 def _category(name: str) -> str:
     low = name.lower()
     for tag, cat in (("log_mel_kernel", "K1 log_mel"), ("lstm_fwd_kernel", "K2 lstm"),
-                     ("lstm_bwd_kernel", "K3 lstm_bwd"), ("ctc_alpha_kernel", "K4 ctc_alpha"),
+                     ("lstm_bwd_kernel", "K3 lstm_bwd"), ("lstm_stacked_fwd_kernel", "K7 lstm_stacked"),
+                     ("lstm_stacked_bwd_kernel", "K8 lstm_stacked_bwd"), ("ctc_alpha_kernel", "K4 ctc_alpha"),
                      ("ctc_beta_kernel", "K5 ctc_beta"), ("extend_kernel", "K6 extend_preemph"),
                      ("sepconv_fwd_kernel", "K9 sepconv_fwd"), ("sepconv_dz_kernel", "K10 sepconv_bwd"),
                      ("sepconv_bwd_dw_kernel", "K10 sepconv_bwd"),
@@ -804,13 +844,7 @@ def phase_k3(dev) -> dict:
     plain_ms = cuda_ms(lambda: lstm_backward_plain(xproj, lens, w_hh, h, cell, grad_h), 1, warmup=1)
     # yardstick: cuDNN's bidirectional LSTM over the packed sequence, forward
     # and backward, input projection included (the port never calls it)
-    ref = torch.nn.LSTM(C, H, batch_first=True, bidirectional=True).to(dev)
-    with torch.no_grad():
-        for d, sfx in enumerate(("", "_reverse")):
-            getattr(ref, f"weight_ih_l0{sfx}").copy_(w_ih[d])
-            getattr(ref, f"weight_hh_l0{sfx}").copy_(w_hh[d])
-            getattr(ref, f"bias_ih_l0{sfx}").copy_(b_ih[d])
-            getattr(ref, f"bias_hh_l0{sfx}").copy_(b_hh[d])
+    ref = _cudnn_bilstm(dev, w_ih, w_hh, b_ih, b_hh)
     xg = x.clone().requires_grad_(True)
     lens_cpu = torch.from_numpy(lens_np.astype(np.int64))
 
@@ -847,6 +881,111 @@ def phase_k3(dev) -> dict:
                                        "ms": k2_ms, "bound_ms": k2_bound[0], "bound_by": k2_bound[1]},
                       "phase_launches": lstm_backward.launches, **res}), flush=True)
     return res
+
+
+def phase_k78(dev):
+    """K7 and K8, the batch-stacked BiLSTM recurrence and its backward, at
+    the training shape (B=32, T'=836, C=256, H=40, ragged lengths) against
+    their plain versions and against K2 / K3 on the same inputs."""
+    rng = np.random.default_rng(7)
+    B, T, C, H, D = 32, T_TRAIN, 256, 40, 2
+    s = 1.0 / np.sqrt(H)
+    x = torch.from_numpy(rng.standard_normal((B, T, C)).astype(np.float32)).to(dev)
+    w_ih, w_hh, b_ih, b_hh = (torch.from_numpy(rng.uniform(-s, s, shape).astype(np.float32)).to(dev)
+                              for shape in ((D, 4 * H, C), (D, 4 * H, H), (D, 4 * H), (D, 4 * H)))
+    lens_np = train_rows(rng, B)[2]
+    lens = torch.from_numpy(lens_np).to(dev)
+    xproj = (torch.matmul(x, w_ih.reshape(D * 4 * H, C).t()) + b_ih.reshape(-1)
+             + b_hh.reshape(-1)).reshape(B, T, D, 4 * H).contiguous()
+    grad_h = torch.from_numpy(rng.standard_normal((B, T, D * H)).astype(np.float32)).to(dev)
+    # the stacked rows as ops/lstm.py builds them
+    xp = stack_directions(xproj).contiguous()
+    valid = stacked_valid(T, lens)
+    gs = stack_directions(grad_h.reshape(B, T, D, H)).contiguous()
+    w_f, w_b = w_hh[0].contiguous(), w_hh[1].contiguous()
+
+    lstm_recurrence_stacked.launches = lstm_backward_stacked.launches = 0
+    h, h_prev, c_prev = lstm_recurrence_stacked(xp, valid, w_f, w_b)
+    d_x, dw_f, dw_b = lstm_backward_stacked(xp, valid, w_f, w_b, h_prev, c_prev, gs)
+    want = lstm_recurrence_stacked_plain(xp, valid, w_f, w_b)
+    want_dx, want_f, want_b = lstm_backward_stacked_plain(xp, valid, w_f, w_b, h_prev, c_prev, gs)
+    h2, cell = lstm_recurrence(xproj, lens, w_hh, with_cell=True)
+    dx3, dw3 = lstm_backward(xproj, lens, w_hh, h2, cell, grad_h)
+    torch.cuda.synchronize()
+    rel = lambda a, b: (a - b).abs().max().item() / b.abs().max().item()  # noqa: E731
+    errs = {
+        "K7_h": (h - want[0]).abs().max().item(), "K7_h_prev": (h_prev - want[1]).abs().max().item(),
+        "K7_c_prev": (c_prev - want[2]).abs().max().item(),
+        "K7_h_vs_K2": (unstack_directions(h).reshape(B, T, D * H) - h2).abs().max().item(),
+        "K8_dx": (d_x - want_dx).abs().max().item(),
+        "K8_dw_rel": max(rel(dw_f, want_f), rel(dw_b, want_b)),
+        "K8_dx_vs_K3": (unstack_directions(d_x) - dx3).abs().max().item(),
+        "K8_dw_vs_K3_rel": max(rel(dw_f, dw3[0]), rel(dw_b, dw3[1])),
+    }
+    check(all(bool(torch.isfinite(t).all()) for t in (h, h_prev, c_prev, d_x, dw_f, dw_b)),
+          "K7/K8 outputs finite")
+    check(bool((h[valid == 0] == 0).all()) and bool((d_x[valid == 0] == 0).all()),
+          "K7 h / K8 d_xproj at invalid steps are not exactly zero")
+    check(errs["K7_h"] <= K2_TOL and errs["K7_h_prev"] <= K2_TOL and errs["K7_c_prev"] <= 10 * K2_TOL
+          and errs["K7_h_vs_K2"] <= K2_TOL, f"K7 against plain / K2: {errs}")
+    check(errs["K8_dx"] <= K3_TOL_DX and errs["K8_dw_rel"] <= K3_TOL_DW
+          and errs["K8_dx_vs_K3"] <= K3_TOL_DX and errs["K8_dw_vs_K3_rel"] <= K3_TOL_DW,
+          f"K8 against plain / K3: {errs}")
+    again7 = lstm_recurrence_stacked(xp, valid, w_f, w_b)
+    again8 = lstm_backward_stacked(xp, valid, w_f, w_b, h_prev, c_prev, gs)
+    check(all(torch.equal(a, b) for a, b in zip(again7 + again8, (h, h_prev, c_prev, d_x, dw_f, dw_b))),
+          "K7/K8: two runs differ")
+    launches = {"K7": lstm_recurrence_stacked.launches, "K8": lstm_backward_stacked.launches}
+
+    ref = _cudnn_bilstm(dev, w_ih, w_hh, b_ih, b_hh)
+    lens_cpu = torch.from_numpy(lens_np.astype(np.int64))
+    xg = x.clone().requires_grad_(True)
+
+    def cudnn(backward: bool):
+        with torch.set_grad_enabled(backward):
+            packed = torch.nn.utils.rnn.pack_padded_sequence(xg if backward else x, lens_cpu,
+                                                             batch_first=True, enforce_sorted=False)
+            out = torch.nn.utils.rnn.pad_packed_sequence(ref(packed)[0], batch_first=True,
+                                                         total_length=T)[0]
+            if backward:
+                torch.autograd.backward(out, grad_h)
+
+    times = {
+        "K7": (cuda_ms(lambda: lstm_recurrence_stacked(xp, valid, w_f, w_b), 20),
+               cuda_ms(lambda: lstm_recurrence_stacked_plain(xp, valid, w_f, w_b), 1, warmup=1),
+               cuda_ms(lambda: cudnn(False), 10)),
+        "K8": (cuda_ms(lambda: lstm_backward_stacked(xp, valid, w_f, w_b, h_prev, c_prev, gs), 10),
+               cuda_ms(lambda: lstm_backward_stacked_plain(xp, valid, w_f, w_b, h_prev, c_prev, gs),
+                       1, warmup=1),
+               cuda_ms(lambda: cudnn(True), 5)),
+        "K2_with_cell": (cuda_ms(lambda: lstm_recurrence(xproj, lens, w_hh, with_cell=True), 20),),
+        "K3": (cuda_ms(lambda: lstm_backward(xproj, lens, w_hh, h2, cell, grad_h), 10),),
+    }
+    G = 4 * H
+    steps = int(lens_np.sum()) * D                  # valid row-steps
+    small = valid.numel() * 4 + 2 * w_f.numel() * 4
+    # K7: the valid steps' projections, the mask and both W_hh in; h, h_prev
+    # and c_prev out for every step
+    b7 = bound(steps * G * 4 + small + 3 * h.numel() * 4, steps * (2 * G * H + 2 * G + 5 * H), "fp32")
+    # K8: per valid step its projection, h_prev, c_prev and dh in; all of
+    # d_xproj and both dW_hh out; the gate recompute, dh_prev and dW_hh
+    b8 = bound(steps * (G + 3 * H) * 4 + small + d_x.numel() * 4 + 2 * dw_f.numel() * 4,
+               steps * (3 * 2 * G * H + 30 * H), "fp32")
+    rows = []
+    for key, name, line, err, (bms, bby) in (
+            ("K7", "lstm_recurrence_stacked (K7)", 155, errs["K7_h"], b7),
+            ("K8", "lstm_backward_stacked (K8)", 184, errs["K8_dx"], b8)):
+        ms, plain_ms, library_ms = times[key]
+        rows.append({"name": name, "route": "cuda", "source": "lightning_asr_torch/csrc/lstm_bidir.cu",
+                     "replaces": f"lightning_asr_tpu/ops/lstm_pallas.py:{line}",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                     "bound_by": bby, "library_ms": library_ms})
+    print(json.dumps({"phase": "K7/K8", "shape": [B, T, C, H, D], "tol": K2_TOL, "tol_dx": K3_TOL_DX,
+                      "tol_dw_rel": K3_TOL_DW, **errs, "valid_row_steps": steps,
+                      "same_inputs_ms": {"K2_with_cell": times["K2_with_cell"][0],
+                                         "K3": times["K3"][0]},
+                      "phase_launches": launches, "kernels": rows}), flush=True)
+    return rows
 
 
 def phase_k45(dev):
@@ -955,14 +1094,18 @@ def train_batch(rng, B: int, bucket_s: float, max_s: float):
     return {"waves": waves, "wave_lens": lens, "targets": targets, "target_lens": tl}, float(seconds.sum())
 
 
-def phase_training(dev, conv_kernel=None, steps: int = TRAIN_STEPS) -> dict:
+def _config_name(prefix: str, conv_kernel, fuse_directions: bool) -> str:
+    return prefix + ("_fused_bidir" if fuse_directions else "") + (f"_{conv_kernel}" if conv_kernel else "")
+
+
+def phase_training(dev, conv_kernel=None, steps: int = TRAIN_STEPS, fuse_directions: bool = False) -> dict:
     """The recipe's train step at full width, ``steps`` steps on one batch,
-    the model built with ``conv_kernel`` (phase ``training`` or
-    ``training_<conv_kernel>``)."""
-    name = "training" if conv_kernel is None else f"training_{conv_kernel}"
+    the model built with ``conv_kernel`` / ``fuse_directions`` (phase
+    ``training``, ``training_<conv_kernel>`` or ``training_fused_bidir``)."""
+    name = _config_name("training", conv_kernel, fuse_directions)
     gen = torch.Generator().manual_seed(5)
     model = build_model(len(LABELS) + 1, "quartznet12_context", mask=True, dtype=torch.bfloat16,
-                        conv_kernel=conv_kernel)
+                        conv_kernel=conv_kernel, fuse_directions=fuse_directions)
     reset_parameters(model, gen)
     model.to(dev)
     schedule = cosine_annealing_warmup_restarts(first_cycle_steps=1000, cycle_mult=2, max_lr=1e-2,
@@ -978,10 +1121,12 @@ def phase_training(dev, conv_kernel=None, steps: int = TRAIN_STEPS) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    # launches a step: K1-K6 once; the 14 stride-1 block convs each run K9
-    # and K10 (sepconv) or K11 (dw_wgrad) once
-    per_step = {mel_from_extended: 1, lstm_recurrence: 1, lstm_backward: 1, ctc_alpha: 1,
-                ctc_beta: 1, extend_preemph: 1,
+    # launches a step: K1, K4-K6 once, K2 and K3 (or K7 and K8 with
+    # fuse_directions) once; the 14 stride-1 block convs each run K9 and K10
+    # (sepconv) or K11 (dw_wgrad) once
+    per_step = {mel_from_extended: 1, lstm_recurrence: int(not fuse_directions),
+                lstm_backward: int(not fuse_directions), lstm_recurrence_stacked: int(fuse_directions),
+                lstm_backward_stacked: int(fuse_directions), ctc_alpha: 1, ctc_beta: 1, extend_preemph: 1,
                 sepconv_forward: 14 * (conv_kernel == "sepconv"),
                 sepconv_backward: 14 * (conv_kernel == "sepconv"),
                 depthwise_wgrad: 14 * (conv_kernel == "dw_wgrad")}
@@ -1038,17 +1183,17 @@ def _capture(inner):
                                              inner.init(p)), update)
 
 
-def phase_train_parity(dev, conv_kernel=None) -> dict:
+def phase_train_parity(dev, conv_kernel=None, fuse_directions: bool = False) -> dict:
     """One float32 step from one state and one batch, on the card and on
     the CPU (plain versions of every kernel), the model built with
-    ``conv_kernel``."""
-    name = "training_parity" + ("" if conv_kernel is None else f"_{conv_kernel}")
+    ``conv_kernel`` / ``fuse_directions``."""
+    name = _config_name("training_parity", conv_kernel, fuse_directions)
     gen = torch.Generator().manual_seed(6)
     cpu_model = build_model(len(LABELS) + 1, "quartznet12_context", mask=True,
-                            conv_kernel=conv_kernel)
+                            conv_kernel=conv_kernel, fuse_directions=fuse_directions)
     reset_parameters(cpu_model, gen)
     card_model = build_model(len(LABELS) + 1, "quartznet12_context", mask=True,
-                             conv_kernel=conv_kernel)
+                             conv_kernel=conv_kernel, fuse_directions=fuse_directions)
     card_model.load_state_dict(cpu_model.state_dict())
     card_model.to(dev)
     batch_np, _ = train_batch(np.random.default_rng(6), 4, 4.0, 3.9)
@@ -1085,6 +1230,132 @@ def phase_train_parity(dev, conv_kernel=None) -> dict:
     return res
 
 
+def tone_corpus(root: Path, n: int, seed: int, name: str, lo: float = 0.5, hi: float = 3.0) -> Path:
+    """``n`` WAVs of a tone language (ten characters, each a sine tone of
+    80 ms, a space silence, light noise) of ``lo``-``hi`` seconds, and their
+    JSONL manifest."""
+    rng = np.random.default_rng(seed)
+    chars = "abcdefghij"
+    t = np.arange(int(SR * 0.08)) / SR
+    tones = {c: 0.3 * np.sin(2 * np.pi * (300.0 + 150.0 * i) * t) for i, c in enumerate(chars)}
+    rows = []
+    for i in range(n):
+        n_chars = int(rng.uniform(lo, hi) / 0.08)
+        text = ""
+        while len(text) < n_chars:
+            word = "".join(rng.choice(list(chars), size=rng.integers(2, 5)))
+            text = f"{text} {word}" if text else word
+        text = text[:n_chars].strip()
+        wave = np.concatenate([tones.get(c, np.zeros_like(t)) for c in text]).astype(np.float32)
+        wave += 0.01 * rng.standard_normal(wave.shape).astype(np.float32)
+        path = root / f"{name}_{i}.wav"
+        write_wav(path, wave, SR)
+        rows.append({"audio_filepath": str(path), "duration": len(wave) / SR, "text": text})
+    manifest = root / f"{name}.json"
+    manifest.write_text("".join(json.dumps(r) + "\n" for r in rows))
+    return manifest
+
+
+def _run_train(args):
+    """``python -m lightning_asr_torch.train`` in this process (the resolved
+    config and the profiler table it prints are kept out of this output)."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return train_main(args)
+
+
+def phase_trainer(dev) -> dict:
+    """The trainer entry point on the card: ``lightning_asr_torch.train.main``
+    with ``LASR_LSTM_FUSED_BIDIR=1`` (the model through K7 / K8) on a
+    tone-language corpus, the full-width default model in bf16, batch 32,
+    TRAINER_EPOCHS epochs validated each, then one more epoch resumed from
+    ``last`` under torch.profiler; and AsrTranslator on the card transcribing
+    an utterance from ``last``."""
+    counters = (lstm_recurrence_stacked, lstm_backward_stacked, lstm_recurrence, lstm_backward)
+    old_switch = os.environ.get(FUSED_SWITCH)
+    os.environ[FUSED_SWITCH] = "1"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            train = tone_corpus(root, TRAINER_UTTS, 0, "train")
+            dev_m = tone_corpus(root, TRAINER_DEV_UTTS, 1, "dev")
+            run = root / "run"
+            args = [f"data.train_manifest={train}", f"data.val_manifest={dev_m}",
+                    f"data.test_manifest={dev_m}", "data.bucket_seconds=[3.0]",
+                    f"train.total_epoch={TRAINER_EPOCHS}", "train.train_batch_size=32",
+                    "train.dev_batch_size=32", "train.warmup_steps=4", "train.log_every_n_steps=1",
+                    "model.compute_dtype=bf16", f"log.run.dir={run}"]
+            runs = []
+            for i, extra in enumerate(([], [f"train.total_epoch={TRAINER_EPOCHS + 1}",
+                                            f"train.checkpoint={run / 'checkpoints' / 'last'}"])):
+                saved_step = None
+                if i:
+                    saved_step = int(torch.load(run / "checkpoints" / "last" / TRAIN_STATE_FILE,
+                                                weights_only=True)["step"])
+                for fn in counters:
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                if i:
+                    holder = {}
+                    device_ms, by_cat, _ = device_time(lambda: holder.update(out=_run_train(args + extra)), 1)
+                    out = holder["out"]
+                else:
+                    out, device_ms, by_cat = _run_train(args + extra), None, None
+                wall = time.perf_counter() - t0
+                tr = out["trainer"]
+                runs.append({"trainer": tr, "state": out["state"], "saved_step": saved_step,
+                             "wall_s": wall, "device_ms": device_ms, "by_cat": by_cat,
+                             "launches": {fn.__name__: fn.launches for fn in counters},
+                             "eval_batches": tr.profiler.counts["val_step"] + tr.profiler.counts["test_step"],
+                             "train_steps": sum(e["batches"] for e in tr.epoch_stats), "test": out["test"]})
+            index = json.loads((run / "checkpoints" / "index.json").read_text())
+            metrics = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+            translator = AsrTranslator(run / "checkpoints" / "last", device="cuda")
+            utt = json.loads(train.read_text().splitlines()[0])
+            text = translator.translate(utt["audio_filepath"])
+            del translator
+    finally:
+        if old_switch is None:
+            os.environ.pop(FUSED_SWITCH, None)
+        else:
+            os.environ[FUSED_SWITCH] = old_switch
+
+    first, resumed = runs
+    stats = first["trainer"].epoch_stats + resumed["trainer"].epoch_stats
+    means = [e["loss_mean"] for e in stats]
+    check(all(np.isfinite(e["losses"]).all() for e in stats), f"trainer: losses not finite: {means}")
+    check(means[TRAINER_EPOCHS - 1] < means[0], f"trainer: the epoch mean loss did not fall: {means}")
+    val_wers = [m["val_wer"] for m in metrics if "val_wer" in m]
+    check(len(val_wers) == TRAINER_EPOCHS + 1 and all(np.isfinite(val_wers)), f"trainer: val_wer {val_wers}")
+    check(len(index["saved"]) <= 3 and index["last"] == "last", f"trainer: index.json {index}")
+    check(resumed["saved_step"] == int(first["state"].step)
+          and resumed["trainer"].epoch_stats[0]["first_step"] == resumed["saved_step"] + 1,
+          f"trainer: resumed at step {resumed['trainer'].epoch_stats[0]['first_step']}, "
+          f"saved {resumed['saved_step']}")
+    for r in runs:
+        want = {"lstm_recurrence_stacked": r["train_steps"] + r["eval_batches"],
+                "lstm_backward_stacked": r["train_steps"], "lstm_recurrence": 0, "lstm_backward": 0}
+        check(r["launches"] == want, f"trainer: launches {r['launches']}, want {want}")
+    check(isinstance(text, str) and set(text) <= set(LABELS), f"trainer: translator gave {text!r}")
+    train_s = sum(e["wall_sec"] for e in stats)
+    step_s = first["trainer"].profiler.totals["train_step"] + resumed["trainer"].profiler.totals["train_step"]
+    res_epoch = resumed["trainer"].epoch_stats[0]
+    res = {"phase": "trainer", "utterances": [TRAINER_UTTS, TRAINER_DEV_UTTS], "bucket_s": 3.0,
+           "batch": 32, "dtype": "bfloat16", "fuse_directions": True,
+           "epochs": [{k: e[k] for k in ("epoch", "batches", "first_step", "wall_sec", "audio_sec",
+                                          "audio_sec_per_sec", "loss_mean")} for e in stats],
+           "val_wer": val_wers, "test": resumed["test"],
+           "train_step_share_of_epoch_wall": step_s / train_s,
+           "run_wall_s": [r["wall_s"] for r in runs],
+           "resumed_run": {"device_ms": resumed["device_ms"], "wall_s": resumed["wall_s"],
+                           "epoch_wall_s_profiled": res_epoch["wall_sec"],
+                           "device_ms_by_category": resumed["by_cat"]},
+           "launches": [r["launches"] for r in runs], "saved": [e["name"] for e in index["saved"]],
+           "translated_chars": len(text)}
+    print(json.dumps(res), flush=True)
+    return {**res, "k7_launches": sum(r["launches"]["lstm_recurrence_stacked"] for r in runs),
+            "k8_launches": sum(r["launches"]["lstm_backward_stacked"] for r in runs)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU",
@@ -1112,13 +1383,16 @@ def main() -> int:
     phase_profile(translator, served)
     del translator
     k3 = phase_k3(dev)
+    k7, k8 = phase_k78(dev)
     k4, k5 = phase_k45(dev)
     trainings = [phase_training(dev), phase_training(dev, "sepconv", CONV_TRAIN_STEPS),
-                 phase_training(dev, "dw_wgrad", CONV_TRAIN_STEPS)]
-    for conv_kernel in (None, "sepconv", "dw_wgrad"):
-        phase_train_parity(dev, conv_kernel)
-    # launches on the main paths: the two serving bursts and the training
-    # steps of the three configurations
+                 phase_training(dev, "dw_wgrad", CONV_TRAIN_STEPS),
+                 phase_training(dev, steps=CONV_TRAIN_STEPS, fuse_directions=True)]
+    for conv_kernel, fused in ((None, False), ("sepconv", False), ("dw_wgrad", False), (None, True)):
+        phase_train_parity(dev, conv_kernel, fused)
+    trainer = phase_trainer(dev)
+    # launches on the main paths: the two serving bursts, the training steps
+    # of the four configurations and the trainer's runs
     serve = {key: serving["launches"].get(key, 0) + serving_sep["launches"].get(key, 0)
              for key in ("mel", "lstm", "extend", "sepconv_forward")}
     train = {name: sum(t["launches"][name] for t in trainings) for name in trainings[0]["launches"]}
@@ -1128,10 +1402,12 @@ def main() -> int:
     k4["launches"] = train["ctc_alpha"]
     k5["launches"] = train["ctc_beta"]
     k6["launches"] = serve["extend"] + train["extend_preemph"]
+    k7["launches"] = train["lstm_recurrence_stacked"] + trainer["k7_launches"]
+    k8["launches"] = train["lstm_backward_stacked"] + trainer["k8_launches"]
     k9["launches"] = serve["sepconv_forward"] + train["sepconv_forward"]
     k10["launches"] = train["sepconv_backward"]
     k11["launches"] = train["depthwise_wgrad"]
-    rows = (k1, k2, k3, k4, k5, k6, k9, k10, k11)
+    rows = (k1, k2, k3, k4, k5, k6, k7, k8, k9, k10, k11)
     check(all(r["launches"] > 0 for r in rows), "a kernel of the main paths was never launched")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

@@ -6,17 +6,23 @@ tested against; this package imports neither it nor JAX.
 
 Layering (bottom → top):
   csrc/      hand-written CUDA C++ kernels for Hopper (sm_90a)
-  ops/       mel frontend (+ fused log-mel kernel), LSTM recurrence and its
-             backward (+ kernels), CTC loss (+ alpha / beta kernels),
-             SpecAugment
-  data/      vocabulary, WAV decode
+  ops/       mel frontend (+ fused log-mel and extension kernels), LSTM
+             recurrence and its backward, also batch-stacked (+ kernels),
+             CTC loss (+ alpha / beta kernels), separable and depthwise
+             convs (+ kernels), wave crop and SpecAugment
+  data/      vocabulary, WAV decode, manifests, bucketed batches, datamodule
   models/    QuartNet12Context + CTC head (nn.Modules, eval and train)
-  optim/     NovoGrad, cosine warmup restarts, gradient clipping
+  optim/     NovoGrad (also with a runtime lr), cosine warmup restarts,
+             ReduceLROnPlateau, gradient clipping
+  metrics/   WER / CER
   decoding/  greedy CTC decode
-  training/  train and eval steps; the port's checkpoint format
-             (state.pt + metadata.json)
-  utils/     device selection, flax <-> torch weight bridge
+  training/  train and eval steps, the trainer, checkpoints of train state
+             (state.pt + train_state.pt + metadata.json), callbacks,
+             loggers, profiler
+  utils/     device selection, config (own YAML reader), logging, the
+             flax <-> torch weight and optimizer-state bridge
   inference/ AsrTranslator + HTTP server
+  train.py   the training CLI (python -m lightning_asr_torch.train)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 On a CPU tensor every kernel wrapper runs its plain PyTorch version; on a

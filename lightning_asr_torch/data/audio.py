@@ -76,6 +76,11 @@ def read_audio(source: Union[str, Path, bytes, io.BytesIO], mono: bool = False) 
     return samples, sr
 
 
+def write_wav(path: Union[str, Path], samples: np.ndarray, sample_rate: int) -> None:
+    """Write float32 (n,) or (channels, n) samples as a 16-bit PCM WAV."""
+    Path(path).write_bytes(wav_bytes(samples, sample_rate))
+
+
 def wav_bytes(samples: np.ndarray, sample_rate: int) -> bytes:
     """Encode float32 (n,) or (channels, n) samples as a 16-bit PCM WAV."""
     if samples.ndim == 1:

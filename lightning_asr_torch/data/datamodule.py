@@ -1,0 +1,105 @@
+"""AsrDataModule: train/val/test loaders from JSONL manifests and labels
+(port of ``lightning_asr_tpu/data/datamodule.py``), with the duration
+filters (train 16.7 s, dev 40 s) and train-time shuffle and crop.
+
+``cache='ram'`` keeps every decoded waveform (int16) for the life of the
+module, so later epochs slice crops from RAM.  Not ported: ``cache='mmap'``
+(the persistent packed cache), the multi-process loaders and the SSL
+pseudo-label pool.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import List, Optional, Sequence, Union
+
+from .manifest import ManifestEntry, read_manifests
+from .pipeline import BucketBatcher
+from .vocab import Vocabulary
+
+
+def _as_list(manifest) -> list:
+    if manifest is None:
+        return []
+    if isinstance(manifest, (str, Path)):
+        return [manifest]
+    return list(manifest)
+
+
+class AsrDataModule:
+    def __init__(
+        self,
+        train_manifest=None,
+        dev_manifest=None,
+        test_manifest=None,
+        labels: Union[str, Sequence[str]] = (),
+        train_bs: int = 16,
+        dev_bs: int = 16,
+        train_max_duration: float = 16.7,
+        dev_max_duration: float = 40.0,
+        seed: int = 0,
+        crop: bool = True,
+        bucket_seconds: Optional[Sequence[float]] = None,
+        prefetch_depth: int = 2,
+        cache: Optional[str] = None,
+        cache_dir=None,
+        wire: str = "int16",
+    ):
+        if cache == "mmap":
+            raise NotImplementedError("cache='mmap' (the persistent packed cache) is not ported yet")
+        if cache not in (None, "ram"):
+            raise ValueError(f"cache must be None or 'ram', got {cache!r}")
+        del cache_dir                        # only the mmap cache reads it
+        self.vocab = Vocabulary.from_config(labels)
+        self.train_manifest = _as_list(train_manifest)
+        self.dev_manifest = _as_list(dev_manifest)
+        self.test_manifest = _as_list(test_manifest)
+        self.train_bs, self.dev_bs = train_bs, dev_bs
+        self.train_max_duration = train_max_duration
+        self.dev_max_duration = dev_max_duration
+        self.seed = seed
+        self.crop = crop
+        self.bucket_seconds = bucket_seconds
+        self.prefetch_depth = prefetch_depth
+        self.wire = wire
+        self.train_entries: List[ManifestEntry] = []
+        self.dev_entries: List[ManifestEntry] = []
+        self.test_entries: List[ManifestEntry] = []
+        self._wave_cache = {} if cache == "ram" else None
+        self._setup_done = False
+
+    def setup(self) -> None:
+        if self._setup_done:
+            return
+        if self.train_manifest:
+            self.train_entries = read_manifests(self.train_manifest, self.train_max_duration)
+        if self.dev_manifest:
+            self.dev_entries = read_manifests(self.dev_manifest, self.dev_max_duration)
+        if self.test_manifest:
+            self.test_entries = read_manifests(self.test_manifest, self.dev_max_duration)
+        self._setup_done = True
+
+    def _batcher(self, entries, bs: int, train: bool) -> BucketBatcher:
+        kwargs = {} if self.bucket_seconds is None else {"bucket_seconds": self.bucket_seconds}
+        return BucketBatcher(entries, self.vocab, bs, train=train, crop=self.crop and train,
+                             seed=self.seed, wave_cache=self._wave_cache, wire_dtype=self.wire,
+                             **kwargs)
+
+    def train_dataloader(self, epoch: int = 0) -> BucketBatcher:
+        self.setup()
+        batcher = self._batcher(self.train_entries, self.train_bs, train=True)
+        batcher.set_epoch(epoch)
+        return batcher
+
+    def val_dataloader(self) -> BucketBatcher:
+        self.setup()
+        return self._batcher(self.dev_entries, self.dev_bs, train=False)
+
+    def test_dataloader(self) -> BucketBatcher:
+        self.setup()
+        return self._batcher(self.test_entries, self.dev_bs, train=False)
+
+    def steps_per_epoch(self) -> int:
+        """Batches of a train epoch: the reference sizes its LR cycle by it."""
+        self.setup()
+        return len(self._batcher(self.train_entries, self.train_bs, train=True))

@@ -1,0 +1,270 @@
+"""Host-side batching: duration buckets, target padding and a background
+prefetch thread (port of ``lightning_asr_tpu/data/pipeline.py``).
+
+Given the same manifest entries, seed and epoch, ``BucketBatcher`` gives
+the JAX package's batches exactly: the same bucket plan, crop draws
+(``np.random.default_rng(seed + epoch · 1000003)``), shuffles, target
+padding to a multiple of 32 and wire encoding.
+
+  * utterances are grouped into duration buckets; each batch is padded to
+    its bucket's sample count, so the device sees few shapes;
+  * the training crop (the reference's ``sub_secquence``) is planned here
+    as (offset, length) and applied while decoding; the sample before the
+    crop travels as ``prev_samples`` for the preemphasis;
+  * the wire to the device is int16 PCM (exact for 16-bit WAVs), 8-bit
+    mu-law (G.711 companding, lossy, code 128 = silence) or float32;
+  * ``cache='ram'`` decodes every file once, as int16, and slices crops
+    from RAM on later epochs;
+  * ``prefetch`` runs the assembly, and whatever the caller adds to it (the
+    trainer's host-to-device copies), in a background thread.
+
+Audio is decoded by the port's own ``data/audio.py::read_audio``.  Not
+ported: the JAX package's native threaded WAV loader, the multi-process
+row sharding (``shard_rank`` / ``shard_count`` / ``pad_to``) and the
+memory-mapped cache (``wave_cache.py``).
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from dataclasses import dataclass, field
+from typing import Iterator, List, Optional, Sequence
+
+import numpy as np
+
+from .audio import read_audio
+from .manifest import ManifestEntry
+from .vocab import Vocabulary
+
+# Duration bucket edges (seconds): train is cut at 16.7 s and dev at 40 s
+# (conf/conf.yaml); buckets past 17 s serve dev and test.
+DEFAULT_BUCKET_SECONDS = (2.0, 4.0, 6.0, 8.0, 10.0, 12.0, 14.0, 16.7, 20.0, 30.0, 40.0)
+WIRES = ("int16", "mulaw8", "float32")
+
+
+@dataclass
+class Batch:
+    waves: np.ndarray          # (B, S_bucket) int16, uint8 mu-law or float32
+    wave_lens: np.ndarray      # (B,) int32 true sample counts
+    prev_samples: np.ndarray   # (B,) float32 sample preceding each crop
+    targets: np.ndarray        # (B, L_bucket) int32 padded label ids
+    target_lens: np.ndarray    # (B,) int32
+    paths: List[str] = field(default_factory=list)
+    texts: List[str] = field(default_factory=list)
+
+    @property
+    def size(self) -> int:
+        return self.waves.shape[0]
+
+    @property
+    def audio_seconds(self) -> float:
+        return float(self.wave_lens.sum()) / 16000.0
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _to_int16(samples: np.ndarray) -> np.ndarray:
+    return np.round(samples * 32768.0).clip(-32768, 32767).astype(np.int16)
+
+
+_MULAW_LUT: Optional[np.ndarray] = None
+
+
+def _mulaw_lut() -> np.ndarray:
+    global _MULAW_LUT
+    if _MULAW_LUT is None:
+        v = np.arange(-32768, 32768, dtype=np.float64) / 32768.0
+        y = np.sign(v) * np.log1p(255.0 * np.abs(v)) / np.log(256.0)
+        _MULAW_LUT = (np.round(y * 127.0).astype(np.int32) + 128).astype(np.uint8)
+    return _MULAW_LUT
+
+
+def mulaw_encode(waves_i16: np.ndarray) -> np.ndarray:
+    """int16 PCM -> uint8 mu-law codes (128 = silence); the device expands
+    them (``ops/frontend.py::expand_wire``)."""
+    return _mulaw_lut()[waves_i16.astype(np.int32) + 32768]
+
+
+class BucketBatcher:
+    """Iterable over static-shape batches from a manifest entry list."""
+
+    def __init__(
+        self,
+        entries: Sequence[ManifestEntry],
+        vocab: Vocabulary,
+        batch_size: int,
+        train: bool = False,
+        sample_rate: int = 16000,
+        bucket_seconds: Sequence[float] = DEFAULT_BUCKET_SECONDS,
+        crop: bool = True,
+        crop_weight: float = 0.98,
+        drop_last: Optional[bool] = None,
+        seed: int = 0,
+        target_pad_multiple: int = 32,
+        shard_rank: int = 0,
+        shard_count: int = 1,
+        pad_to: int = 1,
+        wire_dtype: str = "int16",
+        wave_cache: Optional[dict] = None,
+    ):
+        if shard_count > 1 or pad_to > 1 or shard_rank:
+            raise NotImplementedError("multi-process row sharding is not ported yet")
+        if wire_dtype not in WIRES:
+            raise ValueError(f"wire_dtype must be int16|mulaw8|float32, got {wire_dtype!r}")
+        self.wire_dtype = wire_dtype
+        self.entries = list(entries)
+        self.vocab = vocab
+        self.batch_size = batch_size
+        self.train = train
+        self.sample_rate = sample_rate
+        self.bucket_samples = [int(s * sample_rate) for s in bucket_seconds]
+        self.crop = crop and train
+        self.crop_weight = crop_weight
+        self.drop_last = train if drop_last is None else drop_last
+        self.seed = seed
+        self.target_pad_multiple = target_pad_multiple
+        self.epoch = 0
+        # decode-once RAM cache, path -> full int16 waveform; the datamodule
+        # owns the dict, since a batcher is built anew every epoch
+        self.wave_cache = wave_cache
+        self._encoded = [np.asarray(vocab.encode(e.text), np.int32) for e in self.entries]
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def _bucket_for(self, n_samples: int) -> int:
+        for b in self.bucket_samples:
+            if n_samples <= b:
+                return b
+        return _round_up(n_samples, self.sample_rate)  # overflow: 1 s granularity
+
+    def __len__(self) -> int:
+        """Batch count (exact when not cropping)."""
+        buckets: dict = {}
+        for e in self.entries:
+            b = self._bucket_for(int(e.duration * self.sample_rate))
+            buckets[b] = buckets.get(b, 0) + 1
+        return sum(n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+                   for n in buckets.values())
+
+    def __iter__(self) -> Iterator[Batch]:
+        rng = np.random.default_rng(self.seed + self.epoch * 1000003)
+        order = np.arange(len(self.entries))
+        if self.train:
+            rng.shuffle(order)
+        # plan crops and buckets without touching the audio files
+        plans: dict = {}                     # bucket -> [(idx, offset, length)]
+        for idx in order:
+            n = int(round(self.entries[idx].duration * self.sample_rate))
+            offset, length = 0, n
+            if self.crop:
+                target_length = int(n * rng.uniform(self.crop_weight, 1.0))
+                offset = int(rng.uniform(0, n - target_length))
+                length = max(target_length - offset, 1)
+            plans.setdefault(self._bucket_for(length), []).append((int(idx), offset, length))
+        pending = []
+        for bucket, items in plans.items():
+            for i in range(0, len(items), self.batch_size):
+                chunk = items[i: i + self.batch_size]
+                if len(chunk) < self.batch_size and self.drop_last:
+                    continue
+                pending.append((bucket, chunk))
+        if self.train:
+            rng.shuffle(pending)
+        for bucket, chunk in pending:
+            yield self._assemble(bucket, chunk)
+
+    def _assemble(self, bucket: int, chunk) -> Batch:
+        max_tgt = max((len(self._encoded[idx]) for idx, _, _ in chunk), default=1)
+        L = max(_round_up(max_tgt, self.target_pad_multiple), self.target_pad_multiple)
+        B = len(chunk)
+        targets = np.zeros((B, L), np.int32)
+        target_lens = np.zeros(B, np.int32)
+        paths, texts = [], []
+        for i, (idx, _, _) in enumerate(chunk):
+            t = self._encoded[idx]
+            targets[i, : len(t)] = t
+            target_lens[i] = len(t)
+            paths.append(self.entries[idx].audio_filepath)
+            texts.append(self.entries[idx].text)
+        waves, wave_lens, prev_samples = self._decode_chunk(bucket, chunk, paths)
+        if self.wire_dtype in ("int16", "mulaw8") and waves.dtype != np.int16:
+            waves = _to_int16(waves)
+        if self.wire_dtype == "mulaw8":
+            waves = mulaw_encode(waves)      # last, so pad and crop zeros become 128
+        return Batch(waves, wave_lens, prev_samples, targets, target_lens, paths, texts)
+
+    def _decode_chunk(self, bucket: int, chunk, paths):
+        """Decode and crop the chunk's audio (float32, or int16 from the
+        RAM cache)."""
+        if self.wave_cache is not None:
+            return self._decode_chunk_cached(bucket, chunk, paths)
+        B = len(chunk)
+        waves = np.zeros((B, bucket), np.float32)
+        wave_lens = np.zeros(B, np.int32)
+        prev_samples = np.zeros(B, np.float32)
+        for i, (_, offset, length) in enumerate(chunk):
+            wave = self._read(paths[i])
+            n = wave.shape[0]
+            off = min(offset, max(n - 1, 0))
+            ln = min(length, n - off, bucket)
+            waves[i, :ln] = wave[off: off + ln]
+            wave_lens[i] = ln
+            prev_samples[i] = wave[off - 1] if off > 0 else 0.0
+        return waves, wave_lens, prev_samples
+
+    def _read(self, path: str) -> np.ndarray:
+        samples, sr = read_audio(path, mono=True)
+        if sr != self.sample_rate:
+            raise ValueError(f"{path}: sample rate {sr} != {self.sample_rate} "
+                             "(run the prep scripts to resample)")
+        return samples[0]
+
+    def _decode_chunk_cached(self, bucket: int, chunk, paths):
+        for p in paths:
+            if p not in self.wave_cache:
+                self.wave_cache[p] = _to_int16(self._read(p))
+        B = len(chunk)
+        waves = np.zeros((B, bucket), np.int16)
+        wave_lens = np.zeros(B, np.int32)
+        prev_samples = np.zeros(B, np.float32)
+        for i, (_, offset, length) in enumerate(chunk):
+            w = self.wave_cache[paths[i]]
+            n = w.shape[0]
+            off = min(offset, max(n - 1, 0))
+            ln = min(length, n - off, bucket)
+            waves[i, :ln] = w[off: off + ln]
+            wave_lens[i] = ln
+            prev_samples[i] = float(w[off - 1]) / 32768.0 if off > 0 else 0.0
+        if self.wire_dtype == "float32":
+            waves = waves.astype(np.float32) / 32768.0
+        return waves, wave_lens, prev_samples
+
+
+def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
+    """Run ``iterator`` in a background thread, ``depth`` items ahead; an
+    exception in it is raised in the consumer."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    end = object()
+    err: list = []
+
+    def worker():
+        try:
+            for item in iterator:
+                q.put(item)
+        except BaseException as e:  # handed to the consumer, raised there
+            err.append(e)
+        finally:
+            q.put(end)
+
+    threading.Thread(target=worker, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is end:
+            if err:
+                raise err[0]
+            return
+        yield item

@@ -210,11 +210,14 @@ class QuartNetBlock(nn.Module):
 
 class BatchLSTM(nn.Module):
     """Bidirectional LSTM with packed-sequence-equivalent masking on
-    (B, T, C) float32; the recurrence is kernel K2, its backward K3."""
+    (B, T, C) float32; the recurrence is kernel K2, its backward K3, or with
+    ``fuse_directions`` the batch-stacked K7 and K8 (the JAX package's
+    ``LASR_LSTM_FUSED_BIDIR=1``); the parameters are the same."""
 
-    def __init__(self, in_ch: int, hidden: int):
+    def __init__(self, in_ch: int, hidden: int, fuse_directions: bool = False):
         super().__init__()
         self.hidden = hidden
+        self.fuse_directions = fuse_directions
         for tag in ("f", "b"):
             self.register_parameter(f"w_ih_{tag}", nn.Parameter(torch.zeros(4 * hidden, in_ch)))
             self.register_parameter(f"w_hh_{tag}", nn.Parameter(torch.zeros(4 * hidden, hidden)))
@@ -229,4 +232,4 @@ class BatchLSTM(nn.Module):
         return LSTMWeights(*(getattr(self, f"{n}_{tag}") for n in ("w_ih", "w_hh", "b_ih", "b_hh")))
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-        return lstm(x, lengths, self.weights("f"), self.weights("b"))
+        return lstm(x, lengths, self.weights("f"), self.weights("b"), self.fuse_directions)

@@ -43,7 +43,7 @@ class QuartNet12Context(nn.Module):
 
     def __init__(self, in_c: int = 64, mask: bool = False, lstm_hidden: int = 40,
                  drop_rate: float = 0.0, dtype: Optional[torch.dtype] = None,
-                 conv_kernel: Optional[str] = None):
+                 conv_kernel: Optional[str] = None, fuse_directions: bool = False):
         super().__init__()
         self.drop_rate = drop_rate
         self.first_cnn = SepConv(in_c, 256, k=33, stride=2, mask=mask, drop_rate=drop_rate,
@@ -55,7 +55,7 @@ class QuartNet12Context(nn.Module):
             self.add_module(name, QuartNetBlock(repeat=1, in_ch=cin or ctx_ch, out_ch=cout,
                                                 k=k, mask=mask, drop_rate=drop_rate, dtype=dtype,
                                                 conv_kernel=conv_kernel))
-        self.context_rnn = BatchLSTM(256, lstm_hidden)
+        self.context_rnn = BatchLSTM(256, lstm_hidden, fuse_directions)
         self.last_conv = Conv(512, 1024, 1, dtype=dtype)
         self.last_bn = MaskedBatchNorm(1024)
 
@@ -82,13 +82,15 @@ class AsrModel(nn.Module):
 
     def __init__(self, num_classes: int, encoder_name: str = "quartznet12_context",
                  in_c: int = 64, drop_rate: float = 0.0, mask: bool = False,
-                 dtype: Optional[torch.dtype] = None, conv_kernel: Optional[str] = None):
+                 dtype: Optional[torch.dtype] = None, conv_kernel: Optional[str] = None,
+                 fuse_directions: bool = False):
         super().__init__()
         if encoder_name not in PORTED_ENCODERS:
             raise NotImplementedError(f"encoder {encoder_name!r} is not ported yet "
                                       f"(ported: {PORTED_ENCODERS})")
+        self.dtype = dtype                                          # conv compute type
         self.encoder = QuartNet12Context(in_c=in_c, mask=mask, drop_rate=drop_rate, dtype=dtype,
-                                         conv_kernel=conv_kernel)
+                                         conv_kernel=conv_kernel, fuse_directions=fuse_directions)
         self.decoder = Conv(1024, num_classes, 1, bias=True)       # float32 head
 
     def forward(self, x: torch.Tensor, percents: torch.Tensor,
@@ -101,17 +103,20 @@ class AsrModel(nn.Module):
 
 def build_model(num_classes: int, encoder: str = "quartznet12_context", in_c: int = 64,
                 drop_rate: float = 0.0, mask: bool = False, feature_in: Optional[int] = None,
-                dtype: Optional[torch.dtype] = None, conv_kernel: Optional[str] = None) -> AsrModel:
+                dtype: Optional[torch.dtype] = None, conv_kernel: Optional[str] = None,
+                fuse_directions: bool = False) -> AsrModel:
     """``build_model`` of the JAX package for the ported encoders.
     ``conv_kernel`` (None, ``"sepconv"``, ``"dw_wgrad"``) stands for the
     JAX package's ``LASR_SEPCONV_PALLAS`` and ``LASR_DW_WGRAD_PALLAS``
-    switches (``models/layers.py``)."""
+    switches (``models/layers.py``), ``fuse_directions`` for
+    ``LASR_LSTM_FUSED_BIDIR`` (the BiLSTM through K7 / K8); neither changes
+    the parameters."""
     if encoder not in MODEL_REGISTRY:
         raise ValueError(f"unknown encoder {encoder!r}; choose from {sorted(MODEL_REGISTRY)}")
     if feature_in is not None:
         raise NotImplementedError("the SSL feature path (feature_in) is not ported yet")
     return AsrModel(num_classes, encoder, in_c=in_c, drop_rate=drop_rate, mask=mask, dtype=dtype,
-                    conv_kernel=conv_kernel)
+                    conv_kernel=conv_kernel, fuse_directions=fuse_directions)
 
 
 def reset_parameters(model: nn.Module, generator: torch.Generator) -> None:

@@ -1,5 +1,11 @@
-"""Training-time augmentation on log-mels (port of
-``lightning_asr_tpu/ops/augment.py``: ``spec_augment`` and ``cutout``).
+"""Training-time augmentation (port of ``lightning_asr_tpu/ops/augment.py``:
+``wave_crop``, ``spec_augment`` and ``cutout``).
+
+  * ``wave_crop``: the reference's random waveform crop (``sub_secquence``)
+    on the device, for ``device_cache`` training, whose cached batches hold
+    uncropped waves: ``target = int(len · U(w, 1))``, ``offset = int(U(0,
+    len - target))``, the crop window ``[offset, target)`` shifted to start
+    at 0, and the sample before it returned for the preemphasis.
 
   * ``spec_augment``: ONE random frequency band and ONE random time band per
     sample, zeroed across the other axis.  A float width parameter is
@@ -15,15 +21,19 @@ Random draws come from a ``torch.Generator``, or are handed in as
 the same uniforms the masks are the reference's bit for bit: widths and
 starts are float32 products truncated to int32 on both sides.
 
-``wave_crop`` (the in-graph random crop of ``device_cache`` mode) is not
-ported yet.
+On the mu-law wire ``wave_crop`` fills past the new length with code 128
+(silence) and returns the sample before the crop decoded, where the JAX
+package fills with code 0 (about -1.0) and returns the raw code (ROADMAP.md
+§C1): an intended deviation.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
+
+from .frontend import expand_wire
 
 
 def _band_mask(size: int, start: torch.Tensor, width: torch.Tensor) -> torch.Tensor:
@@ -41,6 +51,42 @@ def _draw(uniforms, shape, generator, device) -> torch.Tensor:
     if generator is None:
         raise ValueError("augmentation needs a torch.Generator or explicit uniforms")
     return torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+
+
+def wave_crop(waves: torch.Tensor, wave_lens: torch.Tensor,
+              generator: Optional[torch.Generator] = None, weight: float = 0.98,
+              uniforms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """The reference's random crop of (B, S) waves on their device.
+
+    ``uniforms`` = (scale (B,) in [weight, 1), u (B,) in [0, 1)), the JAX
+    package's two draws; without them both come from ``generator``.
+    Returns ``(waves, new_lens, prev_samples)``: each row shifted left by
+    its offset and filled past its new length with silence (0, or code 128
+    on the mu-law wire), and the float sample before the crop (0 at offset
+    0), as the host loader gives them."""
+    B, S = waves.shape
+    dev = waves.device
+    if uniforms is None:
+        if generator is None:
+            raise ValueError("wave_crop needs a torch.Generator or explicit uniforms")
+        u = torch.rand((2, B), generator=generator, device=dev, dtype=torch.float32)
+        scale = torch.maximum(u[0] * (1.0 - weight) + weight, torch.tensor(weight, device=dev))
+        uniforms = (scale, u[1])
+    scale, u_off = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in uniforms)
+    lens_f = wave_lens.to(device=dev, dtype=torch.float32)
+    target = torch.floor(lens_f * scale).to(torch.int32)
+    offset = torch.floor(u_off * (lens_f - target.to(torch.float32))).to(torch.int32)
+    new_len = torch.clamp(target - offset, min=1)
+
+    silence = 128 if waves.dtype == torch.uint8 else 0
+    idx = torch.arange(S, device=dev)[None, :]
+    src = (idx + offset[:, None].to(torch.int64)).clamp(max=S - 1)
+    shifted = torch.gather(waves, 1, src)
+    shifted = torch.where(idx < new_len[:, None], shifted,
+                          torch.full((), silence, dtype=waves.dtype, device=dev))
+    prev = expand_wire(torch.gather(waves, 1, (offset[:, None] - 1).clamp(min=0).to(torch.int64)))[:, 0]
+    prev = torch.where(offset > 0, prev, torch.zeros((), dtype=torch.float32, device=dev))
+    return shifted, new_len, prev
 
 
 def spec_augment(feats: torch.Tensor, feat_lens: torch.Tensor,

@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("mel", "lstm", "lstm_bwd", "ctc", "extend", "sepconv", "depthwise")
+SOURCES = ("mel", "lstm", "lstm_bwd", "lstm_bidir", "ctc", "extend", "sepconv", "depthwise")
 # bytes of shared memory a Hopper block may use (dynamic, after opting in)
 SMEM_LIMIT = 232448
 # the ``dtype`` argument of the convolution kernels' C entry points

@@ -1,5 +1,6 @@
 """LSTM recurrence kernels: the forward K2 and the backward (BPTT) K3, both
-directions in one launch each.
+directions in one launch each; and the batch-stacked pair K7 / K8 of the
+``fuse_directions`` layout (second half of this module).
 
 K2 replaces ``lightning_asr_tpu/ops/lstm_pallas.py::_fwd_kernel`` and K3
 ``::_bwd_kernel`` (each launched once per direction by ``_run_fwd`` /
@@ -254,3 +255,215 @@ def lstm_core(xproj: torch.Tensor, lengths: torch.Tensor, w_hh: torch.Tensor) ->
     if torch.is_grad_enabled() and (xproj.requires_grad or w_hh.requires_grad):
         return _LSTMCore.apply(xproj, lengths, w_hh)
     return lstm_recurrence(xproj, lengths, w_hh)
+
+
+# ---------------------------------------------------------------------------
+# The batch-stacked layout: K7 and K8
+# ---------------------------------------------------------------------------
+#
+# K7 replaces ``lstm_pallas.py::_fwd_kernel_bidir`` and K8
+# ``::_bwd_kernel_bidir`` (``LASR_LSTM_FUSED_BIDIR=1`` in the JAX package,
+# ``build_model(fuse_directions=True)`` here).  Both directions are the 2B
+# rows of one time-major recurrence: rows [0, B) walk the batch forward with
+# W_hh_f, rows [B, 2B) walk the time-flipped padded batch with W_hh_b.  Every
+# row walks all T steps under a float validity mask: a step with valid <= 0
+# keeps the row's state and gives h = 0.  K7 also stores the PRE-update
+# states h_prev and c_prev of every step; K8 recomputes the gates from
+# xproj and h_prev, passes its dh / dc carries through invalid steps (the
+# TPU kernel's ``(1 - v)`` terms) and sums dW_hh of each direction over its
+# own B rows.  The TPU kernels' 128-lane padding of H and 16-step time
+# blocks do not carry over.
+#
+# Bound on the H100: as K2 and K3, latency: T dependent steps of a 40-term
+# dot, the gate nonlinearities and the state update (K8: two dots more and a
+# reduction across the four gate groups); bytes are ~35 MB (K7) and ~60 MB
+# (K8) at B=32, T=836, about 10 and 20 µs at 3.35 TB/s.
+#
+# Design (``csrc/lstm_bidir.cu``): one block per row pair (b, B + b), 2·4H
+# threads, the GPU form of the TPU design's point that both directions
+# advance in ONE sequential loop: each thread keeps its direction's W_hh row
+# in registers, both rows' h sit in shared memory, and a step costs two
+# barriers for the pair.  K8 keeps both W_hh in shared memory (51.2 KB,
+# dynamic, opted in) for ``dh_prev``, dW_hh of each (pair, direction) in
+# registers across the walk, and leaves (B, 2, 4H, H) partials that are
+# summed over b in a fixed order (no float atomics).  A step where neither
+# row of the pair is valid is written without a barrier.  Unlike K2/K3,
+# which step only a row's valid frames, every block walks all T steps.
+
+
+def _check_stacked_args(xproj, valid, w_hh_f, w_hh_b):
+    if xproj.dim() != 3 or xproj.shape[1] % 2 or xproj.shape[2] % 4:
+        raise ValueError(f"xproj must be (T, 2B, 4H), got {tuple(xproj.shape)}")
+    T, B2, G = xproj.shape
+    H = G // 4
+    if tuple(valid.shape) != (T, B2):
+        raise ValueError(f"valid must be {(T, B2)}, got {tuple(valid.shape)}")
+    for name, t in (("w_hh_f", w_hh_f), ("w_hh_b", w_hh_b)):
+        if tuple(t.shape) != (G, H):
+            raise ValueError(f"{name} must be {(G, H)}, got {tuple(t.shape)}")
+    for name, t in (("xproj", xproj), ("valid", valid), ("w_hh_f", w_hh_f), ("w_hh_b", w_hh_b)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32")
+    if len({xproj.device, valid.device, w_hh_f.device, w_hh_b.device}) != 1:
+        raise ValueError("xproj, valid and both w_hh must be on one device")
+    if xproj.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the LSTM kernels run on cpu or cuda, not {xproj.device}")
+    if xproj.device.type == "cuda" and H not in _KERNEL_HIDDEN:
+        raise ValueError(f"the LSTM kernels are built for hidden sizes {_KERNEL_HIDDEN}, got {H}")
+    return T, B2 // 2, G, H
+
+
+def _gates_stacked(xp_t, h, w_hh_f, w_hh_b, B: int, H: int):
+    rec = torch.cat([h[:B] @ w_hh_f.t(), h[B:] @ w_hh_b.t()], dim=0)
+    i, f, g, o = (xp_t + rec).split(H, dim=-1)
+    return torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+
+
+def lstm_recurrence_stacked_plain(xproj: torch.Tensor, valid: torch.Tensor,
+                                  w_hh_f: torch.Tensor, w_hh_b: torch.Tensor):
+    """Plain PyTorch version of K7, the TPU kernel's body step by step
+    (``lstm_pallas.py:155-181``).  Returns (h, h_prev, c_prev), each
+    (T, 2B, H)."""
+    T, B2, G = xproj.shape
+    B, H = B2 // 2, G // 4
+    h = xproj.new_zeros((B2, H))
+    c = xproj.new_zeros((B2, H))
+    hs, h_prevs, c_prevs = [], [], []
+    for t in range(T):
+        h_prevs.append(h)
+        c_prevs.append(c)
+        i, f, g, o = _gates_stacked(xproj[t], h, w_hh_f, w_hh_b, B, H)
+        c_new = f * c + i * g
+        h_new = o * torch.tanh(c_new)
+        v = valid[t][:, None] > 0
+        h = torch.where(v, h_new, h)
+        c = torch.where(v, c_new, c)
+        hs.append(torch.where(v, h_new, torch.zeros_like(h_new)))
+    return torch.stack(hs), torch.stack(h_prevs), torch.stack(c_prevs)
+
+
+def lstm_recurrence_stacked(xproj: torch.Tensor, valid: torch.Tensor,
+                            w_hh_f: torch.Tensor, w_hh_b: torch.Tensor):
+    """K7: xproj (T, 2B, 4H) float32 gate projections (biases folded in),
+    valid (T, 2B) float32, w_hh_f and w_hh_b (4H, H) -> (h, h_prev, c_prev),
+    each (T, 2B, H): the masked h and the state before each step.  A CPU
+    tensor runs the plain version; a CUDA tensor launches the kernel or
+    raises."""
+    T, B, G, H = _check_stacked_args(xproj, valid, w_hh_f, w_hh_b)
+    if xproj.device.type == "cpu":
+        return lstm_recurrence_stacked_plain(xproj, valid, w_hh_f, w_hh_b)
+
+    from .kernel_build import library
+
+    fn = library("lstm_bidir").lasr_lstm_stacked_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    outs = [torch.empty((T, 2 * B, H), dtype=torch.float32, device=xproj.device) for _ in range(3)]
+    if B and T:
+        stream = torch.cuda.current_stream(xproj.device).cuda_stream
+        err = fn(xproj.data_ptr(), valid.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(),
+                 *(o.data_ptr() for o in outs), T, B, H, xproj.device.index, stream)
+        if err != 0:
+            raise RuntimeError(f"stacked LSTM kernel launch failed: CUDA error {err}")
+        with _LOCK:
+            lstm_recurrence_stacked.launches += 1
+    return tuple(outs)
+
+
+lstm_recurrence_stacked.launches = 0
+
+
+def lstm_backward_stacked_plain(xproj: torch.Tensor, valid: torch.Tensor, w_hh_f: torch.Tensor,
+                                w_hh_b: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
+                                grad_h: torch.Tensor):
+    """Plain PyTorch version of K8, the TPU kernel's body step by step
+    (``lstm_pallas.py:184-234``).  Returns (d_xproj (T, 2B, 4H), dW_hh_f,
+    dW_hh_b (4H, H))."""
+    T, B2, G = xproj.shape
+    B, H = B2 // 2, G // 4
+    dh_c = xproj.new_zeros((B2, H))
+    dc_c = xproj.new_zeros((B2, H))
+    dw_f = xproj.new_zeros((G, H))
+    dw_b = xproj.new_zeros((G, H))
+    steps = [None] * T
+    for t in reversed(range(T)):
+        hp, cp = h_prev[t], c_prev[t]
+        i, f, g, o = _gates_stacked(xproj[t], hp, w_hh_f, w_hh_b, B, H)
+        tc = torch.tanh(f * cp + i * g)
+        v = valid[t][:, None]
+        dh = (grad_h[t] + dh_c) * v
+        dc = dc_c * v + dh * o * (1.0 - tc * tc)
+        dgates = torch.cat([dc * g * i * (1.0 - i), dc * cp * f * (1.0 - f),
+                            dc * i * (1.0 - g * g), dh * tc * o * (1.0 - o)], dim=-1)
+        steps[t] = dgates
+        dw_f = dw_f + dgates[:B].t() @ hp[:B]
+        dw_b = dw_b + dgates[B:].t() @ hp[B:]
+        dh_prev = torch.cat([dgates[:B] @ w_hh_f, dgates[B:] @ w_hh_b], dim=0)
+        dh_c = dh_prev + dh_c * (1.0 - v)
+        dc_c = dc * f + dc_c * (1.0 - v)
+    return torch.stack(steps), dw_f, dw_b
+
+
+def lstm_backward_stacked(xproj: torch.Tensor, valid: torch.Tensor, w_hh_f: torch.Tensor,
+                          w_hh_b: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
+                          grad_h: torch.Tensor):
+    """K8: K7's inputs, its h_prev and c_prev, and the gradient of h, each
+    (T, 2B, H) -> (d_xproj (T, 2B, 4H), exactly 0 at invalid steps; dW_hh_f,
+    dW_hh_b (4H, H)).  A CPU tensor runs the plain version; a CUDA tensor
+    launches the kernel or raises."""
+    T, B, G, H = _check_stacked_args(xproj, valid, w_hh_f, w_hh_b)
+    for name, t in (("h_prev", h_prev), ("c_prev", c_prev), ("grad_h", grad_h)):
+        if tuple(t.shape) != (T, 2 * B, H) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 {(T, 2 * B, H)}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if t.device != xproj.device:
+            raise ValueError(f"{name} is on {t.device}, xproj on {xproj.device}")
+    if xproj.device.type == "cpu":
+        return lstm_backward_stacked_plain(xproj, valid, w_hh_f, w_hh_b, h_prev, c_prev, grad_h)
+
+    from .kernel_build import library
+
+    fn = library("lstm_bidir").lasr_lstm_stacked_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    d_xproj = torch.empty_like(xproj)
+    dw_part = torch.zeros((B, 2, G, H), dtype=torch.float32, device=xproj.device)
+    if B and T:
+        stream = torch.cuda.current_stream(xproj.device).cuda_stream
+        err = fn(xproj.data_ptr(), valid.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(),
+                 h_prev.data_ptr(), c_prev.data_ptr(), grad_h.data_ptr(), d_xproj.data_ptr(),
+                 dw_part.data_ptr(), T, B, H, xproj.device.index, stream)
+        if err != 0:
+            raise RuntimeError(f"stacked LSTM backward kernel launch failed: CUDA error {err}")
+        with _LOCK:
+            lstm_backward_stacked.launches += 1
+    dw = dw_part.sum(dim=0)
+    return d_xproj, dw[0], dw[1]
+
+
+lstm_backward_stacked.launches = 0
+
+
+class _LSTMCoreStacked(torch.autograd.Function):
+    """h = K7(xproj, valid, w_hh_f, w_hh_b), with K8 as its backward
+    (``lstm_pallas.py::_lstm_core_bidir``)."""
+
+    @staticmethod
+    def forward(ctx, xproj, valid, w_hh_f, w_hh_b):
+        h, h_prev, c_prev = lstm_recurrence_stacked(xproj, valid, w_hh_f, w_hh_b)
+        ctx.save_for_backward(xproj, valid, w_hh_f, w_hh_b, h_prev, c_prev)
+        return h
+
+    @staticmethod
+    def backward(ctx, grad_h):
+        d_xproj, dw_f, dw_b = lstm_backward_stacked(*ctx.saved_tensors, grad_h.contiguous())
+        return d_xproj, None, dw_f, dw_b
+
+
+def lstm_core_stacked(xproj: torch.Tensor, valid: torch.Tensor, w_hh_f: torch.Tensor,
+                      w_hh_b: torch.Tensor) -> torch.Tensor:
+    """The stacked recurrence as autograd sees it: K7, with K8 as its
+    backward when a gradient is needed."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xproj, w_hh_f, w_hh_b)):
+        return _LSTMCoreStacked.apply(xproj, valid, w_hh_f, w_hh_b)
+    return lstm_recurrence_stacked(xproj, valid, w_hh_f, w_hh_b)[0]

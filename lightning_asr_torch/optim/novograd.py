@@ -30,6 +30,10 @@ keeps a flat master copy of the parameters (``p_flat``) that weight decay
 and LUC read, updated by the same ``+u``, so it stays bit-equal to the
 flattened parameters.  Results equal the per-tensor variant's up to
 summation order.
+
+``novograd_with_runtime_lr`` keeps the learning rate in the state, for the
+ReduceLROnPlateau recipe; ``migrate_novograd_opt_state`` converts a saved
+state between the fused and per-tensor variants on restore.
 """
 
 from __future__ import annotations
@@ -232,3 +236,76 @@ def _novograd_fused(learning_rate, beta1, beta2, eps, weight_decay, grad_averagi
         return layout.unflatten(u), FusedNovogradState(state.count + 1, m_new, v_new, vm_new, p + u)
 
     return GradientTransformation(init_fn, update_fn)
+
+
+class InjectHyperparamsState(NamedTuple):
+    """The state of ``novograd_with_runtime_lr`` (optax's
+    ``inject_hyperparams`` layout): the learning rate is a tensor in the
+    state, which the trainer rewrites between epochs."""
+    count: torch.Tensor             # () int32
+    hyperparams: Tensors            # {"learning_rate": () float32}
+    inner_state: Union[NovogradState, FusedNovogradState]
+
+
+def novograd_with_runtime_lr(learning_rate: float, **kwargs) -> GradientTransformation:
+    """NovoGrad whose learning rate lives in its state
+    (``state.hyperparams["learning_rate"]``), the ReduceLROnPlateau recipe's
+    requirement; every other argument is fixed at construction."""
+    current: dict = {}
+    inner = novograd(lambda count: current["lr"], **kwargs)
+
+    def init_fn(params: Tensors) -> InjectHyperparamsState:
+        inner_state = inner.init(params)
+        lr = torch.tensor(float(learning_rate), dtype=torch.float32, device=inner_state.count.device)
+        return InjectHyperparamsState(inner_state.count.clone(), {"learning_rate": lr}, inner_state)
+
+    def update_fn(grads: Tensors, state: InjectHyperparamsState, params: Tensors):
+        current["lr"] = state.hyperparams["learning_rate"]
+        updates, inner_state = inner.update(grads, state.inner_state, params)
+        return updates, InjectHyperparamsState(state.count + 1, dict(state.hyperparams), inner_state)
+
+    return GradientTransformation(init_fn, update_fn)
+
+
+def migrate_novograd_opt_state(raw_opt: dict, params: Tensors, target_opt_state):
+    """A saved NovoGrad state (a dict of field name -> tensor or dict of
+    tensors) in the variant of ``target_opt_state``, fused or per-tensor,
+    either way: the flat layout follows from the params, so the conversion
+    is exact.  ``p_flat``, the flat master copy of the params, is derived
+    state: it is rebuilt from ``params`` when the saved state has none, is
+    per-tensor, or holds one of another shape than the current layout's
+    (fault C2 of the JAX package, which accepts any 2-D buffer)."""
+    layout = FlatLayout(params)
+    dev = layout.seg.device
+    f32 = lambda t: torch.as_tensor(t, dtype=torch.float32).to(dev)  # noqa: E731
+    count = torch.as_tensor(raw_opt["count"], dtype=torch.int32).to(dev)
+    raw_m = raw_opt["exp_avg"]
+    src_fused = torch.is_tensor(raw_m) and raw_m.dim() == 2
+
+    def scalars_to_vec(tree) -> torch.Tensor:
+        return torch.stack([f32(tree[n]).reshape(()) for n in layout.names])
+
+    def vec_to_scalars(vec) -> Tensors:
+        vec = f32(vec)
+        return {n: vec[i] for i, n in enumerate(layout.names)}
+
+    if isinstance(target_opt_state, FusedNovogradState):
+        shape = (layout.n_chunks, _CHUNK)
+        p_flat = raw_opt.get("p_flat")
+        if not (torch.is_tensor(p_flat) and tuple(p_flat.shape) == shape):
+            p_flat = layout.flatten(params)
+        if src_fused:
+            return FusedNovogradState(count, f32(raw_m), f32(raw_opt["exp_avg_sq"]),
+                                      f32(raw_opt["max_exp_avg_sq"]), f32(p_flat))
+        return FusedNovogradState(count, layout.flatten({n: f32(raw_m[n]) for n in layout.names}),
+                                  scalars_to_vec(raw_opt["exp_avg_sq"]),
+                                  scalars_to_vec(raw_opt["max_exp_avg_sq"]), f32(p_flat))
+    if isinstance(target_opt_state, NovogradState):
+        if src_fused:
+            m = {n: t.to(torch.float32) for n, t in layout.unflatten(f32(raw_m)).items()}
+            return NovogradState(count, m, vec_to_scalars(raw_opt["exp_avg_sq"]),
+                                 vec_to_scalars(raw_opt["max_exp_avg_sq"]))
+        return NovogradState(count, {n: f32(raw_m[n]) for n in layout.names},
+                             vec_to_scalars(scalars_to_vec(raw_opt["exp_avg_sq"])),
+                             vec_to_scalars(scalars_to_vec(raw_opt["max_exp_avg_sq"])))
+    raise TypeError(f"cannot migrate NovoGrad state into {type(target_opt_state).__name__}")

@@ -8,7 +8,9 @@ the count's device, so the optimizer reads it without a host round trip:
 cycle boundaries are precomputed on the host, the cycle index is a
 ``searchsorted``.
 
-``ReduceLROnPlateau`` and the NVIDIA LR-policy zoo are not ported yet.
+``ReduceLROnPlateau`` is the host-side controller of the plateau recipe
+(the trainer writes its lr into ``novograd_with_runtime_lr``'s state).  The
+NVIDIA LR-policy zoo is not ported yet.
 """
 
 from __future__ import annotations
@@ -71,3 +73,59 @@ def cosine_annealing_warmup_restarts(
         return torch.where(sic < warmup_steps, warm, cos).to(torch.float32)
 
     return schedule
+
+
+class ReduceLROnPlateau:
+    """Host-side plateau controller with torch's semantics, mode 'min'.
+
+    Call ``step(metric)`` after each validation and read ``lr``.  Defaults
+    are the reference's train-100 recipe: factor 0.1, patience 10, relative
+    threshold 1e-4, cooldown 3, min_lr 1e-4."""
+
+    def __init__(self, init_lr: float, factor: float = 0.1, patience: int = 10,
+                 threshold: float = 1e-4, threshold_mode: str = "rel", cooldown: int = 3,
+                 min_lr: float = 1e-4):
+        if factor >= 1.0:
+            raise ValueError("factor must be < 1.0")
+        self.init_lr = init_lr
+        self.lr = init_lr
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.threshold_mode = threshold_mode
+        self.cooldown = cooldown
+        self.min_lr = min_lr
+        self.cooldown_counter = 0
+        self.num_bad_epochs = 0
+        self.best = math.inf
+
+    def _is_better(self, metric: float) -> bool:
+        if self.threshold_mode == "rel":
+            return metric < self.best * (1.0 - self.threshold)
+        return metric < self.best - self.threshold
+
+    def step(self, metric: float) -> float:
+        if self._is_better(metric):
+            self.best = metric
+            self.num_bad_epochs = 0
+        else:
+            self.num_bad_epochs += 1
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad_epochs = 0
+        if self.num_bad_epochs > self.patience:
+            self.lr = max(self.lr * self.factor, self.min_lr)
+            self.cooldown_counter = self.cooldown
+            self.num_bad_epochs = 0
+        return self.lr
+
+    @property
+    def scale(self) -> float:
+        return self.lr / self.init_lr
+
+    def state_dict(self) -> dict:
+        return {k: getattr(self, k) for k in ("lr", "cooldown_counter", "num_bad_epochs", "best")}
+
+    def load_state_dict(self, state: dict) -> None:
+        for k, v in state.items():
+            setattr(self, k, v)

@@ -26,8 +26,11 @@ Random draws (dither, SpecAugment, dropout) come from the
 give ``jax.random``'s bits, so parity tests run with them off or hand the
 same numbers to both sides.
 
-Not ported yet: ``crop=True`` (``wave_crop``, the in-graph random crop of
-``device_cache`` mode) raises, and the SSL, dual-stream and raw-SSL steps.
+``crop=True`` applies the reference's random wave crop on the device
+(``ops/augment.py::wave_crop``, the ``device_cache`` mode of the trainer,
+whose cached batches hold uncropped waves); its two draws a row come first
+from the step's generator.  Not ported yet: the SSL, dual-stream and
+raw-SSL steps.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 from torch.func import functional_call
 
-from ..ops.augment import cutout, spec_augment
+from ..ops.augment import cutout, spec_augment, wave_crop
 from ..ops.ctc_kernels import ctc_loss
 from ..ops.frontend import MelFrontendConfig, log_mel_spectrogram, normalize_features
 from ..optim.novograd import GradientTransformation, apply_updates, global_norm
@@ -105,16 +108,20 @@ def _guarded_update(state: AsrTrainState, optimizer: GradientTransformation, los
 
 def _features(batch: dict, frontend: MelFrontendConfig, from_features: bool, normalize: bool,
               generator: Optional[torch.Generator], augment: Optional[str] = None,
-              freq_mask=27, time_mask=0.07):
-    """(feats (B, T, F), percents (B,)) of a batch, without gradient."""
+              freq_mask=27, time_mask=0.07, crop_weight: Optional[float] = None):
+    """(feats (B, T, F), percents (B,)) of a batch, without gradient; with a
+    ``crop_weight`` the waves are cropped first (``wave_crop``)."""
     with torch.no_grad():
         if from_features:
             feats, feat_lens = batch["waves"], batch["wave_lens"]
         else:
+            waves, wave_lens, prev = batch["waves"], batch["wave_lens"], batch.get("prev_samples")
+            if crop_weight is not None:
+                waves, wave_lens, prev = wave_crop(waves, wave_lens, generator, crop_weight)
             feats, feat_lens = log_mel_spectrogram(
-                batch["waves"], batch["wave_lens"], frontend,
+                waves, wave_lens, frontend,
                 generator=generator if frontend.dither > 0 else None,
-                prev_samples=batch.get("prev_samples"))
+                prev_samples=prev)
         if augment == "specaugment":
             feats = spec_augment(feats, feat_lens, generator, freq_mask, time_mask)
         elif augment == "cutout":
@@ -136,6 +143,7 @@ def make_train_step(
     from_features: bool = False,
     normalize: bool = True,
     crop: bool = False,
+    crop_weight: float = 0.98,
     accum_steps: int = 1,
 ) -> Callable:
     """Build ``train_step(state, batch, generator=None) -> (state,
@@ -146,8 +154,9 @@ def make_train_step(
     ``from_features`` the waves are (B, T, F) features and the lengths
     frame counts (the SSL path, with ``augment='cutout'`` and no
     normalization).  ``augment`` True/'specaugment' applies SpecAugment,
-    'cutout' the rectangles, None/False nothing.  ``generator`` feeds
-    dither, augmentation and dropout.
+    'cutout' the rectangles, None/False nothing.  ``crop`` crops the waves
+    on the device first (``wave_crop`` with ``crop_weight``).  ``generator``
+    feeds the crop, dither, augmentation and dropout.
 
     ``accum_steps`` > 1 splits the batch into that many micro-batches, run
     in order: BatchNorm statistics carry from one to the next, the summed
@@ -158,8 +167,8 @@ def make_train_step(
     (``resolve_device``): the CTC gradient's one-hot scatter to classes and
     NovoGrad's segment sums are float32 matmuls that TF32 would round to 10
     mantissa bits.  A caller must not turn TF32 back on while it trains."""
-    if crop:
-        raise NotImplementedError("wave_crop (crop=True, device_cache mode) is not ported yet")
+    if crop and from_features:
+        raise ValueError("crop=True crops waveforms; a from_features batch holds features")
     resolve_device(next(model.parameters()).device)
     augment = "specaugment" if augment is True else (augment or None)
 
@@ -177,7 +186,7 @@ def make_train_step(
                    generator: Optional[torch.Generator] = None):
         model.train()
         feats, percents = _features(batch, frontend, from_features, normalize, generator,
-                                    augment, freq_mask, time_mask)
+                                    augment, freq_mask, time_mask, crop_weight if crop else None)
         targets, target_lens = batch["targets"], batch["target_lens"]
         if accum_steps <= 1:
             loss, grads, new_stats, log_probs, out_lens = grad_fn(

@@ -12,14 +12,21 @@ documents).
 Keys are the flax paths joined with dots (``encoder.block1.sep_last.bn``),
 which are the port's module names.  Trees are nested dicts of numpy arrays
 (``jax.device_get`` of the flax variables, or an orbax restore).
+
+``opt_state_from_jax`` / ``opt_state_to_jax`` carry a fused NovoGrad state
+across, bit for bit: the JAX buffers order tensors as JAX flattens the flax
+tree (keys sorted) and keep conv kernels as (k, in, out); the port's follow
+its parameter dict and (out, in, k).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from ..optim.novograd import _CHUNK, FlatLayout, FusedNovogradState
 
 _BN_PARAMS = {"scale": "weight", "bias": "bias"}
 _BN_STATS = {"mean": "running_mean", "var": "running_var"}
@@ -85,3 +92,89 @@ def to_jax(state_dict: Dict[str, torch.Tensor]) -> Tuple[dict, dict]:
         else:
             _set(params, path + (name,), value)
     return params, batch_stats
+
+
+def _sorted_leaves(tree: dict, prefix: Tuple[str, ...] = ()) -> List[Tuple[Tuple[str, ...], np.ndarray]]:
+    """Leaves of a nested dict in JAX's tree order (keys sorted at every
+    level), which is the tensor order of its fused NovoGrad buffers."""
+    out = []
+    for k in sorted(tree, key=str):
+        v = tree[k]
+        if isinstance(v, dict) or hasattr(v, "items"):
+            out.extend(_sorted_leaves(dict(v), prefix + (str(k),)))
+        else:
+            out.append((prefix + (str(k),), np.asarray(v)))
+    return out
+
+
+def _port_name(path: Tuple[str, ...], bn_modules) -> str:
+    module, leaf = path[:-1], path[-1]
+    if module in bn_modules:
+        return ".".join(module + (_BN_PARAMS[leaf],))
+    return ".".join(module + ("weight" if leaf == "kernel" else leaf,))
+
+
+def _chunks(n: int) -> int:
+    return -(-n // _CHUNK)
+
+
+def opt_state_from_jax(opt_state, params: dict, batch_stats: dict,
+                       port_params: Dict[str, torch.Tensor]) -> FusedNovogradState:
+    """The JAX package's fused NovoGrad state (numpy; a NamedTuple or dict
+    with ``count``, ``exp_avg``, ``exp_avg_sq``, ``max_exp_avg_sq``,
+    ``p_flat``) for the flax ``params`` / ``batch_stats``, as the port's
+    ``FusedNovogradState`` over ``port_params`` (the port's parameter dict,
+    whose order and shapes set the port's layout).  Exact: both layouts pad
+    each tensor to whole 2048-element chunks; only the tensor order and the
+    conv kernels' element order differ."""
+    field = (lambda k: opt_state[k]) if isinstance(opt_state, dict) else (
+        lambda k: getattr(opt_state, k))
+    leaves = _sorted_leaves(params)
+    bn_modules = {p[:-1] for p, _ in _sorted_leaves(batch_stats)}
+    per_leaf = {k: {} for k in ("exp_avg", "p_flat", "exp_avg_sq", "max_exp_avg_sq")}
+    off = 0
+    for i, (path, leaf) in enumerate(leaves):
+        name = _port_name(path, bn_modules)
+        for k in ("exp_avg", "p_flat"):
+            flat = np.asarray(field(k)).reshape(-1)[off * _CHUNK: off * _CHUNK + leaf.size]
+            value = flat.reshape(leaf.shape)
+            if path[-1] == "kernel":
+                value = np.transpose(value, (2, 1, 0))
+            per_leaf[k][name] = torch.from_numpy(np.array(value))
+        for k in ("exp_avg_sq", "max_exp_avg_sq"):
+            per_leaf[k][name] = torch.from_numpy(np.array(np.asarray(field(k))[i]))
+        off += _chunks(leaf.size)
+    if set(per_leaf["exp_avg"]) != set(port_params):
+        raise ValueError("the flax params and the port's parameters name other tensors")
+    layout = FlatLayout(port_params)
+    dev = layout.seg.device
+    vec = lambda d: torch.stack([d[n] for n in layout.names]).to(dev)  # noqa: E731
+    return FusedNovogradState(
+        torch.tensor(int(np.asarray(field("count"))), dtype=torch.int32).to(dev),
+        layout.flatten(per_leaf["exp_avg"]).to(dev), vec(per_leaf["exp_avg_sq"]),
+        vec(per_leaf["max_exp_avg_sq"]), layout.flatten(per_leaf["p_flat"]).to(dev))
+
+
+def opt_state_to_jax(state: FusedNovogradState, port_params: Dict[str, torch.Tensor],
+                     port_batch_stats: Dict[str, torch.Tensor]) -> dict:
+    """The inverse of ``opt_state_from_jax``: a dict of numpy fields in the
+    JAX package's fused layout for the flax tree that ``to_jax`` makes of
+    ``port_params`` and ``port_batch_stats``."""
+    layout = FlatLayout(port_params)
+    momentum = {n: t.detach().cpu() for n, t in layout.unflatten(state.exp_avg).items()}
+    masters = {n: t.detach().cpu() for n, t in layout.unflatten(state.p_flat).items()}
+    stats = {k: v.detach().cpu() for k, v in port_batch_stats.items()}
+    trees = {k: to_jax({**d, **stats})[0] for k, d in (("exp_avg", momentum), ("p_flat", masters))}
+    bn_modules = {tuple(k.rsplit(".", 1)[0].split(".")) for k in stats if k.endswith(".running_mean")}
+    index = {n: i for i, n in enumerate(layout.names)}
+    out = {"count": np.asarray(state.count.cpu().numpy(), np.int32)}
+    for k in ("exp_avg", "p_flat"):
+        parts = []
+        for _, leaf in _sorted_leaves(trees[k]):
+            flat = leaf.astype(np.float32).reshape(-1)
+            parts.append(np.pad(flat, (0, _chunks(flat.size) * _CHUNK - flat.size)))
+        out[k] = np.concatenate(parts).reshape(-1, _CHUNK)
+    order = [index[_port_name(p, bn_modules)] for p, _ in _sorted_leaves(trees["exp_avg"])]
+    for k in ("exp_avg_sq", "max_exp_avg_sq"):
+        out[k] = getattr(state, k).detach().cpu().numpy()[order]
+    return out

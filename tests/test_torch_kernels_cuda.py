@@ -15,8 +15,12 @@ from lightning_asr_torch.ops.depthwise_kernels import depthwise_wgrad, depthwise
 from lightning_asr_torch.ops.frontend import MelFrontendConfig
 from lightning_asr_torch.ops.frontend_kernels import (extend_preemph, extend_preemph_plain,
                                                       mel_from_extended, mel_from_extended_plain)
+from lightning_asr_torch.ops.lstm import LSTMWeights, lstm
 from lightning_asr_torch.ops.lstm_kernels import (lstm_backward, lstm_backward_plain,
-                                                  lstm_recurrence, lstm_recurrence_plain)
+                                                  lstm_backward_stacked, lstm_backward_stacked_plain,
+                                                  lstm_recurrence, lstm_recurrence_plain,
+                                                  lstm_recurrence_stacked,
+                                                  lstm_recurrence_stacked_plain)
 from lightning_asr_torch.ops.sepconv_kernels import (sepconv_backward, sepconv_backward_plain,
                                                      sepconv_forward, sepconv_forward_plain)
 
@@ -123,6 +127,84 @@ def test_k3_against_plain(dev, D, T, lengths):
     assert (dw - want_dw).abs().max().item() <= 1e-3 * max(1.0, want_dw.abs().max().item())
     for b, n in enumerate(lengths):
         assert bool((d_xproj[b, n:] == 0).all())
+
+
+def _stacked_case(dev, T, lengths, seed, random_mask=False):
+    """Stacked rows as ``ops/lstm.py`` builds them (forward rows valid at
+    t < len, reverse rows at T-1-t < len), or a random 0/1 mask."""
+    H = 40
+    g = torch.Generator().manual_seed(seed)
+    B = len(lengths)
+    xproj = torch.randn((T, 2 * B, 4 * H), generator=g)
+    w_f, w_b = ((torch.rand((4 * H, H), generator=g) * 2 - 1).div(H ** 0.5) for _ in range(2))
+    lens = torch.tensor(lengths)
+    t = torch.arange(T)[:, None]
+    valid = torch.cat([t < lens[None], (T - 1 - t) < lens[None]], dim=1).float()
+    if random_mask:
+        valid = (torch.rand((T, 2 * B), generator=g) < 0.7).float()
+    grad_h = torch.randn((T, 2 * B, H), generator=g)
+    return [a.to(dev) for a in (xproj, valid, w_f, w_b, grad_h)]
+
+
+STACKED_CASES = [(1, [1, 0], False), (37, [37, 0, 1, 20], False), (300, [300, 299, 7], False),
+                 (50, [50, 50, 50], True)]
+
+
+@pytest.mark.parametrize("T,lengths,random_mask", STACKED_CASES)
+def test_k7_k8_against_plain(dev, T, lengths, random_mask):
+    xproj, valid, w_f, w_b, grad_h = _stacked_case(dev, T, lengths, T, random_mask)
+    before = (lstm_recurrence_stacked.launches, lstm_backward_stacked.launches)
+    h, h_prev, c_prev = lstm_recurrence_stacked(xproj, valid, w_f, w_b)
+    d_x, dw_f, dw_b = lstm_backward_stacked(xproj, valid, w_f, w_b, h_prev, c_prev, grad_h)
+    assert (lstm_recurrence_stacked.launches, lstm_backward_stacked.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = lstm_recurrence_stacked_plain(xproj, valid, w_f, w_b)
+    # float32; dot sums in another order, the card's expf/tanhf
+    for got, ref, tol in zip((h, h_prev, c_prev), want, (1e-5, 1e-5, 1e-4)):
+        assert (got - ref).abs().max().item() <= tol
+    assert bool((h[valid == 0] == 0).all()) and bool((d_x[valid == 0] == 0).all())
+    want_dx, want_f, want_b = lstm_backward_stacked_plain(xproj, valid, w_f, w_b, want[1], want[2],
+                                                          grad_h)
+    assert (d_x - want_dx).abs().max().item() <= 1e-4
+    for got, ref in ((dw_f, want_f), (dw_b, want_b)):
+        assert (got - ref).abs().max().item() <= 1e-3 * max(1.0, ref.abs().max().item())
+    again = lstm_backward_stacked(xproj, valid, w_f, w_b, h_prev, c_prev, grad_h)
+    assert all(torch.equal(a, b) for a, b in zip(again, (d_x, dw_f, dw_b)))   # deterministic
+
+
+def test_fused_bilstm_on_the_card_matches_k2_k3(dev):
+    """``lstm(..., fuse_directions=True)`` (K7, K8) against the K2 / K3 path:
+    output and every gradient."""
+    g = torch.Generator().manual_seed(3)
+    B, T, C, H = 5, 90, 24, 40
+    s = H ** -0.5
+    ws = [LSTMWeights(*((torch.rand(sh, generator=g) * 2 - 1) * s for sh in
+                        ((4 * H, C), (4 * H, H), (4 * H,), (4 * H,)))) for _ in range(2)]
+    x = torch.randn((B, T, C), generator=g)
+    lens = torch.tensor([T, 1, 45, 89, 0], dtype=torch.int32)
+    probe = torch.randn((B, T, 2 * H), generator=g).to(dev)
+    res = []
+    for fuse in (False, True):
+        xs = x.to(dev).requires_grad_(True)
+        wd = [LSTMWeights(*(t.to(dev).requires_grad_(True) for t in w)) for w in ws]
+        y = lstm(xs, lens.to(dev), wd[0], wd[1], fuse_directions=fuse)
+        grads = torch.autograd.grad((y * probe).sum(), [xs, *wd[0], *wd[1]])
+        res.append((y.detach(), grads))
+    assert (res[0][0] - res[1][0]).abs().max().item() <= 1e-5
+    for a, b in zip(res[0][1], res[1][1]):
+        assert (a - b).abs().max().item() <= 1e-3 * max(1.0, b.abs().max().item())
+
+
+def test_k7_k8_reject_what_they_cannot_run(dev):
+    x = torch.zeros((5, 4, 32), device=dev)
+    v = torch.ones((5, 4), device=dev)
+    with pytest.raises(ValueError):        # no kernel instantiated for H=8
+        lstm_recurrence_stacked(x, v, torch.zeros((32, 8), device=dev), torch.zeros((32, 8), device=dev))
+    w = torch.zeros((160, 40), device=dev)
+    with pytest.raises(ValueError):        # valid on another device
+        lstm_recurrence_stacked(torch.zeros((5, 4, 160), device=dev), v.cpu(), w, w)
+    with pytest.raises(ValueError):        # an odd row count
+        lstm_recurrence_stacked(torch.zeros((5, 3, 160), device=dev), v[:, :3], w, w)
 
 
 def _ctc_case(dev, B, T, C, L, seed):

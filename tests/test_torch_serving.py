@@ -114,7 +114,7 @@ def test_http_server_contract(served, batching):
     assert not thread.is_alive()
 
 
-_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "lightning_asr_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "lightning_asr_tpu")
 
 
 def _imported_roots(path: Path):

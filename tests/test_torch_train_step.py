@@ -93,11 +93,12 @@ def weights():
     return with_teeth(variables["params"], variables["batch_stats"], rng)
 
 
-def setups(weights, dtype, accum_steps=1, from_features=False, conv_kernel=None):
+def setups(weights, dtype, accum_steps=1, from_features=False, conv_kernel=None,
+           fuse_directions=False):
     """(jax state, jitted jax step, port state, port step, port model) from
     one set of weights, both optimizers fused NovoGrad behind the gradient
-    capture; ``conv_kernel`` builds the port model (the caller sets JAX's
-    matching switch)."""
+    capture; ``conv_kernel`` and ``fuse_directions`` build the port model
+    (the caller sets JAX's matching switch)."""
     params, stats = weights
     jdt = None if dtype == "float32" else jnp.bfloat16
     jmodel = jax_build_model(NUM_CLASSES, "quartznet12_context", mask=True, dtype=jdt)
@@ -111,7 +112,7 @@ def setups(weights, dtype, accum_steps=1, from_features=False, conv_kernel=None)
 
     model = build_model(NUM_CLASSES, mask=True,
                         dtype=None if dtype == "float32" else torch.bfloat16,
-                        conv_kernel=conv_kernel)
+                        conv_kernel=conv_kernel, fuse_directions=fuse_directions)
     model.load_state_dict(from_jax(params, stats), strict=True)
     popt = port_capture(novograd(cosine_annealing_warmup_restarts(**SCHEDULE), betas=(0.8, 0.5),
                                  weight_decay=1e-3, fused=True))

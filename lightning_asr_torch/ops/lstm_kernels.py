@@ -427,7 +427,7 @@ def lstm_backward_stacked(xproj: torch.Tensor, valid: torch.Tensor, w_hh_f: torc
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     d_xproj = torch.empty_like(xproj)
-    dw_part = torch.zeros((B, 2, G, H), dtype=torch.float32, device=xproj.device)
+    dw_part = torch.empty((B, 2, G, H), dtype=torch.float32, device=xproj.device)
     if B and T:
         stream = torch.cuda.current_stream(xproj.device).cuda_stream
         err = fn(xproj.data_ptr(), valid.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(),
@@ -437,6 +437,8 @@ def lstm_backward_stacked(xproj: torch.Tensor, valid: torch.Tensor, w_hh_f: torc
             raise RuntimeError(f"stacked LSTM backward kernel launch failed: CUDA error {err}")
         with _LOCK:
             lstm_backward_stacked.launches += 1
+    else:
+        dw_part.zero_()
     dw = dw_part.sum(dim=0)
     return d_xproj, dw[0], dw[1]
 

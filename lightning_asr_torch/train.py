@@ -45,8 +45,8 @@ _COMPUTE_DTYPES = {"bf16": torch.bfloat16, "f32": None}
 def kernel_switches(environ=os.environ) -> dict:
     """``build_model`` arguments for the JAX package's kernel switches."""
     on = lambda name: environ.get(name, "0") == "1"  # noqa: E731
-    if on("LASR_SEPCONV_PALLAS") and on("LASR_DW_WGRAD_PALLAS"):
-        raise ValueError("LASR_SEPCONV_PALLAS and LASR_DW_WGRAD_PALLAS exclude each other")
+    # with both conv switches on, the reference's blocks take the sepconv
+    # branch first and never reach the depthwise-wgrad one
     conv_kernel = "sepconv" if on("LASR_SEPCONV_PALLAS") else (
         "dw_wgrad" if on("LASR_DW_WGRAD_PALLAS") else None)
     return {"fuse_directions": on("LASR_LSTM_FUSED_BIDIR"), "conv_kernel": conv_kernel}

@@ -83,11 +83,9 @@ class Trainer:
         augment=True,
         freq_mask=27,
         time_mask=0.07,
-        normalize: bool = True,
         checkpoint_top_k: int = 3,
         seed: int = 0,
         hparams: Optional[dict] = None,
-        from_features: bool = False,
         callbacks: Optional[list] = None,
         plateau=None,
         plateau_monitor: str = "val_loss",
@@ -123,8 +121,10 @@ class Trainer:
         self.hparams = dict(hparams or {})
         self.hparams.setdefault("frontend", dataclasses.asdict(frontend))
         self.hparams.setdefault("compute_dtype", _compute_dtype_name(model))
-        self.hparams.setdefault("normalize", bool(normalize))
-        self.hparams.setdefault("from_features", bool(from_features))
+        # the trainer trains on normalized features of waves; AsrTranslator
+        # reads these two from the checkpoint
+        self.hparams.setdefault("normalize", True)
+        self.hparams.setdefault("from_features", False)
         self.generator = torch.Generator(device=self.device)
         self.profiler = SimpleProfiler()
         self.wer = WER(self.vocab.labels, self.vocab.use_cer)
@@ -132,7 +132,6 @@ class Trainer:
         self.epoch = 0
         self.global_step = 0          # host-side mirror of state.step (no sync a step)
         self.epoch_stats: list = []
-        self.from_features = from_features
         self.callbacks = list(callbacks or [])
         self.should_stop = False
         self.plateau = plateau
@@ -141,17 +140,15 @@ class Trainer:
         self.limit_val_batches = limit_val_batches
         self.device_cache = device_cache
         self._epoch_cache: Optional[list] = None       # [(Batch, device batch)]
-        crop_in_step = device_cache and getattr(datamodule, "crop", False) and not from_features
+        crop_in_step = device_cache and getattr(datamodule, "crop", False)
         if crop_in_step:
             datamodule.crop = False   # cached batches hold uncropped waves
         self._train_step = make_train_step(
             model, optimizer, self.vocab.blank_id, frontend, augment=augment,
-            freq_mask=freq_mask, time_mask=time_mask, from_features=from_features,
-            normalize=normalize, crop=crop_in_step,
+            freq_mask=freq_mask, time_mask=time_mask, crop=crop_in_step,
             crop_weight=getattr(datamodule, "crop_weight", 0.98),
             accum_steps=int(accumulate_grad_batches))
-        self._eval_step = make_eval_step(model, self.vocab.blank_id, frontend,
-                                         from_features=from_features, normalize=normalize)
+        self._eval_step = make_eval_step(model, self.vocab.blank_id, frontend)
 
     # ------------------------------------------------------------------
     def init_state(self) -> AsrTrainState:
@@ -215,7 +212,6 @@ class Trainer:
                         state, epoch, val_metrics, self.hparams,
                         trainer_meta=({"plateau": self.plateau.state_dict()}
                                       if self.plateau is not None else None))
-                self.on_validation_end(state, epoch, val_metrics)
                 for cb in self.callbacks:
                     cb.on_validation_end(self, state, epoch, val_metrics)
             if self.should_stop:
@@ -236,15 +232,8 @@ class Trainer:
         return dataclasses.replace(state, opt_state=opt._replace(
             hyperparams={**opt.hyperparams, "learning_rate": value}))
 
-    # hooks for subclasses
-    def on_validation_end(self, state, epoch, val_metrics) -> None:
-        pass
-
-    def on_train_epoch_end(self, state, epoch) -> None:
-        pass
-
     def on_resume(self, state, start_epoch) -> None:
-        pass
+        """Hook for subclasses, called once after a checkpoint is restored."""
 
     def _device_iter(self, batcher, limit: Optional[int] = None):
         """(host batch, device batch) pairs; decode, assembly and the copy to
@@ -328,7 +317,6 @@ class Trainer:
             "loss_mean": float(np.mean(loss_values)) if loss_values else float("nan")})
         logger.info("epoch %d: %d batches, %.1fs, %.1f audio-sec/sec", epoch, len(losses), dt,
                     audio_seconds / max(dt, 1e-9))
-        self.on_train_epoch_end(state, epoch)
         for cb in self.callbacks:
             cb.on_train_epoch_end(self, state, epoch)
         return state

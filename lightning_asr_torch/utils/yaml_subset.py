@@ -4,14 +4,14 @@ port does not depend on it.
 
 Supported: block mappings and sequences (a sequence item may open a
 mapping, ``- log: hypra_logger``), flow sequences and mappings that span
-lines, single- and double-quoted scalars on one line, folded and literal
-block scalars (``>``, ``>-``, ``|``, ``|-``), comments, and the YAML 1.1
+lines, single- and double-quoted scalars on one line, ``>-`` folded
+block scalars, comments, and the YAML 1.1
 resolution of plain scalars that PyYAML applies: null (``~``, ``null``,
 empty), booleans (``true``/``yes``/``on`` and their negatives), ints
 (decimal, ``0x``, ``0b``, octal, ``_`` separators, base 60) and floats,
 which need a dot, so ``1e-2`` stays the string ``"1e-2"``.  Anything else
-(anchors, tags, multi-document streams, timestamps, merge keys) raises
-``ValueError``.
+(other block scalar styles, anchors, tags, multi-document streams,
+timestamps, merge keys) raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -320,8 +320,9 @@ class _Block:
         return resolve_plain(" ".join(parts))
 
     def _block_scalar(self, header: str, indent: int) -> str:
-        style, chomp = header[0], header[1:].strip()
-        if chomp not in ("", "-", "+"):
+        """A ``>-`` folded scalar: lines joined by blanks, an empty line a
+        newline, no final newline.  More indented lines raise."""
+        if header != ">-":
             raise ValueError(f"unsupported block scalar header {header!r}")
         body: List[str] = []
         block_indent = None
@@ -338,21 +339,17 @@ class _Block:
             self.i += 1
         while body and not body[-1]:
             body.pop()
-        if style == "|":
-            text = "\n".join(body)
-        else:
-            text, prev_blank = "", True
-            for line in body:
-                if not line:
-                    text += "\n"
-                    prev_blank = True
-                elif line.startswith(" "):          # more indented: kept as is
-                    text += ("" if prev_blank else "\n") + line
-                    prev_blank = True
-                else:
-                    text += ("" if prev_blank else " ") + line
-                    prev_blank = False
-        return text if chomp == "-" else text + "\n"
+        text, prev_blank = "", True
+        for line in body:
+            if not line:
+                text += "\n"
+                prev_blank = True
+            elif line.startswith(" "):
+                raise ValueError(f"more indented line in a folded scalar: {line!r}")
+            else:
+                text += ("" if prev_blank else " ") + line
+                prev_blank = False
+        return text
 
     def _mapping(self, indent: int) -> dict:
         out: dict = {}

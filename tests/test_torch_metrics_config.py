@@ -61,14 +61,15 @@ def test_yaml_reader_matches_pyyaml_on_conf(path):
     "1e-2", "1.0e-2", "0.", "-3", "0x1f", "010", "1_000", "1:30", ".inf", "-.Inf", "yes", "Off",
     "~", "null", "", "'it''s'", '"a\\tb"', "a: [1, 2.5, 'x', [y, {k: v}]]",
     "- a\n- b: 1\n  c: 2\n- - x\n  - y\n", "k: >-\n  one\n  two\n\n  three\nz: 1\n",
-    "k: |\n  a\n   b\n", "x: 'a # b' # c\ny: \"#q\"\n", "outputs/${a}/${now:%Y-%m-%d}",
+    "k: >-\n  a\n\n\n  b\n", "x: 'a # b' # c\ny: \"#q\"\n", "outputs/${a}/${now:%Y-%m-%d}",
     "a:\n- 1\n-\n  b: c\n", '"q": 1\n\'r s\': [a,\n  b]\n', "a: b\n  c\n", "[a, b]\n"])
 def test_yaml_reader_matches_pyyaml_on_the_subset(text):
     assert safe_load(text) == yaml.safe_load(text)
 
 
 def test_yaml_reader_refuses_what_it_does_not_read():
-    for text in ("a: &x 1\nb: *x\n", "a: !!int 3\n", "d: 2001-12-14\n"):
+    for text in ("a: &x 1\nb: *x\n", "a: !!int 3\n", "d: 2001-12-14\n", "k: |\n  a\n",
+                 "k: >\n  a\n", "k: >-\n  a\n   b\n"):
         with pytest.raises(ValueError):
             safe_load(text)
 

@@ -259,6 +259,8 @@ def test_cli_trains_and_the_translator_loads_its_checkpoint(corpus, tmp_path, mo
     assert kernel_switches({"LASR_SEPCONV_PALLAS": "1", SWITCH: "1"}) == {
         "fuse_directions": True, "conv_kernel": "sepconv"}
     assert kernel_switches({"LASR_DW_WGRAD_PALLAS": "1"})["conv_kernel"] == "dw_wgrad"
+    assert kernel_switches({"LASR_SEPCONV_PALLAS": "1", "LASR_DW_WGRAD_PALLAS": "1"}) == {
+        "fuse_directions": False, "conv_kernel": "sepconv"}
 
 
 @pytest.fixture(scope="module")

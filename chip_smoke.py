@@ -7,13 +7,14 @@ GPU and check them.
 Phases, in order; any failed check exits non-zero before the last line:
 
   1. the card's name and power limit (nvidia-smi);
-  2. the build of every CUDA kernel from lightning_asr_torch/csrc (time, and
-     whether it came from the cache);
+  2. the build of every CUDA kernel from lightning_asr_torch/csrc (time,
+     whether it came from the cache, and the tensor-core HMMA instructions
+     of each library from cuobjdump where the toolkit has it);
   3. K1, the fused log-mel kernel, at the serving shape (8 float32 rows of
      16 s, 1601 frames) and at the training shape (32 dithered int16 rows
      padded to 16.7 s, 1671 frames), against its plain PyTorch version on
      the card, with its time, the plain version's and torch.stft's as a
-     yardstick;
+     yardstick, its achieved TFLOP/s and its share of the bound;
   4. K2, the BiLSTM recurrence kernel (B=8, T=801, C=256, H=40, ragged
      lengths, both directions), the same way, with cuDNN's packed LSTM as
      the yardstick; its cell-state output (training) leaves h bit for bit;
@@ -25,7 +26,10 @@ Phases, in order; any failed check exits non-zero before the last line:
      plain versions (K9 and K10's dx within one bf16 ulp, the weight
      gradients relative to their largest value), run twice for the same
      bits, with cuDNN's F.conv1d pair, its autograd backward and its
-     depthwise weight gradient as the yardsticks;
+     depthwise weight gradient as the yardsticks, K9's achieved TFLOP/s and
+     share of its bound; and K9's float32 instantiation at the widest layer;
+     before them, the check that mul.rn.bf16x2 (the bf16 K9's depthwise
+     products) rounds every pair of finite bf16 values as the plain version;
   7. serving: a full-width quartznet12_context checkpoint made from seeded
      weights (bf16 convs, "default" frontend tier) is loaded by
      AsrTranslator on the card and served over HTTP with dynamic batching;
@@ -123,8 +127,9 @@ from lightning_asr_torch.ops.lstm_kernels import (lstm_backward, lstm_backward_p
                                                   lstm_recurrence, lstm_recurrence_plain,
                                                   lstm_recurrence_stacked,
                                                   lstm_recurrence_stacked_plain)
-from lightning_asr_torch.ops.sepconv_kernels import (sepconv_backward, sepconv_backward_plain,
-                                                     sepconv_forward, sepconv_forward_plain)
+from lightning_asr_torch.ops.sepconv_kernels import (bf16_product_mismatches, sepconv_backward,
+                                                     sepconv_backward_plain, sepconv_forward,
+                                                     sepconv_forward_plain)
 from lightning_asr_torch.optim import cosine_annealing_warmup_restarts, novograd
 from lightning_asr_torch.optim.novograd import GradientTransformation
 from lightning_asr_torch.train import main as train_main
@@ -269,7 +274,8 @@ def _k1_at(dev, cfg: MelFrontendConfig, waves, lens, generator=None) -> dict:
     flops = B * T * (2 * 2 * F * cfg.n_fft + 3 * F + 2 * F * cfg.n_mels)
     bound_ms, bound_by = bound(nbytes, flops, "bf16")
     return {"shape": [B, waves.shape[1], T], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "tflops": flops / ms * 1e-9, "bound_share": bound_ms / ms}
 
 
 def phase_k1(dev) -> dict:
@@ -499,18 +505,47 @@ def _sepconv_layer(dev, Cin: int, Cout: int, k: int, seed: int) -> dict:
         # x and dy in, the float32 gradient out; k taps
         "K11": bound((x.numel() + dyx.numel()) * n2 + gk.numel() * 4, 2 * BT * Cin * k, "bf16"),
     }
+    k9_flops = 2 * BT * Cin * (k + Cout)
     return {"shape": [B, Cin, Cout, T, k], **errs,
+            "K9_tflops": k9_flops / times["K9"][0] * 1e-9,
+            "K9_bound_share": bounds["K9"][0] / times["K9"][0],
             **{f"{n}_{m}": v for n, (ms, pms, lms) in times.items()
                for m, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms))},
             **{f"{n}_bound_ms": b[0] for n, b in bounds.items()},
             **{f"{n}_bound_by": b[1] for n, b in bounds.items()}}
 
 
+def _sepconv_fwd_float32(dev, Cin: int, Cout: int, k: int) -> dict:
+    """K9's float32 instantiation (the CUDA-core product the parity checks
+    run) at one layer of the training step: against its plain version and
+    timed, so the SIMT path's cost stays on record."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((TRAIN_BATCH, Cin, T_TRAIN), generator=g, device=dev)
+    wd = (torch.rand((Cin, 1, k), generator=g, device=dev) * 2 - 1) / k ** 0.5
+    wp = (torch.rand((Cout, Cin, 1), generator=g, device=dev) * 2 - 1) / Cin ** 0.5
+    y, want = sepconv_forward(x, wd, wp), sepconv_forward_plain(x, wd, wp)
+    torch.cuda.synchronize()
+    err = (y - want).abs().max().item()
+    # float32 sums in another order: the slack of the bf16 check
+    check(err <= SEPCONV_SLACK * want.abs().max().item(), f"K9 float32 at Cin={Cin}: {err}")
+    ms = cuda_ms(lambda: sepconv_forward(x, wd, wp), 10)
+    flops = 2 * TRAIN_BATCH * T_TRAIN * Cin * (k + Cout)
+    bound_ms, bound_by = bound((x.numel() + y.numel() + wd.numel() + wp.numel()) * 4, flops, "fp32")
+    return {"max_abs_err": err, "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "tflops": flops / ms * 1e-9}
+
+
 def phase_sepconv(dev):
     """K9, K10 and K11 at the training step's layers, bf16."""
     sepconv_forward.launches = sepconv_backward.launches = depthwise_wgrad.launches = 0
+    # the bf16 K9 takes its depthwise products with mul.rn.bf16x2: the same
+    # bits as the plain version's rounded float32 products, for every pair
+    # of finite bf16 values, or its bound does not hold
+    mismatches = bf16_product_mismatches(dev)
+    check(mismatches == 0, f"mul.rn.bf16x2 differs from the rounded float32 product {mismatches} times")
     layers = [_sepconv_layer(dev, cin, cout, k, i) for i, (cin, cout, k) in enumerate(SEPCONV_LAYERS)]
     widest = layers[-1]
+    widest["K9_float32"] = _sepconv_fwd_float32(dev, *SEPCONV_LAYERS[-1])
     rows = []
     for key, name, src, line, err in (
             ("K9", "sepconv_forward (K9)", "sepconv.cu", "sepconv_pallas.py:80", "K9_y_max_abs"),
@@ -522,6 +557,7 @@ def phase_sepconv(dev):
                      **{m: widest[f"{key}_{m}"] for m in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                           "library_ms")}})
     print(json.dumps({"phase": "K9/K10/K11", "dtype": "bfloat16", "slack": SEPCONV_SLACK,
+                      "bf16_product_mismatches": mismatches,
                       "tol_grad_rel": SEPCONV_TOL_GRAD, "k11_tol_rel": K11_TOL, "layers": layers,
                       "phase_launches": {"K9": sepconv_forward.launches, "K10": sepconv_backward.launches,
                                          "K11": depthwise_wgrad.launches},
@@ -712,7 +748,7 @@ def _category(name: str) -> str:
                      ("lstm_bwd_kernel", "K3 lstm_bwd"), ("lstm_stacked_fwd_kernel", "K7 lstm_stacked"),
                      ("lstm_stacked_bwd_kernel", "K8 lstm_stacked_bwd"), ("ctc_alpha_kernel", "K4 ctc_alpha"),
                      ("ctc_beta_kernel", "K5 ctc_beta"), ("extend_kernel", "K6 extend_preemph"),
-                     ("sepconv_fwd_kernel", "K9 sepconv_fwd"), ("sepconv_dz_kernel", "K10 sepconv_bwd"),
+                     ("sepconv_fwd", "K9 sepconv_fwd"), ("sepconv_dz_kernel", "K10 sepconv_bwd"),
                      ("sepconv_bwd_dw_kernel", "K10 sepconv_bwd"),
                      ("sepconv_wp_grad_kernel", "K10 sepconv_bwd"),
                      ("dw_wgrad_kernel", "K11 dw_wgrad"), ("sum_partials_kernel", "K10/K11 partial sums")):
@@ -1356,6 +1392,20 @@ def phase_trainer(dev) -> dict:
             "k8_launches": sum(r["launches"]["lstm_backward_stacked"] for r in runs)}
 
 
+def hmma_counts():
+    """Tensor-core (HMMA) instructions in each built library's SASS, from
+    the toolkit's cuobjdump; None where the toolkit has none."""
+    tool = Path(kernel_build._nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        return None
+    counts = {}
+    for name in kernel_build.SOURCES:
+        sass = subprocess.run([str(tool), "-sass", str(kernel_build.library_path(name))],
+                              capture_output=True, text=True, timeout=120, check=True).stdout
+        counts[name] = sum("HMMA" in line for line in sass.splitlines())
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU",
@@ -1373,7 +1423,7 @@ def main() -> int:
     ptxas = [line.strip() for out in info["ptxas"].values() for line in out.splitlines()
              if "registers" in line or "Compiling entry" in line]
     print(json.dumps({"phase": "build", "seconds": info["seconds"], "cached": info["cached"],
-                      "ptxas": ptxas}), flush=True)
+                      "hmma": hmma_counts(), "ptxas": ptxas}), flush=True)
 
     k1 = phase_k1(dev)
     k2 = phase_k2(dev)

@@ -62,7 +62,9 @@ __global__ void ctc_alpha_kernel(const float* __restrict__ log_probs,  // (B, T,
   for (int j = 0; j < MAX_PER; ++j) {
     const int s = threadIdx.x + j * blockDim.x;
     ext[j] = s < S ? label_at(tgt, s, blank) : blank;
-    const int m2 = s >= 2 ? label_at(tgt, s - 2, blank) : blank;
+    // s < S keeps the read inside the row: a thread's spare states reach
+    // past 2S, which for the last row lies past the end of targets
+    const int m2 = (s >= 2 && s < S) ? label_at(tgt, s - 2, blank) : blank;
     valid[j] = s < n_states;
     // at s = 1 the skip flag may hold in the reference, but alpha[s-2] is
     // then NEG_INF there: s >= 2 keeps the read inside the buffer

@@ -1,154 +1,212 @@
-// Fused log-mel kernel (K1): windowed DFT + power + mel projection + dB.
+// Fused log-mel kernel (K1): windowed DFT + power + mel projection + dB, on
+// the tensor cores (mma.sync m16n8k16, bf16 operands, float32 sums).
 //
-// Replaces lightning_asr_tpu/ops/frontend_pallas.py::_mel_kernel.  The bound,
-// the design and the numerics are described in
-// lightning_asr_torch/ops/frontend_kernels.py, which builds the tables this
-// kernel reads and checks every argument before the launch.
+// Replaces lightning_asr_tpu/ops/frontend_pallas.py::_mel_kernel (:194).
+// Bound: the DFT's 2 x 514 x 512 flops a frame against ~12 MB moved for 8
+// rows of 16 s, so it is operation-bound and reaches its bound only on the
+// tensor cores.  The numerics and the host-side table layouts are described
+// in lightning_asr_torch/ops/frontend_kernels.py, which builds the tables
+// this kernel reads and checks every argument before the launch.
 //
-// Per block: one batch row b and a tile of TT consecutive frames.
-//   1. The tile's samples q[b, t0*hop : t0*hop + (TT-1)*hop + n_fft], rounded
-//      to bf16, go to shared memory (zero past the row's end).
-//   2. Bins are processed in chunks of 64: warp w owns frames 4w..4w+3, lane l
-//      owns bins c0+2l and c0+2l+1, and keeps (re, im) for its 4 x 2 outputs
-//      in registers.  The DFT is summed per hop-wide chunk of n and the chunk
-//      sums are added in chunk order, as the reference tier does.
-//   3. bf16(re^2 + im^2) of the tile goes to shared memory.
-//   4. Each thread projects some (frame, mel) outputs through the filterbank
-//      and writes 10*log10(max(mel, amin)).
+// Per block: one batch row b and a tile of MT = 64 frames, 8 warps.
+//   1. The tile's samples, rounded to bf16, go to shared memory once, one
+//      hop-wide chunk per row of hop + PAD elements: sample n of frame t lies
+//      in chunk t + n / hop.  hop and the window's start are multiples of 16,
+//      so a 16-sample step never crosses a chunk, every ldmatrix row address
+//      is 16-byte aligned, and 8 consecutive frames fall on distinct banks;
+//      the overlapping frames are never copied.  Warp w holds the A
+//      fragments of frames 16 (w % 4) .. + 15 over the window's non-zero
+//      samples [n_lo, n_lo + K) in registers for the whole kernel.
+//   2. The DFT: (frames x samples) . (samples x columns).  The table's
+//      columns come in groups of 16, the cos and the -sin of 8 bins, so the
+//      re and im of one (frame, bin) land in the same register of two
+//      accumulators.  The table streams through shared memory in passes of
+//      NP = 32 columns (16 bins, all K samples), double-buffered with
+//      cp.async; warp w computes columns 16 (w / 4) .. + 15 of each pass.
+//   3. power = re^2 + im^2 (multiply and add rounded separately) in
+//      registers, rounded to bf16 into the block's (64, FP) power tile.
+//   4. The mel projection, (64 x FP) . (FP x n_mels), on mma.sync from the
+//      power tile and the transposed filterbank (copied into the table
+//      buffers after the last pass); 10 log10(max(mel, amin)) is written
+//      from the accumulators.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma_util.cuh"
 
 namespace {
 
-constexpr int TT = 32;       // frames per block
-constexpr int FG = 4;        // frames per thread (one warp per frame group)
-constexpr int THREADS = 32 * (TT / FG);
-constexpr int BIN_CHUNK = 64;  // bins per pass: 32 lanes x 2
+using bf16 = __nv_bfloat16;
+using lasr::cp_async16;
+using lasr::cp_async_commit;
+using lasr::cp_async_wait;
+using lasr::ldmatrix_x4;
+using lasr::mma_bf16;
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+constexpr int MT = 64;         // frames a block
+constexpr int THREADS = 256;   // 8 warps: 4 over the frames x 2 over a pass's columns
+constexpr int NP = 32;         // table columns a pass: cos and -sin of 16 bins
+constexpr int KS_MAX = 20;     // 16-sample steps of the window held in registers
+constexpr int PAD = 8;         // bf16 elements padding every shared-memory row
+
+// bf16 elements of the three shared-memory regions: the samples, the table
+// passes (later the filterbank), the power tile
+__host__ __device__ inline int samples_elems(int hop, int n_lo, int K) {
+  return (MT + (n_lo + K - 1) / hop - n_lo / hop) * (hop + PAD);
+}
+__host__ __device__ inline int table_elems(int K, int FP, int n_mels) {
+  const int passes = 2 * NP * (K + PAD), filterbank = n_mels * (FP + PAD);
+  return passes > filterbank ? passes : filterbank;
 }
 
-__global__ void __launch_bounds__(THREADS)
+size_t smem_bytes(int hop, int n_lo, int K, int FP, int n_mels) {
+  return sizeof(bf16) * ((size_t)samples_elems(hop, n_lo, K) + table_elems(K, FP, n_mels)
+                         + MT * (FP + PAD));
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
 log_mel_kernel(const float* __restrict__ q, int q_len, int T,
-               const __nv_bfloat16* __restrict__ wt,  // (n_fft, 2*FP)
-               int FP,
-               const __nv_bfloat16* __restrict__ fb,  // (F, n_mels)
-               float* __restrict__ out,               // (B, T, n_mels)
-               int hop, int n_fft, int F, int n_mels, float amin) {
-  extern __shared__ float smem[];
-  const int span = (TT - 1) * hop + n_fft;
-  float* xs = smem;           // [span] bf16-rounded samples
-  float* pw = smem + span;    // [TT * F] bf16-rounded power
+               const bf16* __restrict__ wt,    // (2 FP, K + PAD), see _device_tables
+               const bf16* __restrict__ fbt,   // (n_mels, FP + PAD)
+               float* __restrict__ out,        // (B, T, n_mels)
+               int hop, int n_lo, int K, int FP, int n_mels, float amin) {
+  extern __shared__ __align__(16) bf16 smem[];
+  const int ks = K / 16, KP = K + PAD, FPP = FP + PAD, CS = hop + PAD;
+  const int c_lo = n_lo / hop;
+  bf16* xs = smem;                                   // (chunks, CS)
+  bf16* tab = xs + samples_elems(hop, n_lo, K);      // 2 x (NP, KP), then (n_mels, FPP)
+  bf16* pw = tab + table_elems(K, FP, n_mels);       // (MT, FPP)
 
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TT;
-  const int n_frames = min(TT, T - t0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.y, t0 = blockIdx.x * MT;
+  const int n_frames = min(MT, T - t0);
+  const int n_pass = 2 * FP / NP;
+  const int pass_elems = NP * KP;                    // one pass, contiguous in wt
+
+  auto load_pass = [&](int p) {
+    const bf16* src = wt + (size_t)p * pass_elems;
+    bf16* dst = tab + (p & 1) * pass_elems;
+    for (int i = tid; i < pass_elems / 8; i += THREADS) cp_async16(dst + 8 * i, src + 8 * i);
+    cp_async_commit();
+  };
+  load_pass(0);
+
+  // 1. the samples of chunks t0 + c_lo .., two at a time (hop is even)
   const float* qrow = q + (size_t)b * q_len;
-  const long long base = (long long)t0 * hop;
-
-  for (int i = threadIdx.x; i < span; i += THREADS) {
-    const long long src = base + i;
-    xs[i] = src < q_len ? bf16_round(qrow[src]) : 0.f;
+  const long long base = (long long)(t0 + c_lo) * hop;
+  const int pairs = hop / 2, n_chunks = MT + (n_lo + K - 1) / hop - c_lo;
+  for (int i = tid; i < n_chunks * pairs; i += THREADS) {
+    const int c = i / pairs, o = 2 * (i - c * pairs);
+    const long long s = base + (long long)c * hop + o;
+    const float v0 = s < q_len ? qrow[s] : 0.f;
+    const float v1 = s + 1 < q_len ? qrow[s + 1] : 0.f;
+    *reinterpret_cast<__nv_bfloat162*>(xs + c * CS + o) = __floats2bfloat162_rn(v0, v1);
   }
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int fr0 = warp * FG;
-  const int n_chunks = (n_fft + hop - 1) / hop;
-  const size_t wrow = 2 * (size_t)FP;
-
-  for (int c0 = 0; c0 < FP; c0 += BIN_CHUNK) {
-    const int f = c0 + 2 * lane;
-    float re[FG][2], im[FG][2];
+  const int wm = warp & 3, wn = warp >> 2;
+  const int g = lane >> 2, tg = lane & 3;
+  uint32_t a[KS_MAX][4];
+  {
+    const int fr = wm * 16 + (lane & 15), half = (lane >> 4) * 8;
 #pragma unroll
-    for (int k = 0; k < FG; ++k) {
-      re[k][0] = re[k][1] = im[k][0] = im[k][1] = 0.f;
-    }
-    for (int j = 0; j < n_chunks; ++j) {
-      float pr[FG][2], pi[FG][2];
-#pragma unroll
-      for (int k = 0; k < FG; ++k) {
-        pr[k][0] = pr[k][1] = pi[k][0] = pi[k][1] = 0.f;
-      }
-      const int n_lo = j * hop;
-      const int n_hi = min(n_fft, n_lo + hop);
-#pragma unroll 4
-      for (int n = n_lo; n < n_hi; ++n) {
-        const __nv_bfloat162 wc2 =
-            *reinterpret_cast<const __nv_bfloat162*>(wt + n * wrow + f);
-        const __nv_bfloat162 ws2 =
-            *reinterpret_cast<const __nv_bfloat162*>(wt + n * wrow + FP + f);
-        const float2 wc = __bfloat1622float2(wc2);
-        const float2 ws = __bfloat1622float2(ws2);
-#pragma unroll
-        for (int k = 0; k < FG; ++k) {
-          const float x = xs[(fr0 + k) * hop + n];
-          pr[k][0] = fmaf(x, wc.x, pr[k][0]);
-          pr[k][1] = fmaf(x, wc.y, pr[k][1]);
-          pi[k][0] = fmaf(x, ws.x, pi[k][0]);
-          pi[k][1] = fmaf(x, ws.y, pi[k][1]);
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < FG; ++k) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          re[k][e] += pr[k][e];
-          im[k][e] += pi[k][e];
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < FG; ++k) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int fr = fr0 + k;
-        const int bin = f + e;
-        if (fr < n_frames && bin < F) {
-          // separate roundings (no FMA contraction), as the plain version
-          const float p = __fadd_rn(__fmul_rn(re[k][e], re[k][e]),
-                                    __fmul_rn(im[k][e], im[k][e]));
-          pw[fr * F + bin] = bf16_round(p);
-        }
+    for (int s = 0; s < KS_MAX; ++s) {
+      if (s < ks) {
+        const int n = n_lo + 16 * s;
+        ldmatrix_x4(a[s], xs + (fr + n / hop - c_lo) * CS + n % hop + half);
       }
     }
   }
-  __syncthreads();
 
-  for (int o = threadIdx.x; o < n_frames * n_mels; o += THREADS) {
-    const int fr = o / n_mels;
-    const int m = o - fr * n_mels;
-    const float* prow = pw + fr * F;
-    float acc = 0.f;
-    for (int k = 0; k < F; ++k) {
-      acc = fmaf(prow[k], __bfloat162float(fb[k * n_mels + m]), acc);
+  // 2, 3. the DFT pass by pass, and the power of its 16 bins
+  const int b_off = (wn * 16 + (lane & 7) + ((lane >> 4) << 3)) * KP + ((lane >> 3) & 1) * 8;
+  for (int p = 0; p < n_pass; ++p) {
+    if (p + 1 < n_pass) {
+      load_pass(p + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    out[((size_t)b * T + t0 + fr) * n_mels + m] = 10.f * log10f(fmaxf(acc, amin));
+    __syncthreads();
+    const bf16* tb = tab + (p & 1) * pass_elems + b_off;
+    float re[4] = {0.f, 0.f, 0.f, 0.f}, im[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int s = 0; s < KS_MAX; ++s) {
+      if (s < ks) {
+        uint32_t w[4];
+        ldmatrix_x4(w, tb + 16 * s);
+        mma_bf16(re, a[s], w[0], w[1]);
+        mma_bf16(im, a[s], w[2], w[3]);
+      }
+    }
+    const int bin = p * 16 + wn * 8 + 2 * tg;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // separate roundings (no FMA contraction), as the plain version
+      const float p0 = __fadd_rn(__fmul_rn(re[2 * h], re[2 * h]), __fmul_rn(im[2 * h], im[2 * h]));
+      const float p1 = __fadd_rn(__fmul_rn(re[2 * h + 1], re[2 * h + 1]),
+                                 __fmul_rn(im[2 * h + 1], im[2 * h + 1]));
+      *reinterpret_cast<__nv_bfloat162*>(pw + (wm * 16 + g + 8 * h) * FPP + bin) =
+          __floats2bfloat162_rn(p0, p1);
+    }
+    __syncthreads();
+  }
+
+  // 4. the filterbank into the table region, then the mel projection
+  for (int i = tid; i < n_mels * FPP / 8; i += THREADS) cp_async16(tab + 8 * i, fbt + 8 * i);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const bf16* pa = pw + (wm * 16 + (lane & 15)) * FPP + (lane >> 4) * 8;
+  const int m_half = n_mels / 2;
+  for (int n0 = wn * m_half; n0 < (wn + 1) * m_half; n0 += 16) {
+    const bf16* fp = tab + (n0 + (lane & 7) + ((lane >> 4) << 3)) * FPP + ((lane >> 3) & 1) * 8;
+    float acc[2][4] = {};
+    for (int s = 0; s < FP / 16; ++s) {
+      uint32_t af[4], w[4];
+      ldmatrix_x4(af, pa + 16 * s);
+      ldmatrix_x4(w, fp + 16 * s);
+      mma_bf16(acc[0], af, w[0], w[1]);
+      mma_bf16(acc[1], af, w[2], w[3]);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int fr = wm * 16 + g + 8 * h;
+        if (fr < n_frames) {
+          const float2 v = make_float2(10.f * log10f(fmaxf(acc[j][2 * h], amin)),
+                                       10.f * log10f(fmaxf(acc[j][2 * h + 1], amin)));
+          *reinterpret_cast<float2*>(out + ((size_t)b * T + t0 + fr) * n_mels + n0 + 8 * j
+                                     + 2 * tg) = v;
+        }
+      }
+    }
   }
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success).  smem_bytes must be
-// 4 * ((TT-1)*hop + n_fft + TT*F); FP must be a multiple of 64 and >= F.
+// Returns the cudaError_t of the launch (0 on success).  The window's
+// non-zero samples [n_lo, n_lo + K) and hop are multiples of 16, K at most
+// 16 KS_MAX, FP (the bins padded) a multiple of 16, n_mels a multiple of 32;
+// smem_bytes must be what the layout needs (frontend_kernels.smem_bytes).
 // `device` is the ordinal the tensors live on: this library links its own
 // CUDA runtime, whose current device is not the caller's.
-extern "C" int lasr_log_mel(const float* q, int B, int q_len, int T,
-                            const __nv_bfloat16* wt, int FP,
-                            const __nv_bfloat16* fb, float* out, int hop,
-                            int n_fft, int F, int n_mels, float amin,
-                            int smem_bytes, int device, cudaStream_t stream) {
-  if (FP % BIN_CHUNK != 0 || FP < F) return (int)cudaErrorInvalidValue;
+extern "C" int lasr_log_mel(const float* q, int B, int q_len, int T, const bf16* wt,
+                            const bf16* fbt, float* out, int hop, int n_lo, int K, int FP,
+                            int n_mels, float amin, int smem, int device, cudaStream_t stream) {
+  if (hop % 16 || n_lo % 16 || K % 16 || K <= 0 || K > 16 * KS_MAX || FP % 16 || n_mels % 32
+      || (size_t)smem != smem_bytes(hop, n_lo, K, FP, n_mels))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(
-      log_mel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  err = cudaFuncSetAttribute(log_mel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + TT - 1) / TT, B);
-  log_mel_kernel<<<grid, THREADS, smem_bytes, stream>>>(
-      q, q_len, T, wt, FP, fb, out, hop, n_fft, F, n_mels, amin);
+  const dim3 grid((T + MT - 1) / MT, B);
+  log_mel_kernel<<<grid, THREADS, smem, stream>>>(q, q_len, T, wt, fbt, out, hop, n_lo, K, FP,
+                                                   n_mels, amin);
   return (int)cudaGetLastError();
 }

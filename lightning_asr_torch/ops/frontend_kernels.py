@@ -1,34 +1,41 @@
 """The frontend's kernels: K1, the fused log-mel (windowed DFT + power + mel
 + dB in one pass), and K6, the fused preemphasis + signal extension.
 
-Replaces ``lightning_asr_tpu/ops/frontend_pallas.py::_mel_kernel`` (wrapper
-``mel_from_extended``), the ``"default"`` frontend tier that
+K1 replaces ``lightning_asr_tpu/ops/frontend_pallas.py:194`` ``_mel_kernel``
+(wrapper ``mel_from_extended``), the ``"default"`` frontend tier that
 ``train.py`` selects and that ``AsrTranslator`` rebuilds from the checkpoint.
 
 Per frame t of row b (hop 160, n_fft 512, F = 257 bins, 64 mels):
 
-    spec[f] = Σ_n bf16(q[b, t·hop + n]) · bf16(W[f, n])   (fp32 sums, 4 hop chunks)
-    power   = re² + im²                                    (fp32)
+    spec[f] = Σ_n bf16(q[b, t·hop + n]) · bf16(W[f, n])   (fp32 sums)
+    power   = re² + im²                                    (fp32, two roundings)
     mel[m]  = Σ_f bf16(power[f]) · bf16(fb[f, m])          (fp32 sums)
     out     = 10·log10(max(mel, amin))
 
-What bounds it on the H100: the DFT, 2·514·512 flops a frame (6.7 GFLOP for
-8 rows of 16 s), against ~12 MB of signal in and log-mels out; at bf16
-tensor-core rate the flops take ~7 µs and the bytes ~4 µs, so the work is
-compute-bound and everything between the signal and the log-mel must stay
-on chip.
+Products of bf16 values are exact in fp32, so the kernel differs from the
+plain version only in the order of the fp32 sums.
 
-What the design does about it (``csrc/mel.cu``): one block per (row, tile of
-32 frames) stages the tile's samples, rounded to bf16, in shared memory
-once; frame t is read at offset t·hop, so the overlapping frames are never
-copied.  The DFT matrix (512 × 2·320 bf16, bins padded to the block's
-64-bin chunk) streams from L2 with coalesced loads; each thread keeps a
-4-frame × 2-bin (re, im) register tile, so one load feeds two FMAs.  The
-tile's power (32 × 257 fp32) stays in shared memory for the mel projection;
-only the (32, 64) log-mel tile is written.  Products of bf16-rounded values
-are exact in fp32, so scalar FMAs give the tier's bf16-multiply /
-fp32-accumulate numerics; tensor cores (``mma.sync``/``wgmma``) are the
-next step for speed.
+What bounds it on the H100: the DFT, 2·514·512 flops a frame (6.7 GFLOP for
+8 rows of 16 s), against ~12 MB of signal in and log-mels out; at the bf16
+tensor-core rate the flops take ~7 µs and the bytes ~4 µs, so the work is
+compute-bound, reaches its bound only on the tensor cores, and everything
+between the signal and the log-mel must stay on chip.
+
+What the design does about it (``csrc/mel.cu``): frames are the M dimension
+of ``mma.sync`` m16n8k16, the table's columns the N, the frame's samples
+the K.  One block per (row, 64 frames) stages its samples once, rounded to
+bf16, one hop-wide chunk per shared-memory row; frame t starts at chunk t,
+so ``ldmatrix`` reads the A fragments straight from the overlapping signal
+(no im2col copy), and each warp keeps its 16 frames' fragments in
+registers.  K runs only over the samples the window leaves non-zero,
+[96, 416) for the default config (``kernel_layout``): the skipped table rows
+are exactly 0, 37.5% of the DFT.  The table interleaves 8 cos columns with
+the 8 -sin columns of the same bins, so re and im of one (frame, bin) meet in
+one thread's registers and the power is taken there; it streams through
+shared memory in passes of 16 bins with ``cp.async`` double buffering, each
+pass feeding 64 frames.  The bf16 power tile stays in shared memory and the
+mel projection, bins padded to FP = 272, runs on the tensor cores too; only
+the (64, n_mels) log-mel tile is written.
 
 K6 replaces ``lightning_asr_tpu/ops/frontend_pallas.py::_kernel`` (wrapper
 ``extend_preemph``): preemphasis (c = float32(0.97), the first sample
@@ -53,6 +60,7 @@ import functools
 import threading
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .frontend import (MelFrontendConfig, _extend_signal, _frame_dft, _preemphasis,
@@ -60,8 +68,11 @@ from .frontend import (MelFrontendConfig, _extend_signal, _frame_dft, _preemphas
 from .kernel_build import SMEM_LIMIT
 
 _LOCK = threading.Lock()
-_TILE_FRAMES = 32           # frames per block (csrc/mel.cu TT)
-_BIN_CHUNK = 64             # bins per block pass (csrc/mel.cu: 32 lanes × 2)
+_TILE_FRAMES = 64           # frames a block (csrc/mel.cu MT)
+_PASS_COLS = 32             # table columns a pass: cos and -sin of 16 bins (NP)
+_MAX_STEPS = 20             # 16-sample steps a warp holds in registers (KS_MAX)
+_ROW_PAD = 8                # bf16 elements padding each shared-memory row (PAD)
+_STEP = 16                  # samples (and bins) a tensor-core step: mma's k16
 
 
 def _round_up(x: int, m: int) -> int:
@@ -88,25 +99,68 @@ def mel_from_extended_plain(q: torch.Tensor, cfg: MelFrontendConfig, T: int) -> 
 
 
 @functools.lru_cache(maxsize=8)
+def window_range(cfg: MelFrontendConfig):
+    """[n_lo, n_hi): the frame samples whose DFT table rows are not all
+    zero, widened to whole 16-sample steps; [96, 416) for the default
+    config (the periodic Hann window's first sample is 0 too).  Running the
+    DFT over this range alone is exact: every skipped product is 0."""
+    nz = np.flatnonzero(np.any(dft_filters(cfg) != 0, axis=0))
+    return int(nz[0]) // _STEP * _STEP, _round_up(int(nz[-1]) + 1, _STEP)
+
+
+@functools.lru_cache(maxsize=8)
+def kernel_layout(cfg: MelFrontendConfig):
+    """(n_lo, K, FP) of the kernel's layout: the window's first sample, its
+    length in samples, the bins padded to a multiple of 16.  Raises
+    ValueError on a config the kernel does not take: frame t starts at
+    sample t·hop, and its 16-sample steps must stay 16-byte aligned within
+    one hop-wide chunk; the window must fit the registers of its A
+    fragments; n_mels splits over two warps in steps of 16."""
+    n_lo, n_hi = window_range(cfg)
+    if cfg.hop_length % _STEP:
+        raise ValueError(f"the log-mel kernel needs hop_length % {_STEP} == 0, got {cfg.hop_length}")
+    if n_hi > cfg.n_fft:
+        raise ValueError(f"the window's samples [{n_lo}, {n_hi}) do not align to {_STEP}-sample "
+                         f"steps inside n_fft = {cfg.n_fft}")
+    if n_hi - n_lo > _STEP * _MAX_STEPS:
+        raise ValueError(f"the log-mel kernel takes windows of up to {_STEP * _MAX_STEPS} "
+                         f"samples, got [{n_lo}, {n_hi})")
+    if cfg.n_mels % (2 * _STEP):
+        raise ValueError(f"the log-mel kernel needs n_mels % {2 * _STEP} == 0, got {cfg.n_mels}")
+    return n_lo, n_hi - n_lo, _round_up(cfg.n_freqs, _STEP)
+
+
+@functools.lru_cache(maxsize=8)
 def _device_tables(cfg: MelFrontendConfig, device: torch.device):
-    """(wt, fb) in the kernel's layouts: wt (n_fft, 2·FP) bf16 holds the cos
-    rows then the -sin rows transposed, bins zero-padded to FP (a multiple of
-    the 64-bin chunk) so that a warp's loads are aligned and coalesced; fb
-    (F, n_mels) bf16."""
-    F, FP = cfg.n_freqs, _round_up(cfg.n_freqs, _BIN_CHUNK)
-    filt = torch.from_numpy(dft_filters(cfg))               # (2F, n_fft)
-    wt = torch.zeros((cfg.n_fft, 2 * FP), dtype=torch.float32)
-    wt[:, :F] = filt[:F].t()
-    wt[:, FP : FP + F] = filt[F:].t()
-    fb = torch.from_numpy(mel_filterbank(cfg))
-    return (wt.to(torch.bfloat16).to(device).contiguous(),
-            fb.to(torch.bfloat16).to(device).contiguous())
+    """(wt, fbt) in the kernel's layouts, bf16.  wt (2·FP, K + 8): the DFT
+    table over the window's samples [n_lo, n_lo + K), one row a column of
+    the product; rows 16g .. 16g+7 hold the cos of bins 8g .. 8g+7 and rows
+    16g+8 .. 16g+15 their -sin, so pass p is the contiguous rows 32p ..
+    32p+31.  fbt (n_mels, FP + 8): the filterbank transposed.  Bins past F
+    and the 8 pad elements of each row are zero."""
+    n_lo, K, FP = kernel_layout(cfg)
+    F = cfg.n_freqs
+    filt = torch.from_numpy(dft_filters(cfg))[:, n_lo:n_lo + K]        # (2F, K)
+    wt = torch.zeros((FP // 8, 2, 8, K + _ROW_PAD), dtype=torch.float32)
+    for part in range(2):                                              # cos, -sin
+        rows = torch.zeros((FP, K), dtype=torch.float32)
+        rows[:F] = filt[part * F:(part + 1) * F]
+        wt[:, part, :, :K] = rows.reshape(FP // 8, 8, K)
+    fbt = torch.zeros((cfg.n_mels, FP + _ROW_PAD), dtype=torch.float32)
+    fbt[:, :F] = torch.from_numpy(mel_filterbank(cfg)).t()
+    return (wt.reshape(2 * FP, K + _ROW_PAD).to(torch.bfloat16).to(device).contiguous(),
+            fbt.to(torch.bfloat16).to(device).contiguous())
 
 
 def smem_bytes(cfg: MelFrontendConfig) -> int:
-    """Dynamic shared memory of one block: the tile's samples + its power."""
-    span = (_TILE_FRAMES - 1) * cfg.hop_length + cfg.n_fft
-    return 4 * (span + _TILE_FRAMES * cfg.n_freqs)
+    """Dynamic shared memory of one block (csrc/mel.cu smem_bytes): the
+    tile's samples in hop-wide chunks, two table passes (or the
+    filterbank), the power tile."""
+    n_lo, K, FP = kernel_layout(cfg)
+    hop = cfg.hop_length
+    chunks = _TILE_FRAMES + (n_lo + K - 1) // hop - n_lo // hop
+    table = max(2 * _PASS_COLS * (K + _ROW_PAD), cfg.n_mels * (FP + _ROW_PAD))
+    return 2 * (chunks * (hop + _ROW_PAD) + table + _TILE_FRAMES * (FP + _ROW_PAD))
 
 
 def mel_from_extended(q: torch.Tensor, cfg: MelFrontendConfig, T: int) -> torch.Tensor:
@@ -124,26 +178,24 @@ def mel_from_extended(q: torch.Tensor, cfg: MelFrontendConfig, T: int) -> torch.
         return mel_from_extended_plain(q, cfg, T)
     if q.device.type != "cuda":
         raise ValueError(f"mel_from_extended runs on cpu or cuda, not {q.device}")
+    n_lo, K, FP = kernel_layout(cfg)
     smem = smem_bytes(cfg)
     if smem > SMEM_LIMIT:
         raise ValueError(f"config needs {smem} B of shared memory per block (> {SMEM_LIMIT})")
 
     from .kernel_build import library
 
-    lib = library("mel")
-    fn = lib.lasr_log_mel
+    fn = library("mel").lasr_log_mel
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     B, Lq = q.shape
-    wt, fb = _device_tables(cfg, q.device)
+    wt, fbt = _device_tables(cfg, q.device)
     out = torch.empty((B, T, cfg.n_mels), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), B, Lq, T, wt.data_ptr(), wt.shape[1] // 2,
-             fb.data_ptr(), out.data_ptr(), cfg.hop_length, cfg.n_fft,
-             cfg.n_freqs, cfg.n_mels, float(cfg.amin), smem, q.device.index, stream)
+    err = fn(q.data_ptr(), B, Lq, T, wt.data_ptr(), fbt.data_ptr(), out.data_ptr(),
+             cfg.hop_length, n_lo, K, FP, cfg.n_mels, float(cfg.amin), smem, q.device.index,
+             stream)
     if err != 0:
         raise RuntimeError(f"log-mel kernel launch failed: CUDA error {err}")
     with _LOCK:

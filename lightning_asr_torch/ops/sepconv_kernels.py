@@ -1,12 +1,12 @@
 """Fused separable convolution kernels: the forward K9 and the backward K10.
 
-K9 replaces ``lightning_asr_tpu/ops/sepconv_pallas.py::_fwd_kernel`` (wrapper
-``sepconv``) and K10 ``::_bwd_kernel`` (``_sepconv_vjp_bwd``): a depthwise
-k-tap convolution (same padding k//2, stride 1, odd k) followed by a
-pointwise 1x1 convolution, the body of every block of ``QuartNet12Context``
-when the model is built with ``conv_kernel="sepconv"``
-(``models/layers.py``).  ``sepconv`` is the ``torch.autograd.Function`` that
-pairs them.
+K9 replaces ``lightning_asr_tpu/ops/sepconv_pallas.py:80`` ``_fwd_kernel``
+(wrapper ``sepconv``) and K10 ``:148`` ``_bwd_kernel``
+(``_sepconv_vjp_bwd``): a depthwise k-tap convolution (same padding k//2,
+stride 1, odd k) followed by a pointwise 1x1 convolution, the body of every
+block of ``QuartNet12Context`` when the model is built with
+``conv_kernel="sepconv"`` (``models/layers.py``).  ``sepconv`` is the
+``torch.autograd.Function`` that pairs them.
 
 Layout NCT, the port's: x (B, Cin, T), depthwise weight (Cin, 1, k),
 pointwise weight (Cout, Cin, 1), y (B, Cout, T).  The kernels read a
@@ -30,19 +30,37 @@ What bounds them on the H100: at B=32, T=836, 512→512, k=87 in bf16, K9
 moves ~55 MB (x in, y out: ~16 µs) and does 2·B·T·Cin·(k + Cout) = 16 GFLOP
 (~17 µs at the bf16 tensor-core peak); K10 moves ~82 MB and does
 2·B·T·Cin·(2·Cout + 3k) = 35 GFLOP.  Both sit near the balance point, so the
-intermediates must stay on chip and the products want tensor cores.
+intermediates must stay on chip and the products want tensor cores.  K9's
+depthwise stage cannot use them: its k products per output are each
+rounded to bf16 before the float32 sum (the numerics above), 1.2 G rounded
+products at the widest layer on the CUDA cores.
 
-What the designs do about it (``csrc/sepconv.cu``): K9 takes one block per
-(32 frames, row); it computes the depthwise output of all input channels of
-its tile once into shared memory (never to device memory), then the
-pointwise product against streamed weight chunks with a 4 x 4 register tile
-of float32 sums a thread.  K10 is five launches: dz as a tiled product; one
-block per (32 channels, row) walking the frames for dx, dwr and its row's
-wd_grad (held in shared memory by the thread that owns each tap); wp_grad
-as a tiled product split over the rows; and two fixed-order sums of the
-partials, so two runs give the same bits.  The products run on the CUDA
-cores in float32 (bf16 products are exact there); ``mma.sync``/``wgmma`` are
-the next step for speed.  The TPU kernels' sequential batch grid, which
+What the designs do about it (``csrc/sepconv.cu``).  K9 in bf16, the
+instantiation serving and every ``conv_kernel="sepconv"`` step run, takes
+one block per (64 frames, row) and 8 warps.  It computes the depthwise
+output of all input channels of its tile once into shared memory as bf16,
+never to device memory: a thread walks 8 frames of one channel, 8 taps at a
+time from registers, each pair of frames' products taken by one
+``mul.rn.bf16x2`` (which the card rounds exactly as the plain version
+does: ``bf16_product_mismatches``), with the next pass's window read into
+registers while it computes.  Then the pointwise product runs on
+``mma.sync`` m16n8k16 tensor cores, bf16 in and float32 sums: ``wp``,
+packed by ``pack_pointwise`` to (Cout, Cin) with zeros up to whole 128 x 32
+stages, streams through shared memory in a ring of three ``cp.async``
+stages, each byte feeding 64 frames; the dw tile feeds ``ldmatrix.trans``;
+each warp rounds its 32 x 32 tile of y to bf16 and stages it in shared
+memory so that its stores run along T.  The tiles are XOR-swizzled rather
+than padded, so that two blocks fit an SM at Cin = 512.  K9 in float32
+(the parity checks) keeps the CUDA-core product, a 4 x 4 register tile of
+float32 sums a thread over 32 frames: TF32 tensor cores would round its
+products.  The input's dtype picks the path.
+
+K10 is five launches: dz as a tiled product; one block per (32 channels,
+row) walking the frames for dx, dwr and its row's wd_grad (held in shared
+memory by the thread that owns each tap); wp_grad as a tiled product split
+over the rows; and two fixed-order sums of the partials, so two runs give
+the same bits.  Its products run on the CUDA cores in float32 (bf16
+products are exact there).  The TPU kernels' sequential batch grid, which
 carries the weight gradients in VMEM, becomes the per-row and per-split
 partials.
 """
@@ -58,6 +76,13 @@ import torch.nn.functional as F
 from .kernel_build import DTYPE_CODES, SMEM_LIMIT
 
 _LOCK = threading.Lock()
+# K9's tiles (csrc/sepconv.cu): bf16 frames a block, output channels and
+# input channels of a wp stage, channels a depthwise pass, wp stages in
+# flight; the float32 path's frames a block, depthwise chunk, product tile
+# and chunk
+_BT, _BM, _BK, _BXC, _STAGES = 64, 128, 32, 32, 3
+_KMAX = 127                 # the bf16 K9's largest k: its taps and window sit in registers
+_TT, _XC, _MT, _KC = 32, 32, 128, 16
 _WP_TILE = 64               # csrc/sepconv.cu PT: wp_grad tile edge
 _WP_BLOCKS = 264            # wp_grad blocks to aim for: two per SM of an H100
 
@@ -98,6 +123,32 @@ def sepconv_forward_plain(x: torch.Tensor, wd: torch.Tensor, wp: torch.Tensor) -
     return torch.matmul(wp.reshape(-1, Cin).to(dt).float(), dw).to(dt)
 
 
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def fwd_smem_bytes(Cin: int, k: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one K9 block (csrc/sepconv.cu
+    fwd_smem_bytes).  bf16: the (CinP, 64) dw tile, the (128, 32) wp
+    stages, and the larger of the depthwise window with its taps and the
+    eight warps' (32, 32) y tiles; float32: the dw tile, the window, the taps and one wp
+    chunk."""
+    if dtype == torch.bfloat16:
+        kp = _round_up(k, 8)
+        window = _BXC * (_BT + 2 * kp)
+        return 2 * (_round_up(Cin, _BK) * _BT + _STAGES * _BM * _BK + max(window, 8 * 32 * 32))
+    return 4 * (_round_up(Cin, _KC) * _TT + _XC * (_TT + 2 * (k // 2)) + _XC * k + _KC * _MT)
+
+
+def pack_pointwise(wp: torch.Tensor) -> torch.Tensor:
+    """The bf16 K9's A operand: wp (Cout, Cin, 1) rounded to bf16 as
+    (CoutP, CinP), zero-padded to whole 128 x 32 stages."""
+    Cout, Cin = wp.shape[0], wp.shape[1]
+    w = wp.reshape(Cout, Cin).to(torch.bfloat16)
+    pads = (0, _round_up(Cin, _BK) - Cin, 0, _round_up(Cout, _BM) - Cout)
+    return F.pad(w, pads).contiguous() if any(pads) else w.contiguous()
+
+
 def sepconv_forward(x: torch.Tensor, wd: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:
     """K9: x (B, Cin, T) float32 or bf16, wd (Cin, 1, k) with k odd, wp
     (Cout, Cin, 1) -> y (B, Cout, T) in x's type.  A CPU tensor runs the
@@ -108,22 +159,24 @@ def sepconv_forward(x: torch.Tensor, wd: torch.Tensor, wp: torch.Tensor) -> torc
 
     from .kernel_build import library
 
-    lib = library("sepconv")
-    lib.lasr_sepconv_fwd_smem.restype = ctypes.c_size_t
-    lib.lasr_sepconv_fwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]
-    smem = lib.lasr_sepconv_fwd_smem(Cin, k)
+    if x.dtype == torch.bfloat16 and k > _KMAX:
+        raise ValueError(f"the bf16 sepconv forward takes k <= {_KMAX}, got {k}")
+    smem = fwd_smem_bytes(Cin, k, x.dtype)
     if smem > SMEM_LIMIT:
         raise ValueError(f"Cin={Cin}, k={k} need {smem} B of shared memory per block (> {SMEM_LIMIT})")
-    fn = lib.lasr_sepconv_fwd
+    fn = library("sepconv").lasr_sepconv_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     wd_t = wd.reshape(Cin, k).to(x.dtype).contiguous()
-    wpt = wp.reshape(Cout, Cin).t().to(x.dtype).contiguous()          # (Cin, Cout)
+    if x.dtype == torch.bfloat16:
+        wp_k = pack_pointwise(wp)
+    else:
+        wp_k = wp.reshape(Cout, Cin).t().to(x.dtype).contiguous()      # (Cin, Cout)
     y = torch.empty((B, Cout, T), dtype=x.dtype, device=x.device)
     if B and T:
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), wd_t.data_ptr(), wpt.data_ptr(), y.data_ptr(), B, Cin, Cout, T, k,
-                 DTYPE_CODES[x.dtype], x.device.index, stream)
+        err = fn(x.data_ptr(), wd_t.data_ptr(), wp_k.data_ptr(), y.data_ptr(), B, Cin, Cout, T, k,
+                 DTYPE_CODES[x.dtype], smem, x.device.index, stream)
         if err != 0:
             raise RuntimeError(f"sepconv forward kernel launch failed: CUDA error {err}")
         with _LOCK:
@@ -132,6 +185,24 @@ def sepconv_forward(x: torch.Tensor, wd: torch.Tensor, wp: torch.Tensor) -> torc
 
 
 sepconv_forward.launches = 0
+
+
+def bf16_product_mismatches(device: torch.device) -> int:
+    """The bf16 K9's depthwise stage takes its products two at a time with
+    ``mul.rn.bf16x2``; that is the plain version's product (float32, exact
+    for bf16 operands, rounded to bf16) only if the card rounds the same
+    way.  Runs both on every pair of finite bf16 values and returns how many
+    results differ (0 is the premise).  Needs a CUDA device."""
+    from .kernel_build import library
+
+    fn = library("sepconv").lasr_bf16_product_mismatches
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    err = fn(count.data_ptr(), device.index, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"bf16 product check launch failed: CUDA error {err}")
+    return int(count.item())
 
 
 def sepconv_backward_plain(x: torch.Tensor, wd: torch.Tensor, wp: torch.Tensor,

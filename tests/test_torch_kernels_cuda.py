@@ -21,8 +21,9 @@ from lightning_asr_torch.ops.lstm_kernels import (lstm_backward, lstm_backward_p
                                                   lstm_recurrence, lstm_recurrence_plain,
                                                   lstm_recurrence_stacked,
                                                   lstm_recurrence_stacked_plain)
-from lightning_asr_torch.ops.sepconv_kernels import (sepconv_backward, sepconv_backward_plain,
-                                                     sepconv_forward, sepconv_forward_plain)
+from lightning_asr_torch.ops.sepconv_kernels import (bf16_product_mismatches, sepconv_backward,
+                                                     sepconv_backward_plain, sepconv_forward,
+                                                     sepconv_forward_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -38,9 +39,10 @@ def dev():
 
 
 @pytest.mark.parametrize("B,T,extra", [(1, 1, 0), (3, 31, 700), (2, 32, -500), (2, 33, 0),
-                                       (1, 100, 10_000)])
+                                       (1, 100, 10_000), (3, 63, 700), (2, 64, -500),
+                                       (2, 65, 0), (1, 129, 50_000)])
 def test_k1_tiles_and_ragged_signal(dev, B, T, extra):
-    """Tile edges (32 frames a block), one frame, and a signal shorter or
+    """Tile edges (64 frames a block), one frame, and a signal shorter or
     longer than the frames need (samples past its end count as zero)."""
     cfg = MelFrontendConfig(precision="default")
     n = (T - 1) * cfg.hop_length + cfg.n_fft + extra
@@ -313,7 +315,17 @@ CONV_CASES = [(1, 40, 16, 24, 5),        # one row
               (2, 5, 8, 8, 33),          # T < k
               (3, 70, 40, 136, 9),       # T, Cin, Cout off the tiles
               (2, 100, 64, 48, 87),      # the largest k of the model
-              (2, 64, 336, 512, 51)]     # the context block's widths
+              (2, 64, 336, 512, 51),     # the context block's widths, T on the bf16 tile
+              (2, 129, 24, 129, 15),     # T, Cin (not a multiple of 16), Cout one past a tile
+              (1, 191, 336, 256, 63),    # Cin = 336 with T off the tile
+              (2, 65, 512, 512, 87)]     # the widest layer, T one past the bf16 tile
+
+
+def test_bf16_products_round_as_the_plain_version(dev):
+    """The bf16 K9 multiplies two taps at a time with mul.rn.bf16x2; every
+    pair of finite bf16 values must give the float32 product rounded to
+    bf16, which is what keeps its depthwise output the plain version's."""
+    assert bf16_product_mismatches(dev) == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -357,6 +369,8 @@ def test_conv_kernels_reject_what_they_cannot_run(dev):
                  (x.transpose(1, 2).contiguous().transpose(1, 2), wd, wp)):
         with pytest.raises(ValueError):
             sepconv_forward(*args)
+    with pytest.raises(ValueError):        # the bf16 forward holds at most 127 taps in registers
+        sepconv_forward(x.bfloat16(), torch.zeros((8, 1, 129), device=dev), wp)
     with pytest.raises(ValueError):
         sepconv_backward(x, wd, wp, dy.bfloat16())
     with pytest.raises(ValueError):

@@ -2,9 +2,10 @@
 // the tensor cores (mma.sync m16n8k16, bf16 operands, float32 sums).
 //
 // Replaces lightning_asr_tpu/ops/frontend_pallas.py::_mel_kernel (:194).
-// Bound: the DFT's 2 x 514 x 512 flops a frame against ~12 MB moved for 8
-// rows of 16 s, so it is operation-bound and reaches its bound only on the
-// tensor cores.  The numerics and the host-side table layouts are described
+// Bound: the DFT's 2 x 514 x 320 flops a frame (the window's non-zero
+// samples; the rest of the 512-sample frame multiplies zeros) against
+// ~12 MB moved for 8 rows of 16 s, so it is operation-bound and reaches its
+// bound only on the tensor cores.  The numerics and the host-side table layouts are described
 // in lightning_asr_torch/ops/frontend_kernels.py, which builds the tables
 // this kernel reads and checks every argument before the launch.
 //
@@ -15,8 +16,10 @@
 //      so a 16-sample step never crosses a chunk, every ldmatrix row address
 //      is 16-byte aligned, and 8 consecutive frames fall on distinct banks;
 //      the overlapping frames are never copied.  Warp w holds the A
-//      fragments of frames 16 (w % 4) .. + 15 over the window's non-zero
-//      samples [n_lo, n_lo + K) in registers for the whole kernel.
+//      fragments of frames 16 (w % 4) .. + 15 over the first KS_MAX steps of
+//      the window's non-zero samples [n_lo, n_lo + K) in registers for the
+//      whole kernel; a longer window reads its later steps' fragments from
+//      shared memory in every pass.
 //   2. The DFT: (frames x samples) . (samples x columns).  The table's
 //      columns come in groups of 16, the cos and the -sin of 8 bins, so the
 //      re and im of one (frame, bin) land in the same register of two
@@ -25,10 +28,12 @@
 //      cp.async; warp w computes columns 16 (w / 4) .. + 15 of each pass.
 //   3. power = re^2 + im^2 (multiply and add rounded separately) in
 //      registers, rounded to bf16 into the block's (64, FP) power tile.
-//   4. The mel projection, (64 x FP) . (FP x n_mels), on mma.sync from the
-//      power tile and the transposed filterbank (copied into the table
-//      buffers after the last pass); 10 log10(max(mel, amin)) is written
-//      from the accumulators.
+//   4. The mel projection, (64 x FP) . (FP x NM), on mma.sync from the power
+//      tile and the transposed filterbank, its mels padded with zero rows to
+//      NM, a multiple of 16 (copied into the table buffers after the last
+//      pass); warp w takes the 16-mel column tiles w / 4, w / 4 + 2, ..; 10
+//      log10(max(mel, amin)) is written from the accumulators for the mels
+//      below n_mels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,32 +56,30 @@ constexpr int NP = 32;         // table columns a pass: cos and -sin of 16 bins
 constexpr int KS_MAX = 20;     // 16-sample steps of the window held in registers
 constexpr int PAD = 8;         // bf16 elements padding every shared-memory row
 
-// bf16 elements of the three shared-memory regions: the samples, the table
-// passes (later the filterbank), the power tile
-__host__ __device__ inline int samples_elems(int hop, int n_lo, int K) {
+__device__ inline int round16(int x) { return (x + 15) / 16 * 16; }
+
+// bf16 elements of the first two shared-memory regions: the samples, the
+// table passes (later the filterbank); the power tile follows.  The block's
+// size is frontend_kernels.smem_bytes.
+__device__ inline int samples_elems(int hop, int n_lo, int K) {
   return (MT + (n_lo + K - 1) / hop - n_lo / hop) * (hop + PAD);
 }
-__host__ __device__ inline int table_elems(int K, int FP, int n_mels) {
-  const int passes = 2 * NP * (K + PAD), filterbank = n_mels * (FP + PAD);
+__device__ inline int table_elems(int K, int FP, int n_mels) {
+  const int passes = 2 * NP * (K + PAD), filterbank = round16(n_mels) * (FP + PAD);
   return passes > filterbank ? passes : filterbank;
-}
-
-size_t smem_bytes(int hop, int n_lo, int K, int FP, int n_mels) {
-  return sizeof(bf16) * ((size_t)samples_elems(hop, n_lo, K) + table_elems(K, FP, n_mels)
-                         + MT * (FP + PAD));
 }
 
 __global__ void __launch_bounds__(THREADS, 2)
 log_mel_kernel(const float* __restrict__ q, int q_len, int T,
                const bf16* __restrict__ wt,    // (2 FP, K + PAD), see _device_tables
-               const bf16* __restrict__ fbt,   // (n_mels, FP + PAD)
+               const bf16* __restrict__ fbt,   // (NM, FP + PAD)
                float* __restrict__ out,        // (B, T, n_mels)
                int hop, int n_lo, int K, int FP, int n_mels, float amin) {
   extern __shared__ __align__(16) bf16 smem[];
   const int ks = K / 16, KP = K + PAD, FPP = FP + PAD, CS = hop + PAD;
   const int c_lo = n_lo / hop;
   bf16* xs = smem;                                   // (chunks, CS)
-  bf16* tab = xs + samples_elems(hop, n_lo, K);      // 2 x (NP, KP), then (n_mels, FPP)
+  bf16* tab = xs + samples_elems(hop, n_lo, K);      // 2 x (NP, KP), then (NM, FPP)
   bf16* pw = tab + table_elems(K, FP, n_mels);       // (MT, FPP)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -108,15 +111,14 @@ log_mel_kernel(const float* __restrict__ q, int q_len, int T,
 
   const int wm = warp & 3, wn = warp >> 2;
   const int g = lane >> 2, tg = lane & 3;
+  // this lane's ldmatrix row of the A fragments: frame wm * 16 + lane % 16
+  const bf16* a_row = xs + (wm * 16 + (lane & 15)) * CS + (lane >> 4) * 8;
   uint32_t a[KS_MAX][4];
-  {
-    const int fr = wm * 16 + (lane & 15), half = (lane >> 4) * 8;
 #pragma unroll
-    for (int s = 0; s < KS_MAX; ++s) {
-      if (s < ks) {
-        const int n = n_lo + 16 * s;
-        ldmatrix_x4(a[s], xs + (fr + n / hop - c_lo) * CS + n % hop + half);
-      }
+  for (int s = 0; s < KS_MAX; ++s) {
+    if (s < ks) {
+      const int n = n_lo + 16 * s;
+      ldmatrix_x4(a[s], a_row + (n / hop - c_lo) * CS + n % hop);
     }
   }
 
@@ -141,6 +143,14 @@ log_mel_kernel(const float* __restrict__ q, int q_len, int T,
         mma_bf16(im, a[s], w[2], w[3]);
       }
     }
+    for (int s = KS_MAX; s < ks; ++s) {     // a window longer than the registers hold
+      const int n = n_lo + 16 * s;
+      uint32_t af[4], w[4];
+      ldmatrix_x4(af, a_row + (n / hop - c_lo) * CS + n % hop);
+      ldmatrix_x4(w, tb + 16 * s);
+      mma_bf16(re, af, w[0], w[1]);
+      mma_bf16(im, af, w[2], w[3]);
+    }
     const int bin = p * 16 + wn * 8 + 2 * tg;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -155,13 +165,13 @@ log_mel_kernel(const float* __restrict__ q, int q_len, int T,
   }
 
   // 4. the filterbank into the table region, then the mel projection
-  for (int i = tid; i < n_mels * FPP / 8; i += THREADS) cp_async16(tab + 8 * i, fbt + 8 * i);
+  const int NM = round16(n_mels);
+  for (int i = tid; i < NM * FPP / 8; i += THREADS) cp_async16(tab + 8 * i, fbt + 8 * i);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
   const bf16* pa = pw + (wm * 16 + (lane & 15)) * FPP + (lane >> 4) * 8;
-  const int m_half = n_mels / 2;
-  for (int n0 = wn * m_half; n0 < (wn + 1) * m_half; n0 += 16) {
+  for (int n0 = wn * 16; n0 < NM; n0 += 32) {
     const bf16* fp = tab + (n0 + (lane & 7) + ((lane >> 4) << 3)) * FPP + ((lane >> 3) & 1) * 8;
     float acc[2][4] = {};
     for (int s = 0; s < FP / 16; ++s) {
@@ -176,11 +186,12 @@ log_mel_kernel(const float* __restrict__ q, int q_len, int T,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int fr = wm * 16 + g + 8 * h;
-        if (fr < n_frames) {
-          const float2 v = make_float2(10.f * log10f(fmaxf(acc[j][2 * h], amin)),
-                                       10.f * log10f(fmaxf(acc[j][2 * h + 1], amin)));
-          *reinterpret_cast<float2*>(out + ((size_t)b * T + t0 + fr) * n_mels + n0 + 8 * j
-                                     + 2 * tg) = v;
+        if (fr >= n_frames) continue;
+        float* row = out + ((size_t)b * T + t0 + fr) * n_mels;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = n0 + 8 * j + 2 * tg + e;
+          if (m < n_mels) row[m] = 10.f * log10f(fmaxf(acc[j][2 * h + e], amin));
         }
       }
     }
@@ -189,17 +200,16 @@ log_mel_kernel(const float* __restrict__ q, int q_len, int T,
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success).  The window's
-// non-zero samples [n_lo, n_lo + K) and hop are multiples of 16, K at most
-// 16 KS_MAX, FP (the bins padded) a multiple of 16, n_mels a multiple of 32;
-// smem_bytes must be what the layout needs (frontend_kernels.smem_bytes).
-// `device` is the ordinal the tensors live on: this library links its own
-// CUDA runtime, whose current device is not the caller's.
+// Returns the cudaError_t of the launch (0 on success).  hop and the
+// window's non-zero samples [n_lo, n_lo + K) are multiples of 16 and FP (the
+// bins padded) a multiple of 16; smem is the block's dynamic shared memory
+// as frontend_kernels.smem_bytes lays it out, which also checks every other
+// argument.  `device` is the ordinal the tensors live on: this library links
+// its own CUDA runtime, whose current device is not the caller's.
 extern "C" int lasr_log_mel(const float* q, int B, int q_len, int T, const bf16* wt,
                             const bf16* fbt, float* out, int hop, int n_lo, int K, int FP,
                             int n_mels, float amin, int smem, int device, cudaStream_t stream) {
-  if (hop % 16 || n_lo % 16 || K % 16 || K <= 0 || K > 16 * KS_MAX || FP % 16 || n_mels % 32
-      || (size_t)smem != smem_bytes(hop, n_lo, K, FP, n_mels))
+  if (hop % 16 || n_lo % 16 || K % 16 || K <= 0 || FP % 16 || n_mels <= 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;

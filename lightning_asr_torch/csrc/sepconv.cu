@@ -101,16 +101,11 @@ __device__ __forceinline__ void mma_4x4(float (&acc)[4][4], const float* a, int 
   }
 }
 
-// dynamic shared memory of a K9 block; mirrored by
-// sepconv_kernels.fwd_smem_bytes, which the wrapper passes in
-size_t fwd_smem_bytes(int Cin, int k, int dtype) {
-  if (dtype == 0)
-    return sizeof(float) * ((size_t)round_up(Cin, KC) * TT + XC * (TT + 2 * (k / 2)) + XC * k
-                            + KC * MT);
-  const int kp = round_up(k, 8), ws = BT + kp;
-  const int window = BXC * (ws + kp), y_tile = (NT / 32) * 32 * 32;
-  return sizeof(bf16) * ((size_t)round_up(Cin, BK) * BT + STAGES * BM * BK
-                         + (window > y_tile ? window : y_tile));
+// dynamic shared memory of a float32 K9 block (the bf16 K9's is
+// sepconv_kernels.fwd_smem_bytes, which the wrapper passes in)
+size_t f32_fwd_smem_bytes(int Cin, int k) {
+  return sizeof(float) * ((size_t)round_up(Cin, KC) * TT + XC * (TT + 2 * (k / 2)) + XC * k
+                          + KC * MT);
 }
 
 // Shared-memory tiles of the bf16 K9 hold 16-byte chunks XOR-swizzled by
@@ -555,6 +550,7 @@ sepconv_wp_grad_kernel(const T* __restrict__ dy,    // (B, Cout, T)
 
 int fwd(const void* x, const void* wd, const void* wp, void* y, int B, int Cin, int Cout, int Tn,
         int k, int dtype, size_t smem, cudaStream_t stream) {
+  if (dtype == 0) smem = f32_fwd_smem_bytes(Cin, k);
   const void* kernel = dtype == 0 ? (const void*)sepconv_fwd_kernel
                                   : (const void*)sepconv_fwd_bf16_kernel;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -628,12 +624,13 @@ __global__ void __launch_bounds__(NT) bf16_product_check_kernel(unsigned long lo
 extern "C" size_t lasr_sepconv_bwd_smem(int k) { return dw_smem_bytes(k); }
 
 // K9: wp is wp' (Cin, Cout) for float32 and the packed (CoutP, CinP) for
-// bf16 (sepconv_kernels.pack_pointwise); smem must be fwd_smem_bytes
+// bf16 (sepconv_kernels.pack_pointwise); smem is the bf16 block's shared
+// memory as sepconv_kernels.fwd_smem_bytes lays it out (ignored for
+// float32, which sizes its own)
 extern "C" int lasr_sepconv_fwd(const void* x, const void* wd, const void* wp, void* y, int B,
                                 int Cin, int Cout, int T, int k, int dtype, int smem, int device,
                                 cudaStream_t stream) {
-  if ((dtype != 0 && dtype != 1) || (dtype == 1 && k > KMAX)
-      || (size_t)smem != fwd_smem_bytes(Cin, k, dtype))
+  if ((dtype != 0 && dtype != 1) || (dtype == 1 && (k > KMAX || smem <= 0)))
     return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;

@@ -15,27 +15,30 @@ Per frame t of row b (hop 160, n_fft 512, F = 257 bins, 64 mels):
 Products of bf16 values are exact in fp32, so the kernel differs from the
 plain version only in the order of the fp32 sums.
 
-What bounds it on the H100: the DFT, 2·514·512 flops a frame (6.7 GFLOP for
-8 rows of 16 s), against ~12 MB of signal in and log-mels out; at the bf16
-tensor-core rate the flops take ~7 µs and the bytes ~4 µs, so the work is
-compute-bound, reaches its bound only on the tensor cores, and everything
-between the signal and the log-mel must stay on chip.
+What bounds it on the H100: the DFT over the window's non-zero samples,
+2·514·320 flops a frame (4.2 GFLOP for 8 rows of 16 s), against ~12 MB of
+signal in and log-mels out; at the bf16 tensor-core rate the flops take
+~4 µs and the bytes ~3.5 µs, so the work is compute-bound, reaches its
+bound only on the tensor cores, and everything between the signal and the
+log-mel must stay on chip.
 
 What the design does about it (``csrc/mel.cu``): frames are the M dimension
 of ``mma.sync`` m16n8k16, the table's columns the N, the frame's samples
 the K.  One block per (row, 64 frames) stages its samples once, rounded to
 bf16, one hop-wide chunk per shared-memory row; frame t starts at chunk t,
 so ``ldmatrix`` reads the A fragments straight from the overlapping signal
-(no im2col copy), and each warp keeps its 16 frames' fragments in
-registers.  K runs only over the samples the window leaves non-zero,
-[96, 416) for the default config (``kernel_layout``): the skipped table rows
-are exactly 0, 37.5% of the DFT.  The table interleaves 8 cos columns with
-the 8 -sin columns of the same bins, so re and im of one (frame, bin) meet in
-one thread's registers and the power is taken there; it streams through
-shared memory in passes of 16 bins with ``cp.async`` double buffering, each
-pass feeding 64 frames.  The bf16 power tile stays in shared memory and the
-mel projection, bins padded to FP = 272, runs on the tensor cores too; only
-the (64, n_mels) log-mel tile is written.
+(no im2col copy), and each warp keeps its 16 frames' fragments of the
+first 20 steps in registers (a longer window reloads the rest each pass).
+K runs only over the samples the window leaves non-zero, [96, 416) for the
+default config (``kernel_layout``): the skipped table rows are exactly 0,
+37.5% of the DFT.  The table interleaves 8 cos columns with the 8 -sin
+columns of the same bins, so re and im of one (frame, bin) meet in one
+thread's registers and the power is taken there; it streams through shared
+memory in passes of 16 bins with ``cp.async`` double buffering, each pass
+feeding 64 frames.  The bf16 power tile stays in shared memory and the mel
+projection, bins padded to FP = 272 and mels to a multiple of 16, runs on
+the tensor cores too; only the (64, n_mels) log-mel tile is written.  The
+layout takes any hop that is a multiple of 16 samples.
 
 K6 replaces ``lightning_asr_tpu/ops/frontend_pallas.py::_kernel`` (wrapper
 ``extend_preemph``): preemphasis (c = float32(0.97), the first sample
@@ -70,9 +73,8 @@ from .kernel_build import SMEM_LIMIT
 _LOCK = threading.Lock()
 _TILE_FRAMES = 64           # frames a block (csrc/mel.cu MT)
 _PASS_COLS = 32             # table columns a pass: cos and -sin of 16 bins (NP)
-_MAX_STEPS = 20             # 16-sample steps a warp holds in registers (KS_MAX)
 _ROW_PAD = 8                # bf16 elements padding each shared-memory row (PAD)
-_STEP = 16                  # samples (and bins) a tensor-core step: mma's k16
+_STEP = 16                  # samples (bins, mels) a tensor-core step: mma's k16
 
 
 def _round_up(x: int, m: int) -> int:
@@ -110,24 +112,15 @@ def window_range(cfg: MelFrontendConfig):
 
 @functools.lru_cache(maxsize=8)
 def kernel_layout(cfg: MelFrontendConfig):
-    """(n_lo, K, FP) of the kernel's layout: the window's first sample, its
-    length in samples, the bins padded to a multiple of 16.  Raises
-    ValueError on a config the kernel does not take: frame t starts at
+    """(n_lo, K, FP, NM) of the kernel's layout: the window's first sample,
+    its length in samples, the bins and the mels padded to multiples of 16.
+    Raises ValueError on a hop the kernel does not take: frame t starts at
     sample t·hop, and its 16-sample steps must stay 16-byte aligned within
-    one hop-wide chunk; the window must fit the registers of its A
-    fragments; n_mels splits over two warps in steps of 16."""
-    n_lo, n_hi = window_range(cfg)
+    one hop-wide chunk."""
     if cfg.hop_length % _STEP:
         raise ValueError(f"the log-mel kernel needs hop_length % {_STEP} == 0, got {cfg.hop_length}")
-    if n_hi > cfg.n_fft:
-        raise ValueError(f"the window's samples [{n_lo}, {n_hi}) do not align to {_STEP}-sample "
-                         f"steps inside n_fft = {cfg.n_fft}")
-    if n_hi - n_lo > _STEP * _MAX_STEPS:
-        raise ValueError(f"the log-mel kernel takes windows of up to {_STEP * _MAX_STEPS} "
-                         f"samples, got [{n_lo}, {n_hi})")
-    if cfg.n_mels % (2 * _STEP):
-        raise ValueError(f"the log-mel kernel needs n_mels % {2 * _STEP} == 0, got {cfg.n_mels}")
-    return n_lo, n_hi - n_lo, _round_up(cfg.n_freqs, _STEP)
+    n_lo, n_hi = window_range(cfg)
+    return n_lo, n_hi - n_lo, _round_up(cfg.n_freqs, _STEP), _round_up(cfg.n_mels, _STEP)
 
 
 @functools.lru_cache(maxsize=8)
@@ -136,30 +129,31 @@ def _device_tables(cfg: MelFrontendConfig, device: torch.device):
     table over the window's samples [n_lo, n_lo + K), one row a column of
     the product; rows 16g .. 16g+7 hold the cos of bins 8g .. 8g+7 and rows
     16g+8 .. 16g+15 their -sin, so pass p is the contiguous rows 32p ..
-    32p+31.  fbt (n_mels, FP + 8): the filterbank transposed.  Bins past F
-    and the 8 pad elements of each row are zero."""
-    n_lo, K, FP = kernel_layout(cfg)
+    32p+31.  fbt (NM, FP + 8): the filterbank transposed.  Bins past F,
+    samples past n_fft, mels past n_mels and the 8 pad elements of each row
+    are zero."""
+    n_lo, K, FP, NM = kernel_layout(cfg)
     F = cfg.n_freqs
-    filt = torch.from_numpy(dft_filters(cfg))[:, n_lo:n_lo + K]        # (2F, K)
+    filt = torch.from_numpy(dft_filters(cfg))[:, n_lo:n_lo + K]        # (2F, <= K)
     wt = torch.zeros((FP // 8, 2, 8, K + _ROW_PAD), dtype=torch.float32)
     for part in range(2):                                              # cos, -sin
         rows = torch.zeros((FP, K), dtype=torch.float32)
-        rows[:F] = filt[part * F:(part + 1) * F]
+        rows[:F, :filt.shape[1]] = filt[part * F:(part + 1) * F]
         wt[:, part, :, :K] = rows.reshape(FP // 8, 8, K)
-    fbt = torch.zeros((cfg.n_mels, FP + _ROW_PAD), dtype=torch.float32)
-    fbt[:, :F] = torch.from_numpy(mel_filterbank(cfg)).t()
+    fbt = torch.zeros((NM, FP + _ROW_PAD), dtype=torch.float32)
+    fbt[:cfg.n_mels, :F] = torch.from_numpy(mel_filterbank(cfg)).t()
     return (wt.reshape(2 * FP, K + _ROW_PAD).to(torch.bfloat16).to(device).contiguous(),
             fbt.to(torch.bfloat16).to(device).contiguous())
 
 
 def smem_bytes(cfg: MelFrontendConfig) -> int:
-    """Dynamic shared memory of one block (csrc/mel.cu smem_bytes): the
-    tile's samples in hop-wide chunks, two table passes (or the
-    filterbank), the power tile."""
-    n_lo, K, FP = kernel_layout(cfg)
+    """Dynamic shared memory of one block, the one statement of csrc/mel.cu's
+    layout size: the tile's samples in hop-wide chunks, two table passes (or
+    the filterbank), the power tile."""
+    n_lo, K, FP, NM = kernel_layout(cfg)
     hop = cfg.hop_length
     chunks = _TILE_FRAMES + (n_lo + K - 1) // hop - n_lo // hop
-    table = max(2 * _PASS_COLS * (K + _ROW_PAD), cfg.n_mels * (FP + _ROW_PAD))
+    table = max(2 * _PASS_COLS * (K + _ROW_PAD), NM * (FP + _ROW_PAD))
     return 2 * (chunks * (hop + _ROW_PAD) + table + _TILE_FRAMES * (FP + _ROW_PAD))
 
 
@@ -178,7 +172,7 @@ def mel_from_extended(q: torch.Tensor, cfg: MelFrontendConfig, T: int) -> torch.
         return mel_from_extended_plain(q, cfg, T)
     if q.device.type != "cuda":
         raise ValueError(f"mel_from_extended runs on cpu or cuda, not {q.device}")
-    n_lo, K, FP = kernel_layout(cfg)
+    n_lo, K, FP, _ = kernel_layout(cfg)
     smem = smem_bytes(cfg)
     if smem > SMEM_LIMIT:
         raise ValueError(f"config needs {smem} B of shared memory per block (> {SMEM_LIMIT})")

@@ -42,12 +42,12 @@ output of all input channels of its tile once into shared memory as bf16,
 never to device memory: a thread walks 8 frames of one channel, 8 taps at a
 time from registers, each pair of frames' products taken by one
 ``mul.rn.bf16x2`` (which the card rounds exactly as the plain version
-does: ``bf16_product_mismatches``), with the next pass's window read into
-registers while it computes.  Then the pointwise product runs on
-``mma.sync`` m16n8k16 tensor cores, bf16 in and float32 sums: ``wp``,
-packed by ``pack_pointwise`` to (Cout, Cin) with zeros up to whole 128 x 32
-stages, streams through shared memory in a ring of three ``cp.async``
-stages, each byte feeding 64 frames; the dw tile feeds ``ldmatrix.trans``;
+does: ``bf16_product_mismatches``, run by a card test), with the next
+pass's window read into registers while it computes.  Then the pointwise
+product runs on ``mma.sync`` m16n8k16 tensor cores, bf16 in and float32
+sums: ``wp``, packed by ``pack_pointwise`` to (Cout, Cin) with zeros up to
+whole 128 x 32 stages, streams through shared memory in a ring of three
+``cp.async`` stages, each byte feeding 64 frames; the dw tile feeds ``ldmatrix.trans``;
 each warp rounds its 32 x 32 tile of y to bf16 and stages it in shared
 memory so that its stores run along T.  The tiles are XOR-swizzled rather
 than padded, so that two blocks fit an SM at Cin = 512.  K9 in float32
@@ -76,13 +76,11 @@ import torch.nn.functional as F
 from .kernel_build import DTYPE_CODES, SMEM_LIMIT
 
 _LOCK = threading.Lock()
-# K9's tiles (csrc/sepconv.cu): bf16 frames a block, output channels and
-# input channels of a wp stage, channels a depthwise pass, wp stages in
-# flight; the float32 path's frames a block, depthwise chunk, product tile
-# and chunk
+# the bf16 K9's tiles (csrc/sepconv.cu): frames a block, output channels
+# and input channels of a wp stage, channels a depthwise pass, wp stages in
+# flight
 _BT, _BM, _BK, _BXC, _STAGES = 64, 128, 32, 32, 3
 _KMAX = 127                 # the bf16 K9's largest k: its taps and window sit in registers
-_TT, _XC, _MT, _KC = 32, 32, 128, 16
 _WP_TILE = 64               # csrc/sepconv.cu PT: wp_grad tile edge
 _WP_BLOCKS = 264            # wp_grad blocks to aim for: two per SM of an H100
 
@@ -127,17 +125,14 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def fwd_smem_bytes(Cin: int, k: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one K9 block (csrc/sepconv.cu
-    fwd_smem_bytes).  bf16: the (CinP, 64) dw tile, the (128, 32) wp
+def fwd_smem_bytes(Cin: int, k: int) -> int:
+    """Dynamic shared memory of one bf16 K9 block, the one statement of
+    csrc/sepconv.cu's layout size: the (CinP, 64) dw tile, the (128, 32) wp
     stages, and the larger of the depthwise window with its taps and the
-    eight warps' (32, 32) y tiles; float32: the dw tile, the window, the taps and one wp
-    chunk."""
-    if dtype == torch.bfloat16:
-        kp = _round_up(k, 8)
-        window = _BXC * (_BT + 2 * kp)
-        return 2 * (_round_up(Cin, _BK) * _BT + _STAGES * _BM * _BK + max(window, 8 * 32 * 32))
-    return 4 * (_round_up(Cin, _KC) * _TT + _XC * (_TT + 2 * (k // 2)) + _XC * k + _KC * _MT)
+    eight warps' (32, 32) y tiles.  (The float32 K9 sizes its own.)"""
+    kp = _round_up(k, 8)
+    window = _BXC * (_BT + 2 * kp)
+    return 2 * (_round_up(Cin, _BK) * _BT + _STAGES * _BM * _BK + max(window, 8 * 32 * 32))
 
 
 def pack_pointwise(wp: torch.Tensor) -> torch.Tensor:
@@ -159,11 +154,14 @@ def sepconv_forward(x: torch.Tensor, wd: torch.Tensor, wp: torch.Tensor) -> torc
 
     from .kernel_build import library
 
-    if x.dtype == torch.bfloat16 and k > _KMAX:
-        raise ValueError(f"the bf16 sepconv forward takes k <= {_KMAX}, got {k}")
-    smem = fwd_smem_bytes(Cin, k, x.dtype)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"Cin={Cin}, k={k} need {smem} B of shared memory per block (> {SMEM_LIMIT})")
+    smem = 0                                   # the float32 K9 sizes its own
+    if x.dtype == torch.bfloat16:
+        if k > _KMAX:
+            raise ValueError(f"the bf16 sepconv forward takes k <= {_KMAX}, got {k}")
+        smem = fwd_smem_bytes(Cin, k)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"Cin={Cin}, k={k} need {smem} B of shared memory per block "
+                             f"(> {SMEM_LIMIT})")
     fn = library("sepconv").lasr_sepconv_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]

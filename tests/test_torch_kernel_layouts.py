@@ -1,10 +1,10 @@
 """The host-side layouts of the tensor-core kernels, on the CPU: K1's tables
 (``ops/frontend_kernels.py``) unpack to the plain version's, its window
-range skips only zero table rows, the configs its layout cannot take are
-refused, the layout read the way ``csrc/mel.cu`` reads it gives the plain
-log-mel; K9's pointwise packing (``ops/sepconv_kernels.py``) round-trips,
-and every separable conv of ``QuartNet12Context`` (the three layers
-``chip_smoke.py`` times among them) fits K9's shared memory."""
+range skips only zero table rows, a hop its layout cannot take is refused,
+the layout read the way ``csrc/mel.cu`` reads it gives the plain log-mel
+for the default config and for other mel counts, windows and hops; K9's pointwise packing (``ops/sepconv_kernels.py``)
+round-trips, and every separable conv of ``QuartNet12Context`` (the three
+layers ``chip_smoke.py`` times among them) fits K9's shared memory."""
 
 import numpy as np
 import pytest
@@ -17,6 +17,13 @@ from lightning_asr_torch.ops.kernel_build import SMEM_LIMIT
 from lightning_asr_torch.ops.sepconv_kernels import fwd_smem_bytes, pack_pointwise
 
 CFG = MelFrontendConfig(precision="default")
+# configs beside the default: 80 mels (not a multiple of 32), a 25 ms
+# window (26 steps: more than the 20 a warp holds in registers), the JAX
+# dual-stream model's frontend (hop 320, no pad), a window as wide as its
+# 500-sample frame (the steps run past n_fft), and a 512-sample window with
+# 40 mels (all 32 steps)
+CONFIGS = [{}, {"n_mels": 80}, {"win_length": 400}, {"win_length": 400, "hop_length": 320, "pad": 0},
+           {"n_fft": 500, "win_length": 500}, {"win_length": 512, "n_mels": 40}]
 # one bf16 rounding flip of one power term, twice (see chip_smoke.py)
 K1_TOL_DB = 2 * 10 * np.log10(1 + 2.0 ** -8)
 # an H100 SM holds 233,472 B of shared memory and reserves 1 KB a block: the
@@ -29,11 +36,13 @@ def _bf16(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a).to(torch.bfloat16).float()
 
 
+@pytest.mark.parametrize("change", CONFIGS[:4], ids=str)
 @pytest.mark.parametrize("table", ["dft", "filterbank"])
-def test_k1_tables_unpack_to_the_plain_tables(table):
-    wt, fbt = fk._device_tables(CFG, torch.device("cpu"))
-    n_lo, K, FP = fk.kernel_layout(CFG)
-    F = CFG.n_freqs
+def test_k1_tables_unpack_to_the_plain_tables(table, change):
+    cfg = MelFrontendConfig(precision="default", **change)
+    wt, fbt = fk._device_tables(cfg, torch.device("cpu"))
+    n_lo, K, FP, NM = fk.kernel_layout(cfg)
+    F = cfg.n_freqs
     assert wt.dtype == fbt.dtype == torch.bfloat16
     if table == "dft":
         assert wt.shape == (2 * FP, K + 8)
@@ -41,13 +50,13 @@ def test_k1_tables_unpack_to_the_plain_tables(table):
         assert torch.all(groups[..., K:] == 0)                        # row padding
         cos, sin = (groups[:, i, :, :K].reshape(FP, K) for i in range(2))
         assert torch.all(cos[F:] == 0) and torch.all(sin[F:] == 0)   # bins past F
-        full = torch.zeros((2 * F, CFG.n_fft))
+        full = torch.zeros((2 * F, cfg.n_fft))
         full[:F, n_lo:n_lo + K], full[F:, n_lo:n_lo + K] = cos[:F], sin[:F]
-        assert torch.equal(full, _bf16(dft_filters(CFG)))
+        assert torch.equal(full, _bf16(dft_filters(cfg)))
     else:
-        assert fbt.shape == (CFG.n_mels, FP + 8)
-        assert torch.all(fbt[:, F:] == 0)
-        assert torch.equal(fbt[:, :F].float().t(), _bf16(mel_filterbank(CFG)))
+        assert fbt.shape == (NM, FP + 8) and NM % 16 == 0 and NM - 16 < cfg.n_mels <= NM
+        assert torch.all(fbt[:, F:] == 0) and torch.all(fbt[cfg.n_mels:] == 0)
+        assert torch.equal(fbt[:cfg.n_mels, :F].float().t(), _bf16(mel_filterbank(cfg)))
 
 
 def test_k1_window_range_skips_only_zero_rows():
@@ -56,19 +65,16 @@ def test_k1_window_range_skips_only_zero_rows():
     filt = dft_filters(CFG)
     assert np.all(filt[:, :n_lo] == 0) and np.all(filt[:, n_hi:] == 0)
     assert np.any(filt[:, n_lo:n_lo + 16] != 0) and np.any(filt[:, n_hi - 16:n_hi] != 0)
-    assert fk.kernel_layout(CFG) == (96, 320, 272)
+    assert fk.kernel_layout(CFG) == (96, 320, 272, 64)
     assert fk.smem_bytes(CFG) <= SMEM_LIMIT
     assert 2 * (fk.smem_bytes(CFG) + BLOCK_RESERVED) <= SM_SMEM
 
 
-@pytest.mark.parametrize("change", [{"hop_length": 100}, {"hop_length": 168},
-                                    {"n_fft": 500, "win_length": 500}, {"win_length": 400},
-                                    {"n_mels": 80}])
-def test_k1_layout_refuses_what_the_kernel_cannot_take(change):
-    """A hop or a window off the 16-sample steps, a window longer than the
-    registers hold, n_mels off the warps' split: refused before any
-    launch, while the plain version still runs the config on the CPU."""
-    cfg = MelFrontendConfig(precision="default", **change)
+@pytest.mark.parametrize("hop", [100, 168])
+def test_k1_layout_refuses_what_the_kernel_cannot_take(hop):
+    """A hop off the 16-sample steps: refused before any launch, while the
+    plain version still runs the config on the CPU."""
+    cfg = MelFrontendConfig(precision="default", hop_length=hop)
     with pytest.raises(ValueError):
         fk.kernel_layout(cfg)
     T = 5
@@ -78,21 +84,25 @@ def test_k1_layout_refuses_what_the_kernel_cannot_take(change):
     assert out.shape == (1, T, cfg.n_mels) and bool(torch.isfinite(out).all())
 
 
-def test_k1_layout_read_as_the_kernel_reads_it_gives_the_plain_log_mel():
+@pytest.mark.parametrize("change", CONFIGS, ids=str)
+def test_k1_layout_read_as_the_kernel_reads_it_gives_the_plain_log_mel(change):
     """csrc/mel.cu's addressing replayed in numpy over two frame tiles (the
     second ragged): samples in hop-wide chunks from chunk t0 + n_lo // hop,
     A row t at chunk t + n // hop, offset n % hop; pass p's 32 table rows,
     cos then -sin of 8 bins for each column warp; the power of bins 16p +
-    8wn + j; the mel product from the transposed filterbank."""
-    n_lo, K, FP = fk.kernel_layout(CFG)
-    hop, MT = CFG.hop_length, fk._TILE_FRAMES
-    wt, fbt = (t.float().numpy().astype(np.float64) for t in fk._device_tables(CFG, torch.device("cpu")))
+    8wn + j; the mel product from the transposed filterbank, its padded
+    mels dropped.  The block's shared memory fits the card."""
+    cfg = MelFrontendConfig(precision="default", **change)
+    n_lo, K, FP, NM = fk.kernel_layout(cfg)
+    assert fk.smem_bytes(cfg) <= SMEM_LIMIT
+    hop, MT = cfg.hop_length, fk._TILE_FRAMES
+    wt, fbt = (t.float().numpy().astype(np.float64) for t in fk._device_tables(cfg, torch.device("cpu")))
     T = MT + 6
     q = (np.random.default_rng(1).standard_normal((1, (T + 3) * hop + 77)) * 0.1).astype(np.float32)
     qb = _bf16(q).numpy()[0].astype(np.float64)
     c_lo = n_lo // hop
     n_chunks = MT + (n_lo + K - 1) // hop - c_lo
-    got = np.zeros((T, CFG.n_mels))
+    got = np.zeros((T, cfg.n_mels))
     for t0 in range(0, T, MT):
         chunks = np.zeros((n_chunks, hop))
         for c in range(n_chunks):
@@ -109,10 +119,10 @@ def test_k1_layout_read_as_the_kernel_reads_it_gives_the_plain_log_mel():
             for wn in range(2):
                 re, im = A @ tab[16 * wn:16 * wn + 8].T, A @ tab[16 * wn + 8:16 * wn + 16].T
                 power[:, 16 * p + 8 * wn:16 * p + 8 * wn + 8] = re * re + im * im
-        mel = _bf16(power.astype(np.float32)).numpy() @ fbt[:, :FP].T
+        mel = (_bf16(power.astype(np.float32)).numpy() @ fbt[:, :FP].T)[:, :cfg.n_mels]
         n = min(MT, T - t0)
-        got[t0:t0 + n] = 10 * np.log10(np.maximum(mel, CFG.amin))[:n]
-    want = fk.mel_from_extended(torch.from_numpy(q), CFG, T).numpy()[0]
+        got[t0:t0 + n] = 10 * np.log10(np.maximum(mel, cfg.amin))[:n]
+    want = fk.mel_from_extended(torch.from_numpy(q), cfg, T).numpy()[0]
     assert np.abs(got - want).max() <= K1_TOL_DB
 
 
@@ -129,6 +139,6 @@ def test_k9_pointwise_packing_round_trips(Cout, Cin):
 @pytest.mark.parametrize("Cin,k", sorted({(cin or CONTEXT_IN, k) for _, cin, _, k in
                                           _BLOCKS + _CONTEXT_BLOCKS}))
 def test_k9_shared_memory_fits_every_block_conv(Cin, k):
-    bf16 = fwd_smem_bytes(Cin, k, torch.bfloat16)
-    assert bf16 <= SMEM_LIMIT and fwd_smem_bytes(Cin, k, torch.float32) <= SMEM_LIMIT
-    assert 2 * (bf16 + BLOCK_RESERVED) <= SM_SMEM          # two blocks an SM
+    smem = fwd_smem_bytes(Cin, k)
+    assert smem <= SMEM_LIMIT
+    assert 2 * (smem + BLOCK_RESERVED) <= SM_SMEM          # two blocks an SM

@@ -56,6 +56,24 @@ def test_k1_tiles_and_ragged_signal(dev, B, T, extra):
     assert (got - want).abs().max().item() <= K1_TOL_DB
 
 
+@pytest.mark.parametrize("change", [{"n_mels": 80}, {"win_length": 400},
+                                    {"win_length": 400, "hop_length": 320, "pad": 0},
+                                    {"n_fft": 500, "win_length": 500},
+                                    {"win_length": 512, "n_mels": 40}], ids=str)
+def test_k1_configs_beside_the_default(dev, change):
+    """Mel counts off 32 (the mel tiles' edge mask), windows longer than the
+    20 steps a warp holds in registers (the rest read from shared memory
+    each pass), the dual-stream frontend's hop of 320, steps past n_fft."""
+    cfg = MelFrontendConfig(precision="default", **change)
+    B, T = 2, 70
+    n = (T - 1) * cfg.hop_length + cfg.n_fft + 333
+    q = (torch.randn((B, n), generator=torch.Generator().manual_seed(cfg.n_mels)) * 0.1).to(dev)
+    got = mel_from_extended(q, cfg, T)
+    want = mel_from_extended_plain(q, cfg, T)
+    assert got.shape == (B, T, cfg.n_mels)
+    assert (got - want).abs().max().item() <= K1_TOL_DB
+
+
 def test_k1_silence_is_amin(dev):
     cfg = MelFrontendConfig(precision="default")
     out = mel_from_extended(torch.zeros((2, 6000), device=dev), cfg, 20)

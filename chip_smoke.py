@@ -26,8 +26,9 @@ Phases, in order; any failed check exits non-zero before the last line:
      plain versions (K9 and K10's dx within one bf16 ulp, the weight
      gradients relative to their largest value), run twice for the same
      bits, with cuDNN's F.conv1d pair, its autograd backward and its
-     depthwise weight gradient as the yardsticks, K9's achieved TFLOP/s and
-     share of its bound; and K9's float32 instantiation at the widest layer;
+     depthwise weight gradient as the yardsticks, K9's and K10's achieved
+     TFLOP/s and share of their bounds, K10's device time by kernel
+     (torch.profiler); and K9's float32 instantiation at the widest layer;
   7. serving: a full-width quartznet12_context checkpoint made from seeded
      weights (bf16 convs, "default" frontend tier) is loaded by
      AsrTranslator on the card and served over HTTP with dynamic batching;
@@ -96,6 +97,7 @@ import http.client
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -509,14 +511,27 @@ def _sepconv_layer(dev, Cin: int, Cout: int, k: int, seed: int) -> dict:
         # x and dy in, the float32 gradient out; k taps
         "K11": bound((x.numel() + dyx.numel()) * n2 + gk.numel() * 4, 2 * BT * Cin * k, "bf16"),
     }
-    k9_flops = 2 * BT * Cin * (k + Cout)
+    flops = {"K9": 2 * BT * Cin * (k + Cout), "K10": 2 * BT * Cin * (2 * Cout + 3 * k)}
     return {"shape": [B, Cin, Cout, T, k], **errs,
-            "K9_tflops": k9_flops / times["K9"][0] * 1e-9,
-            "K9_bound_share": bounds["K9"][0] / times["K9"][0],
+            **{f"{n}_tflops": f / times[n][0] * 1e-9 for n, f in flops.items()},
+            **{f"{n}_bound_share": bounds[n][0] / times[n][0] for n in flops},
+            "K10_split_ms": _split_ms(lambda: sepconv_backward(x, wd, wp, dy)),
             **{f"{n}_{m}": v for n, (ms, pms, lms) in times.items()
                for m, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms))},
             **{f"{n}_bound_ms": b[0] for n, b in bounds.items()},
             **{f"{n}_bound_by": b[1] for n, b in bounds.items()}}
+
+
+def _split_ms(fn) -> dict:
+    """Device time of each kernel of one call of ``fn``, by kernel name
+    (torch.profiler over 3 calls)."""
+    top = device_time(fn, 3)[2]
+    short = lambda name: re.split(r"[<(]", name.removeprefix("void ").replace(  # noqa: E731
+        "(anonymous namespace)::", ""))[0].split("::")[-1]
+    split = {}
+    for name, ms in top.items():
+        split[short(name)] = split.get(short(name), 0.0) + ms
+    return split
 
 
 def _sepconv_fwd_float32(dev, Cin: int, Cout: int, k: int) -> dict:
@@ -746,9 +761,8 @@ def _category(name: str) -> str:
                      ("lstm_bwd_kernel", "K3 lstm_bwd"), ("lstm_stacked_fwd_kernel", "K7 lstm_stacked"),
                      ("lstm_stacked_bwd_kernel", "K8 lstm_stacked_bwd"), ("ctc_alpha_kernel", "K4 ctc_alpha"),
                      ("ctc_beta_kernel", "K5 ctc_beta"), ("extend_kernel", "K6 extend_preemph"),
-                     ("sepconv_fwd", "K9 sepconv_fwd"), ("sepconv_dz_kernel", "K10 sepconv_bwd"),
-                     ("sepconv_bwd_dw_kernel", "K10 sepconv_bwd"),
-                     ("sepconv_wp_grad_kernel", "K10 sepconv_bwd"),
+                     ("sepconv_fwd", "K9 sepconv_fwd"), ("sepconv_dz", "K10 sepconv_bwd"),
+                     ("sepconv_bwd_dw", "K10 sepconv_bwd"), ("sepconv_wp_grad", "K10 sepconv_bwd"),
                      ("dw_wgrad_kernel", "K11 dw_wgrad"), ("sum_partials_kernel", "K10/K11 partial sums")):
         if tag in low:
             return cat

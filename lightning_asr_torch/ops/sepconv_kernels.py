@@ -28,12 +28,13 @@ x's type first):
 
 What bounds them on the H100: at B=32, T=836, 512→512, k=87 in bf16, K9
 moves ~55 MB (x in, y out: ~16 µs) and does 2·B·T·Cin·(k + Cout) = 16 GFLOP
-(~17 µs at the bf16 tensor-core peak); K10 moves ~82 MB and does
-2·B·T·Cin·(2·Cout + 3k) = 35 GFLOP.  Both sit near the balance point, so the
-intermediates must stay on chip and the products want tensor cores.  K9's
-depthwise stage cannot use them: its k products per output are each
-rounded to bf16 before the float32 sum (the numerics above), 1.2 G rounded
-products at the widest layer on the CUDA cores.
+(~17 µs at the bf16 tensor-core peak); K10 moves ~82 MB (~25 µs) and does
+2·B·T·Cin·(2·Cout + 3·k) = 35 GFLOP (~36 µs).  Both sit near the balance
+point, so the intermediates must stay on chip and the products want tensor
+cores.  K9's depthwise stage cannot use them: its k products per output are
+each rounded to bf16 before the float32 sum (the numerics above), 1.2 G
+rounded products at the widest layer on the CUDA cores; K10's dx, dwr and
+wd_grad, 7 GFLOP of float32 products (dz is float32), stay there too.
 
 What the designs do about it (``csrc/sepconv.cu``).  K9 in bf16, the
 instantiation serving and every ``conv_kernel="sepconv"`` step run, takes
@@ -55,14 +56,25 @@ than padded, so that two blocks fit an SM at Cin = 512.  K9 in float32
 float32 sums a thread over 32 frames: TF32 tensor cores would round its
 products.  The input's dtype picks the path.
 
-K10 is five launches: dz as a tiled product; one block per (32 channels,
-row) walking the frames for dx, dwr and its row's wd_grad (held in shared
-memory by the thread that owns each tap); wp_grad as a tiled product split
-over the rows; and two fixed-order sums of the partials, so two runs give
-the same bits.  Its products run on the CUDA cores in float32 (bf16
-products are exact there).  The TPU kernels' sequential batch grid, which
-carries the weight gradients in VMEM, becomes the per-row and per-split
-partials.
+K10 is five launches.  In bf16, the instantiation every
+``conv_kernel="sepconv"`` step runs, its two products, 28 of its 35 GFLOP at
+the widest layer, run on ``mma.sync`` as K9's does (bf16 operands, exact
+products, float32 sums): dz = wpᵀ·dy with wpᵀ packed by
+``pack_pointwise_transposed`` and dy's stages read into registers a stage
+ahead, as wide as T's alignment allows (T' = 836 gives 8-byte rows), then
+wp_grad = Σ dy·dwrᵀ split over the rows, both operands K-contiguous, dwr
+into K10's own buffer with rows padded by zeros to whole 32-frame stages.
+Between them, one block per (32 channels, row) walks the frames: each
+thread owns 8 frames of a channel and, for each 8-tap block, reads the
+window (x in bf16, exact; dz in float32) once for its dx and dwr products
+(float32, each product and sum rounded apart in tap order, as the plain
+version's) and its 64 wd_grad products, whose per-tap sums the channel's 8
+threads reduce by shuffles.  Two fixed-order sums of the partials (over
+rows for wd_grad, over the splits for wp_grad) follow, so two runs give the
+same bits; no float atomics.  The float32 K10 (the parity checks) keeps the
+CUDA-core kernels, which TF32 would otherwise round.  The TPU kernels'
+sequential batch grid, which carries the weight gradients in VMEM, becomes
+the per-row and per-split partials.
 """
 
 from __future__ import annotations
@@ -80,9 +92,11 @@ _LOCK = threading.Lock()
 # and input channels of a wp stage, channels a depthwise pass, wp stages in
 # flight
 _BT, _BM, _BK, _BXC, _STAGES = 64, 128, 32, 32, 3
-_KMAX = 127                 # the bf16 K9's largest k: its taps and window sit in registers
-_WP_TILE = 64               # csrc/sepconv.cu PT: wp_grad tile edge
-_WP_BLOCKS = 264            # wp_grad blocks to aim for: two per SM of an H100
+_KMAX = 127                 # the bf16 K9's and K10's largest k: taps and window sit in registers
+_ZS = 40                    # the bf16 K10 dz: floats a row of a warp's staged tile
+_WN = 64                    # the bf16 K10 wp_grad: input channels a tile (x _BM output channels)
+_WP_TILE = 64               # csrc/sepconv.cu PT: the float32 wp_grad's tile edge
+_WP_BLOCKS = 264            # wp_grad blocks to aim for: two an SM of an H100
 
 
 def _check(x: torch.Tensor, wd: torch.Tensor, wp: torch.Tensor):
@@ -142,6 +156,39 @@ def pack_pointwise(wp: torch.Tensor) -> torch.Tensor:
     w = wp.reshape(Cout, Cin).to(torch.bfloat16)
     pads = (0, _round_up(Cin, _BK) - Cin, 0, _round_up(Cout, _BM) - Cout)
     return F.pad(w, pads).contiguous() if any(pads) else w.contiguous()
+
+
+def pack_pointwise_transposed(wp: torch.Tensor) -> torch.Tensor:
+    """The bf16 K10's dz operand A: wp' (Cin, Cout) rounded to bf16 as
+    (CinP, CoutP), zero-padded to whole 128 x 32 stages."""
+    return pack_pointwise(wp.transpose(0, 1))
+
+
+def bwd_smem_bytes(k: int) -> list:
+    """Dynamic shared memory of the bf16 K10's blocks, the one statement of
+    csrc/sepconv.cu's layouts, in launch order: dz (the ring of (128, 32) wp'
+    stages, two (32, 64) dy stages, the eight warps' (32, 40) float32 dz
+    tiles); dx/dwr/wd_grad (two windows of 32 channels x (64 + kp) frames,
+    dz in float32 and x in bf16, and the float32 taps, flipped taps and
+    wd_grad sums of 32 channels x kp); wp_grad (two (128, 32) dy and two
+    (64, 32) dwr stages).  (The float32 K10 sizes its own.)"""
+    kp = _round_up(k, 8)
+    ws = _BT + kp
+    dz = 2 * (_STAGES * _BM * _BK + 2 * _BK * _BT) + 4 * 8 * 32 * _ZS
+    dw = _BXC * (2 * ws * (4 + 2) + 3 * kp * 4)
+    wp_grad = 2 * 2 * (_BM + _WN) * _BK
+    return [dz, dw, wp_grad]
+
+
+def _wp_grad_splits(B: int, Cin: int, Cout: int, dtype: torch.dtype) -> int:
+    """The splits of the rows that K10's wp_grad sums apart (then adds in
+    order): as many as one wave of blocks takes (a second wave of a few
+    blocks would nearly double the time), at most one a row."""
+    if dtype == torch.bfloat16:
+        tiles = -(-Cout // _BM) * -(-Cin // _WN)
+        return max(1, min(B, _WP_BLOCKS // tiles))
+    tiles = -(-Cin // _WP_TILE) * -(-Cout // _WP_TILE)
+    return max(1, min(B, -(-_WP_BLOCKS // tiles)))
 
 
 def sepconv_forward(x: torch.Tensor, wd: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:
@@ -243,33 +290,36 @@ def sepconv_backward(x: torch.Tensor, wd: torch.Tensor, wp: torch.Tensor, dy: to
 
     from .kernel_build import library
 
-    lib = library("sepconv")
-    lib.lasr_sepconv_bwd_smem.restype = ctypes.c_size_t
-    lib.lasr_sepconv_bwd_smem.argtypes = [ctypes.c_int]
-    smem = lib.lasr_sepconv_bwd_smem(k)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"k={k} needs {smem} B of shared memory per block (> {SMEM_LIMIT})")
-    fn = lib.lasr_sepconv_bwd
+    if x.dtype == torch.bfloat16:
+        if k > _KMAX:
+            raise ValueError(f"the bf16 sepconv backward takes k <= {_KMAX}, got {k}")
+        smem = bwd_smem_bytes(k)
+        if max(smem) > SMEM_LIMIT:
+            raise ValueError(f"k={k} needs {smem} B of shared memory per block (> {SMEM_LIMIT})")
+        wp_t = pack_pointwise_transposed(wp)
+        TP = _round_up(T, _BK)     # dwr, K10's own buffer: rows padded with zeros to whole stages
+    else:                          # the float32 K10 sizes its own shared memory
+        smem, wp_t, TP = [0, 0, 0], wp.reshape(Cout, Cin).to(x.dtype).contiguous(), T
+    fn = library("sepconv").lasr_sepconv_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p, ctypes.c_int,
+                                                                 ctypes.c_void_p]
     dev = x.device
-    tiles = -(-Cin // _WP_TILE) * -(-Cout // _WP_TILE)
-    S = max(1, min(B, -(-_WP_BLOCKS // tiles)))                     # splits of the rows
+    S = _wp_grad_splits(B, Cin, Cout, x.dtype)
     wd_t = wd.reshape(Cin, k).to(x.dtype).contiguous()
-    wp_t = wp.reshape(Cout, Cin).to(x.dtype).contiguous()
     dx = torch.empty_like(x)
     wd_grad = torch.zeros((Cin, 1, k), dtype=torch.float32, device=dev)
     wp_grad = torch.zeros((Cout, Cin, 1), dtype=torch.float32, device=dev)
     if B and T:
         dz = torch.empty((B, Cin, T), dtype=torch.float32, device=dev)
-        dwr = torch.empty_like(x)
+        dwr = torch.empty((B, Cin, TP), dtype=x.dtype, device=dev)
         wd_part = torch.empty((B, Cin, k), dtype=torch.float32, device=dev)
         wp_part = torch.empty((S, Cout, Cin), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), wd_t.data_ptr(), wp_t.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                  wd_grad.data_ptr(), wp_grad.data_ptr(), dz.data_ptr(), dwr.data_ptr(),
-                 wd_part.data_ptr(), wp_part.data_ptr(), B, Cin, Cout, T, k, S,
-                 DTYPE_CODES[x.dtype], dev.index, stream)
+                 wd_part.data_ptr(), wp_part.data_ptr(), B, Cin, Cout, T, TP, k, S,
+                 DTYPE_CODES[x.dtype], (ctypes.c_int * 3)(*smem), dev.index, stream)
         if err != 0:
             raise RuntimeError(f"sepconv backward kernel launch failed: CUDA error {err}")
         with _LOCK:

@@ -4,7 +4,8 @@ range skips only zero table rows, a hop its layout cannot take is refused,
 the layout read the way ``csrc/mel.cu`` reads it gives the plain log-mel
 for the default config and for other mel counts, windows and hops; K9's pointwise packing (``ops/sepconv_kernels.py``)
 round-trips, and every separable conv of ``QuartNet12Context`` (the three
-layers ``chip_smoke.py`` times among them) fits K9's shared memory."""
+layers ``chip_smoke.py`` times among them) fits K9's shared memory; the same
+for K10's transposed packing and its bf16 kernels' shared memory."""
 
 import numpy as np
 import pytest
@@ -14,7 +15,8 @@ from lightning_asr_torch.models.quartznet import _BLOCKS, _CONTEXT_BLOCKS
 from lightning_asr_torch.ops import frontend_kernels as fk
 from lightning_asr_torch.ops.frontend import MelFrontendConfig, dft_filters, mel_filterbank
 from lightning_asr_torch.ops.kernel_build import SMEM_LIMIT
-from lightning_asr_torch.ops.sepconv_kernels import fwd_smem_bytes, pack_pointwise
+from lightning_asr_torch.ops.sepconv_kernels import (bwd_smem_bytes, fwd_smem_bytes, pack_pointwise,
+                                                     pack_pointwise_transposed)
 
 CFG = MelFrontendConfig(precision="default")
 # configs beside the default: 80 mels (not a multiple of 32), a 25 ms
@@ -142,3 +144,21 @@ def test_k9_shared_memory_fits_every_block_conv(Cin, k):
     smem = fwd_smem_bytes(Cin, k)
     assert smem <= SMEM_LIMIT
     assert 2 * (smem + BLOCK_RESERVED) <= SM_SMEM          # two blocks an SM
+
+
+@pytest.mark.parametrize("Cout,Cin", [(512, CONTEXT_IN), (24, 40), (136, 8), (256, 256)])
+def test_k10_transposed_pointwise_packing_round_trips(Cout, Cin):
+    """The bf16 K10's dz operand: wp' zero-padded to whole 128 x 32 stages."""
+    wp = torch.from_numpy(np.random.default_rng(Cout).standard_normal((Cout, Cin, 1)).astype(np.float32))
+    packed = pack_pointwise_transposed(wp)
+    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    assert packed.shape == (-(-Cin // 128) * 128, -(-Cout // 32) * 32)
+    assert torch.equal(packed[:Cin, :Cout], wp.reshape(Cout, Cin).t().to(torch.bfloat16))
+    assert packed[Cin:].count_nonzero() == 0 and packed[:, Cout:].count_nonzero() == 0
+
+
+@pytest.mark.parametrize("k", sorted({k for *_, k in _BLOCKS + _CONTEXT_BLOCKS}))
+def test_k10_shared_memory_fits_every_block_conv(k):
+    for smem in bwd_smem_bytes(k):
+        assert 0 < smem <= SMEM_LIMIT
+        assert 2 * (smem + BLOCK_RESERVED) <= SM_SMEM          # two blocks an SM

@@ -336,7 +336,10 @@ CONV_CASES = [(1, 40, 16, 24, 5),        # one row
               (2, 64, 336, 512, 51),     # the context block's widths, T on the bf16 tile
               (2, 129, 24, 129, 15),     # T, Cin (not a multiple of 16), Cout one past a tile
               (1, 191, 336, 256, 63),    # Cin = 336 with T off the tile
-              (2, 65, 512, 512, 87)]     # the widest layer, T one past the bf16 tile
+              (2, 65, 512, 512, 87),     # the widest layer, T one past the bf16 tile
+              (2, 836, 256, 256, 33),    # the training T': rows 8-byte, not 16-byte, aligned
+              (2, 128, 48, 72, 17),      # T a multiple of 16: 16-byte loads
+              (5, 37, 1024, 1024, 5)]    # five rows in two uneven bf16 wp_grad splits
 
 
 def test_bf16_products_round_as_the_plain_version(dev):
@@ -391,6 +394,8 @@ def test_conv_kernels_reject_what_they_cannot_run(dev):
         sepconv_forward(x.bfloat16(), torch.zeros((8, 1, 129), device=dev), wp)
     with pytest.raises(ValueError):
         sepconv_backward(x, wd, wp, dy.bfloat16())
+    with pytest.raises(ValueError):        # ... and so does the bf16 backward
+        sepconv_backward(x.bfloat16(), torch.zeros((8, 1, 129), device=dev), wp, dy.bfloat16())
     with pytest.raises(ValueError):
         depthwise_wgrad(x.half(), dy.half(), 5)
     with pytest.raises(ValueError):

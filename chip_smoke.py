@@ -26,8 +26,8 @@ Phases, in order; any failed check exits non-zero before the last line:
      plain versions (K9 and K10's dx within one bf16 ulp, the weight
      gradients relative to their largest value), run twice for the same
      bits, with cuDNN's F.conv1d pair, its autograd backward and its
-     depthwise weight gradient as the yardsticks, K9's and K10's achieved
-     TFLOP/s and share of their bounds, K10's device time by kernel
+     depthwise weight gradient as the yardsticks, each one's achieved
+     TFLOP/s and share of its bound, K10's and K11's device time by kernel
      (torch.profiler); and K9's float32 instantiation at the widest layer;
   7. serving: a full-width quartznet12_context checkpoint made from seeded
      weights (bf16 convs, "default" frontend tier) is loaded by
@@ -511,11 +511,13 @@ def _sepconv_layer(dev, Cin: int, Cout: int, k: int, seed: int) -> dict:
         # x and dy in, the float32 gradient out; k taps
         "K11": bound((x.numel() + dyx.numel()) * n2 + gk.numel() * 4, 2 * BT * Cin * k, "bf16"),
     }
-    flops = {"K9": 2 * BT * Cin * (k + Cout), "K10": 2 * BT * Cin * (2 * Cout + 3 * k)}
+    flops = {"K9": 2 * BT * Cin * (k + Cout), "K10": 2 * BT * Cin * (2 * Cout + 3 * k),
+             "K11": 2 * BT * Cin * k}
     return {"shape": [B, Cin, Cout, T, k], **errs,
             **{f"{n}_tflops": f / times[n][0] * 1e-9 for n, f in flops.items()},
             **{f"{n}_bound_share": bounds[n][0] / times[n][0] for n in flops},
             "K10_split_ms": _split_ms(lambda: sepconv_backward(x, wd, wp, dy)),
+            "K11_split_ms": _split_ms(lambda: depthwise_wgrad(x, dyx, k)),
             **{f"{n}_{m}": v for n, (ms, pms, lms) in times.items()
                for m, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms))},
             **{f"{n}_bound_ms": b[0] for n, b in bounds.items()},
@@ -763,7 +765,7 @@ def _category(name: str) -> str:
                      ("ctc_beta_kernel", "K5 ctc_beta"), ("extend_kernel", "K6 extend_preemph"),
                      ("sepconv_fwd", "K9 sepconv_fwd"), ("sepconv_dz", "K10 sepconv_bwd"),
                      ("sepconv_bwd_dw", "K10 sepconv_bwd"), ("sepconv_wp_grad", "K10 sepconv_bwd"),
-                     ("dw_wgrad_kernel", "K11 dw_wgrad"), ("sum_partials_kernel", "K10/K11 partial sums")):
+                     ("dw_wgrad_", "K11 dw_wgrad"), ("sum_partials_kernel", "K10/K11 partial sums")):
         if tag in low:
             return cat
     if "memcpy" in low or "memset" in low:

@@ -77,6 +77,9 @@
 namespace {
 
 using lasr::bf16;
+using lasr::bf16x2_mul;
+using lasr::load_width;
+using lasr::Vec;
 
 constexpr int NT = 256;     // threads of every block here
 constexpr int TT = 32;      // K9, K10a float32: frames a block
@@ -137,15 +140,6 @@ __device__ __forceinline__ int swz64(int row, int col) {
 }
 __device__ __forceinline__ int swz32(int row, int col) {
   return row * 32 + ((((col >> 3) ^ (row >> 1)) & 3) << 3) + (col & 7);
-}
-
-// two bf16 products, each rounded once to bf16: the same bits as the
-// float32 product (exact for bf16 operands) rounded to bf16, as the card
-// showed for every pair of finite bf16 values (bf16_product_mismatches)
-__device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
 }
 
 // acc[f] += bf16(x[f + j] w[j]) in tap order for the taps j < n of an 8-tap
@@ -433,20 +427,6 @@ sepconv_fwd_kernel(const float* __restrict__ x,     // (B, Cin, T)
       }
     }
   }
-}
-
-// the widest load of V bf16 values
-template <int V> struct Vec;
-template <> struct Vec<1> { using type = uint16_t; };
-template <> struct Vec<2> { using type = uint32_t; };
-template <> struct Vec<4> { using type = uint2; };
-template <> struct Vec<8> { using type = uint4; };
-
-// the widest V <= 8 whose loads of rows of Tn bf16 values from p stay aligned
-int load_width(const void* p, int Tn) {
-  for (int v = 8; v > 1; v /= 2)
-    if (Tn % v == 0 && reinterpret_cast<uintptr_t>(p) % (2 * v) == 0) return v;
-  return 1;
 }
 
 // K10a, bf16: dz[b, c, t] = sum over o of wp[o, c] dy[b, o, t] on mma.sync

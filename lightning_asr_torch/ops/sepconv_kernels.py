@@ -233,10 +233,11 @@ sepconv_forward.launches = 0
 
 
 def bf16_product_mismatches(device: torch.device) -> int:
-    """The bf16 K9's depthwise stage takes its products two at a time with
-    ``mul.rn.bf16x2``; that is the plain version's product (float32, exact
-    for bf16 operands, rounded to bf16) only if the card rounds the same
-    way.  Runs both on every pair of finite bf16 values and returns how many
+    """The bf16 K9's depthwise stage and the bf16 K11
+    (``depthwise_kernels``) take their products two at a time with
+    ``mul.rn.bf16x2`` (``bf16x2_mul`` in ``csrc/conv_util.cuh``); that is the
+    plain versions' product (float32, exact for bf16 operands, rounded to
+    bf16) only if the card rounds the same way.  Runs both on every pair of finite bf16 values and returns how many
     results differ (0 is the premise).  Needs a CUDA device."""
     from .kernel_build import library
 

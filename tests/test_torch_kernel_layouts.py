@@ -5,13 +5,17 @@ the layout read the way ``csrc/mel.cu`` reads it gives the plain log-mel
 for the default config and for other mel counts, windows and hops; K9's pointwise packing (``ops/sepconv_kernels.py``)
 round-trips, and every separable conv of ``QuartNet12Context`` (the three
 layers ``chip_smoke.py`` times among them) fits K9's shared memory; the same
-for K10's transposed packing and its bf16 kernels' shared memory."""
+for K10's transposed packing and its bf16 kernels' shared memory; K11's
+shared memory (``ops/depthwise_kernels.py``) for every block conv, and the
+bf16 K11's addressing (``csrc/depthwise.cu``) replayed in numpy against the
+plain weight gradient."""
 
 import numpy as np
 import pytest
 import torch
 
 from lightning_asr_torch.models.quartznet import _BLOCKS, _CONTEXT_BLOCKS
+from lightning_asr_torch.ops.depthwise_kernels import depthwise_wgrad_plain, wgrad_smem_bytes
 from lightning_asr_torch.ops import frontend_kernels as fk
 from lightning_asr_torch.ops.frontend import MelFrontendConfig, dft_filters, mel_filterbank
 from lightning_asr_torch.ops.kernel_build import SMEM_LIMIT
@@ -162,3 +166,65 @@ def test_k10_shared_memory_fits_every_block_conv(k):
     for smem in bwd_smem_bytes(k):
         assert 0 < smem <= SMEM_LIMIT
         assert 2 * (smem + BLOCK_RESERVED) <= SM_SMEM          # two blocks an SM
+
+
+@pytest.mark.parametrize("k", sorted({k for *_, k in _BLOCKS + _CONTEXT_BLOCKS}))
+def test_k11_shared_memory_fits_every_block_conv(k):
+    for dtype in (torch.bfloat16, torch.float32):
+        assert 0 < wgrad_smem_bytes(k, dtype) <= SMEM_LIMIT
+    # the bf16 layout never limits the blocks an SM below its threads' 8
+    assert 8 * (wgrad_smem_bytes(k, torch.bfloat16) + BLOCK_RESERVED) <= SM_SMEM
+
+
+def _k11_replay(x: np.ndarray, dy: np.ndarray, k: int, V: int) -> np.ndarray:
+    """The bf16 K11 of csrc/depthwise.cu on rows (R, T) of bf16 values, its
+    addressing replayed: the window of a chunk staged by loads of V values,
+    the chunk's array of pairs, lane (g, q)'s A fragment of each tap tile
+    and step (rows: taps g, g + 8; columns: frames 2q, 2q + 1 and 2q + 8,
+    2q + 9), each product rounded to bf16, every column of D the row's sum."""
+    TC, STEPS = 256, 16
+    R, T = x.shape
+    tiles = -(-k // 16)
+    WX, P = TC + 16 * tiles + 16, k // 2
+    PA = -(-P // V) * V
+    g, q = np.arange(32) >> 2, np.arange(32) & 3
+    totals = np.zeros((R, 16 * tiles))
+    for t0 in range(0, T, TC):
+        xs, ys = np.zeros((R, WX), np.float32), np.zeros((R, TC), np.float32)
+        for e in range(0, WX, V):                     # a load is all in or all out
+            f = t0 - PA + e
+            if 0 <= f < T:
+                xs[:, e:e + V] = x[:, f:f + V]
+        for e in range(0, TC, V):
+            if t0 + e < T:
+                ys[:, e:e + V] = dy[:, t0 + e:t0 + e + V]
+        pw = np.stack([xs[:, :WX - 8], xs[:, 1:WX - 7]], axis=-1)   # word e: elements e, e + 1
+        ns = min(STEPS, (T - t0 + 15) // 16)
+        s = np.arange(ns)[:, None]                                  # (steps, lanes)
+        y0 = np.stack([ys[:, 16 * s + 2 * q], ys[:, 16 * s + 2 * q + 1]], -1)
+        y1 = np.stack([ys[:, 16 * s + 2 * q + 8], ys[:, 16 * s + 2 * q + 9]], -1)
+        for tt in range(tiles):
+            e0 = 2 * q + 16 * tt + g + (PA - P) + 16 * s
+            p0, p1, p2 = pw[:, e0], pw[:, e0 + 8], pw[:, e0 + 16]   # (R, steps, lanes, 2)
+            rows_g = (_bf16(p0 * y0) + _bf16(p1 * y1)).double().sum(dim=(1, 3)).numpy()
+            rows_g8 = (_bf16(p1 * y0) + _bf16(p2 * y1)).double().sum(dim=(1, 3)).numpy()
+            for gg in range(8):
+                totals[:, 16 * tt + gg] += rows_g[:, g == gg].sum(-1)
+                totals[:, 16 * tt + gg + 8] += rows_g8[:, g == gg].sum(-1)
+    return totals[:, :k]
+
+
+@pytest.mark.parametrize("T,k,V", [(836, 87, 4),    # the training T': 8-byte loads
+                                   (5, 33, 1),      # T < P, odd T: 2-byte loads
+                                   (128, 1, 8),     # one tap, 16-byte loads
+                                   (257, 87, 1),    # one frame past a chunk
+                                   (600, 127, 8),   # the largest k, a partial third chunk
+                                   (66, 51, 2)])
+def test_k11_addressing_replayed_gives_the_plain_gradient(T, k, V):
+    rng = np.random.default_rng(T + k)
+    x, dy = (_bf16(rng.standard_normal((3, T)).astype(np.float32)).numpy() for _ in range(2))
+    got = _k11_replay(x, dy, k, V)                      # rows as channels of one batch row
+    want = depthwise_wgrad_plain(torch.from_numpy(x[None]).bfloat16(),
+                                 torch.from_numpy(dy[None]).bfloat16(), k)[:, 0].double().numpy()
+    # the same bf16 products, summed in float64 here and in float32 there
+    assert np.abs(got - want).max() <= 1e-5 * max(1.0, np.abs(want).max())

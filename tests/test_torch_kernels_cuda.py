@@ -343,9 +343,10 @@ CONV_CASES = [(1, 40, 16, 24, 5),        # one row
 
 
 def test_bf16_products_round_as_the_plain_version(dev):
-    """The bf16 K9 multiplies two taps at a time with mul.rn.bf16x2; every
-    pair of finite bf16 values must give the float32 product rounded to
-    bf16, which is what keeps its depthwise output the plain version's."""
+    """The bf16 K9 and K11 multiply two values at a time with mul.rn.bf16x2;
+    every pair of finite bf16 values must give the float32 product rounded
+    to bf16, which is what keeps K9's depthwise output and K11's products
+    the plain versions'."""
     assert bf16_product_mismatches(dev) == 0
 
 
@@ -371,7 +372,12 @@ def test_k9_k10_against_plain(dev, B, T, Cin, Cout, k, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,C,k", [(1, 40, 16, 5), (2, 5, 8, 33), (3, 300, 40, 9),
-                                     (2, 600, 64, 87)])
+                                     (2, 600, 64, 87),
+                                     (2, 836, 336, 51),   # the training T': rows 8-byte aligned
+                                     (2, 128, 40, 1),     # T a multiple of 8: 16-byte loads; one tap
+                                     (1, 836, 13, 87),    # C off the bf16 block's 8 channels
+                                     (3, 257, 40, 87),    # odd T one frame past a chunk
+                                     (2, 512, 24, 127)])  # the bf16 kernel's largest k, two chunks
 def test_k11_against_plain(dev, B, T, C, k, dtype):
     x, _, _, dy = _conv_case(dev, B, T, C, C, k, dtype, T + 3 * k)
     before = depthwise_wgrad.launches
@@ -379,7 +385,7 @@ def test_k11_against_plain(dev, B, T, C, k, dtype):
     assert depthwise_wgrad.launches == before + 1
     want = depthwise_wgrad_plain(x, dy, k)
     # the same products (rounded to bf16 in bf16) summed in another order
-    # within each 256-frame chunk
+    # within each 256-frame chunk (in bf16 by the tensor cores)
     assert (got - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
     assert torch.equal(got, depthwise_wgrad(x, dy, k))
 
@@ -400,5 +406,7 @@ def test_conv_kernels_reject_what_they_cannot_run(dev):
         depthwise_wgrad(x.half(), dy.half(), 5)
     with pytest.raises(ValueError):
         depthwise_wgrad(x, x, 4)
+    with pytest.raises(ValueError):        # the bf16 K11 holds its window loads in registers
+        depthwise_wgrad(x.bfloat16(), x.bfloat16(), 129)
     with pytest.raises(ValueError):
         depthwise_wgrad(x[:, :, ::2], x[:, :, ::2], 5)

@@ -40,10 +40,14 @@ Phases, in order; any failed check exits non-zero before the last line:
      AsrTranslator(conv_kernel="sepconv"), K9 launched 14 times;
   8. profile: one steady serving batch's host-clock latency and, from
      torch.profiler, its device time by kernel group;
-  9. K3, the BiLSTM backward kernel, at the training shape (B=32, T'=836,
-     the 16.7 s bucket after the stride-2 stem), against its plain version,
-     with cuDNN's packed LSTM forward + backward as the yardstick; K2 with
-     its cell-state output at that shape against its plain version too;
+  9. K3, the BiLSTM backward kernel (its gates pass and its walk), at the
+     training shape (B=32, T'=836, the 16.7 s bucket after the stride-2
+     stem), against its plain version, twice for the same bits, with its
+     time a sequential step beside K2's, its device time by kernel, its
+     shared memory against the stated layout, its HMMA count and its
+     kernels' registers and spills, and cuDNN's packed LSTM forward +
+     backward as the yardstick; K2 with its cell-state output at that shape
+     against its plain version too;
  10. K7 and K8, the batch-stacked BiLSTM recurrence (both directions as the
      2B rows of one walk) and its backward, at that shape against their
      plain versions and against K2 / K3 on the same inputs, run twice for
@@ -126,7 +130,8 @@ from lightning_asr_torch.ops.frontend_kernels import (extend_preemph, extend_pre
                                                       mel_from_extended, mel_from_extended_plain,
                                                       window_range)
 from lightning_asr_torch.ops.lstm import stack_directions, stacked_valid, unstack_directions
-from lightning_asr_torch.ops.lstm_kernels import (lstm_backward, lstm_backward_plain,
+from lightning_asr_torch.ops.lstm_kernels import (backward_smem_bytes, backward_smem_on_card,
+                                                  lstm_backward, lstm_backward_plain,
                                                   lstm_backward_stacked, lstm_backward_stacked_plain,
                                                   lstm_recurrence, lstm_recurrence_plain,
                                                   lstm_recurrence_stacked,
@@ -760,7 +765,8 @@ def _serve_and_check(dev, name: str, translator, cpu, cpu32, blobs, extra: dict,
 def _category(name: str) -> str:
     low = name.lower()
     for tag, cat in (("log_mel_kernel", "K1 log_mel"), ("lstm_fwd_kernel", "K2 lstm"),
-                     ("lstm_bwd_kernel", "K3 lstm_bwd"), ("lstm_stacked_fwd_kernel", "K7 lstm_stacked"),
+                     ("lstm_bwd_kernel", "K3 lstm_bwd"), ("lstm_bwd_gates_kernel", "K3 lstm_bwd"),
+                     ("lstm_stacked_fwd_kernel", "K7 lstm_stacked"),
                      ("lstm_stacked_bwd_kernel", "K8 lstm_stacked_bwd"), ("ctc_alpha_kernel", "K4 ctc_alpha"),
                      ("ctc_beta_kernel", "K5 ctc_beta"), ("extend_kernel", "K6 extend_preemph"),
                      ("sepconv_fwd", "K9 sepconv_fwd"), ("sepconv_dz", "K10 sepconv_bwd"),
@@ -852,7 +858,35 @@ def train_targets(rng, seconds, L_multiple: int = 32):
     return rng.integers(0, BLANK, (len(seconds), L)).astype(np.int32), tl
 
 
-def phase_k3(dev) -> dict:
+def _kernel_name(mangled: str) -> str:
+    """``name<40,4>`` from a mangled ``_ZN<len><id>...<len><name>I...E`` name."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    i, ident = 3, mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        ident, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    args = re.match(r"I((?:Li\d+E)+)E", mangled[i:])
+    return f"{ident}<{','.join(re.findall(r'Li(\d+)E', args.group(1)))}>" if args else ident
+
+
+def ptxas_kernels(report: str) -> dict:
+    """Registers and spill bytes of each kernel in one library's ``-Xptxas
+    -v`` report (empty when the library came from the cache)."""
+    out, name = {}, None
+    for line in report.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name = _kernel_name(m.group(1))
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out.setdefault(name, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def phase_k3(dev, hmma, ptxas_report: str) -> dict:
     rng = np.random.default_rng(3)
     B, T, C, H, D = 32, T_TRAIN, 256, 40, 2
     s = 1.0 / np.sqrt(H)
@@ -880,8 +914,13 @@ def phase_k3(dev) -> dict:
 
     lstm_backward.launches = 0
     d_x, dw = lstm_backward(xproj, lens, w_hh, h, cell, grad_h)
+    again = lstm_backward(xproj, lens, w_hh, h, cell, grad_h)
     want_dx, want_dw = lstm_backward_plain(xproj, lens, w_hh, h, cell, grad_h)
     torch.cuda.synchronize()
+    check(torch.equal(again[0], d_x) and torch.equal(again[1], dw), "K3: two runs differ")
+    smem = backward_smem_on_card(H, dev)
+    check(smem == backward_smem_bytes(H),
+          f"K3's shared memory on the card {smem} B, stated {backward_smem_bytes(H)} B")
     err_dx = (d_x - want_dx).abs().max().item()
     err_dw = (dw - want_dw).abs().max().item() / want_dw.abs().max().item()
     check(bool(torch.isfinite(d_x).all()) and bool(torch.isfinite(dw).all()), "K3 outputs finite")
@@ -924,9 +963,19 @@ def phase_k3(dev) -> dict:
            "replaces": "lightning_asr_tpu/ops/lstm_pallas.py:89",
            "max_abs_err": err_dx, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": library_ms}
+    steps_seq = int(lens_np.max())
+    # K3's device time by kernel: the gates of every frame, the walk, the
+    # sum of the per-row dW_hh partials
+    split = device_time(lambda: lstm_backward(xproj, lens, w_hh, h, cell, grad_h), 5)[2]
     print(json.dumps({"phase": "K3", "shape": [B, T, C, H, D], "tol_dx": K3_TOL_DX, "tol_dw_rel": K3_TOL_DW,
-                      "dw_max_rel_err": err_dw, "kernel_ms": ms, "sequential_steps": int(lens_np.max()),
-                      "valid_row_frames": int(lens_np.sum()),
+                      "dw_max_rel_err": err_dw, "kernel_ms": ms, "sequential_steps": steps_seq,
+                      "us_per_step": 1e3 * ms / steps_seq, "k2_us_per_step": 1e3 * k2_ms / steps_seq,
+                      "valid_row_frames": int(lens_np.sum()), "same_bits_twice": True,
+                      "split_ms": {("gates" if "gates_kernel" in k else "walk" if "lstm_bwd" in k
+                                    else "dw_row_sum" if "reduce" in k else k[:40]): v
+                                   for k, v in split.items()},
+                      "smem_bytes": smem, "hmma": None if hmma is None else hmma["lstm_bwd"],
+                      "ptxas": ptxas_kernels(ptxas_report),
                       "k2_with_cell": {"max_abs_err": k2_err, "cell_max_abs_err": k2_cell_err,
                                        "ms": k2_ms, "bound_ms": k2_bound[0], "bound_by": k2_bound[1]},
                       "phase_launches": lstm_backward.launches, **res}), flush=True)
@@ -1454,8 +1503,9 @@ def main() -> int:
     info = kernel_build.build_all()
     ptxas = [line.strip() for out in info["ptxas"].values() for line in out.splitlines()
              if "registers" in line or "Compiling entry" in line]
+    hmma = hmma_counts()
     print(json.dumps({"phase": "build", "seconds": info["seconds"], "cached": info["cached"],
-                      "hmma": hmma_counts(), "ptxas": ptxas}), flush=True)
+                      "hmma": hmma, "ptxas": ptxas}), flush=True)
 
     k1 = phase_k1(dev)
     k2 = phase_k2(dev)
@@ -1464,7 +1514,7 @@ def main() -> int:
     serving, serving_sep, translator, served = phase_serving(dev)
     phase_profile(translator, served)
     del translator
-    k3 = phase_k3(dev)
+    k3 = phase_k3(dev, hmma, info["ptxas"].get("lstm_bwd", ""))
     k7, k8 = phase_k78(dev)
     k4, k5 = phase_k45(dev)
     trainings = [phase_training(dev), phase_training(dev, "sepconv", CONV_TRAIN_STEPS),

@@ -1,160 +1,391 @@
-// LSTM backward (BPTT) kernel (K3), both directions in one launch.
+// LSTM backward (BPTT) kernel (K3), both directions at once: a gates pass,
+// then the walk.
 //
 // Replaces lightning_asr_tpu/ops/lstm_pallas.py::_bwd_kernel (run once per
-// direction by _core_bwd).  The bound, the design and the semantics are
-// described in lightning_asr_torch/ops/lstm_kernels.py, which checks every
-// argument before the launch.
+// direction by _core_bwd).  The bound and the semantics are described in
+// lightning_asr_torch/ops/lstm_kernels.py, which checks every argument
+// before the launch and states this kernel's ring and shared memory
+// (BACKWARD_RING, backward_smem_bytes, backward_copy_width).
 //
-// One block per (row b, direction d), 4H threads, thread g owning gate g
-// (order i, f, g, o).  The block walks its row's valid frames in the reverse
-// of the forward kernel's walk: direction 0 t = len-1..0, direction 1
-// t = 0..len-1.  h_prev / c_prev of a frame are the forward's h (out) and c
-// (c_out) at the previous frame of the forward walk, zero at its first.
-// Each step:
-//   threads k < H: h_prev[k] -> shared                            __sync
-//   thread g: pre[g] = xproj + sum_k W_hh[g, k] h_prev[k] (row g in
-//             registers, the forward's order), act[g] -> shared  __sync
-//   threads k < H: c = f c_prev + i g;  dh = dh_up + carry_h;
-//             dc = carry_c + dh o (1 - tanh(c)^2); the four gate
-//             gradients of unit k -> shared; carry_c = dc f      __sync
-//   thread g: d_xproj[t, g] = dgates[g];
-//             dW[g, :] += dgates[g] h_prev[:]   (40 registers);
-//             thread (p, k) = g: part[p][k] = sum_{j<H} dgates[pH + j]
-//             W_hh[pH + j, k] (W_hh also in shared)             __sync
-//   threads k < H: carry_h = sum_p part[p][k]  (= dh_prev[k])
-// Pad frames are never stepped: the carries pass through them untouched, and
-// their d_xproj is written as exact zeros.  dW_hh leaves as per-(row,
+// What bounds it: latency.  A row's backward is `len` dependent steps; the
+// only serial work of a step is
+//   dh = dh_up + carry_h -> dc -> dgates (4H) -> dh_prev = dgates W_hh -> carry_h
+// and the design takes everything else off that chain, in two kernels:
+//
+// lstm_bwd_gates_kernel, the gates of every valid frame at once.  A block
+// takes CH frames of one (row, direction) with W_hh and the frames' h_prev
+// (the forward's h at the previous frame of its walk, zero at the first) in
+// shared memory; thread (k, frames f0..f0+FT-1) computes the four gates of
+// unit k at its FT frames, each product of a weight and an h value it reads
+// used FT or 4 times.  Each gate is summed in the forward kernel's order
+// (lstm.cu: four chains over j mod 4, then (a0 + a1) + (a2 + a3)), so it is
+// bit-equal to K2's.  It stores what the walk needs of the gates: each
+// gate's factor F (i: g i (1 - i); f: c_prev f (1 - f); g: i (1 - g^2);
+// o: tanh(c) o (1 - o)) into d_xproj, which the walk overwrites with the
+// gate gradients, and A = o (1 - tanh(c)^2) and f into the scratch `cfac`
+// (B, T, D, 2H).
+//
+// lstm_bwd_kernel, the walk.  One block per (row b, direction d) walks the
+// row's valid frames in the reverse of the forward walk (direction 0
+// t = len-1..0, direction 1 t = 0..len-1).  Each step's F, A, f, h_prev
+// and grad_h come by cp.async into a ring of RING slots in shared memory,
+// RING - 1 steps ahead, V floats a copy (V = 4 where every pointer is
+// 16-byte aligned, else 1).  4H threads; thread 4k + m owns gate m (order
+// i, f, g, o) of unit k:
+//   dh = dh_up + carry_h, dc = carry_c + dh A, carry_c = dc f,
+//   dgates[m] = (m < 3 ? dc : dh) F[m];
+// dh_prev: lane l of unit pair (2p, 2p + 1) keeps rows (H/2) l .. of W_hh's
+// columns 2p, 2p + 1 in registers, and three xor shuffles leave
+// ((P0 + P4) + (P1 + P5)) + ((P2 + P6) + (P3 + P7)) in every lane of each
+// unit; dW_hh: lane m accumulates rows qH + k, columns j = m (mod 4), with
+// the unit's four gate gradients taken by shuffles, in walk order, in
+// registers.  One barrier a step publishes the gate gradients (two
+// buffers) and the next staged slot.  The loop is unrolled by RING so that
+// the slots and buffers are fixed addresses.
+//
+// Pad frames are never stepped: the carries pass through them untouched,
+// and their d_xproj is written as exact zeros.  dW_hh leaves as per-(row,
 // direction) partials (B, D, 4H, H), which the wrapper sums over B in a
 // fixed order.
 
 #include <cuda_runtime.h>
+#include <stddef.h>
+#include <stdint.h>
+
+#include "mma_util.cuh"
 
 namespace {
 
+constexpr int RING = 8;           // slots of the ring (ops/lstm_kernels.py BACKWARD_RING)
+constexpr int CH = 32;            // frames of a gates block
+constexpr int FT = 4;             // frames of a gates thread
+constexpr unsigned FULL = 0xffffffffu;
+
 template <int H>
+__global__ void __launch_bounds__(H * CH / FT)
+lstm_bwd_gates_kernel(const float* __restrict__ xproj,   // (B, T, D, 4H)
+                      const int* __restrict__ lengths,   // (B,)
+                      const float* __restrict__ w_hh,    // (D, 4H, H)
+                      const float* __restrict__ h,       // (B, T, D*H)
+                      const float* __restrict__ c,       // (B, T, D, H)
+                      float* __restrict__ fac,           // (B, T, D, 4H): F
+                      float* __restrict__ cfac,          // (B, T, D, 2H): A, f
+                      int T, int D) {
+  constexpr int G = 4 * H;
+  constexpr int NT = H * CH / FT;                   // threads
+  constexpr int WP = G + 1, HP = CH + 1;            // pitches: the fills' stores miss no bank
+  __shared__ float ws[H * WP];                      // ws[j][g] = W_hh[g][j]
+  __shared__ float hs[H * HP];                      // hs[j][f] = h_prev of frame t_lo + f
+  const int b = blockIdx.y;
+  const int d = blockIdx.z;
+  const int k = threadIdx.x % H;
+  const int f0 = threadIdx.x / H * FT;
+  const int len = max(0, min(lengths[b], T));
+  const int t_lo = blockIdx.x * CH;
+  if (t_lo >= len) return;
+  const int n = min(CH, len - t_lo);
+  const int dir = d ? 1 : -1;                       // the forward walk's previous frame: t + dir
+
+  // W_hh and h_prev, transposed, by cp.async (all in flight at once; zeros
+  // where there is no previous frame)
+  const float* w = w_hh + (size_t)d * G * H;
+  for (int i = threadIdx.x; i < G * H; i += NT)
+    lasr::cp_async4_zfill(&ws[i % H * WP + i / H], w + i, true);
+  for (int i = threadIdx.x; i < CH * H; i += NT) {
+    const int f = i / H, tp = t_lo + f + dir;
+    const bool valid = f < n && tp >= 0 && tp < len;
+    lasr::cp_async4_zfill(&hs[i % H * HP + f],
+                          valid ? h + (((size_t)b * T + tp) * D + d) * H + i % H : w, valid);
+  }
+  lasr::cp_async_commit();
+  float x[FT][4], cp[FT];
+#pragma unroll
+  for (int i = 0; i < FT; ++i) {
+    const int t = t_lo + f0 + i, tp = t + dir;
+    if (f0 + i < n) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) x[i][q] = xproj[(((size_t)b * T + t) * D + d) * G + q * H + k];
+      cp[i] = tp < 0 || tp >= len ? 0.f : c[(((size_t)b * T + tp) * D + d) * H + k];
+    }
+  }
+  lasr::cp_async_wait<0>();
+  __syncthreads();
+  if (f0 >= n) return;
+
+  // gate q of unit k at frame f0 + i: chain j % 4 of the forward's dot
+  float a[FT][4][4] = {};
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    float wv[4], hv[FT];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) wv[q] = ws[j * WP + q * H + k];
+#pragma unroll
+    for (int i = 0; i < FT; ++i) hv[i] = hs[j * HP + f0 + i];
+#pragma unroll
+    for (int i = 0; i < FT; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) a[i][q][j % 4] = fmaf(wv[q], hv[i], a[i][q][j % 4]);
+  }
+#pragma unroll
+  for (int i = 0; i < FT; ++i) {
+    if (f0 + i >= n) break;
+    float act[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float pre = x[i][q];
+      pre += (a[i][q][0] + a[i][q][1]) + (a[i][q][2] + a[i][q][3]);
+      act[q] = q == 2 ? tanhf(pre) : 1.f / (1.f + expf(-pre));
+    }
+    const float ig = act[0], fg = act[1], gg = act[2], og = act[3];
+    const float tc = tanhf(fg * cp[i] + ig * gg);
+    const size_t row = ((size_t)b * T + t_lo + f0 + i) * D + d;
+    float* fr = fac + row * G + k;
+    fr[0] = gg * ig * (1.f - ig);
+    fr[H] = cp[i] * fg * (1.f - fg);
+    fr[2 * H] = ig * (1.f - gg * gg);
+    fr[3 * H] = tc * og * (1.f - og);
+    float* cr = cfac + row * 2 * H + k;
+    cr[0] = og * (1.f - tc * tc);
+    cr[H] = fg;
+  }
+}
+
+// one step of the serial chain from its slot: gate m's gradient, and the
+// cell's carry
+template <int H>
+__device__ __forceinline__ float cell_backward(const float* slot, float carry_h, float& carry_c,
+                                               int k, int m) {
+  const float dh = slot[7 * H + k] + carry_h;
+  const float dc = carry_c + dh * slot[4 * H + k];
+  carry_c = dc * slot[5 * H + k];
+  return (m == 3 ? dh : dc) * slot[m * H + k];
+}
+
+// dh_prev[k] for the four lanes of unit k from the gate gradients dg of
+// one step; wd[u][j] = W_hh[(H/2) l + j][2p + u] for lane l of unit pair p
+template <int H>
+__device__ __forceinline__ float dh_prev(const float* dg, const float (&wd)[2][H / 2], int l) {
+  constexpr int N = H / 2;                          // rows of W_hh a lane sums
+  const float* dl = dg + N * l;
+  float c[2][4] = {};
+#pragma unroll
+  for (int j = 0; j < N; j += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(dl + j);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      c[u][0] = fmaf(v.x, wd[u][j], c[u][0]);
+      c[u][1] = fmaf(v.y, wd[u][j + 1], c[u][1]);
+      c[u][2] = fmaf(v.z, wd[u][j + 2], c[u][2]);
+      c[u][3] = fmaf(v.w, wd[u][j + 3], c[u][3]);
+    }
+  }
+  const float p0 = (c[0][0] + c[0][1]) + (c[0][2] + c[0][3]);
+  const float p1 = (c[1][0] + c[1][1]) + (c[1][2] + c[1][3]);
+  const bool second = l & 4;                        // lanes 4..7 are unit 2p + 1
+  float v = (second ? p1 : p0) + __shfl_xor_sync(FULL, second ? p0 : p1, 4);
+  v += __shfl_xor_sync(FULL, v, 1);
+  v += __shfl_xor_sync(FULL, v, 2);
+  return v;
+}
+
+template <int H, int V>
 __global__ void __launch_bounds__(4 * H)
-lstm_bwd_kernel(const float* __restrict__ xproj,   // (B, T, D, 4H)
-                const int* __restrict__ lengths,   // (B,)
+lstm_bwd_kernel(const int* __restrict__ lengths,   // (B,)
                 const float* __restrict__ w_hh,    // (D, 4H, H)
                 const float* __restrict__ h,       // (B, T, D*H) forward output
-                const float* __restrict__ c,       // (B, T, D, H) forward cells
                 const float* __restrict__ grad_h,  // (B, T, D*H)
-                float* __restrict__ d_xproj,       // (B, T, D, 4H)
+                const float* __restrict__ cfac,    // (B, T, D, 2H): A, f
+                float* __restrict__ d_xproj,       // (B, T, D, 4H): F in, gradients out
                 float* __restrict__ dw_part,       // (B, D, 4H, H)
                 int T, int D) {
-  static_assert(H % 4 == 0, "H must be a multiple of 4");
+  static_assert(H % 8 == 0, "H must be a multiple of 8");
+  static_assert(RING >= 3, "steps s and s + 1 are read while step s + RING - 1 is staged");
   constexpr int G = 4 * H;
-  __shared__ float w_s[G * H];
-  __shared__ float h_s[H];
-  __shared__ float act_s[G];
-  __shared__ float dg_s[G];
-  __shared__ float part_s[4][H];
+  constexpr int J = H / 4;                          // columns of dW_hh a lane sums
+  // a slot holds one step: F [0, 4H), A [4H, 5H), f [5H, 6H), h_prev
+  // [6H, 7H), grad_h [7H, 8H)
+  constexpr int SLOT = 8 * H;
+  constexpr int N = SLOT / V;                       // copies a step
+  constexpr int R = (N + G - 1) / G;                // copies a thread
+  __shared__ __align__(16) float ring[RING][SLOT];
+  __shared__ __align__(16) float dg_s[2][G];
 
   const int b = blockIdx.x;
   const int d = blockIdx.y;
-  const int g = threadIdx.x;
+  const int k = threadIdx.x >> 2;
+  const int m = threadIdx.x & 3;
+  const int l = threadIdx.x & 7;
+  const int g = m * H + k;                          // the gate this lane owns
 
-  float w[H];
-  float acc[H];
-  const float* wrow = w_hh + ((size_t)d * G + g) * H;
+  float wd[2][H / 2], acc[4][J];
 #pragma unroll
-  for (int k = 0; k < H; ++k) {
-    w[k] = wrow[k];
-    w_s[g * H + k] = w[k];
-    acc[k] = 0.f;
-  }
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int j = 0; j < H / 2; ++j)
+      wd[u][j] = w_hh[((size_t)d * G + H / 2 * l + j) * H + (k & ~1) + u];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int i = 0; i < J; ++i) acc[q][i] = 0.f;
 
   const int len = max(0, min(lengths[b], T));
   const size_t x_step = (size_t)D * G;
   const size_t o_step = (size_t)D * H;
-  const float* xrow = xproj + (size_t)b * T * x_step + (size_t)d * G + g;
-  float* dxrow = d_xproj + (size_t)b * T * x_step + (size_t)d * G + g;
-  const size_t hoff = (size_t)b * T * o_step + (size_t)d * H + g;   // + t * o_step
+  const int dir = d ? 1 : -1;                       // frames a step moves
+  const int t0 = d ? 0 : len - 1;                   // frame of step 0
+  float* frow = d_xproj + (size_t)b * T * x_step + (size_t)d * G;
 
-  for (int t = len; t < T; ++t) dxrow[(size_t)t * x_step] = 0.f;
-  const bool tanh_gate = g >= 2 * H && g < 3 * H;
-  const int p = g / H;
-  const int kk = g % H;
-  float carry_h = 0.f, carry_c = 0.f;
-
-  for (int s = 0; s < len; ++s) {
-    const int t = d ? s : len - 1 - s;          // reverse of the forward walk
-    const bool first = d ? t == len - 1 : t == 0;   // first frame of the walk
-    const int tp = d ? t + 1 : t - 1;
-    float c_prev = 0.f, dh_up = 0.f;
-    if (g < H) {
-      h_s[g] = first ? 0.f : h[hoff + (size_t)tp * o_step];
-      c_prev = first ? 0.f : c[hoff + (size_t)tp * o_step];
-      dh_up = grad_h[hoff + (size_t)t * o_step];
-    }
-    float pre = xrow[(size_t)t * x_step];
-    __syncthreads();
-
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+  // This thread's copies r, in step order: slot offset e, the source of the
+  // next step to stage, and how far a step moves it; h_prev is the frame
+  // t + dir, zeros at the row's last step (the forward's first frame).
+  const float* cur[R];
+  ptrdiff_t step[R];
+  int e_of[R];
+  bool mine[R], prev[R];
 #pragma unroll
-    for (int k = 0; k < H; k += 4) {
-      a0 = fmaf(w[k], h_s[k], a0);
-      a1 = fmaf(w[k + 1], h_s[k + 1], a1);
-      a2 = fmaf(w[k + 2], h_s[k + 2], a2);
-      a3 = fmaf(w[k + 3], h_s[k + 3], a3);
+  for (int r = 0; r < R; ++r) {
+    const int e = (threadIdx.x + r * G) * V;
+    mine[r] = e < SLOT;
+    e_of[r] = e;
+    prev[r] = e >= 6 * H && e < 7 * H;
+    const float* base;
+    ptrdiff_t stride = (ptrdiff_t)o_step;
+    if (e < G) {
+      base = frow + e, stride = (ptrdiff_t)x_step;
+    } else if (e < 6 * H) {
+      base = cfac + (size_t)b * T * 2 * o_step + (size_t)d * 2 * H + (e - G),
+      stride = 2 * (ptrdiff_t)o_step;
+    } else if (e < 7 * H) {
+      base = h + (size_t)b * T * o_step + (size_t)d * H + (e - 6 * H);
+    } else {
+      base = grad_h + (size_t)b * T * o_step + (size_t)d * H + (e - 7 * H);
     }
-    pre += (a0 + a1) + (a2 + a3);
-    act_s[g] = tanh_gate ? tanhf(pre) : 1.f / (1.f + expf(-pre));
-    __syncthreads();
-
-    if (g < H) {
-      const float ig = act_s[g], fg = act_s[H + g], gg = act_s[2 * H + g],
-                  og = act_s[3 * H + g];
-      const float ct = fg * c_prev + ig * gg;
-      const float tc = tanhf(ct);
-      const float dh = dh_up + carry_h;
-      const float dc = carry_c + dh * og * (1.f - tc * tc);
-      dg_s[g] = dc * gg * ig * (1.f - ig);
-      dg_s[H + g] = dc * c_prev * fg * (1.f - fg);
-      dg_s[2 * H + g] = dc * ig * (1.f - gg * gg);
-      dg_s[3 * H + g] = dh * tc * og * (1.f - og);
-      carry_c = dc * fg;
-    }
-    __syncthreads();
-
-    const float dgv = dg_s[g];
-    dxrow[(size_t)t * x_step] = dgv;
+    step[r] = dir * stride;
+    cur[r] = base + (prev[r] ? t0 + dir : t0) * stride;
+  }
+  auto stage = [&](float* slot, bool last) {
 #pragma unroll
-    for (int k = 0; k < H; ++k) acc[k] = fmaf(dgv, h_s[k], acc[k]);
-    float sum = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < H; ++j) sum = fmaf(dg_s[p * H + j], w_s[(p * H + j) * H + kk], sum);
-    part_s[p][kk] = sum;
-    __syncthreads();
+    for (int r = 0; r < R; ++r) {
+      if (!mine[r]) continue;
+      const bool valid = !(prev[r] && last);
+      const float* p = valid ? cur[r] : frow;       // nothing is read where !valid
+      if constexpr (V == 4) {
+        lasr::cp_async16_zfill(slot + e_of[r], p, valid);
+      } else {
+        lasr::cp_async4_zfill(slot + e_of[r], p, valid);
+      }
+      cur[r] += step[r];
+    }
+  };
 
-    if (g < H) carry_h = (part_s[0][g] + part_s[1][g]) + (part_s[2][g] + part_s[3][g]);
+  for (int s = 0; s < RING - 1; ++s) {
+    if (s < len) stage(ring[s], s == len - 1);
+    lasr::cp_async_commit();
+  }
+  for (int t = len; t < T; ++t) frow[(size_t)t * x_step + g] = 0.f;
+
+  if (len > 0) {
+    lasr::cp_async_wait<RING - 2>();                // step 0 has landed
+    __syncthreads();
+    float carry_c = 0.f;
+    float dgv = cell_backward<H>(ring[0], 0.f, carry_c, k, m);
+    dg_s[0][g] = dgv;
+    float* dx = frow + (ptrdiff_t)t0 * (ptrdiff_t)x_step + g;
+    const ptrdiff_t dx_step = dir * (ptrdiff_t)x_step;
+
+    for (int s0 = 0; s0 < len; s0 += RING) {
+#pragma unroll
+      for (int u = 0; u < RING; ++u) {
+        const int s = s0 + u;
+        if (s >= len) break;
+        lasr::cp_async_wait<RING - 3>();            // step s + 1 has landed
+        __syncthreads();                            // dg_s[u & 1], slot u + 1; step s - 1 done
+
+        // off the chain: step s's gradient out, dW_hh += dgates h_prev
+        *dx = dgv;
+        dx += dx_step;
+        float dq[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) dq[q] = __shfl_sync(FULL, dgv, q, 4);
+        const float* hp = ring[u] + 6 * H + m;
+#pragma unroll
+        for (int i = 0; i < J; ++i) {
+          const float hv = hp[4 * i];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[q][i] = fmaf(dq[q], hv, acc[q][i]);
+        }
+
+        // the chain: dh_prev of step s, then step s + 1's gate gradients
+        // (past the row's last step on a stale slot, read by nobody)
+        dgv = cell_backward<H>(ring[(u + 1) % RING], dh_prev<H>(dg_s[u & 1], wd, l), carry_c,
+                               k, m);
+        dg_s[(u + 1) & 1][g] = dgv;
+
+        // slot s - 1 is free: every thread has passed this step's barrier
+        if (s + RING - 1 < len) stage(ring[(u + RING - 1) % RING], s + RING - 1 == len - 1);
+        lasr::cp_async_commit();
+      }
+    }
   }
 
-  float* drow = dw_part + (((size_t)b * D + d) * G + g) * H;
+  float* drow = dw_part + (((size_t)b * D + d) * G + k) * H + m;
 #pragma unroll
-  for (int k = 0; k < H; ++k) drow[k] = acc[k];
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int i = 0; i < J; ++i) drow[(size_t)q * H * H + 4 * i] = acc[q][i];
+}
+
+template <int H>
+cudaError_t launch(int V, int B, int T, int D, cudaStream_t stream, const float* xproj,
+                   const int* lengths, const float* w_hh, const float* h, const float* c,
+                   const float* grad_h, float* d_xproj, float* dw_part, float* cfac) {
+  if (V != 4 && V != 1) return cudaErrorInvalidValue;
+  lstm_bwd_gates_kernel<H><<<dim3((T + CH - 1) / CH, B, D), H * CH / FT, 0, stream>>>(
+      xproj, lengths, w_hh, h, c, d_xproj, cfac, T, D);
+  const dim3 grid(B, D);
+  if (V == 4) {
+    lstm_bwd_kernel<H, 4><<<grid, 4 * H, 0, stream>>>(lengths, w_hh, h, grad_h, cfac, d_xproj,
+                                                      dw_part, T, D);
+  } else {
+    lstm_bwd_kernel<H, 1><<<grid, 4 * H, 0, stream>>>(lengths, w_hh, h, grad_h, cfac, d_xproj,
+                                                      dw_part, T, D);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success); cudaErrorInvalidValue
-// for a hidden size without an instantiation.  `device` is the ordinal the
+// Returns the cudaError_t of the launches (0 on success); cudaErrorInvalidValue
+// for a hidden size without an instantiation or a copy width other than 4
+// or 1 floats (4 needs h, grad_h, d_xproj and cfac 16-byte aligned).
+// `cfac` is scratch of (B, T, D, 2H) floats.  `device` is the ordinal the
 // tensors live on: this library links its own CUDA runtime.
-extern "C" int lasr_lstm_bwd(const float* xproj, const int* lengths,
-                             const float* w_hh, const float* h, const float* c,
-                             const float* grad_h, float* d_xproj, float* dw_part,
-                             int B, int T, int D, int H, int device,
-                             cudaStream_t stream) {
+extern "C" int lasr_lstm_bwd(const float* xproj, const int* lengths, const float* w_hh,
+                             const float* h, const float* c, const float* grad_h,
+                             float* d_xproj, float* dw_part, float* cfac, int B, int T, int D,
+                             int H, int copy_width, int device, cudaStream_t stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B, D);
   switch (H) {
     case 40:
-      lstm_bwd_kernel<40><<<grid, 4 * 40, 0, stream>>>(
-          xproj, lengths, w_hh, h, c, grad_h, d_xproj, dw_part, T, D);
-      break;
+      return (int)launch<40>(copy_width, B, T, D, stream, xproj, lengths, w_hh, h, c, grad_h,
+                             d_xproj, dw_part, cfac);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+}
+
+// The static shared memory of the walk kernel for hidden size H, in bytes,
+// as the compiler laid it out (-1 without an instantiation): the card's
+// check of ops/lstm_kernels.py::backward_smem_bytes.
+extern "C" int lasr_lstm_bwd_smem(int H, int device) {
+  if (cudaSetDevice(device) != cudaSuccess) return -1;
+  cudaFuncAttributes attr;
+  switch (H) {
+    case 40:
+      if (cudaFuncGetAttributes(&attr, lstm_bwd_kernel<40, 4>) != cudaSuccess) return -1;
+      return (int)attr.sharedSizeBytes;
+    default:
+      return -1;
+  }
 }

@@ -1,6 +1,7 @@
 """LSTM recurrence kernels: the forward K2 and the backward (BPTT) K3, both
-directions in one launch each; and the batch-stacked pair K7 / K8 of the
-``fuse_directions`` layout (second half of this module).
+directions at once (K2 one launch, K3 a gates pass and a walk); and the
+batch-stacked pair K7 / K8 of the ``fuse_directions`` layout (second half of
+this module).
 
 K2 replaces ``lightning_asr_tpu/ops/lstm_pallas.py::_fwd_kernel`` and K3
 ``::_bwd_kernel`` (each launched once per direction by ``_run_fwd`` /
@@ -28,15 +29,20 @@ across the four gate groups).
 
 What the designs do about it (``csrc/lstm.cu``, ``csrc/lstm_bwd.cu``): one
 block per (row, direction), all rows and both directions in one launch, so
-the chains run in parallel; thread g keeps W_hh's row g in registers and h
-sits in shared memory, so a step touches device memory only for its own
-frame; rows stop at their own length.  K3 also keeps W_hh in shared memory
-(25.6 KB) for ``dh_prev[k] = Σ_g dgates[g]·W_hh[g, k]``, split over all 4H
-threads as four 40-term partial dots, and accumulates ``dW_hh[g, :] +=
-dgates[g]·h_prev`` in thread g's 40 registers across the whole walk; the
-per-(row, direction) partials are summed over the batch in a fixed order
-(deterministic).  The TPU kernels' 128-lane padding of H, their 32-step
-time blocks and the 32-row batch tiling (a VMEM cap) do not carry over.
+the chains run in parallel; a thread keeps its row of W_hh in registers and
+h sits in shared memory, so a step touches device memory only for its own
+frame; rows stop at their own length.  K3 leaves on its walk's serial chain
+only ``dh -> dc -> dgates -> dh_prev = dgates·W_hh -> carry_h``, with one
+barrier a step.  A first kernel recomputes the gates of every valid frame
+at once, in K2's summation order (the same bits as K2's), and stores the
+factors each gate gradient needs; each step's factors, h_prev and grad_h
+arrive in a ring of ``BACKWARD_RING`` slots in shared memory by
+``cp.async``, ``BACKWARD_RING - 1`` steps ahead; the eight lanes of a pair
+of units sum their ``dh_prev`` partials by warp shuffles; ``dW_hh[g, :] +=
+dgates[g]·h_prev`` accumulates in a thread's 40 registers across the whole
+walk, and the per-(row, direction) partials are summed over the batch in a
+fixed order (deterministic).  The TPU kernels' 128-lane padding of H, their
+32-step time blocks and the 32-row batch tiling (a VMEM cap) do not carry over.
 """
 
 from __future__ import annotations
@@ -48,6 +54,24 @@ import torch
 
 _LOCK = threading.Lock()
 _KERNEL_HIDDEN = (40,)      # hidden sizes instantiated in csrc/lstm.cu
+BACKWARD_RING = 8           # K3's ring slots (csrc/lstm_bwd.cu RING)
+
+
+def backward_smem_bytes(H: int) -> int:
+    """The static shared memory of K3's walk, the one statement of
+    csrc/lstm_bwd.cu's layout: the ring, whose slots hold one step each
+    (the gate factors F [0, 4H), A [4H, 5H) and f [5H, 6H) of its frame,
+    h_prev [6H, 7H), grad_h [7H, 8H)), then the gate gradients of two
+    steps."""
+    return 4 * (BACKWARD_RING * 8 * H + 2 * 4 * H)
+
+
+def backward_copy_width(*tensors: torch.Tensor) -> int:
+    """Floats a ``cp.async`` copy of K3's walk moves: 4 (16 bytes) where
+    every tensor it stages starts 16-byte aligned, else 1.  Every slice it
+    stages then starts at a multiple of 4 floats from its tensor's start
+    (H % 4 == 0), so the start alone decides."""
+    return 4 if all(t.data_ptr() % 16 == 0 for t in tensors) else 1
 
 
 def _walk_valid(T: int, lengths: torch.Tensor, d: int) -> torch.Tensor:
@@ -212,14 +236,16 @@ def lstm_backward(xproj: torch.Tensor, lengths: torch.Tensor, w_hh: torch.Tensor
 
     fn = library("lstm_bwd").lasr_lstm_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     d_xproj = torch.empty_like(xproj)
     dw_part = torch.empty((B, D, G, H), dtype=torch.float32, device=xproj.device)
     if B and T:
+        cfac = torch.empty((B, T, D, 2 * H), dtype=torch.float32, device=xproj.device)
         stream = torch.cuda.current_stream(xproj.device).cuda_stream
         err = fn(xproj.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(), h.data_ptr(),
                  c.data_ptr(), grad_h.data_ptr(), d_xproj.data_ptr(), dw_part.data_ptr(),
-                 B, T, D, H, xproj.device.index, stream)
+                 cfac.data_ptr(), B, T, D, H, backward_copy_width(h, grad_h, d_xproj, cfac),
+                 xproj.device.index, stream)
         if err != 0:
             raise RuntimeError(f"LSTM backward kernel launch failed: CUDA error {err}")
         with _LOCK:
@@ -230,6 +256,18 @@ def lstm_backward(xproj: torch.Tensor, lengths: torch.Tensor, w_hh: torch.Tensor
 
 
 lstm_backward.launches = 0
+
+
+def backward_smem_on_card(H: int, device: torch.device) -> int:
+    """The static shared memory of K3's walk as the compiler laid it out for
+    hidden size H (-1 without an instantiation): the card's check of
+    ``backward_smem_bytes``."""
+    from .kernel_build import library
+
+    fn = library("lstm_bwd").lasr_lstm_bwd_smem
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    return fn(H, device.index or 0)
 
 
 class _LSTMCore(torch.autograd.Function):

@@ -8,7 +8,9 @@ layers ``chip_smoke.py`` times among them) fits K9's shared memory; the same
 for K10's transposed packing and its bf16 kernels' shared memory; K11's
 shared memory (``ops/depthwise_kernels.py``) for every block conv, and the
 bf16 K11's addressing (``csrc/depthwise.cu``) replayed in numpy against the
-plain weight gradient."""
+plain weight gradient; K3's shared memory and copy width
+(``ops/lstm_kernels.py``), and its ring (``csrc/lstm_bwd.cu``) replayed in
+numpy against the plain BiLSTM backward."""
 
 import numpy as np
 import pytest
@@ -19,6 +21,9 @@ from lightning_asr_torch.ops.depthwise_kernels import depthwise_wgrad_plain, wgr
 from lightning_asr_torch.ops import frontend_kernels as fk
 from lightning_asr_torch.ops.frontend import MelFrontendConfig, dft_filters, mel_filterbank
 from lightning_asr_torch.ops.kernel_build import SMEM_LIMIT
+from lightning_asr_torch.ops.lstm_kernels import (BACKWARD_RING, backward_copy_width,
+                                                  backward_smem_bytes, lstm_backward_plain,
+                                                  lstm_recurrence_plain)
 from lightning_asr_torch.ops.sepconv_kernels import (bwd_smem_bytes, fwd_smem_bytes, pack_pointwise,
                                                      pack_pointwise_transposed)
 
@@ -35,6 +40,8 @@ K1_TOL_DB = 2 * 10 * np.log10(1 + 2.0 ** -8)
 # an H100 SM holds 233,472 B of shared memory and reserves 1 KB a block: the
 # bf16 K9 is laid out so that two blocks share an SM at the widest layer
 SM_SMEM, BLOCK_RESERVED = 233472, 1024
+# static shared memory a block may use without opting in (K3's walk)
+STATIC_SMEM_LIMIT = 48 * 1024
 CONTEXT_IN = 256 + 2 * 40
 
 
@@ -228,3 +235,138 @@ def test_k11_addressing_replayed_gives_the_plain_gradient(T, k, V):
                                  torch.from_numpy(dy[None]).bfloat16(), k)[:, 0].double().numpy()
     # the same bf16 products, summed in float64 here and in float32 there
     assert np.abs(got - want).max() <= 1e-5 * max(1.0, np.abs(want).max())
+
+
+def test_k3_shared_memory_and_copy_width():
+    assert backward_smem_bytes(40) == 4 * (BACKWARD_RING * 8 * 40 + 2 * 160) <= STATIC_SMEM_LIMIT
+    x = torch.zeros(2 * 160 + 1)
+    assert backward_copy_width(x, x[:4]) == 4                 # fresh tensors start 16-byte aligned
+    assert backward_copy_width(x, x[1:]) == 1                 # a view one float in
+    assert backward_copy_width(x[4:], x[160:]) == 4
+
+
+def _k3_replay(xproj, lengths, w_hh, h, c, grad_h, V):
+    """K3 of csrc/lstm_bwd.cu in float64, its layout and schedule replayed.
+    The gates pass: each valid frame's factors F into the d_xproj buffer, A
+    and f into cfac.  The walk: each step's inputs copied V floats at a time
+    from the flat buffers into the ring, read when a wait lets their group
+    land (so a gradient written into the buffer before its frame's factors
+    landed would show); every read checks that its slot holds the step it
+    expects and that no copy into it is in flight; the dh_prev partials P_l
+    of W_hh's rows (H/2)l..(H/2)(l+1)-1 added as ((P0 + P4) + (P1 + P5)) +
+    ((P2 + P6) + (P3 + P7)); the gate gradients in two buffers."""
+    B, T, D, G = xproj.shape
+    H, R = G // 4, BACKWARD_RING
+    buf = np.full((B, T, D, G), np.nan)                  # d_xproj: F in, gradients out
+    cfac = np.full((B, T, D, 2 * H), np.nan)
+    sig = lambda v: 1 / (1 + np.exp(-v))                 # noqa: E731
+    for b in range(B):
+        n = max(0, min(int(lengths[b]), T))
+        for d in range(D):
+            for t in range(n):
+                tp = t + (1 if d else -1)
+                first = not 0 <= tp < n
+                hp = np.zeros(H) if first else h[b, tp, d * H:(d + 1) * H].astype(np.float64)
+                cp = np.zeros(H) if first else c[b, tp, d].astype(np.float64)
+                pre = xproj[b, t, d] + w_hh[d].astype(np.float64) @ hp
+                i, f, gg, o = sig(pre[:H]), sig(pre[H:2 * H]), np.tanh(pre[2 * H:3 * H]), sig(pre[3 * H:])
+                tc = np.tanh(f * cp + i * gg)
+                buf[b, t, d] = np.concatenate([gg * i * (1 - i), cp * f * (1 - f), i * (1 - gg * gg),
+                                               tc * o * (1 - o)])
+                cfac[b, t, d] = np.concatenate([o * (1 - tc * tc), f])
+    bf, cf, hf, gf = buf.reshape(-1), cfac.reshape(-1), h.astype(np.float64).ravel(), \
+        grad_h.astype(np.float64).ravel()
+    dw = np.zeros((B, D, G, H))
+    for b in range(B):
+        n = max(0, min(int(lengths[b]), T))
+        buf[b, n:] = 0                                   # pad frames
+        for d in range(D):
+            w = w_hh[d].astype(np.float64)
+            ring = np.full((R, 8 * H), np.nan)
+            holds = [None] * R                           # the step a landed slot holds
+            groups = []                                  # committed groups: [(slot, step, copies)]
+
+            def stage(s):
+                t = s if d else n - 1 - s
+                tp, last = t + (1 if d else -1), s == n - 1
+                copies = []
+                for e in range(0, 8 * H, V):
+                    if e < G:
+                        src = ((b * T + t) * D + d) * G + e
+                        copies.append((e, bf[src:src + V]))
+                    elif e < 6 * H:
+                        src = ((b * T + t) * D + d) * 2 * H + e - G
+                        copies.append((e, cf[src:src + V]))
+                    elif e < 7 * H:
+                        src = ((b * T + tp) * D + d) * H + e - 6 * H
+                        copies.append((e, np.zeros(V) if last else hf[src:src + V]))
+                    else:
+                        src = ((b * T + t) * D + d) * H + e - 7 * H
+                        copies.append((e, gf[src:src + V]))
+                return [(s % R, s, copies)]
+
+            def wait(pending):                           # all but the last `pending` groups land
+                for grp in groups[:len(groups) - pending]:
+                    for slot, s, copies in grp:
+                        for e, vals in copies:
+                            ring[slot, e:e + V] = vals   # views: read as they land
+                        holds[slot] = s
+                    grp.clear()
+
+            def read(s):
+                slot = s % R
+                assert holds[slot] == s, (n, s, holds)
+                assert not any(sl == slot for grp in groups for sl, *_ in grp)   # no copy in flight
+                return ring[slot].copy()
+
+            def cell(slot, carry_h, carry_c):
+                F, A, f, dh_up = slot[:G], slot[G:G + H], slot[G + H:6 * H], slot[7 * H:]
+                dh = dh_up + carry_h
+                dc = carry_c + dh * A
+                return np.concatenate([np.tile(dc, 3) * F[:3 * H], dh * F[3 * H:]]), dc * f
+
+            for s in range(R - 1):
+                groups.append(stage(s) if s < n else [])
+            if n == 0:
+                continue
+            wait(R - 2)
+            dgv, carry_c = cell(read(0), 0.0, 0.0)
+            dg_s = [(0, dgv), None]                      # (step, gradients) in each buffer
+            for s in range(n):
+                wait(R - 3)
+                t = s if d else n - 1 - s
+                buf[b, t, d] = dgv
+                dw[b, d] += np.outer(dgv, read(s)[6 * H:7 * H])
+                if s + 1 < n:
+                    step, dg = dg_s[s & 1]
+                    assert step == s
+                    P = [dg[l * H // 2:(l + 1) * H // 2] @ w[l * H // 2:(l + 1) * H // 2]
+                         for l in range(8)]
+                    carry_h = ((P[0] + P[4]) + (P[1] + P[5])) + ((P[2] + P[6]) + (P[3] + P[7]))
+                    dgv, carry_c = cell(read(s + 1), carry_h, carry_c)
+                    dg_s[(s + 1) & 1] = (s + 1, dgv)
+                groups.append(stage(s + R - 1) if s + R - 1 < n else [])
+    return buf, dw.sum(axis=0)
+
+
+@pytest.mark.parametrize("V", [4, 1])
+@pytest.mark.parametrize("D,T,lengths", [(2, 20, [20, 0, 1, 2, 3, 7]),   # below the ring, 0 and 1
+                                         (1, 20, [8, 9, 17, 20]),      # at it and off its multiples
+                                         (2, 33, [33, 16, 25])])
+def test_k3_ring_replayed_gives_the_plain_gradient(D, T, lengths, V):
+    rng = np.random.default_rng(T + len(lengths) + D)
+    H, B = 40, len(lengths)
+    xproj = rng.standard_normal((B, T, D, 4 * H)).astype(np.float32)
+    w_hh = (rng.uniform(-1, 1, (D, 4 * H, H)) / np.sqrt(H)).astype(np.float32)
+    grad_h = rng.standard_normal((B, T, D * H)).astype(np.float32)
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    hs, cs = lstm_recurrence_plain(torch.from_numpy(xproj), lens, torch.from_numpy(w_hh),
+                                   with_cell=True)
+    got_dx, got_dw = _k3_replay(xproj, lengths, w_hh, hs.numpy(), cs.numpy(), grad_h, V)
+    want_dx, want_dw = lstm_backward_plain(torch.from_numpy(xproj), lens, torch.from_numpy(w_hh),
+                                           hs, cs, torch.from_numpy(grad_h))
+    # float64 here, float32 there, through at most 33 steps
+    assert np.abs(got_dx - want_dx.double().numpy()).max() <= 1e-5
+    assert np.abs(got_dw - want_dw.double().numpy()).max() <= 1e-5 * max(1.0, want_dw.abs().max())
+    for b, n in enumerate(lengths):
+        assert np.all(got_dx[b, n:] == 0)

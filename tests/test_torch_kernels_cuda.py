@@ -16,7 +16,9 @@ from lightning_asr_torch.ops.frontend import MelFrontendConfig
 from lightning_asr_torch.ops.frontend_kernels import (extend_preemph, extend_preemph_plain,
                                                       mel_from_extended, mel_from_extended_plain)
 from lightning_asr_torch.ops.lstm import LSTMWeights, lstm
-from lightning_asr_torch.ops.lstm_kernels import (lstm_backward, lstm_backward_plain,
+from lightning_asr_torch.ops.lstm_kernels import (backward_copy_width, backward_smem_bytes,
+                                                  backward_smem_on_card, lstm_backward,
+                                                  lstm_backward_plain,
                                                   lstm_backward_stacked, lstm_backward_stacked_plain,
                                                   lstm_recurrence, lstm_recurrence_plain,
                                                   lstm_recurrence_stacked,
@@ -133,11 +135,13 @@ def test_k2_cell_output(dev, D, T, lengths):
         assert bool((c[b, n:] == 0).all())
 
 
-@pytest.mark.parametrize("D", [1, 2])
-@pytest.mark.parametrize("T,lengths", [(1, [1, 0]), (37, [37, 0, 1, 20]), (300, [300, 299, 7])])
-def test_k3_against_plain(dev, D, T, lengths):
-    xproj, lens, w_hh, grad_h = _lstm_case(dev, D, T, lengths, T + 20 * D)
-    h, c = lstm_recurrence(xproj, lens, w_hh, with_cell=True)
+# K3's cases: one frame beside none; the training T' with ragged rows up to
+# it; lengths below the ring's 8 slots, at them and off their multiples
+K3_CASES = [(1, [1, 0]), (37, [37, 0, 1, 20]), (300, [300, 299, 7]),
+            (836, [836, 835, 701, 512, 333, 100, 9, 1]), (20, [9, 7, 3, 2, 8, 16, 17, 0])]
+
+
+def _k3_check(xproj, lens, w_hh, h, c, grad_h, lengths):
     before = lstm_backward.launches
     d_xproj, dw = lstm_backward(xproj, lens, w_hh, h, c, grad_h)
     assert lstm_backward.launches == before + 1
@@ -147,6 +151,32 @@ def test_k3_against_plain(dev, D, T, lengths):
     assert (dw - want_dw).abs().max().item() <= 1e-3 * max(1.0, want_dw.abs().max().item())
     for b, n in enumerate(lengths):
         assert bool((d_xproj[b, n:] == 0).all())
+    again = lstm_backward(xproj, lens, w_hh, h, c, grad_h)
+    assert torch.equal(again[0], d_xproj) and torch.equal(again[1], dw)     # deterministic
+
+
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("T,lengths", K3_CASES)
+def test_k3_against_plain(dev, D, T, lengths):
+    xproj, lens, w_hh, grad_h = _lstm_case(dev, D, T, lengths, T + 20 * D)
+    h, c = lstm_recurrence(xproj, lens, w_hh, with_cell=True)
+    _k3_check(xproj, lens, w_hh, h, c, grad_h, lengths)
+
+
+def test_k3_inputs_off_16_bytes(dev):
+    """Inputs that start one float past a 16-byte boundary: the ring's
+    copies move one float each (``backward_copy_width``)."""
+    D, T, lengths = 2, 45, [45, 11, 3]
+    xproj, lens, w_hh, grad_h = _lstm_case(dev, D, T, lengths, 5)
+    h, c = lstm_recurrence(xproj, lens, w_hh, with_cell=True)
+    xproj, h, c, grad_h = (torch.cat([a.new_zeros(1), a.flatten()])[1:].view(a.shape)
+                           for a in (xproj, h, c, grad_h))
+    assert backward_copy_width(xproj, h, c, grad_h) == 1
+    _k3_check(xproj, lens, w_hh, h, c, grad_h, lengths)
+
+
+def test_k3_shared_memory_as_stated(dev):
+    assert backward_smem_on_card(40, dev) == backward_smem_bytes(40)
 
 
 def _stacked_case(dev, T, lengths, seed, random_mask=False):

@@ -135,7 +135,9 @@ from lightning_asr_torch.ops.lstm_kernels import (backward_smem_bytes, backward_
                                                   lstm_backward_stacked, lstm_backward_stacked_plain,
                                                   lstm_recurrence, lstm_recurrence_plain,
                                                   lstm_recurrence_stacked,
-                                                  lstm_recurrence_stacked_plain)
+                                                  lstm_recurrence_stacked_plain,
+                                                  stacked_backward_smem_bytes,
+                                                  stacked_backward_smem_on_card)
 from lightning_asr_torch.ops.sepconv_kernels import (sepconv_backward, sepconv_backward_plain,
                                                      sepconv_forward, sepconv_forward_plain)
 from lightning_asr_torch.optim import cosine_annealing_warmup_restarts, novograd
@@ -764,10 +766,13 @@ def _serve_and_check(dev, name: str, translator, cpu, cpu32, blobs, extra: dict,
 
 def _category(name: str) -> str:
     low = name.lower()
-    for tag, cat in (("log_mel_kernel", "K1 log_mel"), ("lstm_fwd_kernel", "K2 lstm"),
+    # K8's names first (lstm_stacked_steps_kernel, lstm_stacked_bwd_gates_kernel,
+    # lstm_stacked_bwd_walk_kernel), so that no K3 tag takes one
+    for tag, cat in (("lstm_stacked_steps_", "K8 lstm_stacked_bwd"),
+                     ("lstm_stacked_bwd_", "K8 lstm_stacked_bwd"),
+                     ("log_mel_kernel", "K1 log_mel"), ("lstm_fwd_kernel", "K2 lstm"),
                      ("lstm_bwd_kernel", "K3 lstm_bwd"), ("lstm_bwd_gates_kernel", "K3 lstm_bwd"),
-                     ("lstm_stacked_fwd_kernel", "K7 lstm_stacked"),
-                     ("lstm_stacked_bwd_kernel", "K8 lstm_stacked_bwd"), ("ctc_alpha_kernel", "K4 ctc_alpha"),
+                     ("lstm_stacked_fwd_kernel", "K7 lstm_stacked"), ("ctc_alpha_kernel", "K4 ctc_alpha"),
                      ("ctc_beta_kernel", "K5 ctc_beta"), ("extend_kernel", "K6 extend_preemph"),
                      ("sepconv_fwd", "K9 sepconv_fwd"), ("sepconv_dz", "K10 sepconv_bwd"),
                      ("sepconv_bwd_dw", "K10 sepconv_bwd"), ("sepconv_wp_grad", "K10 sepconv_bwd"),
@@ -982,7 +987,7 @@ def phase_k3(dev, hmma, ptxas_report: str) -> dict:
     return res
 
 
-def phase_k78(dev):
+def phase_k78(dev, hmma, ptxas_report: str):
     """K7 and K8, the batch-stacked BiLSTM recurrence and its backward, at
     the training shape (B=32, T'=836, C=256, H=40, ragged lengths) against
     their plain versions and against K2 / K3 on the same inputs."""
@@ -1035,6 +1040,10 @@ def phase_k78(dev):
     check(all(torch.equal(a, b) for a, b in zip(again7 + again8, (h, h_prev, c_prev, d_x, dw_f, dw_b))),
           "K7/K8: two runs differ")
     launches = {"K7": lstm_recurrence_stacked.launches, "K8": lstm_backward_stacked.launches}
+    smem = stacked_backward_smem_on_card(H, dev)
+    check(smem == stacked_backward_smem_bytes(H),
+          f"K8's shared memory on the card {smem} B, stated {stacked_backward_smem_bytes(H)} B")
+    check(hmma is None or hmma["lstm_bidir"] == 0, f"K7/K8 run on the CUDA cores: HMMA {hmma}")
 
     ref = _cudnn_bilstm(dev, w_ih, w_hh, b_ih, b_hh)
     lens_cpu = torch.from_numpy(lens_np.astype(np.int64))
@@ -1079,10 +1088,21 @@ def phase_k78(dev):
                      "replaces": f"lightning_asr_tpu/ops/lstm_pallas.py:{line}",
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                      "bound_by": bby, "library_ms": library_ms})
+    # K8's device time by kernel: the step lists, the gates of every valid
+    # step, the walk, the sum of the per-row dW_hh partials
+    split = device_time(lambda: lstm_backward_stacked(xp, valid, w_f, w_b, h_prev, c_prev, gs), 5)[2]
+    steps_seq = int(lens_np.max())
+    us = {key: 1e3 * times[key][0] / steps_seq for key in ("K8", "K3", "K2_with_cell")}
     print(json.dumps({"phase": "K7/K8", "shape": [B, T, C, H, D], "tol": K2_TOL, "tol_dx": K3_TOL_DX,
                       "tol_dw_rel": K3_TOL_DW, **errs, "valid_row_steps": steps,
                       "same_inputs_ms": {"K2_with_cell": times["K2_with_cell"][0],
                                          "K3": times["K3"][0]},
+                      "sequential_steps": steps_seq, "us_per_step": us,
+                      "K8_split_ms": {("steps" if "steps_kernel" in k else "gates" if "gates_kernel" in k
+                                       else "walk" if "walk_kernel" in k else "dw_row_sum" if "reduce" in k
+                                       else k[:40]): v for k, v in split.items()},
+                      "K8_smem_bytes": smem, "hmma": None if hmma is None else hmma["lstm_bidir"],
+                      "ptxas": ptxas_kernels(ptxas_report),
                       "phase_launches": launches, "kernels": rows}), flush=True)
     return rows
 
@@ -1515,7 +1535,7 @@ def main() -> int:
     phase_profile(translator, served)
     del translator
     k3 = phase_k3(dev, hmma, info["ptxas"].get("lstm_bwd", ""))
-    k7, k8 = phase_k78(dev)
+    k7, k8 = phase_k78(dev, hmma, info["ptxas"].get("lstm_bidir", ""))
     k4, k5 = phase_k45(dev)
     trainings = [phase_training(dev), phase_training(dev, "sepconv", CONV_TRAIN_STEPS),
                  phase_training(dev, "dw_wgrad", CONV_TRAIN_STEPS),

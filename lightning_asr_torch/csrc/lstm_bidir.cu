@@ -4,61 +4,71 @@
 // by _run_fwd_bidir) and ::_bwd_kernel_bidir (_core_bidir_bwd).  The bound,
 // the design and the semantics are described in
 // lightning_asr_torch/ops/lstm_kernels.py, which checks every argument
-// before the launch.
+// before the launch and states K8's ring, shared memory and copy width
+// (BACKWARD_RING, stacked_backward_smem_bytes, backward_copy_width).
 //
 // Layout: time-major stacked rows.  xproj (T, 2B, 4H), valid (T, 2B) float,
 // rows [0, B) the forward direction with W_hh_f, rows [B, 2B) the reverse
-// direction on the time-flipped batch with W_hh_b.  Every row walks all T
-// steps; a step with valid <= 0 keeps the row's state and gives h = 0.
+// direction on the time-flipped batch with W_hh_b.  A step with valid <= 0
+// keeps the row's state and gives h = 0; valid > 0 decides, and any row's
+// mask may have holes.
 //
-// One block per row pair (b, B + b), 2 x 4H threads: threads [0, 4H) serve
-// row b, threads [4H, 8H) row B + b (4H = 160 is five whole warps, so a
-// half's branches are warp-uniform).  Thread g of a half owns gate g (order
-// i, f, g, o) of its row and keeps row g of its direction's W_hh in
-// registers.  A step in which neither row is valid is written without a
-// barrier (the state is unchanged).
-//
-// K7, each step:
-//   thread g: pre[g] = xproj + sum_k W_hh[g, k] h[k] (the K2 kernel's
-//             order), act[g] -> shared                              __sync
+// K7: one block per row pair (b, B + b), 2 x 4H threads: threads [0, 4H)
+// serve row b, threads [4H, 8H) row B + b (4H = 160 is five whole warps, so
+// a half's branches are warp-uniform).  Thread g of a half owns gate g
+// (order i, f, g, o) of its row and keeps row g of its direction's W_hh in
+// registers.  Each step:
+//   thread g: pre[g] = xproj + sum_k W_hh[g, k] h[k] (dot_h's order),
+//             act[g] -> shared                                       __sync
 //   threads g < H: h_prev, c_prev out (the state before the step);
-//             c = f c + i g; h = o tanh(c); h to shared and out      __sync
-// K8 walks t = T-1..0, each step:
-//   threads k < H: h_prev[k] -> shared, c_prev, dh_up from memory    __sync
-//   thread g: the gates recomputed as in K7, act[g] -> shared         __sync
-//   threads k < H: c = f c_prev + i g; dh = dh_up + carry_h;
-//             dc = carry_c + dh o (1 - tanh(c)^2); the unit's four gate
-//             gradients -> shared; carry_c = dc f                    __sync
-//   thread g: d_xproj[t, g] = dgates[g]; dW[g, :] += dgates[g] h_prev[:]
-//             (registers); thread (p, k) = g: part[p][k] = sum_{j<H}
-//             dgates[pH + j] W_hh[pH + j, k] (both W_hh in shared
-//             memory, 51.2 KB at H = 40: dynamic, opted in)         __sync
-//   threads k < H: carry_h = sum_p part[p][k]  (= dh_prev[k])
-// An invalid step writes d_xproj = 0 and leaves the carries as they are,
-// which is what the TPU kernel's (1 - v) terms give at v = 0.  dW_hh leaves
-// as per-(row pair, direction) partials (B, 2, 4H, H), which the wrapper
-// sums over B in a fixed order.
+//             c = f c + i g; h = o tanh(c); h to shared and out        __sync
+// A step in which neither row is valid is written without a barrier.
+//
+// K8 is K3's design (lstm_bwd.cu) on the stacked rows, in three kernels:
+//
+// lstm_stacked_steps_kernel, each row's valid steps in walk order (t
+// descending) and their count, into int32 scratch (2B, T) and (2B,): one
+// warp a row, __ballot_sync and __popc over 32 steps at a time, so the
+// walk needs no sync with the host.
+//
+// lstm_stacked_bwd_gates_kernel, the gates of every valid step at once.  A
+// block takes CH steps of one row, with its direction's W_hh and the
+// steps' h_prev (K7's output, no lookup) in shared memory by cp.async;
+// thread (k, steps f0..f0+FT-1) computes the four gates of unit k in
+// dot_h's order, so they are bit-equal to K7's, and stores each gate's
+// factor F into d_xproj and A and f into the scratch cfac (T, 2B, 2H)
+// (lstm_util.cuh store_factors).  It writes exact zeros into d_xproj at
+// the invalid steps, so the walk never zeroes.
+//
+// lstm_stacked_bwd_walk_kernel, one block per stacked row, 4H threads.  It
+// is K3's walk with one difference: step s's F, A, f, h_prev and grad_h
+// sit at step list[s], not at a fixed stride.  They come by cp.async into
+// a ring of RING slots, RING - 1 steps ahead, V floats a copy (V = 4 where
+// every staged tensor starts 16-byte aligned, else 1).  The list entries
+// travel the same way, in a ring of 2 RING ints in shared memory filled by
+// the copies' own groups, and each iteration reads the next one's entries,
+// so neither the chain nor the staging waits on a load from device memory;
+// offsets are 32-bit.  Thread 4k + m owns gate m of unit k: the cell's
+// backward (cell_backward), dh_prev by the unit pair's three xor shuffles
+// with W_hh's columns in registers (dh_prev), dW_hh in registers in walk
+// order, one barrier a step.  Invalid steps are never stepped: the carries
+// pass through them untouched.  dW_hh leaves as per-row partials (2B, 4H,
+// H), which the wrapper sums over each direction's B rows in a fixed order.
 
 #include <cuda_runtime.h>
+#include <stddef.h>
+
+#include "lstm_util.cuh"
+#include "mma_util.cuh"
 
 namespace {
 
-__device__ __forceinline__ float gate_act(float pre, bool tanh_gate) {
-  return tanh_gate ? tanhf(pre) : 1.f / (1.f + expf(-pre));
-}
-
-template <int H>
-__device__ __forceinline__ float dot_h(const float (&w)[H], const float* h) {
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-#pragma unroll
-  for (int k = 0; k < H; k += 4) {
-    a0 = fmaf(w[k], h[k], a0);
-    a1 = fmaf(w[k + 1], h[k + 1], a1);
-    a2 = fmaf(w[k + 2], h[k + 2], a2);
-    a3 = fmaf(w[k + 3], h[k + 3], a3);
-  }
-  return (a0 + a1) + (a2 + a3);
-}
+constexpr int RING = lasr::LSTM_RING;   // slots of the walk's ring (ops/lstm_kernels.py BACKWARD_RING)
+constexpr int CH = lasr::LSTM_CH;       // steps of a gates block
+constexpr int FT = lasr::LSTM_FT;       // steps of a gates thread
+constexpr unsigned FULL = lasr::LSTM_FULL;
+constexpr int LIST_ROWS = 4;            // rows of a steps block, one warp each
+constexpr int LIST_CHUNKS = 8;          // chunks of 32 steps whose flags a warp loads at once
 
 template <int H>
 __global__ void __launch_bounds__(8 * H)
@@ -105,7 +115,9 @@ lstm_stacked_fwd_kernel(const float* __restrict__ xproj,   // (T, 2B, 4H)
       }
       continue;
     }
-    if (v) act_s[half][g] = gate_act(xcol[(size_t)t * B2 * G] + dot_h<H>(w, h_s[half]), tanh_gate);
+    if (v)
+      act_s[half][g] =
+          lasr::gate_act(xcol[(size_t)t * B2 * G] + lasr::dot_h<H>(w, h_s[half]), tanh_gate);
     __syncthreads();
     if (g < H) {
       hprev_out[o] = h_s[half][g];
@@ -123,129 +135,301 @@ lstm_stacked_fwd_kernel(const float* __restrict__ xproj,   // (T, 2B, 4H)
   }
 }
 
-template <int H>
-__global__ void __launch_bounds__(8 * H)
-lstm_stacked_bwd_kernel(const float* __restrict__ xproj,   // (T, 2B, 4H)
-                        const float* __restrict__ valid,   // (T, 2B)
-                        const float* __restrict__ w_hh_f,  // (4H, H)
-                        const float* __restrict__ w_hh_b,  // (4H, H)
-                        const float* __restrict__ h_prev,  // (T, 2B, H)
-                        const float* __restrict__ c_prev,  // (T, 2B, H)
-                        const float* __restrict__ grad_h,  // (T, 2B, H)
-                        float* __restrict__ d_xproj,       // (T, 2B, 4H)
-                        float* __restrict__ dw_part,       // (B, 2, 4H, H)
-                        int T, int B) {
-  static_assert(H % 4 == 0, "H must be a multiple of 4");
-  constexpr int G = 4 * H;
-  extern __shared__ float w_s[];            // [2][G * H], both directions
-  __shared__ float h_s[2][H];
-  __shared__ float act_s[2][G];
-  __shared__ float dg_s[2][G];
-  __shared__ float part_s[2][4][H];
-
-  const int half = threadIdx.x / G;
-  const int g = threadIdx.x % G;
-  const int b = blockIdx.x;
-  const int B2 = 2 * B;
-  const int row = b + half * B;
-
-  float w[H];
-  float acc[H];
-  const float* wrow = (half ? w_hh_b : w_hh_f) + (size_t)g * H;
-  float* ws = w_s + half * G * H;
+__global__ void __launch_bounds__(32 * LIST_ROWS)
+lstm_stacked_steps_kernel(const float* __restrict__ valid,  // (T, 2B)
+                          int* __restrict__ steps,          // (2B, T): valid steps, t descending
+                          int* __restrict__ counts,         // (2B,)
+                          int T, int B2) {
+  const int row = blockIdx.x * LIST_ROWS + threadIdx.x / 32;
+  if (row >= B2) return;                            // warp-uniform
+  const int lane = threadIdx.x % 32;
+  const unsigned below = (1u << lane) - 1u;
+  int* out = steps + (size_t)row * T;
+  int n = 0;
+  for (int t0 = T - 1; t0 >= 0; t0 -= 32 * LIST_CHUNKS) {
+    bool v[LIST_CHUNKS];
 #pragma unroll
-  for (int k = 0; k < H; ++k) {
-    w[k] = wrow[k];
-    ws[g * H + k] = w[k];
-    acc[k] = 0.f;
+    for (int c = 0; c < LIST_CHUNKS; ++c) {
+      const int t = t0 - 32 * c - lane;
+      v[c] = t >= 0 && valid[(size_t)t * B2 + row] > 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < LIST_CHUNKS; ++c) {
+      const unsigned vote = __ballot_sync(FULL, v[c]);
+      if (v[c]) out[n + __popc(vote & below)] = t0 - 32 * c - lane;
+      n += __popc(vote);
+    }
   }
-  const bool tanh_gate = g >= 2 * H && g < 3 * H;
-  const int p = g / H;
-  const int kk = g % H;
-  const float* xcol = xproj + (size_t)row * G + g;
-  float* dxcol = d_xproj + (size_t)row * G + g;
-  const size_t o_col = (size_t)row * H + g;
-  float carry_h = 0.f, carry_c = 0.f;
-  __syncthreads();
-
-  for (int t = T - 1; t >= 0; --t) {
-    const float v0 = valid[(size_t)t * B2 + b];
-    const float v1 = valid[(size_t)t * B2 + B + b];
-    const bool v = (half ? v1 : v0) > 0.f;
-    const size_t xo = (size_t)t * B2 * G;
-    if (!(v0 > 0.f) && !(v1 > 0.f)) {   // block-uniform: no barrier needed
-      dxcol[xo] = 0.f;
-      continue;
-    }
-    const size_t o = (size_t)t * B2 * H + o_col;
-    float cp = 0.f, dh_up = 0.f;
-    if (v && g < H) {
-      h_s[half][g] = h_prev[o];
-      cp = c_prev[o];
-      dh_up = grad_h[o];
-    }
-    __syncthreads();
-
-    if (v) act_s[half][g] = gate_act(xcol[xo] + dot_h<H>(w, h_s[half]), tanh_gate);
-    __syncthreads();
-
-    if (v && g < H) {
-      const float ig = act_s[half][g], fg = act_s[half][H + g], gg = act_s[half][2 * H + g],
-                  og = act_s[half][3 * H + g];
-      const float tc = tanhf(fg * cp + ig * gg);
-      const float dh = dh_up + carry_h;
-      const float dc = carry_c + dh * og * (1.f - tc * tc);
-      dg_s[half][g] = dc * gg * ig * (1.f - ig);
-      dg_s[half][H + g] = dc * cp * fg * (1.f - fg);
-      dg_s[half][2 * H + g] = dc * ig * (1.f - gg * gg);
-      dg_s[half][3 * H + g] = dh * tc * og * (1.f - og);
-      carry_c = dc * fg;
-    }
-    __syncthreads();
-
-    if (v) {
-      const float dgv = dg_s[half][g];
-      dxcol[xo] = dgv;
-#pragma unroll
-      for (int k = 0; k < H; ++k) acc[k] = fmaf(dgv, h_s[half][k], acc[k]);
-      float sum = 0.f;
-#pragma unroll 8
-      for (int j = 0; j < H; ++j) sum = fmaf(dg_s[half][p * H + j], ws[(p * H + j) * H + kk], sum);
-      part_s[half][p][kk] = sum;
-    } else {
-      dxcol[xo] = 0.f;
-    }
-    __syncthreads();
-
-    if (v && g < H)
-      carry_h = (part_s[half][0][g] + part_s[half][1][g]) + (part_s[half][2][g] + part_s[half][3][g]);
-  }
-
-  float* drow = dw_part + (((size_t)b * 2 + half) * G + g) * H;
-#pragma unroll
-  for (int k = 0; k < H; ++k) drow[k] = acc[k];
+  if (lane == 0) counts[row] = n;
 }
 
 template <int H>
-int launch_bwd(const float* xproj, const float* valid, const float* w_hh_f,
-               const float* w_hh_b, const float* h_prev, const float* c_prev,
-               const float* grad_h, float* d_xproj, float* dw_part, int T, int B,
-               cudaStream_t stream) {
-  const int smem = 2 * 4 * H * H * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(lstm_stacked_bwd_kernel<H>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  lstm_stacked_bwd_kernel<H><<<B, 8 * H, smem, stream>>>(
-      xproj, valid, w_hh_f, w_hh_b, h_prev, c_prev, grad_h, d_xproj, dw_part, T, B);
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(H * CH / FT)
+lstm_stacked_bwd_gates_kernel(const float* __restrict__ xproj,   // (T, 2B, 4H)
+                              const float* __restrict__ valid,   // (T, 2B)
+                              const float* __restrict__ w_hh_f,  // (4H, H)
+                              const float* __restrict__ w_hh_b,  // (4H, H)
+                              const float* __restrict__ h_prev,  // (T, 2B, H)
+                              const float* __restrict__ c_prev,  // (T, 2B, H)
+                              float* __restrict__ d_xproj,       // (T, 2B, 4H): F, 0 if invalid
+                              float* __restrict__ cfac,          // (T, 2B, 2H): A, f
+                              int T, int B) {
+  constexpr int G = 4 * H;
+  constexpr int NT = H * CH / FT;                   // threads
+  constexpr int WP = G + 1, HP = CH + 1;            // pitches: the fills' stores miss no bank
+  __shared__ float ws[H * WP];                      // ws[j][g] = W_hh[g][j]
+  __shared__ float hs[H * HP];                      // hs[j][f] = h_prev of step t_lo + f
+  const int row = blockIdx.y;
+  const int B2 = 2 * B;
+  const int k = threadIdx.x % H;
+  const int f0 = threadIdx.x / H * FT;
+  const int t_lo = blockIdx.x * CH;
+  const int n = min(CH, T - t_lo);                  // steps of this block
+
+  bool v[FT];
+  bool any = false;
+#pragma unroll
+  for (int i = 0; i < FT; ++i) {
+    v[i] = f0 + i < n && valid[(size_t)(t_lo + f0 + i) * B2 + row] > 0.f;
+    any |= v[i];
+  }
+  if (!__syncthreads_or(any)) {                     // no valid step: zeros only
+#pragma unroll
+    for (int i = 0; i < FT; ++i) {
+      if (f0 + i >= n) break;
+      float* fr = d_xproj + ((size_t)(t_lo + f0 + i) * B2 + row) * G + k;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) fr[q * H] = 0.f;
+    }
+    return;
+  }
+
+  // W_hh and h_prev, transposed, by cp.async (all in flight at once)
+  const float* w = row < B ? w_hh_f : w_hh_b;
+  for (int i = threadIdx.x; i < G * H; i += NT)
+    lasr::cp_async4_zfill(&ws[i % H * WP + i / H], w + i, true);
+  for (int i = threadIdx.x; i < CH * H; i += NT) {
+    const int f = i / H;
+    const bool in = f < n;
+    lasr::cp_async4_zfill(&hs[i % H * HP + f],
+                          in ? h_prev + ((size_t)(t_lo + f) * B2 + row) * H + i % H : w, in);
+  }
+  lasr::cp_async_commit();
+  float x[FT][4] = {}, cp[FT] = {};
+#pragma unroll
+  for (int i = 0; i < FT; ++i) {
+    if (!v[i]) continue;
+    const size_t o = (size_t)(t_lo + f0 + i) * B2 + row;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) x[i][q] = xproj[o * G + q * H + k];
+    cp[i] = c_prev[o * H + k];
+  }
+  lasr::cp_async_wait<0>();
+  __syncthreads();
+  if (f0 >= n) return;
+
+  float dot[FT][4];
+  lasr::gate_dots<H, FT, WP, HP>(ws, hs, k, f0, dot);
+#pragma unroll
+  for (int i = 0; i < FT; ++i) {
+    if (f0 + i >= n) break;
+    const size_t o = (size_t)(t_lo + f0 + i) * B2 + row;
+    float* fr = d_xproj + o * G + k;
+    if (v[i]) {
+      float act[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) act[q] = lasr::gate_act(x[i][q] + dot[i][q], q == 2);
+      lasr::store_factors<H>(act, cp[i], fr, cfac + o * 2 * H + k);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) fr[q * H] = 0.f;
+    }
+  }
+}
+
+template <int H, int V>
+__global__ void __launch_bounds__(4 * H)
+lstm_stacked_bwd_walk_kernel(const int* __restrict__ steps,     // (2B, T): valid steps, t descending
+                             const int* __restrict__ counts,    // (2B,)
+                             const float* __restrict__ w_hh_f,  // (4H, H)
+                             const float* __restrict__ w_hh_b,  // (4H, H)
+                             const float* __restrict__ h_prev,  // (T, 2B, H)
+                             const float* __restrict__ grad_h,  // (T, 2B, H)
+                             const float* __restrict__ cfac,    // (T, 2B, 2H): A, f
+                             float* __restrict__ d_xproj,       // (T, 2B, 4H): F in, gradients out
+                             float* __restrict__ dw_part,       // (2B, 4H, H)
+                             int T, int B) {
+  static_assert(H % 8 == 0, "H must be a multiple of 8");
+  static_assert(RING >= 3, "steps s and s + 1 are read while step s + RING - 1 is staged");
+  constexpr int G = 4 * H;
+  constexpr int J = H / 4;                          // columns of dW_hh a lane sums
+  // a slot holds one step: F [0, 4H), A [4H, 5H), f [5H, 6H), h_prev
+  // [6H, 7H), grad_h [7H, 8H)
+  constexpr int SLOT = 8 * H;
+  constexpr int N = SLOT / V;                       // copies a step
+  constexpr int R = (N + G - 1) / G;                // copies a thread
+  constexpr int LR = 2 * RING;                      // slots of the list ring
+  __shared__ __align__(16) float ring[RING][SLOT];
+  __shared__ __align__(16) float dg_s[2][G];
+  __shared__ int list_s[LR];                        // list entry e in slot e % LR
+
+  const int row = blockIdx.x;
+  const unsigned B2 = 2 * B;
+  const int k = threadIdx.x >> 2;
+  const int m = threadIdx.x & 3;
+  const int l = threadIdx.x & 7;
+  const int g = m * H + k;                          // the gate this lane owns
+
+  const float* w = row < B ? w_hh_f : w_hh_b;
+  float wd[2][H / 2], acc[4][J];
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int j = 0; j < H / 2; ++j) wd[u][j] = w[(H / 2 * l + j) * H + (k & ~1) + u];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int i = 0; i < J; ++i) acc[q][i] = 0.f;
+
+  const int n = counts[row];
+  const int* list = steps + (size_t)row * T;
+  // the first LR - 1 list entries, read beside `n` (entries past it are
+  // never used); each later entry comes by cp.async in an iteration's
+  // group, LR - 1 - RING iterations before it is read
+  if (threadIdx.x < LR - 1 && threadIdx.x < T) list_s[threadIdx.x] = list[threadIdx.x];
+
+  // This thread's copies r: slot offset e, its source at t = 0, and how far
+  // one step of t moves it (offsets fit 32 bits: the wrapper checks)
+  const float* src[R];
+  unsigned stride[R];
+  int e_of[R];
+  bool mine[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int e = (threadIdx.x + r * G) * V;
+    mine[r] = e < SLOT;
+    e_of[r] = e;
+    if (e < G) {
+      src[r] = d_xproj + row * G + e, stride[r] = B2 * G;
+    } else if (e < 6 * H) {
+      src[r] = cfac + row * 2 * H + (e - G), stride[r] = B2 * 2 * H;
+    } else if (e < 7 * H) {
+      src[r] = h_prev + row * H + (e - 6 * H), stride[r] = B2 * H;
+    } else {
+      src[r] = grad_h + row * H + (e - 7 * H), stride[r] = B2 * H;
+    }
+  }
+  auto stage = [&](float* slot, int t) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (!mine[r]) continue;
+      const float* p = src[r] + (unsigned)t * stride[r];
+      if constexpr (V == 4) {
+        lasr::cp_async16(slot + e_of[r], p);
+      } else {
+        lasr::cp_async4_zfill(slot + e_of[r], p, true);
+      }
+    }
+  };
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < RING - 1; ++s) {
+    if (s < n) stage(ring[s], list_s[s]);
+    lasr::cp_async_commit();
+  }
+
+  if (n > 0) {
+    lasr::cp_async_wait<RING - 2>();                // step 0 has landed
+    __syncthreads();
+    float carry_c = 0.f;
+    float dgv = lasr::cell_backward<H>(ring[0], 0.f, carry_c, k, m);
+    dg_s[0][g] = dgv;
+    // iteration s writes step s's gradient at dx and stages step
+    // s + RING - 1 from t_st; both are read an iteration ahead
+    float* dx = d_xproj + ((unsigned)list_s[0] * B2 + row) * G + g;
+    int t_st = list_s[RING - 1];
+
+    for (int s0 = 0; s0 < n; s0 += RING) {
+#pragma unroll
+      for (int u = 0; u < RING; ++u) {
+        const int s = s0 + u;
+        if (s >= n) break;
+        lasr::cp_async_wait<RING - 3>();            // step s + 1 has landed
+        __syncthreads();                            // dg_s[u & 1], slot u + 1; step s - 1 done
+        // the next iteration's entries (landed; past the list: unused)
+        const int t_dx_next = list_s[(s + 1) % LR];
+        const int t_st_next = list_s[(s + RING) % LR];
+
+        // off the chain: step s's gradient out, dW_hh += dgates h_prev
+        *dx = dgv;
+        float dq[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) dq[q] = __shfl_sync(FULL, dgv, q, 4);
+        const float* hp = ring[u] + 6 * H + m;
+#pragma unroll
+        for (int i = 0; i < J; ++i) {
+          const float hv = hp[4 * i];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[q][i] = fmaf(dq[q], hv, acc[q][i]);
+        }
+
+        // the chain: dh_prev of step s, then step s + 1's gate gradients
+        // (past the row's last step on a stale slot, read by nobody)
+        dgv = lasr::cell_backward<H>(ring[(u + 1) % RING],
+                                     lasr::dh_prev<H>(dg_s[u & 1], wd, l), carry_c, k, m);
+        dg_s[(u + 1) & 1][g] = dgv;
+
+        // slot s - 1 is free: every thread has passed this step's barrier;
+        // so is list slot (s - 1) % LR
+        if (s + RING - 1 < n) {
+          stage(ring[(u + RING - 1) % RING], t_st);
+          if (threadIdx.x == 0 && s + LR - 1 < T)
+            lasr::cp_async4_zfill(&list_s[(s + LR - 1) % LR], list + s + LR - 1, true);
+        }
+        lasr::cp_async_commit();
+        dx = d_xproj + ((unsigned)t_dx_next * B2 + row) * G + g;
+        t_st = t_st_next;
+      }
+    }
+  }
+
+  float* drow = dw_part + ((size_t)row * G + k) * H + m;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int i = 0; i < J; ++i) drow[q * H * H + 4 * i] = acc[q][i];
+}
+
+template <int H>
+cudaError_t launch_bwd(int V, int T, int B, cudaStream_t stream, const float* xproj,
+                       const float* valid, const float* w_hh_f, const float* w_hh_b,
+                       const float* h_prev, const float* c_prev, const float* grad_h,
+                       float* d_xproj, float* dw_part, float* cfac, int* steps, int* counts) {
+  if (V != 4 && V != 1) return cudaErrorInvalidValue;
+  const int B2 = 2 * B;
+  lstm_stacked_steps_kernel<<<(B2 + LIST_ROWS - 1) / LIST_ROWS, 32 * LIST_ROWS, 0, stream>>>(
+      valid, steps, counts, T, B2);
+  lstm_stacked_bwd_gates_kernel<H><<<dim3((T + CH - 1) / CH, B2), H * CH / FT, 0, stream>>>(
+      xproj, valid, w_hh_f, w_hh_b, h_prev, c_prev, d_xproj, cfac, T, B);
+  if (V == 4) {
+    lstm_stacked_bwd_walk_kernel<H, 4><<<B2, 4 * H, 0, stream>>>(
+        steps, counts, w_hh_f, w_hh_b, h_prev, grad_h, cfac, d_xproj, dw_part, T, B);
+  } else {
+    lstm_stacked_bwd_walk_kernel<H, 1><<<B2, 4 * H, 0, stream>>>(
+        steps, counts, w_hh_f, w_hh_b, h_prev, grad_h, cfac, d_xproj, dw_part, T, B);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Both return the cudaError_t of the launch (0 on success);
-// cudaErrorInvalidValue for a hidden size without an instantiation.
-// `device` is the ordinal the tensors live on: this library links its own
-// CUDA runtime, whose current device is not the caller's.
+// Both return the cudaError_t of the launches (0 on success);
+// cudaErrorInvalidValue for a hidden size without an instantiation, or
+// (K8) a copy width other than 4 or 1 floats (4 needs h_prev, grad_h,
+// d_xproj and cfac 16-byte aligned).  K8's `cfac` is scratch of (T, 2B, 2H)
+// floats, `steps` and `counts` of (2B, T) and (2B,) ints.  `device` is the
+// ordinal the tensors live on: this library links its own CUDA runtime,
+// whose current device is not the caller's.
 extern "C" int lasr_lstm_stacked_fwd(const float* xproj, const float* valid,
                                      const float* w_hh_f, const float* w_hh_b,
                                      float* h_out, float* hprev_out, float* cprev_out,
@@ -268,15 +452,31 @@ extern "C" int lasr_lstm_stacked_bwd(const float* xproj, const float* valid,
                                      const float* w_hh_f, const float* w_hh_b,
                                      const float* h_prev, const float* c_prev,
                                      const float* grad_h, float* d_xproj, float* dw_part,
-                                     int T, int B, int H, int device,
-                                     cudaStream_t stream) {
+                                     float* cfac, int* steps, int* counts, int T, int B, int H,
+                                     int copy_width, int device, cudaStream_t stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   switch (H) {
     case 40:
-      return launch_bwd<40>(xproj, valid, w_hh_f, w_hh_b, h_prev, c_prev, grad_h, d_xproj,
-                            dw_part, T, B, stream);
+      return (int)launch_bwd<40>(copy_width, T, B, stream, xproj, valid, w_hh_f, w_hh_b, h_prev,
+                                 c_prev, grad_h, d_xproj, dw_part, cfac, steps, counts);
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The static shared memory of K8's walk for hidden size H, in bytes, as the
+// compiler laid it out (-1 without an instantiation): the card's check of
+// ops/lstm_kernels.py::stacked_backward_smem_bytes.
+extern "C" int lasr_lstm_stacked_bwd_smem(int H, int device) {
+  if (cudaSetDevice(device) != cudaSuccess) return -1;
+  cudaFuncAttributes attr;
+  switch (H) {
+    case 40:
+      if (cudaFuncGetAttributes(&attr, lstm_stacked_bwd_walk_kernel<40, 4>) != cudaSuccess)
+        return -1;
+      return (int)attr.sharedSizeBytes;
+    default:
+      return -1;
   }
 }

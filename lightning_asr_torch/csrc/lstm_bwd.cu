@@ -52,14 +52,17 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "lstm_util.cuh"
 #include "mma_util.cuh"
 
 namespace {
 
-constexpr int RING = 8;           // slots of the ring (ops/lstm_kernels.py BACKWARD_RING)
-constexpr int CH = 32;            // frames of a gates block
-constexpr int FT = 4;             // frames of a gates thread
-constexpr unsigned FULL = 0xffffffffu;
+constexpr int RING = lasr::LSTM_RING;   // slots of the ring (ops/lstm_kernels.py BACKWARD_RING)
+constexpr int CH = lasr::LSTM_CH;       // frames of a gates block
+constexpr int FT = lasr::LSTM_FT;       // frames of a gates thread
+constexpr unsigned FULL = lasr::LSTM_FULL;
+using lasr::cell_backward;
+using lasr::dh_prev;
 
 template <int H>
 __global__ void __launch_bounds__(H * CH / FT)
@@ -112,80 +115,17 @@ lstm_bwd_gates_kernel(const float* __restrict__ xproj,   // (B, T, D, 4H)
   __syncthreads();
   if (f0 >= n) return;
 
-  // gate q of unit k at frame f0 + i: chain j % 4 of the forward's dot
-  float a[FT][4][4] = {};
-#pragma unroll
-  for (int j = 0; j < H; ++j) {
-    float wv[4], hv[FT];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) wv[q] = ws[j * WP + q * H + k];
-#pragma unroll
-    for (int i = 0; i < FT; ++i) hv[i] = hs[j * HP + f0 + i];
-#pragma unroll
-    for (int i = 0; i < FT; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) a[i][q][j % 4] = fmaf(wv[q], hv[i], a[i][q][j % 4]);
-  }
+  float dot[FT][4];
+  lasr::gate_dots<H, FT, WP, HP>(ws, hs, k, f0, dot);
 #pragma unroll
   for (int i = 0; i < FT; ++i) {
     if (f0 + i >= n) break;
     float act[4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      float pre = x[i][q];
-      pre += (a[i][q][0] + a[i][q][1]) + (a[i][q][2] + a[i][q][3]);
-      act[q] = q == 2 ? tanhf(pre) : 1.f / (1.f + expf(-pre));
-    }
-    const float ig = act[0], fg = act[1], gg = act[2], og = act[3];
-    const float tc = tanhf(fg * cp[i] + ig * gg);
+    for (int q = 0; q < 4; ++q) act[q] = lasr::gate_act(x[i][q] + dot[i][q], q == 2);
     const size_t row = ((size_t)b * T + t_lo + f0 + i) * D + d;
-    float* fr = fac + row * G + k;
-    fr[0] = gg * ig * (1.f - ig);
-    fr[H] = cp[i] * fg * (1.f - fg);
-    fr[2 * H] = ig * (1.f - gg * gg);
-    fr[3 * H] = tc * og * (1.f - og);
-    float* cr = cfac + row * 2 * H + k;
-    cr[0] = og * (1.f - tc * tc);
-    cr[H] = fg;
+    lasr::store_factors<H>(act, cp[i], fac + row * G + k, cfac + row * 2 * H + k);
   }
-}
-
-// one step of the serial chain from its slot: gate m's gradient, and the
-// cell's carry
-template <int H>
-__device__ __forceinline__ float cell_backward(const float* slot, float carry_h, float& carry_c,
-                                               int k, int m) {
-  const float dh = slot[7 * H + k] + carry_h;
-  const float dc = carry_c + dh * slot[4 * H + k];
-  carry_c = dc * slot[5 * H + k];
-  return (m == 3 ? dh : dc) * slot[m * H + k];
-}
-
-// dh_prev[k] for the four lanes of unit k from the gate gradients dg of
-// one step; wd[u][j] = W_hh[(H/2) l + j][2p + u] for lane l of unit pair p
-template <int H>
-__device__ __forceinline__ float dh_prev(const float* dg, const float (&wd)[2][H / 2], int l) {
-  constexpr int N = H / 2;                          // rows of W_hh a lane sums
-  const float* dl = dg + N * l;
-  float c[2][4] = {};
-#pragma unroll
-  for (int j = 0; j < N; j += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(dl + j);
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      c[u][0] = fmaf(v.x, wd[u][j], c[u][0]);
-      c[u][1] = fmaf(v.y, wd[u][j + 1], c[u][1]);
-      c[u][2] = fmaf(v.z, wd[u][j + 2], c[u][2]);
-      c[u][3] = fmaf(v.w, wd[u][j + 3], c[u][3]);
-    }
-  }
-  const float p0 = (c[0][0] + c[0][1]) + (c[0][2] + c[0][3]);
-  const float p1 = (c[1][0] + c[1][1]) + (c[1][2] + c[1][3]);
-  const bool second = l & 4;                        // lanes 4..7 are unit 2p + 1
-  float v = (second ? p1 : p0) + __shfl_xor_sync(FULL, second ? p0 : p1, 4);
-  v += __shfl_xor_sync(FULL, v, 1);
-  v += __shfl_xor_sync(FULL, v, 2);
-  return v;
 }
 
 template <int H, int V>

@@ -54,23 +54,30 @@ import torch
 
 _LOCK = threading.Lock()
 _KERNEL_HIDDEN = (40,)      # hidden sizes instantiated in csrc/lstm.cu
-BACKWARD_RING = 8           # K3's ring slots (csrc/lstm_bwd.cu RING)
+BACKWARD_RING = 8           # K3's and K8's ring slots (csrc/lstm_util.cuh LSTM_RING)
 
 
 def backward_smem_bytes(H: int) -> int:
-    """The static shared memory of K3's walk, the one statement of
-    csrc/lstm_bwd.cu's layout: the ring, whose slots hold one step each
-    (the gate factors F [0, 4H), A [4H, 5H) and f [5H, 6H) of its frame,
-    h_prev [6H, 7H), grad_h [7H, 8H)), then the gate gradients of two
-    steps."""
+    """The static shared memory of K3's walk, the one statement of its layout
+    (csrc/lstm_bwd.cu), which K8's walk shares: the ring, whose slots hold
+    one step each (the gate factors F [0, 4H), A [4H, 5H) and f [5H, 6H)
+    of its step, h_prev [6H, 7H), grad_h [7H, 8H)), then the gate gradients
+    of two steps."""
     return 4 * (BACKWARD_RING * 8 * H + 2 * 4 * H)
 
 
+def stacked_backward_smem_bytes(H: int) -> int:
+    """The static shared memory of K8's walk (csrc/lstm_bidir.cu): K3's
+    layout, then a ring of ``2 * BACKWARD_RING`` step-list entries (int32)."""
+    return backward_smem_bytes(H) + 4 * 2 * BACKWARD_RING
+
+
 def backward_copy_width(*tensors: torch.Tensor) -> int:
-    """Floats a ``cp.async`` copy of K3's walk moves: 4 (16 bytes) where
-    every tensor it stages starts 16-byte aligned, else 1.  Every slice it
-    stages then starts at a multiple of 4 floats from its tensor's start
-    (H % 4 == 0), so the start alone decides."""
+    """Floats a ``cp.async`` copy of K3's or K8's walk moves: 4 (16 bytes)
+    where every tensor it stages starts 16-byte aligned, else 1.  Every
+    slice it stages (a frame's or a stacked step's 4H, 2H or H floats) then
+    starts at a multiple of 4 floats from its tensor's start (H % 4 == 0),
+    so the start alone decides."""
     return 4 if all(t.data_ptr() % 16 == 0 for t in tensors) else 1
 
 
@@ -258,16 +265,20 @@ def lstm_backward(xproj: torch.Tensor, lengths: torch.Tensor, w_hh: torch.Tensor
 lstm_backward.launches = 0
 
 
+def _smem_on_card(source: str, entry: str, H: int, device: torch.device) -> int:
+    from .kernel_build import library
+
+    fn = getattr(library(source), entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    return fn(H, device.index or 0)
+
+
 def backward_smem_on_card(H: int, device: torch.device) -> int:
     """The static shared memory of K3's walk as the compiler laid it out for
     hidden size H (-1 without an instantiation): the card's check of
     ``backward_smem_bytes``."""
-    from .kernel_build import library
-
-    fn = library("lstm_bwd").lasr_lstm_bwd_smem
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
-    return fn(H, device.index or 0)
+    return _smem_on_card("lstm_bwd", "lasr_lstm_bwd_smem", H, device)
 
 
 class _LSTMCore(torch.autograd.Function):
@@ -304,29 +315,42 @@ def lstm_core(xproj: torch.Tensor, lengths: torch.Tensor, w_hh: torch.Tensor) ->
 # ``build_model(fuse_directions=True)`` here).  Both directions are the 2B
 # rows of one time-major recurrence: rows [0, B) walk the batch forward with
 # W_hh_f, rows [B, 2B) walk the time-flipped padded batch with W_hh_b.  Every
-# row walks all T steps under a float validity mask: a step with valid <= 0
-# keeps the row's state and gives h = 0.  K7 also stores the PRE-update
-# states h_prev and c_prev of every step; K8 recomputes the gates from
-# xproj and h_prev, passes its dh / dc carries through invalid steps (the
-# TPU kernel's ``(1 - v)`` terms) and sums dW_hh of each direction over its
-# own B rows.  The TPU kernels' 128-lane padding of H and 16-step time
-# blocks do not carry over.
+# row's validity is a float mask that may have holes: a step with valid <= 0
+# keeps the row's state and gives h = 0, and valid > 0 decides.  K7 also
+# stores the PRE-update states h_prev and c_prev of every step; K8
+# recomputes the gates from xproj and h_prev in K7's summation order (gate
+# order i, f, g, o), passes its dh / dc carries through invalid steps (the
+# TPU kernel's ``(1 - v)`` terms), writes d_xproj = 0 there, and sums dW_hh
+# of each direction over its own B rows.  The TPU kernels' 128-lane padding
+# of H and 16-step time blocks do not carry over.
 #
-# Bound on the H100: as K2 and K3, latency: T dependent steps of a 40-term
-# dot, the gate nonlinearities and the state update (K8: two dots more and a
-# reduction across the four gate groups); bytes are ~35 MB (K7) and ~60 MB
-# (K8) at B=32, T=836, about 10 and 20 µs at 3.35 TB/s.
+# Bound on the H100: as K2 and K3, latency: a row's valid steps are
+# dependent, each a 40-term dot, the gate nonlinearities and the state
+# update (K8: two dots more and a reduction across the four gate groups);
+# bytes are ~35 MB (K7) and ~60 MB (K8) at B=32, T=836, about 10 and 20 µs
+# at 3.35 TB/s.
 #
-# Design (``csrc/lstm_bidir.cu``): one block per row pair (b, B + b), 2·4H
+# K7 (``csrc/lstm_bidir.cu``): one block per row pair (b, B + b), 2·4H
 # threads, the GPU form of the TPU design's point that both directions
 # advance in ONE sequential loop: each thread keeps its direction's W_hh row
-# in registers, both rows' h sit in shared memory, and a step costs two
-# barriers for the pair.  K8 keeps both W_hh in shared memory (51.2 KB,
-# dynamic, opted in) for ``dh_prev``, dW_hh of each (pair, direction) in
-# registers across the walk, and leaves (B, 2, 4H, H) partials that are
-# summed over b in a fixed order (no float atomics).  A step where neither
-# row of the pair is valid is written without a barrier.  Unlike K2/K3,
-# which step only a row's valid frames, every block walks all T steps.
+# in registers, both rows' h sit in shared memory, two barriers a step for
+# the pair; a step where neither row of the pair is valid is written
+# without a barrier, so the pair walks the union of its rows' valid steps.
+#
+# K8 is K3's design on the stacked rows, three kernels on the stream: each
+# row's valid steps listed in walk order (t descending) with their count,
+# on the card (no sync with the host); a gates pass that recomputes every
+# valid step's gates at once and leaves each gate's factor in d_xproj (exact
+# zeros at invalid steps) and A and f in a (T, 2B, 2H) scratch; then a walk,
+# one block per stacked row, that steps only its row's listed steps, its
+# inputs staged by ``cp.async`` ``BACKWARD_RING - 1`` steps ahead, with one
+# barrier a step, W_hh's columns in registers for ``dh_prev`` and dW_hh of
+# the row in registers; the list entries reach it through the ring's own
+# ``cp.async`` groups, into a second ring of ``2 * BACKWARD_RING`` ints.
+# Its ring, slot layout and copy width are K3's (``BACKWARD_RING``,
+# ``backward_smem_bytes``, ``backward_copy_width``), its shared memory
+# ``stacked_backward_smem_bytes``.  The (2B, 4H, H) per-row partials are
+# summed over each direction's B rows in a fixed order (no float atomics).
 
 
 def _check_stacked_args(xproj, valid, w_hh_f, w_hh_b):
@@ -458,30 +482,44 @@ def lstm_backward_stacked(xproj: torch.Tensor, valid: torch.Tensor, w_hh_f: torc
             raise ValueError(f"{name} is on {t.device}, xproj on {xproj.device}")
     if xproj.device.type == "cpu":
         return lstm_backward_stacked_plain(xproj, valid, w_hh_f, w_hh_b, h_prev, c_prev, grad_h)
+    if xproj.numel() >= 2 ** 31:
+        raise ValueError(f"K8 indexes its (T, 2B, 4H) tensors with 32-bit offsets, got "
+                         f"{tuple(xproj.shape)}")
 
     from .kernel_build import library
 
     fn = library("lstm_bidir").lasr_lstm_stacked_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     d_xproj = torch.empty_like(xproj)
-    dw_part = torch.empty((B, 2, G, H), dtype=torch.float32, device=xproj.device)
+    dw_part = torch.empty((2 * B, G, H), dtype=torch.float32, device=xproj.device)
     if B and T:
+        cfac = torch.empty((T, 2 * B, 2 * H), dtype=torch.float32, device=xproj.device)
+        steps = torch.empty((2 * B, T), dtype=torch.int32, device=xproj.device)
+        counts = torch.empty((2 * B,), dtype=torch.int32, device=xproj.device)
         stream = torch.cuda.current_stream(xproj.device).cuda_stream
         err = fn(xproj.data_ptr(), valid.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(),
                  h_prev.data_ptr(), c_prev.data_ptr(), grad_h.data_ptr(), d_xproj.data_ptr(),
-                 dw_part.data_ptr(), T, B, H, xproj.device.index, stream)
+                 dw_part.data_ptr(), cfac.data_ptr(), steps.data_ptr(), counts.data_ptr(), T, B, H,
+                 backward_copy_width(h_prev, grad_h, d_xproj, cfac), xproj.device.index, stream)
         if err != 0:
             raise RuntimeError(f"stacked LSTM backward kernel launch failed: CUDA error {err}")
         with _LOCK:
             lstm_backward_stacked.launches += 1
     else:
         dw_part.zero_()
-    dw = dw_part.sum(dim=0)
+    dw = dw_part.view(2, B, G, H).sum(dim=1)
     return d_xproj, dw[0], dw[1]
 
 
 lstm_backward_stacked.launches = 0
+
+
+def stacked_backward_smem_on_card(H: int, device: torch.device) -> int:
+    """The static shared memory of K8's walk as the compiler laid it out for
+    hidden size H (-1 without an instantiation): the card's check of
+    ``stacked_backward_smem_bytes``."""
+    return _smem_on_card("lstm_bidir", "lasr_lstm_stacked_bwd_smem", H, device)
 
 
 class _LSTMCoreStacked(torch.autograd.Function):

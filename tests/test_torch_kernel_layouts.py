@@ -8,9 +8,10 @@ layers ``chip_smoke.py`` times among them) fits K9's shared memory; the same
 for K10's transposed packing and its bf16 kernels' shared memory; K11's
 shared memory (``ops/depthwise_kernels.py``) for every block conv, and the
 bf16 K11's addressing (``csrc/depthwise.cu``) replayed in numpy against the
-plain weight gradient; K3's shared memory and copy width
-(``ops/lstm_kernels.py``), and its ring (``csrc/lstm_bwd.cu``) replayed in
-numpy against the plain BiLSTM backward."""
+plain weight gradient; K3's and K8's shared memory and copy width
+(``ops/lstm_kernels.py``), K3's ring (``csrc/lstm_bwd.cu``) and K8's step
+lists, gates pass and ring (``csrc/lstm_bidir.cu``) replayed in numpy
+against the plain BiLSTM backwards."""
 
 import numpy as np
 import pytest
@@ -23,7 +24,9 @@ from lightning_asr_torch.ops.frontend import MelFrontendConfig, dft_filters, mel
 from lightning_asr_torch.ops.kernel_build import SMEM_LIMIT
 from lightning_asr_torch.ops.lstm_kernels import (BACKWARD_RING, backward_copy_width,
                                                   backward_smem_bytes, lstm_backward_plain,
-                                                  lstm_recurrence_plain)
+                                                  lstm_backward_stacked_plain, lstm_recurrence_plain,
+                                                  lstm_recurrence_stacked_plain,
+                                                  stacked_backward_smem_bytes)
 from lightning_asr_torch.ops.sepconv_kernels import (bwd_smem_bytes, fwd_smem_bytes, pack_pointwise,
                                                      pack_pointwise_transposed)
 
@@ -245,21 +248,78 @@ def test_k3_shared_memory_and_copy_width():
     assert backward_copy_width(x[4:], x[160:]) == 4
 
 
+class _Ring:
+    """A ring of ``slots`` slots in shared memory (a walk's steps, or K8's
+    list entries), its ``cp.async`` groups replayed: a slot's copies are
+    views of the flat source buffers, read when a wait lets their group land
+    (so a value written into a source before its copy landed would show);
+    every read checks that its slot holds the step it expects and that no
+    copy into it is in flight."""
+
+    def __init__(self, width: int, slots: int = BACKWARD_RING):
+        self.R = slots
+        self.slots = np.full((self.R, width), np.nan)
+        self.holds = [None] * self.R                     # the step a landed slot holds
+        self.groups = []                                 # committed groups: [(slot, step, copies)]
+
+    def commit(self, s=None, copies=()):                 # one group: step s's copies, or none
+        self.groups.append([] if s is None else [(s % self.R, s, list(copies))])
+
+    def wait(self, pending):                             # all but the last `pending` groups land
+        for grp in self.groups[:len(self.groups) - pending]:
+            for slot, s, copies in grp:
+                for e, vals in copies:
+                    self.slots[slot, e:e + len(vals)] = vals
+                self.holds[slot] = s
+            grp.clear()
+
+    def read(self, s):
+        slot = s % self.R
+        assert self.holds[slot] == s, (s, self.holds)
+        assert not any(sl == slot for grp in self.groups for sl, *_ in grp)   # no copy in flight
+        return self.slots[slot].copy()
+
+
+def _sig(v):
+    return 1 / (1 + np.exp(-v))
+
+
+def _factors(pre, cp, H):
+    """F (4H) and A, f (2H) of one step from its pre-activations and c_prev,
+    as csrc/lstm_util.cuh store_factors leaves them."""
+    i, f, gg, o = _sig(pre[:H]), _sig(pre[H:2 * H]), np.tanh(pre[2 * H:3 * H]), _sig(pre[3 * H:])
+    tc = np.tanh(f * cp + i * gg)
+    return (np.concatenate([gg * i * (1 - i), cp * f * (1 - f), i * (1 - gg * gg), tc * o * (1 - o)]),
+            np.concatenate([o * (1 - tc * tc), f]))
+
+
+def _cell(slot, carry_h, carry_c, H):
+    """One step of a walk's chain from its slot: the gate gradients and the
+    cell's carry (csrc/lstm_util.cuh cell_backward)."""
+    G = 4 * H
+    F, A, f, dh_up = slot[:G], slot[G:G + H], slot[G + H:6 * H], slot[7 * H:]
+    dh = dh_up + carry_h
+    dc = carry_c + dh * A
+    return np.concatenate([np.tile(dc, 3) * F[:3 * H], dh * F[3 * H:]]), dc * f
+
+
+def _dh_prev(dg, w, H):
+    """dh_prev as the unit pair's shuffles add it: the partials P_l of W_hh's
+    rows (H/2)l..(H/2)(l+1)-1 as ((P0 + P4) + (P1 + P5)) + ((P2 + P6) + (P3 + P7))."""
+    P = [dg[l * H // 2:(l + 1) * H // 2] @ w[l * H // 2:(l + 1) * H // 2] for l in range(8)]
+    return ((P[0] + P[4]) + (P[1] + P[5])) + ((P[2] + P[6]) + (P[3] + P[7]))
+
+
 def _k3_replay(xproj, lengths, w_hh, h, c, grad_h, V):
     """K3 of csrc/lstm_bwd.cu in float64, its layout and schedule replayed.
     The gates pass: each valid frame's factors F into the d_xproj buffer, A
     and f into cfac.  The walk: each step's inputs copied V floats at a time
-    from the flat buffers into the ring, read when a wait lets their group
-    land (so a gradient written into the buffer before its frame's factors
-    landed would show); every read checks that its slot holds the step it
-    expects and that no copy into it is in flight; the dh_prev partials P_l
-    of W_hh's rows (H/2)l..(H/2)(l+1)-1 added as ((P0 + P4) + (P1 + P5)) +
-    ((P2 + P6) + (P3 + P7)); the gate gradients in two buffers."""
+    from the flat buffers into the ring (``_Ring``); the gate gradients in
+    two buffers."""
     B, T, D, G = xproj.shape
     H, R = G // 4, BACKWARD_RING
     buf = np.full((B, T, D, G), np.nan)                  # d_xproj: F in, gradients out
     cfac = np.full((B, T, D, 2 * H), np.nan)
-    sig = lambda v: 1 / (1 + np.exp(-v))                 # noqa: E731
     for b in range(B):
         n = max(0, min(int(lengths[b]), T))
         for d in range(D):
@@ -268,12 +328,8 @@ def _k3_replay(xproj, lengths, w_hh, h, c, grad_h, V):
                 first = not 0 <= tp < n
                 hp = np.zeros(H) if first else h[b, tp, d * H:(d + 1) * H].astype(np.float64)
                 cp = np.zeros(H) if first else c[b, tp, d].astype(np.float64)
-                pre = xproj[b, t, d] + w_hh[d].astype(np.float64) @ hp
-                i, f, gg, o = sig(pre[:H]), sig(pre[H:2 * H]), np.tanh(pre[2 * H:3 * H]), sig(pre[3 * H:])
-                tc = np.tanh(f * cp + i * gg)
-                buf[b, t, d] = np.concatenate([gg * i * (1 - i), cp * f * (1 - f), i * (1 - gg * gg),
-                                               tc * o * (1 - o)])
-                cfac[b, t, d] = np.concatenate([o * (1 - tc * tc), f])
+                buf[b, t, d], cfac[b, t, d] = _factors(xproj[b, t, d] + w_hh[d].astype(np.float64) @ hp,
+                                                       cp, H)
     bf, cf, hf, gf = buf.reshape(-1), cfac.reshape(-1), h.astype(np.float64).ravel(), \
         grad_h.astype(np.float64).ravel()
     dw = np.zeros((B, D, G, H))
@@ -282,70 +338,45 @@ def _k3_replay(xproj, lengths, w_hh, h, c, grad_h, V):
         buf[b, n:] = 0                                   # pad frames
         for d in range(D):
             w = w_hh[d].astype(np.float64)
-            ring = np.full((R, 8 * H), np.nan)
-            holds = [None] * R                           # the step a landed slot holds
-            groups = []                                  # committed groups: [(slot, step, copies)]
+            ring = _Ring(8 * H)
 
-            def stage(s):
+            def copies(s):
                 t = s if d else n - 1 - s
                 tp, last = t + (1 if d else -1), s == n - 1
-                copies = []
+                out = []
                 for e in range(0, 8 * H, V):
                     if e < G:
                         src = ((b * T + t) * D + d) * G + e
-                        copies.append((e, bf[src:src + V]))
+                        out.append((e, bf[src:src + V]))
                     elif e < 6 * H:
                         src = ((b * T + t) * D + d) * 2 * H + e - G
-                        copies.append((e, cf[src:src + V]))
+                        out.append((e, cf[src:src + V]))
                     elif e < 7 * H:
                         src = ((b * T + tp) * D + d) * H + e - 6 * H
-                        copies.append((e, np.zeros(V) if last else hf[src:src + V]))
+                        out.append((e, np.zeros(V) if last else hf[src:src + V]))
                     else:
                         src = ((b * T + t) * D + d) * H + e - 7 * H
-                        copies.append((e, gf[src:src + V]))
-                return [(s % R, s, copies)]
-
-            def wait(pending):                           # all but the last `pending` groups land
-                for grp in groups[:len(groups) - pending]:
-                    for slot, s, copies in grp:
-                        for e, vals in copies:
-                            ring[slot, e:e + V] = vals   # views: read as they land
-                        holds[slot] = s
-                    grp.clear()
-
-            def read(s):
-                slot = s % R
-                assert holds[slot] == s, (n, s, holds)
-                assert not any(sl == slot for grp in groups for sl, *_ in grp)   # no copy in flight
-                return ring[slot].copy()
-
-            def cell(slot, carry_h, carry_c):
-                F, A, f, dh_up = slot[:G], slot[G:G + H], slot[G + H:6 * H], slot[7 * H:]
-                dh = dh_up + carry_h
-                dc = carry_c + dh * A
-                return np.concatenate([np.tile(dc, 3) * F[:3 * H], dh * F[3 * H:]]), dc * f
+                        out.append((e, gf[src:src + V]))
+                return out
 
             for s in range(R - 1):
-                groups.append(stage(s) if s < n else [])
+                ring.commit(*((s, copies(s)) if s < n else ()))
             if n == 0:
                 continue
-            wait(R - 2)
-            dgv, carry_c = cell(read(0), 0.0, 0.0)
+            ring.wait(R - 2)
+            dgv, carry_c = _cell(ring.read(0), 0.0, 0.0, H)
             dg_s = [(0, dgv), None]                      # (step, gradients) in each buffer
             for s in range(n):
-                wait(R - 3)
+                ring.wait(R - 3)
                 t = s if d else n - 1 - s
                 buf[b, t, d] = dgv
-                dw[b, d] += np.outer(dgv, read(s)[6 * H:7 * H])
+                dw[b, d] += np.outer(dgv, ring.read(s)[6 * H:7 * H])
                 if s + 1 < n:
                     step, dg = dg_s[s & 1]
                     assert step == s
-                    P = [dg[l * H // 2:(l + 1) * H // 2] @ w[l * H // 2:(l + 1) * H // 2]
-                         for l in range(8)]
-                    carry_h = ((P[0] + P[4]) + (P[1] + P[5])) + ((P[2] + P[6]) + (P[3] + P[7]))
-                    dgv, carry_c = cell(read(s + 1), carry_h, carry_c)
+                    dgv, carry_c = _cell(ring.read(s + 1), _dh_prev(dg, w, H), carry_c, H)
                     dg_s[(s + 1) & 1] = (s + 1, dgv)
-                groups.append(stage(s + R - 1) if s + R - 1 < n else [])
+                ring.commit(*((s + R - 1, copies(s + R - 1)) if s + R - 1 < n else ()))
     return buf, dw.sum(axis=0)
 
 
@@ -370,3 +401,150 @@ def test_k3_ring_replayed_gives_the_plain_gradient(D, T, lengths, V):
     assert np.abs(got_dw - want_dw.double().numpy()).max() <= 1e-5 * max(1.0, want_dw.abs().max())
     for b, n in enumerate(lengths):
         assert np.all(got_dx[b, n:] == 0)
+
+
+def test_k8_shared_memory_and_copy_width():
+    """K8's walk has K3's ring and slot layout and a ring of 2
+    ``BACKWARD_RING`` step-list entries; each (t, row) slice it stages (F
+    4H, A and f 2H, h_prev and grad_h H floats) starts a multiple of 4
+    floats from its tensor's start, so the starts decide its copy width."""
+    T, B2, H = 7, 6, 40
+    assert stacked_backward_smem_bytes(H) == backward_smem_bytes(H) + 4 * 2 * BACKWARD_RING \
+        <= STATIC_SMEM_LIMIT
+    assert all(width % 4 == 0 for width in (4 * H, 2 * H, H))
+    h_prev, grad_h = torch.zeros((T, B2, H)), torch.zeros((T, B2, H))
+    d_xproj, cfac = torch.zeros((T, B2, 4 * H)), torch.zeros((T, B2, 2 * H))
+    assert backward_copy_width(h_prev, grad_h, d_xproj, cfac) == 4
+    off = torch.zeros(T * B2 * H + 1)[1:].view(T, B2, H)      # grad_h.contiguous() one float in
+    assert backward_copy_width(h_prev, off, d_xproj, cfac) == 1
+
+
+def _k8_steps(valid):
+    """csrc/lstm_bidir.cu's step lists replayed: a warp a row, lane j of a
+    chunk at t = t0 - j, each valid step placed at the row's count so far
+    plus the valid lanes below it (``__ballot_sync``, ``__popc``); entries
+    past the count stay unwritten (-1)."""
+    T, B2 = valid.shape
+    steps, counts = np.full((B2, T), -1), np.zeros(B2, dtype=int)
+    for row in range(B2):
+        n = 0
+        for t0 in range(T - 1, -1, -32):
+            lanes = [t0 - j >= 0 and valid[t0 - j, row] > 0 for j in range(32)]
+            vote = sum(1 << j for j, v in enumerate(lanes) if v)
+            for j, v in enumerate(lanes):
+                if v:
+                    steps[row, n + bin(vote & ((1 << j) - 1)).count("1")] = t0 - j
+            n += bin(vote).count("1")
+        counts[row] = n
+    return steps, counts
+
+
+def _k8_replay(xproj, valid, w_f, w_b, h_prev, c_prev, grad_h, V):
+    """K8 of csrc/lstm_bidir.cu in float64, its layout and schedule replayed.
+    The step lists (``_k8_steps``).  The gates pass: each valid step's
+    factors F into the d_xproj buffer and A and f into cfac, exact zeros
+    into d_xproj at the invalid steps; cfac there stays NaN, so a walk that
+    read it would show.  The walk, one per stacked row: each listed step's
+    inputs copied V floats at a time into the ring (``_Ring``) from step
+    list[s]; the list entries in a ring of their own (2 ``BACKWARD_RING``
+    slots), the first 2 ``BACKWARD_RING`` - 1 read before the walk, each
+    later one copied in a step's group, and each iteration reading the next
+    one's entries (an entry past the list is never used)."""
+    T, B2, G = xproj.shape
+    B, H, R = B2 // 2, G // 4, BACKWARD_RING
+    LR = 2 * R
+    steps, counts = _k8_steps(valid)
+    buf = np.full((T, B2, G), np.nan)                    # d_xproj: F in, gradients out
+    cfac = np.full((T, B2, 2 * H), np.nan)
+    for t in range(T):
+        for row in range(B2):
+            if valid[t, row] > 0:
+                w = (w_f if row < B else w_b).astype(np.float64)
+                buf[t, row], cfac[t, row] = _factors(xproj[t, row] + w @ h_prev[t, row], c_prev[t, row], H)
+            else:
+                buf[t, row] = 0
+    flats = [(buf.reshape(-1), G, 0), (cfac.reshape(-1), 2 * H, G),
+             (h_prev.astype(np.float64).ravel(), H, 6 * H), (grad_h.astype(np.float64).ravel(), H, 7 * H)]
+    dw = np.zeros((B2, G, H))
+    for row in range(B2):
+        n, lst = counts[row], steps[row].astype(np.float64)
+        w = (w_f if row < B else w_b).astype(np.float64)
+        ring, lring = _Ring(8 * H), _Ring(1, LR)
+
+        def copies(t):
+            t = int(t)
+            assert 0 <= t < T and valid[t, row] > 0, (row, t)
+            out = []
+            for e in range(0, 8 * H, V):
+                flat, width, lo = next(f for f in reversed(flats) if e >= f[2])
+                src = (t * B2 + row) * width + e - lo
+                out.append((e, flat[src:src + V]))
+            return out
+
+        def commit(s, t):                                # iteration s's group: step s + R - 1, entry s + LR - 1
+            ring.commit(s + R - 1, copies(t))
+            lring.commit(*((s + LR - 1, [(0, lst[s + LR - 1:s + LR])]) if s + LR - 1 < T else ()))
+
+        for e in range(min(T, LR - 1)):                  # read before the walk
+            lring.slots[e], lring.holds[e] = lst[e], e
+        for s in range(R - 1):
+            ring.commit(*((s, copies(lring.read(s)[0])) if s < n else ()))
+            lring.commit()
+        if n == 0:
+            continue
+        ring.wait(R - 2)
+        lring.wait(R - 2)
+        dgv, carry_c = _cell(ring.read(0), 0.0, 0.0, H)
+        dg_s = [(0, dgv), None]                          # (step, gradients) in each buffer
+        t_dx = int(lring.read(0)[0])
+        t_st = lring.read(R - 1)[0] if R - 1 < n else None
+        for s in range(n):
+            ring.wait(R - 3)
+            lring.wait(R - 3)
+            t_dx_next = int(lring.read(s + 1)[0]) if s + 1 < n else None
+            t_st_next = lring.read(s + R)[0] if s + R < n else None
+            buf[t_dx, row] = dgv
+            dw[row] += np.outer(dgv, ring.read(s)[6 * H:7 * H])
+            step, dg = dg_s[s & 1]
+            assert step == s
+            if s + 1 < n:
+                dgv, carry_c = _cell(ring.read(s + 1), _dh_prev(dg, w, H), carry_c, H)
+                dg_s[(s + 1) & 1] = (s + 1, dgv)
+            if s + R - 1 < n:
+                commit(s, t_st)
+            else:
+                ring.commit()
+                lring.commit()
+            t_dx, t_st = t_dx_next, t_st_next
+    return buf, dw[:B].sum(axis=0), dw[B:].sum(axis=0)
+
+
+# stacked rows from lengths (forward rows valid at t < len, reverse rows at
+# T-1-t < len), or a random 0/1 mask with holes; lengths 0, 1 and around the
+# ring's 8 slots, T below the ring, off its multiples and off a gates
+# block's 32 steps
+K8_REPLAY_CASES = [(20, [0, 1, 7, 8, 9, 20], False), (5, [5, 0, 2], False),
+                   (33, [33, 16, 25, 9], False), (45, [45, 45, 45], True), (70, [70, 3], True)]
+
+
+@pytest.mark.parametrize("V", [4, 1])
+@pytest.mark.parametrize("T,lengths,random_mask", K8_REPLAY_CASES)
+def test_k8_schedule_replayed_gives_the_plain_gradient(T, lengths, random_mask, V):
+    rng = np.random.default_rng(T + len(lengths))
+    H, B = 40, len(lengths)
+    xproj = rng.standard_normal((T, 2 * B, 4 * H)).astype(np.float32)
+    w_f, w_b = ((rng.uniform(-1, 1, (4 * H, H)) / np.sqrt(H)).astype(np.float32) for _ in range(2))
+    grad_h = rng.standard_normal((T, 2 * B, H)).astype(np.float32)
+    lens, t = np.array(lengths), np.arange(T)[:, None]
+    valid = np.concatenate([t < lens[None], T - 1 - t < lens[None]], axis=1).astype(np.float32)
+    if random_mask:
+        valid = (rng.uniform(size=(T, 2 * B)) < 0.7).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (xproj, valid, w_f, w_b)]
+    _, h_prev, c_prev = lstm_recurrence_stacked_plain(*args)
+    got_dx, got_f, got_b = _k8_replay(xproj, valid, w_f, w_b, h_prev.numpy(), c_prev.numpy(), grad_h, V)
+    want_dx, want_f, want_b = lstm_backward_stacked_plain(*args, h_prev, c_prev, torch.from_numpy(grad_h))
+    # float64 here, float32 there, through at most 70 steps
+    assert np.abs(got_dx - want_dx.double().numpy()).max() <= 1e-5
+    for got, want in ((got_f, want_f), (got_b, want_b)):
+        assert np.abs(got - want.double().numpy()).max() <= 1e-5 * max(1.0, want.abs().max())
+    assert np.all(got_dx[valid <= 0] == 0)

@@ -22,7 +22,9 @@ from lightning_asr_torch.ops.lstm_kernels import (backward_copy_width, backward_
                                                   lstm_backward_stacked, lstm_backward_stacked_plain,
                                                   lstm_recurrence, lstm_recurrence_plain,
                                                   lstm_recurrence_stacked,
-                                                  lstm_recurrence_stacked_plain)
+                                                  lstm_recurrence_stacked_plain,
+                                                  stacked_backward_smem_bytes,
+                                                  stacked_backward_smem_on_card)
 from lightning_asr_torch.ops.sepconv_kernels import (bf16_product_mismatches, sepconv_backward,
                                                      sepconv_backward_plain, sepconv_forward,
                                                      sepconv_forward_plain)
@@ -179,9 +181,11 @@ def test_k3_shared_memory_as_stated(dev):
     assert backward_smem_on_card(40, dev) == backward_smem_bytes(40)
 
 
-def _stacked_case(dev, T, lengths, seed, random_mask=False):
+def _stacked_case(dev, T, lengths, seed, mask="lengths"):
     """Stacked rows as ``ops/lstm.py`` builds them (forward rows valid at
-    t < len, reverse rows at T-1-t < len), or a random 0/1 mask."""
+    t < len, reverse rows at T-1-t < len); with ``mask="random"`` a random
+    0/1 mask instead, with ``"holes"`` those rows with a hole every 8 steps
+    (one ring of K8's walk apart)."""
     H = 40
     g = torch.Generator().manual_seed(seed)
     B = len(lengths)
@@ -190,36 +194,64 @@ def _stacked_case(dev, T, lengths, seed, random_mask=False):
     lens = torch.tensor(lengths)
     t = torch.arange(T)[:, None]
     valid = torch.cat([t < lens[None], (T - 1 - t) < lens[None]], dim=1).float()
-    if random_mask:
+    if mask == "random":
         valid = (torch.rand((T, 2 * B), generator=g) < 0.7).float()
+    elif mask == "holes":
+        valid[(torch.arange(T) + torch.arange(2 * B)[:, None]).t() % 8 == 3] = 0.0
     grad_h = torch.randn((T, 2 * B, H), generator=g)
     return [a.to(dev) for a in (xproj, valid, w_f, w_b, grad_h)]
 
 
-STACKED_CASES = [(1, [1, 0], False), (37, [37, 0, 1, 20], False), (300, [300, 299, 7], False),
-                 (50, [50, 50, 50], True)]
+# The training T' on rows like chip_smoke.train_rows' (one full, the rest
+# 2-16.7 s); lengths around K8's 8-slot ring; a row with no valid step
+# beside full rows; holes one ring apart; a random mask
+STACKED_CASES = [(1, [1, 0], "lengths"), (37, [37, 0, 1, 20], "lengths"),
+                 (300, [300, 299, 7], "lengths"), (50, [50, 50, 50], "random"),
+                 (836, [836, 790, 702, 655, 519, 418, 417, 330, 241, 100], "lengths"),
+                 (20, [7, 8, 9, 15, 16, 17, 1, 20], "lengths"), (64, [64, 0, 64], "lengths"),
+                 (90, [90, 61, 30, 0], "holes")]
 
 
-@pytest.mark.parametrize("T,lengths,random_mask", STACKED_CASES)
-def test_k7_k8_against_plain(dev, T, lengths, random_mask):
-    xproj, valid, w_f, w_b, grad_h = _stacked_case(dev, T, lengths, T, random_mask)
-    before = (lstm_recurrence_stacked.launches, lstm_backward_stacked.launches)
-    h, h_prev, c_prev = lstm_recurrence_stacked(xproj, valid, w_f, w_b)
+def _k8_check(xproj, valid, w_f, w_b, h_prev, c_prev, grad_h, want_h_prev, want_c_prev):
+    before = lstm_backward_stacked.launches
     d_x, dw_f, dw_b = lstm_backward_stacked(xproj, valid, w_f, w_b, h_prev, c_prev, grad_h)
-    assert (lstm_recurrence_stacked.launches, lstm_backward_stacked.launches) == \
-        (before[0] + 1, before[1] + 1)
-    want = lstm_recurrence_stacked_plain(xproj, valid, w_f, w_b)
-    # float32; dot sums in another order, the card's expf/tanhf
-    for got, ref, tol in zip((h, h_prev, c_prev), want, (1e-5, 1e-5, 1e-4)):
-        assert (got - ref).abs().max().item() <= tol
-    assert bool((h[valid == 0] == 0).all()) and bool((d_x[valid == 0] == 0).all())
-    want_dx, want_f, want_b = lstm_backward_stacked_plain(xproj, valid, w_f, w_b, want[1], want[2],
-                                                          grad_h)
+    assert lstm_backward_stacked.launches == before + 1
+    assert bool((d_x[valid == 0] == 0).all())
+    want_dx, want_f, want_b = lstm_backward_stacked_plain(xproj, valid, w_f, w_b, want_h_prev,
+                                                          want_c_prev, grad_h)
     assert (d_x - want_dx).abs().max().item() <= 1e-4
     for got, ref in ((dw_f, want_f), (dw_b, want_b)):
         assert (got - ref).abs().max().item() <= 1e-3 * max(1.0, ref.abs().max().item())
     again = lstm_backward_stacked(xproj, valid, w_f, w_b, h_prev, c_prev, grad_h)
     assert all(torch.equal(a, b) for a, b in zip(again, (d_x, dw_f, dw_b)))   # deterministic
+
+
+@pytest.mark.parametrize("T,lengths,mask", STACKED_CASES)
+def test_k7_k8_against_plain(dev, T, lengths, mask):
+    xproj, valid, w_f, w_b, grad_h = _stacked_case(dev, T, lengths, T, mask)
+    before = lstm_recurrence_stacked.launches
+    h, h_prev, c_prev = lstm_recurrence_stacked(xproj, valid, w_f, w_b)
+    assert lstm_recurrence_stacked.launches == before + 1
+    want = lstm_recurrence_stacked_plain(xproj, valid, w_f, w_b)
+    # float32; dot sums in another order, the card's expf/tanhf
+    for got, ref, tol in zip((h, h_prev, c_prev), want, (1e-5, 1e-5, 1e-4)):
+        assert (got - ref).abs().max().item() <= tol
+    assert bool((h[valid == 0] == 0).all())
+    _k8_check(xproj, valid, w_f, w_b, h_prev, c_prev, grad_h, want[1], want[2])
+
+
+def test_k8_inputs_off_16_bytes(dev):
+    """h_prev and grad_h that start one float past a 16-byte boundary: the
+    walk's copies move one float each (``backward_copy_width``)."""
+    xproj, valid, w_f, w_b, grad_h = _stacked_case(dev, 45, [45, 11, 3], 45, "holes")
+    _, h_prev, c_prev = lstm_recurrence_stacked(xproj, valid, w_f, w_b)
+    h_off, g_off = (torch.cat([a.new_zeros(1), a.flatten()])[1:].view(a.shape) for a in (h_prev, grad_h))
+    assert backward_copy_width(h_off, g_off) == 1
+    _k8_check(xproj, valid, w_f, w_b, h_off, c_prev, g_off, h_prev, c_prev)
+
+
+def test_k8_shared_memory_as_stated(dev):
+    assert stacked_backward_smem_on_card(40, dev) == stacked_backward_smem_bytes(40)
 
 
 def test_fused_bilstm_on_the_card_matches_k2_k3(dev):

@@ -102,6 +102,7 @@ import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -121,7 +122,8 @@ from lightning_asr_torch.models.layers import MaskedBatchNorm
 from lightning_asr_torch.models.quartznet import build_model, reset_parameters
 from lightning_asr_torch.ops import kernel_build
 from lightning_asr_torch.ops.ctc_kernels import (ctc_alpha, ctc_alpha_plain, ctc_beta,
-                                                 ctc_beta_plain, ctc_loss)
+                                                 ctc_beta_plain, ctc_beta_ring, ctc_beta_smem_bytes,
+                                                 ctc_beta_smem_on_card, ctc_loss)
 from lightning_asr_torch.ops.frontend import (MelFrontendConfig, _preemphasis, expand_wire,
                                               extended_batch, mel_filterbank)
 from lightning_asr_torch.ops.depthwise_kernels import depthwise_wgrad, depthwise_wgrad_plain
@@ -183,6 +185,9 @@ K3_TOL_DX, K3_TOL_DW = 1e-4, 1e-4
 K45_TOL_REL, K45_TOL_GRAD = 1e-5, 1e-5
 # the port's CTC losses against PyTorch's (another algorithm, float32)
 CTC_TORCH_TOL_REL = 1e-4
+# profiled passes device_time runs before it gives up on a profiler that
+# recorded no device time
+PROFILER_PASSES = 3
 # training: rows of the batch, steps on it, and steps profiled
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_PROFILE_STEPS = 32, 20, 3
 # training parity, card vs CPU, one float32 step (no TF32): conv sums in
@@ -520,27 +525,29 @@ def _sepconv_layer(dev, Cin: int, Cout: int, k: int, seed: int) -> dict:
     }
     flops = {"K9": 2 * BT * Cin * (k + Cout), "K10": 2 * BT * Cin * (2 * Cout + 3 * k),
              "K11": 2 * BT * Cin * k}
+    splits = {"K10": _split_ms(lambda: sepconv_backward(x, wd, wp, dy)),
+              "K11": _split_ms(lambda: depthwise_wgrad(x, dyx, k))}
     return {"shape": [B, Cin, Cout, T, k], **errs,
             **{f"{n}_tflops": f / times[n][0] * 1e-9 for n, f in flops.items()},
             **{f"{n}_bound_share": bounds[n][0] / times[n][0] for n in flops},
-            "K10_split_ms": _split_ms(lambda: sepconv_backward(x, wd, wp, dy)),
-            "K11_split_ms": _split_ms(lambda: depthwise_wgrad(x, dyx, k)),
+            **{f"{n}_split_ms": split for n, (split, _) in splits.items()},
+            "profiler_passes": {n: passes for n, (_, passes) in splits.items()},
             **{f"{n}_{m}": v for n, (ms, pms, lms) in times.items()
                for m, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms))},
             **{f"{n}_bound_ms": b[0] for n, b in bounds.items()},
             **{f"{n}_bound_by": b[1] for n, b in bounds.items()}}
 
 
-def _split_ms(fn) -> dict:
+def _split_ms(fn):
     """Device time of each kernel of one call of ``fn``, by kernel name
-    (torch.profiler over 3 calls)."""
-    top = device_time(fn, 3)[2]
+    (torch.profiler over 3 calls), and the profiler's passes."""
+    _, _, top, passes = device_time(fn, 3)
     short = lambda name: re.split(r"[<(]", name.removeprefix("void ").replace(  # noqa: E731
         "(anonymous namespace)::", ""))[0].split("::")[-1]
     split = {}
     for name, ms in top.items():
         split[short(name)] = split.get(short(name), 0.0) + ms
-    return split
+    return split, passes
 
 
 def _sepconv_fwd_float32(dev, Cin: int, Cout: int, k: int) -> dict:
@@ -807,39 +814,45 @@ def phase_profile(translator: AsrTranslator, waves) -> dict:
         t0 = time.perf_counter()
         translator.transcribe_batch(waves)
         lat.append(time.perf_counter() - t0)
-    device_ms, by_cat, top = device_time(lambda: translator.transcribe_batch(waves), prof_iters)
+    device_ms, by_cat, top, passes = device_time(lambda: translator.transcribe_batch(waves), prof_iters)
     median_ms = 1e3 * statistics.median(lat)
     res = {"phase": "profile", "batch": len(waves), "audio_s_per_batch": sum(len(w) for w in waves) / SR,
            "steady_latency_ms": {"median": median_ms, "min": 1e3 * min(lat), "max": 1e3 * max(lat),
                                  "n": iters},
            "device_ms_per_batch": device_ms, "device_busy_share": device_ms / median_ms,
-           "device_ms_by_category": by_cat, "top_kernels_ms": top}
+           "device_ms_by_category": by_cat, "top_kernels_ms": top, "profiler_passes": passes}
     print(json.dumps(res), flush=True)
     return res
 
 
 def device_time(fn, n: int):
     """Device time per call of ``fn`` over ``n`` profiled calls, from
-    torch.profiler: (total ms, ms by kernel group, the 12 largest kernels)."""
+    torch.profiler: (total ms, ms by kernel group, the 12 largest kernels,
+    the passes it took).  A fresh process's profiler has once recorded no
+    device time at all; such a pass runs again, up to PROFILER_PASSES
+    passes, and the phase fails only if none records any."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    kernels = {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev_us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us / 1e3 / n
-    check(bool(kernels), "torch.profiler recorded no device time")
+    for passes in range(1, PROFILER_PASSES + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        kernels = {}
+        for ev in prof.key_averages():
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+            if dev_us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
+                kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us / 1e3 / n
+        if kernels:
+            break
+    check(bool(kernels), f"torch.profiler recorded no device time in {passes} passes")
     by_cat = {}
     for name, ms in kernels.items():
         by_cat[_category(name)] = by_cat.get(_category(name), 0.0) + ms
     return (sum(kernels.values()), dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
-            dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:12]))
+            dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:12]), passes)
 
 
 def train_rows(rng, B: int):
@@ -971,7 +984,7 @@ def phase_k3(dev, hmma, ptxas_report: str) -> dict:
     steps_seq = int(lens_np.max())
     # K3's device time by kernel: the gates of every frame, the walk, the
     # sum of the per-row dW_hh partials
-    split = device_time(lambda: lstm_backward(xproj, lens, w_hh, h, cell, grad_h), 5)[2]
+    _, _, split, passes = device_time(lambda: lstm_backward(xproj, lens, w_hh, h, cell, grad_h), 5)
     print(json.dumps({"phase": "K3", "shape": [B, T, C, H, D], "tol_dx": K3_TOL_DX, "tol_dw_rel": K3_TOL_DW,
                       "dw_max_rel_err": err_dw, "kernel_ms": ms, "sequential_steps": steps_seq,
                       "us_per_step": 1e3 * ms / steps_seq, "k2_us_per_step": 1e3 * k2_ms / steps_seq,
@@ -979,6 +992,7 @@ def phase_k3(dev, hmma, ptxas_report: str) -> dict:
                       "split_ms": {("gates" if "gates_kernel" in k else "walk" if "lstm_bwd" in k
                                     else "dw_row_sum" if "reduce" in k else k[:40]): v
                                    for k, v in split.items()},
+                      "profiler_passes": passes,
                       "smem_bytes": smem, "hmma": None if hmma is None else hmma["lstm_bwd"],
                       "ptxas": ptxas_kernels(ptxas_report),
                       "k2_with_cell": {"max_abs_err": k2_err, "cell_max_abs_err": k2_cell_err,
@@ -1090,7 +1104,8 @@ def phase_k78(dev, hmma, ptxas_report: str):
                      "bound_by": bby, "library_ms": library_ms})
     # K8's device time by kernel: the step lists, the gates of every valid
     # step, the walk, the sum of the per-row dW_hh partials
-    split = device_time(lambda: lstm_backward_stacked(xp, valid, w_f, w_b, h_prev, c_prev, gs), 5)[2]
+    _, _, split, passes = device_time(
+        lambda: lstm_backward_stacked(xp, valid, w_f, w_b, h_prev, c_prev, gs), 5)
     steps_seq = int(lens_np.max())
     us = {key: 1e3 * times[key][0] / steps_seq for key in ("K8", "K3", "K2_with_cell")}
     print(json.dumps({"phase": "K7/K8", "shape": [B, T, C, H, D], "tol": K2_TOL, "tol_dx": K3_TOL_DX,
@@ -1101,13 +1116,14 @@ def phase_k78(dev, hmma, ptxas_report: str):
                       "K8_split_ms": {("steps" if "steps_kernel" in k else "gates" if "gates_kernel" in k
                                        else "walk" if "walk_kernel" in k else "dw_row_sum" if "reduce" in k
                                        else k[:40]): v for k, v in split.items()},
+                      "profiler_passes": passes,
                       "K8_smem_bytes": smem, "hmma": None if hmma is None else hmma["lstm_bidir"],
                       "ptxas": ptxas_kernels(ptxas_report),
                       "phase_launches": launches, "kernels": rows}), flush=True)
     return rows
 
 
-def phase_k45(dev):
+def phase_k45(dev, ptxas_report: str):
     rng = np.random.default_rng(4)
     B, T, C = 32, T_TRAIN, len(LABELS) + 1
     seconds, _, in_np = train_rows(rng, B)
@@ -1124,8 +1140,13 @@ def phase_k45(dev):
     want_alpha, want_ll = ctc_alpha_plain(lp, il, tg, tl, BLANK)
     gbar = torch.full((B,), 1.0 / B, device=dev)
     grad = ctc_beta(lp, il, tg, tl, alpha, ll, gbar, BLANK)
+    again = ctc_beta(lp, il, tg, tl, alpha, ll, gbar, BLANK)
     want_grad = ctc_beta_plain(lp, il, tg, tl, want_alpha, want_ll, gbar, BLANK)
     torch.cuda.synchronize()
+    check(torch.equal(again, grad), "K5: two runs differ")
+    smem = ctc_beta_smem_on_card(S)
+    check(smem == ctc_beta_smem_bytes(S),
+          f"K5's shared memory on the card {smem} B, stated {ctc_beta_smem_bytes(S)} B")
     valid = (torch.arange(T, device=dev)[None, :] < il[:, None])[:, :, None]
     live = valid & (want_alpha > -1e29)
     scale = want_ll[possible].abs().max().item()
@@ -1189,12 +1210,21 @@ def phase_k45(dev):
                      "replaces": f"lightning_asr_tpu/ops/ctc_pallas.py:{line}",
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                      "bound_by": bby, "library_ms": library_ms})
+    steps_seq = int(in_np.max())
+    # K5's device time by kernel
+    _, _, split, passes = device_time(lambda: ctc_beta(lp, il, tg, tl, alpha, ll, gbar, BLANK), 5)
     print(json.dumps({"phase": "K4/K5", "shape": [B, T, C, S], "tol_rel": K45_TOL_REL,
                       "tol_grad": K45_TOL_GRAD, "alpha_max_rel_err": err_alpha,
                       "ll_max_rel_err": err_ll, "grad_max_abs_err": err_grad,
                       "vs_torch_loss_max_rel": torch_rel, "vs_torch_logit_grad_max_abs": torch_grad_err,
                       "impossible_row_loss": ours[-1].item(), "valid_row_frames": frames,
-                      "sequential_steps": int(in_np.max()), "phase_launches": launches,
+                      "sequential_steps": steps_seq, "phase_launches": launches,
+                      "K4_us_per_step": 1e3 * timing["alpha"][0] / steps_seq,
+                      "K5_us_per_step": 1e3 * timing["beta"][0] / steps_seq,
+                      "K5_same_bits_twice": True, "K5_ring": ctc_beta_ring(S), "K5_smem_bytes": smem,
+                      "K5_split_ms": {k.replace("(anonymous namespace)::", "")[:60]: v
+                                      for k, v in split.items()},
+                      "profiler_passes": passes, "ptxas": ptxas_kernels(ptxas_report),
                       "kernels": rows}), flush=True)
     return rows
 
@@ -1278,7 +1308,7 @@ def phase_training(dev, conv_kernel=None, steps: int = TRAIN_STEPS, fuse_directi
     def one_step():
         holder["state"], _ = step(holder["state"], batch, rng)
 
-    device_ms, by_cat, top = device_time(one_step, TRAIN_PROFILE_STEPS)
+    device_ms, by_cat, top, passes = device_time(one_step, TRAIN_PROFILE_STEPS)
     res = {"phase": name, "batch": TRAIN_BATCH, "bucket_s": TRAIN_BUCKET_S, "audio_s_per_batch": audio_s,
            "steps": steps, "losses": losses, "launches": launches,
            "step_ms": {"median": median_ms, "min": 1e3 * min(steady), "max": 1e3 * max(steady),
@@ -1286,7 +1316,7 @@ def phase_training(dev, conv_kernel=None, steps: int = TRAIN_STEPS, fuse_directi
                        "n": len(steady)},
            "audio_s_trained_per_s": audio_s * len(steady) / steady_s,
            "device_ms_per_step": device_ms, "device_busy_share": device_ms / (1e3 * steady_s / len(steady)),
-           "device_ms_by_category": by_cat, "top_kernels_ms": top,
+           "device_ms_by_category": by_cat, "top_kernels_ms": top, "profiler_passes": passes,
            "peak_memory_gb": peak_gb, "nan_count": int(state.nan_count)}
     print(json.dumps(res), flush=True)
     return res
@@ -1428,19 +1458,30 @@ def phase_trainer(dev) -> dict:
                 if i:
                     saved_step = int(torch.load(run / "checkpoints" / "last" / TRAIN_STATE_FILE,
                                                 weights_only=True)["step"])
+                    shutil.copytree(run, root / "run_before_resume")
                 for fn in counters:
                     fn.launches = 0
                 t0 = time.perf_counter()
                 if i:
                     holder = {}
-                    device_ms, by_cat, _ = device_time(lambda: holder.update(out=_run_train(args + extra)), 1)
+
+                    def resumed():
+                        if "out" in holder:     # a pass again: the same files, counts from 0
+                            shutil.rmtree(run)
+                            shutil.copytree(root / "run_before_resume", run)
+                            for fn in counters:
+                                fn.launches = 0
+                        holder["out"] = _run_train(args + extra)
+
+                    device_ms, by_cat, _, passes = device_time(resumed, 1)
                     out = holder["out"]
                 else:
-                    out, device_ms, by_cat = _run_train(args + extra), None, None
+                    out, device_ms, by_cat, passes = _run_train(args + extra), None, None, None
                 wall = time.perf_counter() - t0
                 tr = out["trainer"]
                 runs.append({"trainer": tr, "state": out["state"], "saved_step": saved_step,
                              "wall_s": wall, "device_ms": device_ms, "by_cat": by_cat,
+                             "profiler_passes": passes,
                              "launches": {fn.__name__: fn.launches for fn in counters},
                              "eval_batches": tr.profiler.counts["val_step"] + tr.profiler.counts["test_step"],
                              "train_steps": sum(e["batches"] for e in tr.epoch_stats), "test": out["test"]})
@@ -1485,7 +1526,8 @@ def phase_trainer(dev) -> dict:
            "run_wall_s": [r["wall_s"] for r in runs],
            "resumed_run": {"device_ms": resumed["device_ms"], "wall_s": resumed["wall_s"],
                            "epoch_wall_s_profiled": res_epoch["wall_sec"],
-                           "device_ms_by_category": resumed["by_cat"]},
+                           "device_ms_by_category": resumed["by_cat"],
+                           "profiler_passes": resumed["profiler_passes"]},
            "launches": [r["launches"] for r in runs], "saved": [e["name"] for e in index["saved"]],
            "translated_chars": len(text)}
     print(json.dumps(res), flush=True)
@@ -1536,7 +1578,7 @@ def main() -> int:
     del translator
     k3 = phase_k3(dev, hmma, info["ptxas"].get("lstm_bwd", ""))
     k7, k8 = phase_k78(dev, hmma, info["ptxas"].get("lstm_bidir", ""))
-    k4, k5 = phase_k45(dev)
+    k4, k5 = phase_k45(dev, info["ptxas"].get("ctc", ""))
     trainings = [phase_training(dev), phase_training(dev, "sepconv", CONV_TRAIN_STEPS),
                  phase_training(dev, "dw_wgrad", CONV_TRAIN_STEPS),
                  phase_training(dev, steps=CONV_TRAIN_STEPS, fuse_directions=True)]

@@ -27,12 +27,23 @@ Their real limit is the 836 dependent steps of each recursion.
 What the design does about it (``csrc/ctc.cu``): one block per row, all
 rows in one launch, threads over the states (up to four states a thread);
 the recursion vector is double-buffered in shared memory with one barrier a
-step; each step reads its emissions straight from the row's 29 log-probs
-(116 bytes, L1-resident) through the state's label, so the kernels build no
-(B, T, S) emission tensor; rows stop at their own length,
-and K4 stores alpha only for valid frames.  The TPU kernels' 128-lane
-rounding of S, their 32-step time blocks and their batch tiling (a VMEM cap)
-do not carry over.
+step; rows stop at their own length, and K4 stores alpha only for valid
+frames.  K4 reads each step's emissions straight from the row's 29
+log-probs (116 bytes, L1-resident) through the state's label.  K5 keeps
+only its chain between barriers: each step's alpha row and each state's
+emission (gathered through its label, never a whole log-prob row, which
+holds 4334 floats for AISHELL-1) arrive in a ring of ``ctc_beta_ring(S)``
+slots of dynamic shared memory by four-byte ``cp.async`` copies, ring − 1
+steps ahead, each thread copying and reading only its own states, so the
+walk loads nothing from device memory; a step has no branch, so the
+previous step's gradient (its ``expf`` and store) interleaves with the
+chain, and the walk is unrolled by the (even) ring so that slots and
+buffers are fixed addresses.  Warps whose states all lie past the row's
+last valid state run no recursion (their u is the constant ``NEG_INF +
+NEG_INF``): they write their gradient from alpha directly and leave the
+walk's barrier to the others.  Neither kernel builds a (B, T, S) emission
+tensor.  The TPU kernels' 128-lane rounding of S, their 32-step time
+blocks and their batch tiling (a VMEM cap) do not carry over.
 """
 
 from __future__ import annotations
@@ -43,10 +54,27 @@ import threading
 import torch
 
 from .ctc import NEG_INF, extended_labels, lse3, shift_right
+from .kernel_build import SMEM_LIMIT
 
 _LOCK = threading.Lock()
 _MAX_PER_THREAD = 4          # states a thread owns (csrc/ctc.cu MAX_PER)
 _MAX_THREADS = 1024
+BETA_RING = 8                # K5's ring slots where they fit (csrc/ctc.cu ctc_beta_kernel)
+
+
+def ctc_beta_ring(S: int) -> int:
+    """Slots of K5's ring for S states: ``BETA_RING``, or the most that fit
+    ``SMEM_LIMIT`` beside the recursion buffer, rounded down to even (the
+    walk is unrolled by the ring, and a step's buffers alternate): 6 from
+    S = 3229 to 4095, the largest S the wrapper takes."""
+    return min(BETA_RING, (SMEM_LIMIT // 4 - 2 * S) // (2 * S) // 2 * 2)
+
+
+def ctc_beta_smem_bytes(S: int) -> int:
+    """K5's dynamic shared memory, the one statement of its layout
+    (csrc/ctc.cu): the ring, each slot a step's emissions [0, S) and alpha
+    row [S, 2S), then the two buffers of the recursion vector u."""
+    return 4 * (ctc_beta_ring(S) * 2 * S + 2 * S)
 
 
 def lattice(targets: torch.Tensor, target_lengths: torch.Tensor, blank_id: int):
@@ -209,14 +237,14 @@ def ctc_beta(log_probs: torch.Tensor, input_lengths: torch.Tensor, targets: torc
 
     fn = library("ctc").lasr_ctc_beta
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     grad = torch.empty((B, T, S), dtype=torch.float32, device=log_probs.device)
     if B:
         stream = torch.cuda.current_stream(log_probs.device).cuda_stream
         err = fn(log_probs.data_ptr(), input_lengths.data_ptr(), targets.data_ptr(),
                  target_lengths.data_ptr(), alpha.data_ptr(), ll.data_ptr(), gbar.data_ptr(),
-                 grad.data_ptr(), B, T, C, L, blank_id, _threads(S), log_probs.device.index,
-                 stream)
+                 grad.data_ptr(), B, T, C, L, blank_id, _threads(S), ctc_beta_ring(S),
+                 ctc_beta_smem_bytes(S), log_probs.device.index, stream)
         if err != 0:
             raise RuntimeError(f"CTC beta kernel launch failed: CUDA error {err}")
         with _LOCK:
@@ -225,6 +253,17 @@ def ctc_beta(log_probs: torch.Tensor, input_lengths: torch.Tensor, targets: torc
 
 
 ctc_beta.launches = 0
+
+
+def ctc_beta_smem_on_card(S: int) -> int:
+    """K5's dynamic shared memory for S states as its launch lays it out
+    (csrc/ctc.cu): the card's check of ``ctc_beta_smem_bytes``."""
+    from .kernel_build import library
+
+    fn = library("ctc").lasr_ctc_beta_smem
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    return fn(S, ctc_beta_ring(S))
 
 
 class _CTCLoss(torch.autograd.Function):

@@ -20,26 +20,18 @@ imports no JAX.
 
 from __future__ import annotations
 
-import hashlib
-import json
-import subprocess
 import sys
 from pathlib import Path
+
+from ab_checkouts import assert_from, digest, main, use_checkout
 
 ITERS = 20
 B, T, C, H = 32, 836, 256, 40
 
 
-def _digest(*tensors) -> str:
-    h = hashlib.sha256()
-    for t in tensors:
-        h.update(t.detach().contiguous().cpu().numpy().tobytes())
-    return h.hexdigest()[:16]
-
-
 def run_one(root: Path) -> dict:
     """The timings of checkout ``root``, in this process."""
-    sys.path.insert(0, str(root))
+    use_checkout(root)
     import numpy as np
     import torch
 
@@ -49,8 +41,7 @@ def run_one(root: Path) -> dict:
     from lightning_asr_torch.ops.lstm_kernels import (lstm_backward, lstm_backward_stacked,
                                                       lstm_recurrence, lstm_recurrence_stacked)
 
-    for mod in (chip_smoke, lightning_asr_torch):                 # this checkout's, no other
-        assert root.resolve() in Path(mod.__file__).resolve().parents, mod.__file__
+    assert_from(root, chip_smoke, lightning_asr_torch)           # this checkout's, no other
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(7)
@@ -85,31 +76,10 @@ def run_one(root: Path) -> dict:
                      "us_per_step": {k: 1e3 * v / steps for k, v in ms.items()},
                      "K8_split_ms": {k.replace("(anonymous namespace)::", "")[:60]: v
                                      for k, v in split.items()},
-                     "digest": {"K8": _digest(*k8()), "K3": _digest(*k3()), "K2_with_cell": _digest(h2, cell),
-                                "K7": _digest(*h7)}}
+                     "digest": {"K8": digest(*k8()), "K3": digest(*k3()), "K2_with_cell": digest(h2, cell),
+                                "K7": digest(*h7)}}
     return out
 
 
-def main(argv) -> int:
-    if len(argv) >= 2 and argv[0] == "--one":
-        print(json.dumps(run_one(Path(argv[1]))), flush=True)
-        return 0
-    if not argv:
-        print(__doc__, file=sys.stderr)
-        return 2
-    runs = []
-    for root in (Path(a).resolve() for a in argv):
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--one", str(root)],
-                              capture_output=True, text=True, cwd=root)
-        if proc.returncode != 0:
-            print(proc.stdout, proc.stderr[-4000:], file=sys.stderr)
-            return proc.returncode
-        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-        print(json.dumps(runs[-1]), flush=True)
-    print(json.dumps({"summary": [{"root": r["root"], **{rows: r[rows]["ms"] for rows in ("ragged", "full")}}
-                                  for r in runs]}))
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main(__file__, run_one, sys.argv[1:], __doc__))

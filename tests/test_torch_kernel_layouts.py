@@ -11,13 +11,19 @@ bf16 K11's addressing (``csrc/depthwise.cu``) replayed in numpy against the
 plain weight gradient; K3's and K8's shared memory and copy width
 (``ops/lstm_kernels.py``), K3's ring (``csrc/lstm_bwd.cu``) and K8's step
 lists, gates pass and ring (``csrc/lstm_bidir.cu``) replayed in numpy
-against the plain BiLSTM backwards."""
+against the plain BiLSTM backwards; K5's ring and shared memory
+(``ops/ctc_kernels.py``) for every S it takes, and its walk
+(``csrc/ctc.cu``) replayed in numpy against the plain CTC beta."""
 
 import numpy as np
 import pytest
 import torch
 
 from lightning_asr_torch.models.quartznet import _BLOCKS, _CONTEXT_BLOCKS
+from lightning_asr_torch.ops import ctc_kernels
+from lightning_asr_torch.ops.ctc import NEG_INF
+from lightning_asr_torch.ops.ctc_kernels import (BETA_RING, ctc_alpha_plain, ctc_beta_plain,
+                                                 ctc_beta_ring, ctc_beta_smem_bytes, lattice)
 from lightning_asr_torch.ops.depthwise_kernels import depthwise_wgrad_plain, wgrad_smem_bytes
 from lightning_asr_torch.ops import frontend_kernels as fk
 from lightning_asr_torch.ops.frontend import MelFrontendConfig, dft_filters, mel_filterbank
@@ -548,3 +554,118 @@ def test_k8_schedule_replayed_gives_the_plain_gradient(T, lengths, random_mask, 
     for got, want in ((got_f, want_f), (got_b, want_b)):
         assert np.abs(got - want.double().numpy()).max() <= 1e-5 * max(1.0, want.abs().max())
     assert np.all(got_dx[valid <= 0] == 0)
+
+
+def test_k5_ring_and_shared_memory_for_every_S():
+    """Every S the wrapper takes on the card (S = 2L + 1 <= 4095): the most
+    slots up to ``BETA_RING``, an even number, whose layout (the ring of
+    2S-float slots, then the two S-float recursion buffers) fits
+    ``SMEM_LIMIT``; 6 or 8, the rings csrc/ctc.cu instantiates."""
+    for S in range(1, 4096, 2):
+        R = ctc_beta_ring(S)
+        assert R in (6, 8), S
+        assert ctc_beta_smem_bytes(S) == 4 * (R * 2 * S + 2 * S) <= SMEM_LIMIT
+        assert R == BETA_RING or 4 * ((R + 2) * 2 * S + 2 * S) > SMEM_LIMIT
+    assert ctc_beta_ring(3227) == BETA_RING and ctc_beta_ring(3229) == ctc_beta_ring(4095) == 6
+
+
+def _lse3(a, b, c):
+    """csrc/ctc.cu lse3 on float32 vectors, in its order."""
+    m = torch.maximum(torch.maximum(a, b), c)
+    return m + torch.log((torch.exp(a - m) + torch.exp(b - m)) + torch.exp(c - m))
+
+
+def _k5_replay(lp, lens, targets, tls, alpha, ll, gbar, blank):
+    """K5 of csrc/ctc.cu in float32 (its -1e30 sentinel is absorbed as
+    there), its layout and schedule replayed: the threads' states (s = tid
+    + j NT); the walkers, the warps up to the last valid state; each step's
+    emissions (gathered through the labels) and alpha row copied one float
+    at a time from the flat buffers into the ring (``_Ring``), R - 1 steps
+    ahead, for the walkers' states only; the chain reads only the slot's
+    emissions, the gradient only its alpha row and the chain's beta; the
+    other warps' states keep u at NEG_INF + NEG_INF and take their gradient
+    from alpha directly."""
+    B, T, C = lp.shape
+    L = targets.shape[1]
+    S = 2 * L + 1
+    NT, R = ctc_kernels._threads(S), ctc_beta_ring(S)
+    ext, valid, skip, final = (a.numpy() for a in lattice(torch.from_numpy(targets),
+                                                          torch.from_numpy(tls), blank))
+    lpf, alf = lp.ravel(), alpha.ravel()
+    s_idx = np.arange(S)
+    neg = torch.full((S,), NEG_INF)
+    ge = np.full((B, T, S), np.nan, np.float32)
+    for b in range(B):
+        n = max(0, min(int(lens[b]), T))
+        n_states = 2 * max(0, min(int(tls[b]), L)) + 1
+        walkers = 32 * min(NT // 32, -(-n_states // 32))
+        walks_np = s_idx % NT < walkers
+        assert valid[b][~walks_np].sum() == 0                 # no valid state stops walking
+        walks = torch.from_numpy(walks_np)
+        skip2 = torch.from_numpy(np.concatenate([skip[b, 2:], [False, False]]))
+        ring = _Ring(2 * S, R)
+
+        def copies(k):
+            row = b * T + n - 1 - k
+            # K5's alpha rows start row * S floats in: at odd offsets for odd rows
+            assert (row * S) % 2 == row % 2
+            return ([(s, lpf[row * C + ext[b, s]:row * C + ext[b, s] + 1] if valid[b, s]
+                      else np.zeros(1)) for s in s_idx[walks_np]]
+                    + [(S + s, alf[row * S + s:row * S + s + 1]) for s in s_idx[walks_np]])
+
+        for k in range(R - 1):
+            ring.commit(*((k, copies(k)) if k < n else ()))
+        ge[b, n:] = 0
+        if n == 0:
+            continue
+        cur = neg + neg                                     # the other warps' u, for good
+        nxt = cur.clone()
+        for k in range(n):
+            t = n - 1 - k
+            ring.wait(R - 2)
+            slot = torch.from_numpy(ring.read(k).astype(np.float32))
+            emit, a = slot[:S], torch.where(walks, slot[S:], torch.from_numpy(alpha[b, t]))
+            if k == 0:
+                bt = torch.where(torch.from_numpy(final[b]), 0.0, neg)
+            else:
+                u1 = torch.cat([cur[1:], neg[:1]])
+                u2 = torch.where(skip2, torch.cat([cur[2:], neg[:2]]), neg)
+                bt = _lse3(cur, u1, u2)
+            bt = torch.where(walks, bt, neg)
+            nxt = torch.where(walks, bt + torch.where(torch.from_numpy(valid[b]), emit, neg), nxt)
+            ge[b, t] = (-float(gbar[b]) * torch.exp((a + bt) - float(ll[b]))).numpy()
+            ring.commit(*((k + R - 1, copies(k + R - 1)) if k + R - 1 < n else ()))
+            cur, nxt = nxt, cur
+    return ge
+
+
+# (T, input lengths, target lengths, L, C): lengths 0, 1, R - 1, R, R + 1
+# and T beside an empty target and an impossible alignment (8 labels in 3
+# frames); S at one warp (31 states), above 1024 threads (1041: two states
+# a thread), and at the largest S (4095: a 6-slot ring, four a thread)
+K5_REPLAY_CASES = [
+    (20, [20, 0, 1, 7, 8, 9, 3, 20], [6, 2, 0, 3, 4, 2, 8, 0], 15, 29),
+    (12, [12, 10, 1, 9], [5, 0, 520, 1], 520, 9),
+    (9, [9, 5, 6, 7, 0], [2047, 3, 1, 0, 2], 2047, 29),
+]
+
+
+@pytest.mark.parametrize("T,lengths,tls,L,C", K5_REPLAY_CASES)
+def test_k5_walk_replayed_gives_the_plain_gradient(T, lengths, tls, L, C):
+    rng = np.random.default_rng(T + L)
+    B = len(lengths)
+    x = rng.standard_normal((B, T, C)).astype(np.float32) * 2
+    lp = (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
+    targets = rng.integers(0, C - 1, (B, L)).astype(np.int32)
+    targets[0, 1] = targets[0, 0]                             # a repeat: no skip
+    lens, tl = np.array(lengths, np.int32), np.array(tls, np.int32)
+    args = (torch.from_numpy(lp), torch.from_numpy(lens), torch.from_numpy(targets),
+            torch.from_numpy(tl))
+    alpha, ll = ctc_alpha_plain(*args, C - 1)
+    gbar = torch.from_numpy(rng.uniform(0.5, 1.5, B).astype(np.float32))
+    want = ctc_beta_plain(*args, alpha, ll, gbar, C - 1).numpy()
+    got = _k5_replay(lp, lens, targets, tl, alpha.numpy(), ll.numpy(), gbar.numpy(), C - 1)
+    # both in float32, with the same order and functions
+    assert np.abs(got - want).max() <= 1e-6 * max(1.0, np.abs(want).max())
+    for b, n in enumerate(lengths):
+        assert np.all(got[b, n:] == 0)

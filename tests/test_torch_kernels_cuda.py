@@ -9,8 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from lightning_asr_torch.ops.ctc_kernels import (ctc_alpha, ctc_alpha_plain, ctc_beta,
-                                                 ctc_beta_plain, ctc_loss)
+from lightning_asr_torch.ops.ctc_kernels import (BETA_RING, ctc_alpha, ctc_alpha_plain, ctc_beta,
+                                                 ctc_beta_plain, ctc_beta_ring, ctc_beta_smem_bytes,
+                                                 ctc_beta_smem_on_card, ctc_loss)
 from lightning_asr_torch.ops.depthwise_kernels import depthwise_wgrad, depthwise_wgrad_plain
 from lightning_asr_torch.ops.frontend import MelFrontendConfig
 from lightning_asr_torch.ops.frontend_kernels import (extend_preemph, extend_preemph_plain,
@@ -326,6 +327,68 @@ def test_k4_k5_against_plain(dev, B, T, C, L):
     assert (ctc_alpha.launches, ctc_beta.launches) == (before[0] + 1, before[1] + 1)
     assert (grad - want).abs().max().item() <= 1e-4
     assert bool((torch.where(valid, 0.0, grad) == 0).all())  # zero past each row's length
+
+
+def _k5_rows(dev, T, C, L, lengths, seed):
+    """Rows of the given lengths with about 0.3 labels a frame (15 a
+    second at the stem's 50 frames), capped at L; the last row's target
+    fills L (every warp runs the recursion, the alignment may be
+    impossible), the one before it is empty."""
+    g = torch.Generator().manual_seed(seed)
+    B = len(lengths)
+    lp = torch.log_softmax(torch.randn((B, T, C), generator=g) * 3, dim=-1).to(dev)
+    in_lens = torch.tensor(lengths, dtype=torch.int32)
+    tl = (in_lens.float() * 0.3).round().clamp(max=L).to(torch.int32)
+    tl[-1] = L
+    if B > 1:
+        tl[-2] = 0
+    targets = torch.randint(0, C - 1, (B, L), generator=g, dtype=torch.int32)
+    return lp, in_lens.to(dev), targets.to(dev), tl.to(dev)
+
+
+def _ragged(T, B, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [T] + torch.randint(T // 6, T + 1, (B - 1,), generator=g).tolist()
+
+
+# K5's cases beside test_k4_k5_against_plain's, (T, C, L, lengths): the
+# training shape on ragged rows; lengths around the ring (R - 1, R, R + 1,
+# 2R) beside 0, 1 and T; the AISHELL-1 vocabulary (4333 characters and the
+# blank) with L = 60; the largest S the wrapper takes (4095: a 6-slot ring,
+# four states a thread), the largest with 8 slots (3227) and three states
+# a thread (S = 2401)
+R8 = BETA_RING
+K5_CASES = [(836, 29, 256, _ragged(836, 32, 5)),
+            (20, 29, 6, [20, 0, 1, R8 - 1, R8, R8 + 1, 2 * R8, 3, 20]),
+            (200, 4334, 60, _ragged(200, 6, 7)),
+            (40, 29, 2047, [40, 6, 5, 7, 0, 40]),
+            (30, 29, 1613, [30, 6, 7, 8, 9]),
+            (30, 29, 1200, [30, 8, 9, 0])]
+
+
+@pytest.mark.parametrize("T,C,L,lengths", K5_CASES)
+def test_k5_against_plain_on_its_own_inputs(dev, T, C, L, lengths):
+    """K5 against its plain version given K4's own alpha and ll, within
+    chip_smoke.py's K45_TOL_GRAD; exact zeros past each row's length; the
+    same bits on a second call."""
+    lp, il, tg, tl = _k5_rows(dev, T, C, L, lengths, T + L)
+    alpha, ll = ctc_alpha(lp, il, tg, tl, C - 1)
+    gbar = torch.rand((len(lengths),), device=dev) + 0.5
+    before = ctc_beta.launches
+    grad = ctc_beta(lp, il, tg, tl, alpha, ll, gbar, C - 1)
+    assert ctc_beta.launches == before + 1
+    want = ctc_beta_plain(lp, il, tg, tl, alpha, ll, gbar, C - 1)
+    assert grad.shape == (len(lengths), T, 2 * L + 1)
+    assert (grad - want).abs().max().item() <= 1e-5
+    valid = (torch.arange(T, device=dev)[None, :] < il[:, None])[:, :, None]
+    assert bool((torch.where(valid, 0.0, grad) == 0).all())
+    assert torch.equal(ctc_beta(lp, il, tg, tl, alpha, ll, gbar, C - 1), grad)
+
+
+@pytest.mark.parametrize("S", [1, 513, 3227, 3229, 4095])
+def test_k5_shared_memory_as_stated(dev, S):
+    assert ctc_beta_smem_on_card(S) == ctc_beta_smem_bytes(S)
+    assert ctc_beta_ring(S) == (6 if S > 3227 else BETA_RING)
 
 
 def test_ctc_loss_function_on_the_card(dev):

@@ -4,8 +4,9 @@
 // by _run_fwd_bidir) and ::_bwd_kernel_bidir (_core_bidir_bwd).  The bound,
 // the design and the semantics are described in
 // lightning_asr_torch/ops/lstm_kernels.py, which checks every argument
-// before the launch and states K8's ring, shared memory and copy width
-// (BACKWARD_RING, stacked_backward_smem_bytes, backward_copy_width).
+// before the launch and states K7's and K8's rings, shared memory and copy
+// width (BACKWARD_RING, stacked_forward_smem_bytes,
+// stacked_backward_smem_bytes, backward_copy_width).
 //
 // Layout: time-major stacked rows.  xproj (T, 2B, 4H), valid (T, 2B) float,
 // rows [0, B) the forward direction with W_hh_f, rows [B, 2B) the reverse
@@ -13,16 +14,28 @@
 // keeps the row's state and gives h = 0; valid > 0 decides, and any row's
 // mask may have holes.
 //
-// K7: one block per row pair (b, B + b), 2 x 4H threads: threads [0, 4H)
-// serve row b, threads [4H, 8H) row B + b (4H = 160 is five whole warps, so
-// a half's branches are warp-uniform).  Thread g of a half owns gate g
-// (order i, f, g, o) of its row and keeps row g of its direction's W_hh in
-// registers.  Each step:
-//   thread g: pre[g] = xproj + sum_k W_hh[g, k] h[k] (dot_h's order),
-//             act[g] -> shared                                       __sync
-//   threads g < H: h_prev, c_prev out (the state before the step);
-//             c = f c + i g; h = o tanh(c); h to shared and out        __sync
-// A step in which neither row is valid is written without a barrier.
+// K7: one block per stacked row, 4H threads, walking only the row's valid
+// steps in ascending t.  lstm_stacked_fwd_steps_kernel lists them on the
+// card (the body of K8's step lists, t descending), and the walk reads the
+// list from its end, so no sync with the host.  Thread 4k + m owns gate m
+// (order i, f, g, o) of unit k and keeps its row of the direction's W_hh in
+// registers.  Each listed step's projection (4H floats) comes by cp.async
+// into a ring of RING slots, RING - 1 steps ahead, V floats a copy (V = 4
+// where xproj starts 16-byte aligned, else 1); the list entries travel in
+// the same copy groups, into a ring of 2 RING ints, as in K8's walk.  So
+// the chain loads nothing from device memory.  Each step:
+//   pre = x + sum_j W_hh[g, j] h[j] (dot_h's order); every lane takes both
+//   gate_act(pre)s and keeps its gate's (no divergent branch);
+//   the unit's four activations meet in its quad by __shfl_sync, and every
+//   lane of the quad does c = f c + i g; h = o tanh(c) (K2's expression,
+//   so the same contraction and the same bits); lane 0 puts h into the
+//   double-buffered h in shared memory                              __sync
+// The step's copies follow (predicated, no branch), then lanes 0, 1 and 2
+// of the quad store h, h_prev and c_prev of the step.  The
+// invalid steps are never stepped: after each valid step its quad writes
+// the gap up to the next listed step (h = 0, h_prev and c_prev the carried
+// state), and the steps before the first listed one (all zeros) after the
+// walk, with no barrier between.
 //
 // K8 is K3's design (lstm_bwd.cu) on the stacked rows, in three kernels:
 //
@@ -70,76 +83,11 @@ constexpr unsigned FULL = lasr::LSTM_FULL;
 constexpr int LIST_ROWS = 4;            // rows of a steps block, one warp each
 constexpr int LIST_CHUNKS = 8;          // chunks of 32 steps whose flags a warp loads at once
 
-template <int H>
-__global__ void __launch_bounds__(8 * H)
-lstm_stacked_fwd_kernel(const float* __restrict__ xproj,   // (T, 2B, 4H)
-                        const float* __restrict__ valid,   // (T, 2B)
-                        const float* __restrict__ w_hh_f,  // (4H, H)
-                        const float* __restrict__ w_hh_b,  // (4H, H)
-                        float* __restrict__ h_out,         // (T, 2B, H)
-                        float* __restrict__ hprev_out,     // (T, 2B, H)
-                        float* __restrict__ cprev_out,     // (T, 2B, H)
-                        int T, int B) {
-  static_assert(H % 4 == 0, "H must be a multiple of 4");
-  constexpr int G = 4 * H;
-  __shared__ float h_s[2][H];
-  __shared__ float act_s[2][G];
-
-  const int half = threadIdx.x / G;
-  const int g = threadIdx.x % G;
-  const int b = blockIdx.x;
-  const int B2 = 2 * B;
-  const int row = b + half * B;
-
-  float w[H];
-  const float* wrow = (half ? w_hh_b : w_hh_f) + (size_t)g * H;
-#pragma unroll
-  for (int k = 0; k < H; ++k) w[k] = wrow[k];
-  if (g < H) h_s[half][g] = 0.f;
-  float c = 0.f;
-  const bool tanh_gate = g >= 2 * H && g < 3 * H;
-  const float* xcol = xproj + (size_t)row * G + g;          // + t * 2B * 4H
-  const size_t o_col = (size_t)row * H + g;                 // + t * 2B * H
-  __syncthreads();
-
-  for (int t = 0; t < T; ++t) {
-    const float v0 = valid[(size_t)t * B2 + b];
-    const float v1 = valid[(size_t)t * B2 + B + b];
-    const bool v = (half ? v1 : v0) > 0.f;
-    const size_t o = (size_t)t * B2 * H + o_col;
-    if (!(v0 > 0.f) && !(v1 > 0.f)) {   // block-uniform: no barrier needed
-      if (g < H) {
-        hprev_out[o] = h_s[half][g];
-        cprev_out[o] = c;
-        h_out[o] = 0.f;
-      }
-      continue;
-    }
-    if (v)
-      act_s[half][g] =
-          lasr::gate_act(xcol[(size_t)t * B2 * G] + lasr::dot_h<H>(w, h_s[half]), tanh_gate);
-    __syncthreads();
-    if (g < H) {
-      hprev_out[o] = h_s[half][g];
-      cprev_out[o] = c;
-      if (v) {
-        c = act_s[half][H + g] * c + act_s[half][g] * act_s[half][2 * H + g];
-        const float h = act_s[half][3 * H + g] * tanhf(c);
-        h_s[half][g] = h;
-        h_out[o] = h;
-      } else {
-        h_out[o] = 0.f;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(32 * LIST_ROWS)
-lstm_stacked_steps_kernel(const float* __restrict__ valid,  // (T, 2B)
-                          int* __restrict__ steps,          // (2B, T): valid steps, t descending
-                          int* __restrict__ counts,         // (2B,)
-                          int T, int B2) {
+// A row's valid steps, t descending, and their count: one warp a row
+__device__ __forceinline__ void list_steps(const float* __restrict__ valid,  // (T, 2B)
+                                           int* __restrict__ steps,          // (2B, T)
+                                           int* __restrict__ counts,         // (2B,)
+                                           int T, int B2) {
   const int row = blockIdx.x * LIST_ROWS + threadIdx.x / 32;
   if (row >= B2) return;                            // warp-uniform
   const int lane = threadIdx.x % 32;
@@ -161,6 +109,127 @@ lstm_stacked_steps_kernel(const float* __restrict__ valid,  // (T, 2B)
     }
   }
   if (lane == 0) counts[row] = n;
+}
+
+// K7's and K8's step lists: one body under two names, so that a profile
+// tells the two kernels' time apart
+__global__ void __launch_bounds__(32 * LIST_ROWS)
+lstm_stacked_fwd_steps_kernel(const float* __restrict__ valid, int* __restrict__ steps,
+                              int* __restrict__ counts, int T, int B2) {
+  list_steps(valid, steps, counts, T, B2);
+}
+
+__global__ void __launch_bounds__(32 * LIST_ROWS)
+lstm_stacked_steps_kernel(const float* __restrict__ valid, int* __restrict__ steps,
+                          int* __restrict__ counts, int T, int B2) {
+  list_steps(valid, steps, counts, T, B2);
+}
+
+template <int H, int V>
+__global__ void __launch_bounds__(4 * H)
+lstm_stacked_fwd_kernel(const int* __restrict__ steps,     // (2B, T): valid steps, t descending
+                        const int* __restrict__ counts,    // (2B,)
+                        const float* __restrict__ xproj,   // (T, 2B, 4H)
+                        const float* __restrict__ w_hh_f,  // (4H, H)
+                        const float* __restrict__ w_hh_b,  // (4H, H)
+                        float* __restrict__ h_out,         // (T, 2B, H)
+                        float* __restrict__ hprev_out,     // (T, 2B, H)
+                        float* __restrict__ cprev_out,     // (T, 2B, H)
+                        int T, int B) {
+  static_assert(H % 8 == 0, "H must be a multiple of 8");
+  static_assert(RING >= 2, "step s is read while step s + RING - 1 is staged");
+  constexpr int G = 4 * H;
+  constexpr int N = G / V;                          // copies a step, one a thread
+  constexpr int LR = 2 * RING;                      // slots of the list ring
+  __shared__ __align__(16) float ring[RING][G];     // a slot: one step's projection
+  __shared__ __align__(16) float h_s[2][H];
+  __shared__ int list_s[LR];                        // ascending entry e in slot e % LR
+
+  const int row = blockIdx.x;
+  const size_t B2 = 2 * (size_t)B;
+  const int k = threadIdx.x >> 2;
+  const int m = threadIdx.x & 3;
+  const int g = m * H + k;                          // the gate this lane owns
+
+  float w[H];
+  const float* wrow = (row < B ? w_hh_f : w_hh_b) + (size_t)g * H;
+#pragma unroll
+  for (int j = 0; j < H; ++j) w[j] = wrow[j];
+
+  // ascending entry e of the row's list sits at list[-e]; the first LR - 1
+  // are read here, each later one comes by cp.async in an iteration's
+  // group, RING iterations before it is read
+  const int n = counts[row];
+  const int* list = steps + (size_t)row * T + n - 1;
+  if (threadIdx.x < LR - 1 && threadIdx.x < n) list_s[threadIdx.x] = list[-(int)threadIdx.x];
+  if (threadIdx.x < H) h_s[0][threadIdx.x] = 0.f;
+  const float* xsrc = xproj + (size_t)row * G + threadIdx.x * V;    // + t * 2B * 4H
+  // step t's projection into a slot where `st`: predicated, no branch
+  auto stage = [&](float* slot, int t, bool st) {
+    const float* p = xsrc + (size_t)t * B2 * G;
+    if constexpr (V == 4) {
+      lasr::cp_async16_if(slot + threadIdx.x * 4, p, st && threadIdx.x < N);
+    } else {
+      lasr::cp_async4_if(slot + threadIdx.x, p, st);
+    }
+  };
+  // lane m < 3 of a quad stores h (m = 0), h_prev (1) or c_prev (2)
+  const size_t o_step = B2 * H;
+  float* out = (m == 0 ? h_out : m == 1 ? hprev_out : cprev_out) + (size_t)row * H + k;
+  auto fill = [&](int t_from, int t_to, float hv, float cv) {   // h = 0, the state (hv, cv)
+    if (m == 3) return;
+    const float val = m == 0 ? 0.f : m == 1 ? hv : cv;
+    for (int t = t_from; t < t_to; ++t) out[(size_t)t * o_step] = val;
+  };
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < RING - 1; ++s) {
+    stage(ring[s], list_s[s], s < n);
+    lasr::cp_async_commit();
+  }
+
+  const int t_first = n > 0 ? list_s[0] : T;
+  int t_cur = t_first;
+  float h = 0.f, c = 0.f;
+  for (int s0 = 0; s0 < n; s0 += RING) {
+#pragma unroll
+    for (int u = 0; u < RING; ++u) {
+      const int s = s0 + u;
+      if (s >= n) break;
+      lasr::cp_async_wait<RING - 2>();              // step s has landed
+      __syncthreads();                              // h_s[u & 1], slot u, entries; step s - 1 done
+      // the entries of step s + 1 and of step s + RING - 1 (past the list: unused)
+      const int t_next = s + 1 < n ? list_s[(s + 1) % LR] : T;
+      const int t_st = list_s[(s + RING - 1) % LR];
+
+      // the chain.  Every lane takes both activations of its pre-activation
+      // and keeps its gate's: a branch would serialize the two and fence
+      // them from the rest of the step
+      const float pre = ring[u][g] + lasr::dot_h<H>(w, h_s[u & 1]);
+      const float sg = lasr::gate_act(pre, false), th = lasr::gate_act(pre, true);
+      const float a = m == 2 ? th : sg;
+      const float ig = __shfl_sync(FULL, a, 0, 4), fg = __shfl_sync(FULL, a, 1, 4);
+      const float gg = __shfl_sync(FULL, a, 2, 4), og = __shfl_sync(FULL, a, 3, 4);
+      const float h_old = h, c_old = c;
+      c = fg * c + ig * gg;
+      h = og * tanhf(c);
+      if (m == 0) h_s[(u + 1) & 1][k] = h;
+
+      // off the chain, in the order that costs the step least (PERF.md):
+      // step s + RING - 1's copies into slot s - 1 and list entry s + LR - 1
+      // into list slot (s - 1) % LR, both free since every thread has passed
+      // this step's barrier; then the step's outputs and the gap up to the
+      // next step
+      stage(ring[(u + RING - 1) % RING], t_st, s + RING - 1 < n);
+      lasr::cp_async4_if(&list_s[(s + LR - 1) % LR], list - (s + LR - 1),
+                         threadIdx.x == 0 && s + LR - 1 < n);
+      lasr::cp_async_commit();
+      if (m < 3) out[(size_t)t_cur * o_step] = m == 0 ? h : m == 1 ? h_old : c_old;
+      if (t_next > t_cur + 1) fill(t_cur + 1, t_next, h, c);
+      t_cur = t_next;
+    }
+  }
+  fill(0, t_first, 0.f, 0.f);
 }
 
 template <int H>
@@ -401,6 +470,24 @@ lstm_stacked_bwd_walk_kernel(const int* __restrict__ steps,     // (2B, T): vali
 }
 
 template <int H>
+cudaError_t launch_fwd(int V, int T, int B, cudaStream_t stream, const float* xproj,
+                       const float* valid, const float* w_hh_f, const float* w_hh_b, float* h_out,
+                       float* hprev_out, float* cprev_out, int* steps, int* counts) {
+  if (V != 4 && V != 1) return cudaErrorInvalidValue;
+  const int B2 = 2 * B;
+  lstm_stacked_fwd_steps_kernel<<<(B2 + LIST_ROWS - 1) / LIST_ROWS, 32 * LIST_ROWS, 0, stream>>>(
+      valid, steps, counts, T, B2);
+  if (V == 4) {
+    lstm_stacked_fwd_kernel<H, 4><<<B2, 4 * H, 0, stream>>>(
+        steps, counts, xproj, w_hh_f, w_hh_b, h_out, hprev_out, cprev_out, T, B);
+  } else {
+    lstm_stacked_fwd_kernel<H, 1><<<B2, 4 * H, 0, stream>>>(
+        steps, counts, xproj, w_hh_f, w_hh_b, h_out, hprev_out, cprev_out, T, B);
+  }
+  return cudaGetLastError();
+}
+
+template <int H>
 cudaError_t launch_bwd(int V, int T, int B, cudaStream_t stream, const float* xproj,
                        const float* valid, const float* w_hh_f, const float* w_hh_b,
                        const float* h_prev, const float* c_prev, const float* grad_h,
@@ -424,28 +511,26 @@ cudaError_t launch_bwd(int V, int T, int B, cudaStream_t stream, const float* xp
 }  // namespace
 
 // Both return the cudaError_t of the launches (0 on success);
-// cudaErrorInvalidValue for a hidden size without an instantiation, or
-// (K8) a copy width other than 4 or 1 floats (4 needs h_prev, grad_h,
-// d_xproj and cfac 16-byte aligned).  K8's `cfac` is scratch of (T, 2B, 2H)
-// floats, `steps` and `counts` of (2B, T) and (2B,) ints.  `device` is the
-// ordinal the tensors live on: this library links its own CUDA runtime,
-// whose current device is not the caller's.
+// cudaErrorInvalidValue for a hidden size without an instantiation, or a
+// copy width other than 4 or 1 floats (K7: 4 needs xproj 16-byte aligned;
+// K8: h_prev, grad_h, d_xproj and cfac).  `steps` and `counts` are scratch
+// of (2B, T) and (2B,) ints, K8's `cfac` of (T, 2B, 2H) floats.  `device`
+// is the ordinal the tensors live on: this library links its own CUDA
+// runtime, whose current device is not the caller's.
 extern "C" int lasr_lstm_stacked_fwd(const float* xproj, const float* valid,
                                      const float* w_hh_f, const float* w_hh_b,
                                      float* h_out, float* hprev_out, float* cprev_out,
-                                     int T, int B, int H, int device,
-                                     cudaStream_t stream) {
+                                     int* steps, int* counts, int T, int B, int H,
+                                     int copy_width, int device, cudaStream_t stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   switch (H) {
     case 40:
-      lstm_stacked_fwd_kernel<40><<<B, 8 * 40, 0, stream>>>(
-          xproj, valid, w_hh_f, w_hh_b, h_out, hprev_out, cprev_out, T, B);
-      break;
+      return (int)launch_fwd<40>(copy_width, T, B, stream, xproj, valid, w_hh_f, w_hh_b, h_out,
+                                 hprev_out, cprev_out, steps, counts);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 extern "C" int lasr_lstm_stacked_bwd(const float* xproj, const float* valid,
@@ -465,18 +550,22 @@ extern "C" int lasr_lstm_stacked_bwd(const float* xproj, const float* valid,
   }
 }
 
-// The static shared memory of K8's walk for hidden size H, in bytes, as the
-// compiler laid it out (-1 without an instantiation): the card's check of
-// ops/lstm_kernels.py::stacked_backward_smem_bytes.
-extern "C" int lasr_lstm_stacked_bwd_smem(int H, int device) {
-  if (cudaSetDevice(device) != cudaSuccess) return -1;
+// The static shared memory of K7's walk and of K8's for hidden size H, in
+// bytes, as the compiler laid it out (-1 without an instantiation): the
+// card's check of ops/lstm_kernels.py::stacked_forward_smem_bytes and
+// ::stacked_backward_smem_bytes.
+template <typename Kernel>
+int static_smem(Kernel kernel, int device) {
   cudaFuncAttributes attr;
-  switch (H) {
-    case 40:
-      if (cudaFuncGetAttributes(&attr, lstm_stacked_bwd_walk_kernel<40, 4>) != cudaSuccess)
-        return -1;
-      return (int)attr.sharedSizeBytes;
-    default:
-      return -1;
-  }
+  if (cudaSetDevice(device) != cudaSuccess || cudaFuncGetAttributes(&attr, kernel) != cudaSuccess)
+    return -1;
+  return (int)attr.sharedSizeBytes;
+}
+
+extern "C" int lasr_lstm_stacked_fwd_smem(int H, int device) {
+  return H == 40 ? static_smem(lstm_stacked_fwd_kernel<40, 4>, device) : -1;
+}
+
+extern "C" int lasr_lstm_stacked_bwd_smem(int H, int device) {
+  return H == 40 ? static_smem(lstm_stacked_bwd_walk_kernel<40, 4>, device) : -1;
 }

@@ -70,6 +70,24 @@ __device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, bool
                : "memory");
 }
 
+// the 16-byte copy where p, else nothing, under a predicate: no branch
+__device__ __forceinline__ void cp_async16_if(void* dst, const void* src, bool p) {
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.b32 q, %2, 0;\n @q cp.async.cg.shared.global [%0], [%1], 16;\n}\n"
+      :
+      : "r"(smem_addr(dst)), "l"(src), "r"((int)p)
+      : "memory");
+}
+
+// the same for 4 bytes (4-byte aligned)
+__device__ __forceinline__ void cp_async4_if(void* dst, const void* src, bool p) {
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.b32 q, %2, 0;\n @q cp.async.ca.shared.global [%0], [%1], 4;\n}\n"
+      :
+      : "r"(smem_addr(dst)), "l"(src), "r"((int)p)
+      : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

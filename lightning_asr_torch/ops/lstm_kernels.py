@@ -66,6 +66,13 @@ def backward_smem_bytes(H: int) -> int:
     return 4 * (BACKWARD_RING * 8 * H + 2 * 4 * H)
 
 
+def stacked_forward_smem_bytes(H: int) -> int:
+    """The static shared memory of K7's walk (csrc/lstm_bidir.cu): a ring of
+    ``BACKWARD_RING`` slots of one step's projection (4H floats), h of two
+    steps, then a ring of ``2 * BACKWARD_RING`` step-list entries (int32)."""
+    return 4 * (BACKWARD_RING * 4 * H + 2 * H + 2 * BACKWARD_RING)
+
+
 def stacked_backward_smem_bytes(H: int) -> int:
     """The static shared memory of K8's walk (csrc/lstm_bidir.cu): K3's
     layout, then a ring of ``2 * BACKWARD_RING`` step-list entries (int32)."""
@@ -73,11 +80,11 @@ def stacked_backward_smem_bytes(H: int) -> int:
 
 
 def backward_copy_width(*tensors: torch.Tensor) -> int:
-    """Floats a ``cp.async`` copy of K3's or K8's walk moves: 4 (16 bytes)
-    where every tensor it stages starts 16-byte aligned, else 1.  Every
-    slice it stages (a frame's or a stacked step's 4H, 2H or H floats) then
-    starts at a multiple of 4 floats from its tensor's start (H % 4 == 0),
-    so the start alone decides."""
+    """Floats a ``cp.async`` copy of K3's, K7's or K8's walk moves: 4 (16
+    bytes) where every tensor it stages starts 16-byte aligned, else 1.
+    Every slice it stages (a frame's or a stacked step's 4H, 2H or H
+    floats) then starts at a multiple of 4 floats from its tensor's start
+    (H % 4 == 0), so the start alone decides."""
     return 4 if all(t.data_ptr() % 16 == 0 for t in tensors) else 1
 
 
@@ -330,12 +337,19 @@ def lstm_core(xproj: torch.Tensor, lengths: torch.Tensor, w_hh: torch.Tensor) ->
 # bytes are ~35 MB (K7) and ~60 MB (K8) at B=32, T=836, about 10 and 20 µs
 # at 3.35 TB/s.
 #
-# K7 (``csrc/lstm_bidir.cu``): one block per row pair (b, B + b), 2·4H
-# threads, the GPU form of the TPU design's point that both directions
-# advance in ONE sequential loop: each thread keeps its direction's W_hh row
-# in registers, both rows' h sit in shared memory, two barriers a step for
-# the pair; a step where neither row of the pair is valid is written
-# without a barrier, so the pair walks the union of its rows' valid steps.
+# K7 (``csrc/lstm_bidir.cu``): each stacked row's valid steps listed on the
+# card (the body of K8's step lists, no sync with the host), then one block
+# per stacked row, 4H threads, that walks only its row's listed steps in
+# ascending t, reading the list from its end.  Each step's projection and
+# the list entries arrive by ``cp.async`` in K8's rings, ``BACKWARD_RING -
+# 1`` steps ahead, so the chain loads nothing from device memory; thread
+# 4k + m owns gate m of unit k (its W_hh row in registers), the unit's four
+# activations meet in its quad by warp shuffles, every lane of the quad
+# updates the cell as K2 does (so h is K2's bit for bit), and one barrier a
+# step publishes h.  The invalid steps are never stepped: after each valid
+# step its quad writes the gap up to the next one, and the steps before
+# the first after the walk.  Its shared memory is
+# ``stacked_forward_smem_bytes``, its copy width ``backward_copy_width``.
 #
 # K8 is K3's design on the stacked rows, three kernels on the stream: each
 # row's valid steps listed in walk order (t descending) with their count,
@@ -419,12 +433,15 @@ def lstm_recurrence_stacked(xproj: torch.Tensor, valid: torch.Tensor,
 
     fn = library("lstm_bidir").lasr_lstm_stacked_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     outs = [torch.empty((T, 2 * B, H), dtype=torch.float32, device=xproj.device) for _ in range(3)]
     if B and T:
+        steps = torch.empty((2 * B, T), dtype=torch.int32, device=xproj.device)
+        counts = torch.empty((2 * B,), dtype=torch.int32, device=xproj.device)
         stream = torch.cuda.current_stream(xproj.device).cuda_stream
         err = fn(xproj.data_ptr(), valid.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(),
-                 *(o.data_ptr() for o in outs), T, B, H, xproj.device.index, stream)
+                 *(o.data_ptr() for o in outs), steps.data_ptr(), counts.data_ptr(), T, B, H,
+                 backward_copy_width(xproj), xproj.device.index, stream)
         if err != 0:
             raise RuntimeError(f"stacked LSTM kernel launch failed: CUDA error {err}")
         with _LOCK:
@@ -513,6 +530,13 @@ def lstm_backward_stacked(xproj: torch.Tensor, valid: torch.Tensor, w_hh_f: torc
 
 
 lstm_backward_stacked.launches = 0
+
+
+def stacked_forward_smem_on_card(H: int, device: torch.device) -> int:
+    """The static shared memory of K7's walk as the compiler laid it out for
+    hidden size H (-1 without an instantiation): the card's check of
+    ``stacked_forward_smem_bytes``."""
+    return _smem_on_card("lstm_bidir", "lasr_lstm_stacked_fwd_smem", H, device)
 
 
 def stacked_backward_smem_on_card(H: int, device: torch.device) -> int:

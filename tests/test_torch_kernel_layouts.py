@@ -8,10 +8,10 @@ layers ``chip_smoke.py`` times among them) fits K9's shared memory; the same
 for K10's transposed packing and its bf16 kernels' shared memory; K11's
 shared memory (``ops/depthwise_kernels.py``) for every block conv, and the
 bf16 K11's addressing (``csrc/depthwise.cu``) replayed in numpy against the
-plain weight gradient; K3's and K8's shared memory and copy width
-(``ops/lstm_kernels.py``), K3's ring (``csrc/lstm_bwd.cu``) and K8's step
-lists, gates pass and ring (``csrc/lstm_bidir.cu``) replayed in numpy
-against the plain BiLSTM backwards; K5's ring and shared memory
+plain weight gradient; K3's, K7's and K8's shared memory and copy width
+(``ops/lstm_kernels.py``), K3's ring (``csrc/lstm_bwd.cu``), K8's step
+lists, gates pass and ring and K7's walk (``csrc/lstm_bidir.cu``)
+replayed in numpy against the plain BiLSTM backwards and forward; K5's ring and shared memory
 (``ops/ctc_kernels.py``) for every S it takes, and its walk
 (``csrc/ctc.cu``) replayed in numpy against the plain CTC beta."""
 
@@ -32,7 +32,8 @@ from lightning_asr_torch.ops.lstm_kernels import (BACKWARD_RING, backward_copy_w
                                                   backward_smem_bytes, lstm_backward_plain,
                                                   lstm_backward_stacked_plain, lstm_recurrence_plain,
                                                   lstm_recurrence_stacked_plain,
-                                                  stacked_backward_smem_bytes)
+                                                  stacked_backward_smem_bytes,
+                                                  stacked_forward_smem_bytes)
 from lightning_asr_torch.ops.sepconv_kernels import (bwd_smem_bytes, fwd_smem_bytes, pack_pointwise,
                                                      pack_pointwise_transposed)
 
@@ -554,6 +555,116 @@ def test_k8_schedule_replayed_gives_the_plain_gradient(T, lengths, random_mask, 
     for got, want in ((got_f, want_f), (got_b, want_b)):
         assert np.abs(got - want.double().numpy()).max() <= 1e-5 * max(1.0, want.abs().max())
     assert np.all(got_dx[valid <= 0] == 0)
+
+
+def test_k7_shared_memory_and_copy_width():
+    """K7's walk: a ring of ``BACKWARD_RING`` slots of one step's 4H
+    projections, h of two steps and K8's list ring of 2 ``BACKWARD_RING``
+    entries; each (t, row) slice of xproj it stages starts a multiple of 4
+    floats from the tensor's start, so the start decides its copy width."""
+    T, B2, H = 7, 6, 40
+    assert stacked_forward_smem_bytes(H) == 4 * (BACKWARD_RING * 4 * H + 2 * H + 2 * BACKWARD_RING) \
+        == 5504 <= STATIC_SMEM_LIMIT
+    xproj = torch.zeros((T, B2, 4 * H))
+    assert backward_copy_width(xproj) == 4
+    assert backward_copy_width(torch.zeros(T * B2 * 4 * H + 1)[1:].view(T, B2, 4 * H)) == 1
+
+
+def _k7_replay(xproj, valid, w_f, w_b, V):
+    """K7 of csrc/lstm_bidir.cu in float64, its schedule replayed.  The step
+    lists (``_k8_steps``, t descending), read from the end.  The walk, one
+    per stacked row: each listed step's projection copied V floats at a
+    time into the ring (``_Ring``), ``BACKWARD_RING - 1`` steps ahead; the
+    list entries in a ring of their own (2 ``BACKWARD_RING`` slots), the
+    first 2 ``BACKWARD_RING`` - 1 read before the walk and each later one
+    copied in a step's group, ``BACKWARD_RING`` iterations before it is
+    read, and each step's copies issued after its h; lane 4k + m's
+    activation of gate m of unit k, the quad's four taken by each of its
+    lanes, h in two buffers; the gap after each valid step, then the steps
+    before the first, written outside the walk.  The
+    outputs start as NaN, so a step nobody writes would show."""
+    T, B2, G = xproj.shape
+    B, H, R = B2 // 2, G // 4, BACKWARD_RING
+    LR = 2 * R
+    steps, counts = _k8_steps(valid)
+    outs = [np.full((T, B2, H), np.nan) for _ in range(3)]          # h, h_prev, c_prev
+    xf = xproj.astype(np.float64).ravel()
+    for row in range(B2):
+        n = counts[row]
+        lst = steps[row].astype(np.float64)
+        entry = lambda e: lst[n - 1 - e:n - e]                       # noqa: E731 (ascending entry e)
+        w = (w_f if row < B else w_b).astype(np.float64)
+        ring, lring = _Ring(G), _Ring(1, LR)
+
+        def copies(t):
+            t = int(t)
+            assert 0 <= t < T and valid[t, row] > 0, (row, t)
+            return [(e, xf[(t * B2 + row) * G + e:(t * B2 + row) * G + e + V]) for e in range(0, G, V)]
+
+        for e in range(min(n, LR - 1)):                              # read before the walk
+            lring.slots[e], lring.holds[e] = entry(e), e
+        for s in range(R - 1):
+            ring.commit(*((s, copies(lring.read(s)[0])) if s < n else ()))
+            lring.commit()
+        t_first = int(lring.read(0)[0]) if n else T
+        t_cur, h, c = t_first, np.zeros(H), np.zeros(H)
+        h_s = [(0, np.zeros(H)), None]                               # (step, h) in each buffer
+        for s in range(n):
+            ring.wait(R - 2)
+            lring.wait(R - 2)
+            t_next = int(lring.read(s + 1)[0]) if s + 1 < n else T
+            t_st = lring.read(s + R - 1)[0] if s + R - 1 < n else None
+            step, hb = h_s[s & 1]
+            assert step == s
+            pre = ring.read(s) + w @ hb
+            act = np.concatenate([_sig(pre[:2 * H]), np.tanh(pre[2 * H:3 * H]), _sig(pre[3 * H:])])
+            lane = np.array([act[(l % 4) * H + l // 4] for l in range(G)])       # lane 4k + m: gate m of k
+            quad = lane.reshape(H, 4)                                # __shfl_sync(a, q, 4) in each lane
+            h_old, c_old = h, c
+            c = quad[:, 1] * c + quad[:, 0] * quad[:, 2]
+            h = quad[:, 3] * np.tanh(c)
+            h_s[(s + 1) & 1] = (s + 1, h)
+            if s + R - 1 < n:                                        # the step's copies, after h
+                ring.commit(s + R - 1, copies(t_st))
+                lring.commit(*((s + LR - 1, [(0, entry(s + LR - 1))]) if s + LR - 1 < n else ()))
+            else:
+                ring.commit()
+                lring.commit()
+            for o, v in zip(outs, (h, h_old, c_old)):
+                o[t_cur, row] = v
+            for t in range(t_cur + 1, t_next):                       # the gap after step s
+                for o, v in zip(outs, (0.0, h, c)):
+                    o[t, row] = v
+            t_cur = t_next
+        for o in outs:                                               # the steps before the first
+            o[:t_first, row] = 0.0
+    return outs
+
+
+# stacked rows from lengths: 0, 1 and around the ring's 8 slots, around the
+# list ring's 16 entries, T below the ring; random 0/1 masks with holes
+K7_REPLAY_CASES = [(20, [0, 1, 7, 8, 9, 20], False), (5, [5, 0, 2], False),
+                   (40, [15, 16, 17, 40], False), (45, [45, 45, 45], True), (70, [70, 3], True)]
+
+
+@pytest.mark.parametrize("V", [4, 1])
+@pytest.mark.parametrize("T,lengths,random_mask", K7_REPLAY_CASES)
+def test_k7_walk_replayed_gives_the_plain_forward(T, lengths, random_mask, V):
+    rng = np.random.default_rng(T + len(lengths) + 1)
+    H, B = 40, len(lengths)
+    xproj = rng.standard_normal((T, 2 * B, 4 * H)).astype(np.float32)
+    w_f, w_b = ((rng.uniform(-1, 1, (4 * H, H)) / np.sqrt(H)).astype(np.float32) for _ in range(2))
+    lens, t = np.array(lengths), np.arange(T)[:, None]
+    valid = np.concatenate([t < lens[None], T - 1 - t < lens[None]], axis=1).astype(np.float32)
+    if random_mask:
+        valid = (rng.uniform(size=(T, 2 * B)) < 0.7).astype(np.float32)
+    got = _k7_replay(xproj, valid, w_f, w_b, V)
+    want = lstm_recurrence_stacked_plain(*(torch.from_numpy(a) for a in (xproj, valid, w_f, w_b)))
+    # float64 here, float32 there, through at most 70 steps; |c| grows past 1
+    for g, w in zip(got, want):
+        w = w.double().numpy()
+        assert np.abs(g - w).max() <= 1e-5 * max(1.0, np.abs(w).max())
+    assert np.all(got[0][valid <= 0] == 0)
 
 
 def test_k5_ring_and_shared_memory_for_every_S():

@@ -16,7 +16,8 @@ from lightning_asr_torch.ops.depthwise_kernels import depthwise_wgrad, depthwise
 from lightning_asr_torch.ops.frontend import MelFrontendConfig
 from lightning_asr_torch.ops.frontend_kernels import (extend_preemph, extend_preemph_plain,
                                                       mel_from_extended, mel_from_extended_plain)
-from lightning_asr_torch.ops.lstm import LSTMWeights, lstm
+from lightning_asr_torch.ops.lstm import (LSTMWeights, lstm, stack_directions, stacked_valid,
+                                          unstack_directions)
 from lightning_asr_torch.ops.lstm_kernels import (backward_copy_width, backward_smem_bytes,
                                                   backward_smem_on_card, lstm_backward,
                                                   lstm_backward_plain,
@@ -25,7 +26,9 @@ from lightning_asr_torch.ops.lstm_kernels import (backward_copy_width, backward_
                                                   lstm_recurrence_stacked,
                                                   lstm_recurrence_stacked_plain,
                                                   stacked_backward_smem_bytes,
-                                                  stacked_backward_smem_on_card)
+                                                  stacked_backward_smem_on_card,
+                                                  stacked_forward_smem_bytes,
+                                                  stacked_forward_smem_on_card)
 from lightning_asr_torch.ops.sepconv_kernels import (bf16_product_mismatches, sepconv_backward,
                                                      sepconv_backward_plain, sepconv_forward,
                                                      sepconv_forward_plain)
@@ -253,6 +256,65 @@ def test_k8_inputs_off_16_bytes(dev):
 
 def test_k8_shared_memory_as_stated(dev):
     assert stacked_backward_smem_on_card(40, dev) == stacked_backward_smem_bytes(40)
+
+
+# K7's own cases: the training T' on ragged rows; lengths around its 8-slot
+# ring and its 16-entry list ring beside 0 and 1; holes one ring apart and
+# a random mask (gaps inside the walk)
+K7_CASES = [(836, [836, 790, 702, 655, 519, 418, 417, 330, 241, 100], "lengths"),
+            (40, [0, 1, 6, 7, 8, 9, 15, 16, 17, 31, 32, 33, 40], "lengths"),
+            (90, [90, 61, 30, 0], "holes"), (300, [300, 17, 16], "holes"),
+            (50, [50, 50, 50], "random")]
+
+
+def _k7_check(xproj, valid, w_f, w_b):
+    before = lstm_recurrence_stacked.launches
+    got = lstm_recurrence_stacked(xproj, valid, w_f, w_b)
+    assert lstm_recurrence_stacked.launches == before + 1
+    want = lstm_recurrence_stacked_plain(xproj, valid, w_f, w_b)
+    # float32; dot sums in another order, the card's expf/tanhf; |c| past 1
+    for a, ref, tol in zip(got, want, (1e-5, 1e-5, 1e-4)):
+        assert (a - ref).abs().max().item() <= tol
+    assert bool((got[0][valid <= 0] == 0).all())
+    again = lstm_recurrence_stacked(xproj, valid, w_f, w_b)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))              # deterministic
+    return got
+
+
+@pytest.mark.parametrize("T,lengths,mask", K7_CASES)
+def test_k7_against_plain(dev, T, lengths, mask):
+    xproj, valid, w_f, w_b, _ = _stacked_case(dev, T, lengths, T + 1, mask)
+    _k7_check(xproj, valid, w_f, w_b)
+
+
+def test_k7_inputs_off_16_bytes(dev):
+    """xproj that starts one float past a 16-byte boundary: the ring's copies
+    move one float each (``backward_copy_width``), with the same bits."""
+    xproj, valid, w_f, w_b, _ = _stacked_case(dev, 45, [45, 11, 3, 0], 45, "holes")
+    off = torch.cat([xproj.new_zeros(1), xproj.flatten()])[1:].view(xproj.shape)
+    assert backward_copy_width(off) == 1 and backward_copy_width(xproj) == 4
+    got = _k7_check(off, valid, w_f, w_b)
+    assert all(torch.equal(a, b) for a, b in zip(got, lstm_recurrence_stacked(xproj, valid, w_f, w_b)))
+
+
+@pytest.mark.parametrize("T,lengths", [(836, [836, 790, 702, 655, 519, 418, 417, 330, 241, 100]),
+                                       (40, [40, 0, 1, 7, 8, 9, 16, 17, 39])])
+def test_k7_h_equals_k2_bit_for_bit(dev, T, lengths):
+    """K7 on the stacked rows and K2 on the same projections and lengths
+    run the same float32 operations in the same order: h is equal bit for
+    bit, and K7's c_prev at each row's next step is K2's cell state."""
+    xproj, lens, w_hh, _ = _lstm_case(dev, 2, T, lengths, T + 3)
+    h2, c2 = lstm_recurrence(xproj, lens, w_hh, with_cell=True)
+    h7, _, c_prev = lstm_recurrence_stacked(stack_directions(xproj).contiguous(), stacked_valid(T, lens),
+                                            w_hh[0].contiguous(), w_hh[1].contiguous())
+    assert torch.equal(unstack_directions(h7).reshape(h2.shape), h2)
+    c_next = unstack_directions(torch.cat([c_prev[1:], c_prev[:1]]))        # c after each step
+    for b, n in enumerate(lengths):
+        assert torch.equal(c_next[b, :max(n - 1, 0), 0], c2[b, :max(n - 1, 0), 0])
+
+
+def test_k7_shared_memory_as_stated(dev):
+    assert stacked_forward_smem_on_card(40, dev) == stacked_forward_smem_bytes(40)
 
 
 def test_fused_bilstm_on_the_card_matches_k2_k3(dev):

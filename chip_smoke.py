@@ -58,7 +58,9 @@ Phases, in order; any failed check exits non-zero before the last line:
  11. K4 and K5, the CTC alpha and beta + gradient kernels (B=32, T'=836,
      C=29, ~15 labels a second, one impossible alignment), against their
      plain versions and against PyTorch's own CTC (its forward and backward
-     ops as the yardsticks);
+     ops as the yardsticks), each twice for the same bits, with their time
+     a sequential step, their rings and shared memory against the stated
+     layouts, and K4's registers and spills;
  12. training: a seeded full-width bf16 quartznet12_context takes 20 steps
      of the recipe (dither, SpecAugment, fused NovoGrad, the NaN guard) on
      one batch of 32 int16 waves of 2-16.7 s; the loss must be finite and
@@ -123,9 +125,11 @@ from lightning_asr_torch.inference.server import make_stdlib_server
 from lightning_asr_torch.models.layers import MaskedBatchNorm
 from lightning_asr_torch.models.quartznet import build_model, reset_parameters
 from lightning_asr_torch.ops import kernel_build
-from lightning_asr_torch.ops.ctc_kernels import (ctc_alpha, ctc_alpha_plain, ctc_beta,
-                                                 ctc_beta_plain, ctc_beta_ring, ctc_beta_smem_bytes,
-                                                 ctc_beta_smem_on_card, ctc_loss)
+from lightning_asr_torch.ops.ctc_kernels import (ALPHA_RING, ctc_alpha, ctc_alpha_plain,
+                                                 ctc_alpha_smem_bytes, ctc_alpha_smem_on_card,
+                                                 ctc_beta, ctc_beta_plain, ctc_beta_ring,
+                                                 ctc_beta_smem_bytes, ctc_beta_smem_on_card,
+                                                 ctc_loss)
 from lightning_asr_torch.ops.frontend import (MelFrontendConfig, _preemphasis, expand_wire,
                                               extended_batch, mel_filterbank)
 from lightning_asr_torch.ops.depthwise_kernels import depthwise_wgrad, depthwise_wgrad_plain
@@ -1150,6 +1154,7 @@ def phase_k45(dev, ptxas_report: str):
 
     ctc_alpha.launches = ctc_beta.launches = 0
     alpha, ll = ctc_alpha(lp, il, tg, tl, BLANK)
+    alpha_again, ll_again = ctc_alpha(lp, il, tg, tl, BLANK)
     want_alpha, want_ll = ctc_alpha_plain(lp, il, tg, tl, BLANK)
     gbar = torch.full((B,), 1.0 / B, device=dev)
     grad = ctc_beta(lp, il, tg, tl, alpha, ll, gbar, BLANK)
@@ -1160,7 +1165,12 @@ def phase_k45(dev, ptxas_report: str):
     smem = ctc_beta_smem_on_card(S)
     check(smem == ctc_beta_smem_bytes(S),
           f"K5's shared memory on the card {smem} B, stated {ctc_beta_smem_bytes(S)} B")
+    smem4 = ctc_alpha_smem_on_card(S)
+    check(smem4 == ctc_alpha_smem_bytes(S),
+          f"K4's shared memory on the card {smem4} B, stated {ctc_alpha_smem_bytes(S)} B")
     valid = (torch.arange(T, device=dev)[None, :] < il[:, None])[:, :, None]
+    check(torch.equal(alpha_again[valid.expand_as(alpha)], alpha[valid.expand_as(alpha)])
+          and torch.equal(ll_again, ll), "K4: two runs differ")
     live = valid & (want_alpha > -1e29)
     scale = want_ll[possible].abs().max().item()
     err_alpha = torch.where(live, alpha - want_alpha, 0.0).abs().max().item() / scale
@@ -1226,6 +1236,7 @@ def phase_k45(dev, ptxas_report: str):
     steps_seq = int(in_np.max())
     # K5's device time by kernel
     _, _, split, passes = device_time(lambda: ctc_beta(lp, il, tg, tl, alpha, ll, gbar, BLANK), 5)
+    ptxas = ptxas_kernels(ptxas_report)
     print(json.dumps({"phase": "K4/K5", "shape": [B, T, C, S], "tol_rel": K45_TOL_REL,
                       "tol_grad": K45_TOL_GRAD, "alpha_max_rel_err": err_alpha,
                       "ll_max_rel_err": err_ll, "grad_max_abs_err": err_grad,
@@ -1234,10 +1245,12 @@ def phase_k45(dev, ptxas_report: str):
                       "sequential_steps": steps_seq, "phase_launches": launches,
                       "K4_us_per_step": 1e3 * timing["alpha"][0] / steps_seq,
                       "K5_us_per_step": 1e3 * timing["beta"][0] / steps_seq,
+                      "K4_same_bits_twice": True, "K4_ring": ALPHA_RING, "K4_smem_bytes": smem4,
+                      "K4_ptxas": {k: v for k, v in ptxas.items() if k.startswith("ctc_alpha_kernel")},
                       "K5_same_bits_twice": True, "K5_ring": ctc_beta_ring(S), "K5_smem_bytes": smem,
                       "K5_split_ms": {k.replace("(anonymous namespace)::", "")[:60]: v
                                       for k, v in split.items()},
-                      "profiler_passes": passes, "ptxas": ptxas_kernels(ptxas_report),
+                      "profiler_passes": passes, "ptxas": ptxas,
                       "kernels": rows}), flush=True)
     return rows
 

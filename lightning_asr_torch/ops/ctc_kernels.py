@@ -28,22 +28,29 @@ What the design does about it (``csrc/ctc.cu``): one block per row, all
 rows in one launch, threads over the states (up to four states a thread);
 the recursion vector is double-buffered in shared memory with one barrier a
 step; rows stop at their own length, and K4 stores alpha only for valid
-frames.  K4 reads each step's emissions straight from the row's 29
-log-probs (116 bytes, L1-resident) through the state's label.  K5 keeps
-only its chain between barriers: each step's alpha row and each state's
-emission (gathered through its label, never a whole log-prob row, which
-holds 4334 floats for AISHELL-1) arrive in a ring of ``ctc_beta_ring(S)``
-slots of dynamic shared memory by four-byte ``cp.async`` copies, ring − 1
-steps ahead, each thread copying and reading only its own states, so the
-walk loads nothing from device memory; a step has no branch, so the
-previous step's gradient (its ``expf`` and store) interleaves with the
-chain, and the walk is unrolled by the (even) ring so that slots and
-buffers are fixed addresses.  Warps whose states all lie past the row's
-last valid state run no recursion (their u is the constant ``NEG_INF +
-NEG_INF``): they write their gradient from alpha directly and leave the
-walk's barrier to the others.  Neither kernel builds a (B, T, S) emission
-tensor.  The TPU kernels' 128-lane rounding of S, their 32-step time
-blocks and their batch tiling (a VMEM cap) do not carry over.
+frames.  Both walks keep only their chain between barriers: each step's
+emissions, gathered through the states' labels (never a whole log-prob
+row, which holds 4334 floats for AISHELL-1, and no row that an earlier
+step has touched, so a load there would wait on L2), and for K5 the step's
+alpha row, arrive in a ring of dynamic shared memory by four-byte
+``cp.async`` copies, ring − 1 steps ahead, each thread copying and reading
+only its own states, so the walk loads nothing from device memory.  K4's
+ring has ``ALPHA_RING`` slots of S floats at every S
+(``ctc_alpha_smem_bytes``), K5's ``ctc_beta_ring(S)`` slots of 2S
+(``ctc_beta_smem_bytes``).  A step has no branch (a lane past S takes
+state S − 1 whole), so what is off the chain interleaves with it: K4's
+alpha store and next copies, K5's previous gradient (its ``expf`` and
+store); each walk is unrolled by its (even) ring so that slots and buffers
+are fixed addresses.  Warps whose states all lie past the row's last valid
+state leave the walk and its barrier to the others: in K4 their alpha is
+the constant the recursion gives there (NEG_INF at t = 0, NEG_INF +
+NEG_INF after), which they store; in K5 their u is the constant ``NEG_INF
++ NEG_INF`` and they write their gradient from alpha directly.  K4 takes
+``ll`` from the two final states alone, in the order of the sum over all
+states (the others' terms are exactly 0, or the result NEG_INF either
+way).  Neither kernel builds a (B, T, S) emission tensor.  The TPU
+kernels' 128-lane rounding of S, their 32-step time blocks and their batch
+tiling (a VMEM cap) do not carry over.
 """
 
 from __future__ import annotations
@@ -57,9 +64,18 @@ from .ctc import NEG_INF, extended_labels, lse3, shift_right
 from .kernel_build import SMEM_LIMIT
 
 _LOCK = threading.Lock()
-_MAX_PER_THREAD = 4          # states a thread owns (csrc/ctc.cu MAX_PER)
+_MAX_PER_THREAD = 4          # states a thread owns (csrc/ctc.cu instantiates PER 1 to 4)
 _MAX_THREADS = 1024
+ALPHA_RING = 8               # K4's ring slots at every S (csrc/ctc.cu ctc_alpha_kernel)
 BETA_RING = 8                # K5's ring slots where they fit (csrc/ctc.cu ctc_beta_kernel)
+
+
+def ctc_alpha_smem_bytes(S: int) -> int:
+    """K4's dynamic shared memory, the one statement of its layout
+    (csrc/ctc.cu): the ring of ``ALPHA_RING`` slots, each a step's S
+    emissions, then the two buffers of alpha; 163,800 B at S = 4095, the
+    largest S the wrapper takes, within ``SMEM_LIMIT``."""
+    return 4 * (ALPHA_RING * S + 2 * S)
 
 
 def ctc_beta_ring(S: int) -> int:
@@ -196,14 +212,15 @@ def ctc_alpha(log_probs: torch.Tensor, input_lengths: torch.Tensor, targets: tor
 
     fn = library("ctc").lasr_ctc_alpha
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     alpha = torch.empty((B, T, S), dtype=torch.float32, device=log_probs.device)
     ll = torch.empty((B,), dtype=torch.float32, device=log_probs.device)
     if B:
         stream = torch.cuda.current_stream(log_probs.device).cuda_stream
         err = fn(log_probs.data_ptr(), input_lengths.data_ptr(), targets.data_ptr(),
                  target_lengths.data_ptr(), alpha.data_ptr(), ll.data_ptr(), B, T, C, L,
-                 blank_id, _threads(S), log_probs.device.index, stream)
+                 blank_id, _threads(S), ALPHA_RING, ctc_alpha_smem_bytes(S),
+                 log_probs.device.index, stream)
         if err != 0:
             raise RuntimeError(f"CTC alpha kernel launch failed: CUDA error {err}")
         with _LOCK:
@@ -253,6 +270,17 @@ def ctc_beta(log_probs: torch.Tensor, input_lengths: torch.Tensor, targets: torc
 
 
 ctc_beta.launches = 0
+
+
+def ctc_alpha_smem_on_card(S: int) -> int:
+    """K4's dynamic shared memory for S states as its launch lays it out
+    (csrc/ctc.cu): the card's check of ``ctc_alpha_smem_bytes``."""
+    from .kernel_build import library
+
+    fn = library("ctc").lasr_ctc_alpha_smem
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    return fn(S, ALPHA_RING)
 
 
 def ctc_beta_smem_on_card(S: int) -> int:

@@ -13,7 +13,9 @@ plain weight gradient; K3's, K7's and K8's shared memory and copy width
 lists, gates pass and ring and K7's walk (``csrc/lstm_bidir.cu``)
 replayed in numpy against the plain BiLSTM backwards and forward; K5's ring and shared memory
 (``ops/ctc_kernels.py``) for every S it takes, and its walk
-(``csrc/ctc.cu``) replayed in numpy against the plain CTC beta."""
+(``csrc/ctc.cu``) replayed in numpy against the plain CTC beta; K4's
+shared memory for every S, and its walk replayed against the plain CTC
+alpha."""
 
 import numpy as np
 import pytest
@@ -22,7 +24,8 @@ import torch
 from lightning_asr_torch.models.quartznet import _BLOCKS, _CONTEXT_BLOCKS
 from lightning_asr_torch.ops import ctc_kernels
 from lightning_asr_torch.ops.ctc import NEG_INF
-from lightning_asr_torch.ops.ctc_kernels import (BETA_RING, ctc_alpha_plain, ctc_beta_plain,
+from lightning_asr_torch.ops.ctc_kernels import (ALPHA_RING, BETA_RING, ctc_alpha_plain,
+                                                 ctc_alpha_smem_bytes, ctc_beta_plain,
                                                  ctc_beta_ring, ctc_beta_smem_bytes, lattice)
 from lightning_asr_torch.ops.depthwise_kernels import depthwise_wgrad_plain, wgrad_smem_bytes
 from lightning_asr_torch.ops import frontend_kernels as fk
@@ -780,3 +783,147 @@ def test_k5_walk_replayed_gives_the_plain_gradient(T, lengths, tls, L, C):
     assert np.abs(got - want).max() <= 1e-6 * max(1.0, np.abs(want).max())
     for b, n in enumerate(lengths):
         assert np.all(got[b, n:] == 0)
+
+
+def test_k4_shared_memory_for_every_S():
+    """Every S the wrapper takes on the card (S = 2L + 1 <= 4095): K4's one
+    ring of ``ALPHA_RING`` slots of S floats, then the two S-float buffers
+    of alpha, fits ``SMEM_LIMIT`` (163,800 B at S = 4095)."""
+    for S in range(1, 4096, 2):
+        assert ctc_alpha_smem_bytes(S) == 4 * (ALPHA_RING * S + 2 * S) <= SMEM_LIMIT
+    assert ctc_alpha_smem_bytes(4095) == 163_800
+
+
+def _bits(a) -> np.ndarray:
+    return np.asarray(a, np.float32).view(np.int32)
+
+
+def _k4_replay(lp, lens, targets, tls, blank, all_walk=False):
+    """K4 of csrc/ctc.cu in float32 (its -1e30 sentinel is absorbed as
+    there), its layout and schedule replayed: the threads' states (s = tid
+    + j NT, a lane past S taking state S-1 whole: its copies, values and
+    stores, which must agree with the owner's); the walkers, the warps up
+    to the last valid state (every warp with ``all_walk``); each step's
+    emissions gathered through the labels and copied one float at a time
+    from the flat log-probs into the ring (``_Ring``), R - 1 steps ahead,
+    for the walkers' states only, landing only at the waits; the chain
+    reads only the slot and the other alpha buffer; the other warps fill
+    both buffers once with NEG_INF + NEG_INF and store their constant
+    alpha; ll from the two final states.  Returns alpha (NaN where nothing
+    was stored), ll, the ll that thread 0's two loops over every state
+    give from the same buffer, and the states of the warps out of the
+    walk (B, S)."""
+    B, T, C = lp.shape
+    L = targets.shape[1]
+    S = 2 * L + 1
+    NT, R = ctc_kernels._threads(S), ALPHA_RING
+    PER = -(-S // NT)
+    ext, valid, skip, final = (a.numpy() for a in lattice(torch.from_numpy(targets),
+                                                          torch.from_numpy(tls), blank))
+    lpf = lp.ravel()
+    tid = np.tile(np.arange(NT), PER)
+    st = np.minimum(tid + np.repeat(np.arange(PER), NT) * NT, S - 1)
+    neg = np.float32(NEG_INF)
+    alpha = np.full((B, T, S), np.nan, np.float32)
+    ll, ll_loops = np.full(B, neg), np.full(B, neg)
+    dead_states = np.zeros((B, S), bool)
+
+    def store(b, t, s, v):                       # every store of a state holds the same bits
+        prev = alpha[b, t, s]
+        done = ~np.isnan(prev)
+        assert np.array_equal(_bits(prev[done]), _bits(v[done])), (b, t)
+        alpha[b, t, s] = v
+        assert np.array_equal(_bits(alpha[b, t, s]), _bits(v)), (b, t)
+
+    for b in range(B):
+        n = max(0, min(int(lens[b]), T))
+        tl = max(0, min(int(tls[b]), L))
+        n_states = 2 * tl + 1
+        if n == 0:
+            continue
+        walkers = NT if all_walk else 32 * min(NT // 32, -(-n_states // 32))
+        walk = tid < walkers
+        sw, sd = st[walk], st[~walk]
+        assert not valid[b][sd].any()                         # no valid state stops walking
+        dead_states[b, sd] = True
+        buf = torch.full((2, S), float("nan"))
+        buf[:, sd] = torch.tensor(neg) + torch.tensor(neg)
+        store(b, 0, sd, np.full(len(sd), neg))
+        for t in range(1, n):
+            store(b, t, sd, np.full(len(sd), neg + neg))
+        ring = _Ring(S, R)
+        ok = torch.from_numpy(valid[b][sw])
+        sk = torch.from_numpy(skip[b][sw])
+
+        def copies(k):
+            row = b * T + k
+            return [(s, lpf[row * C + ext[b, s]:row * C + ext[b, s] + 1] if valid[b, s]
+                     else np.zeros(1)) for s in sw]
+
+        for k in range(R - 1):
+            ring.commit(*((k, copies(k)) if k < n else ()))
+        for k in range(n):
+            ring.wait(R - 2)
+            slot = torch.from_numpy(ring.read(k).astype(np.float32))
+            e = torch.where(ok, slot[sw], neg)
+            if k == 0:
+                a = torch.where(torch.from_numpy(sw <= 1), e, neg)
+            else:
+                cur = buf[(k - 1) % 2]
+                a1 = torch.where(torch.from_numpy(sw >= 1), cur[np.maximum(sw - 1, 0)], neg)
+                a2 = torch.where(sk, cur[np.where(skip[b][sw], sw - 2, sw)], neg)
+                a = _lse3(cur[sw], a1, a2) + e
+            buf[k % 2, sw] = a
+            assert torch.equal(buf[k % 2, sw], a)                # a lane past S agrees
+            ring.commit(*((k + R - 1, copies(k + R - 1)) if k + R - 1 < n else ()))
+            store(b, k, sw, a.numpy())
+        fin = buf[(n - 1) % 2]
+        c1 = fin[n_states - 1]
+        c2 = fin[n_states - 2] if tl > 0 else torch.tensor(neg)
+        m = torch.maximum(torch.maximum(torch.tensor(neg), c2), c1)
+        ll[b] = (m + torch.log(torch.exp(c2 - m) + torch.exp(c1 - m))).item()
+        # thread 0's two loops: the maximum, then the sum in state order
+        masked = torch.where(torch.from_numpy(final[b]), fin, neg)
+        m_all = torch.tensor(neg)
+        for v in masked:
+            m_all = torch.maximum(m_all, v)
+        terms = torch.exp(masked - m_all).numpy()
+        total = np.add.accumulate(np.concatenate([[np.float32(0)], terms]), dtype=np.float32)[-1]
+        ll_loops[b] = (m_all + torch.log(torch.tensor(total))).item()
+    return alpha, ll, ll_loops, dead_states
+
+
+@pytest.mark.parametrize("T,lengths,tls,L,C", K5_REPLAY_CASES)
+def test_k4_walk_replayed_gives_the_plain_alpha(T, lengths, tls, L, C):
+    """K5's cases, the ring 8 slots at every S: lengths 0, 1, R - 1, R,
+    R + 1 and T, an empty target, an impossible alignment, S at one warp,
+    above 1024 threads and at 4095 (the warps out of the walk with one,
+    two and four states a thread)."""
+    rng = np.random.default_rng(T + L + 1)
+    B = len(lengths)
+    x = rng.standard_normal((B, T, C)).astype(np.float32) * 2
+    lp = (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
+    targets = rng.integers(0, C - 1, (B, L)).astype(np.int32)
+    targets[0, 1] = targets[0, 0]                             # a repeat: no skip
+    lens, tl = np.array(lengths, np.int32), np.array(tls, np.int32)
+    want, want_ll = (a.numpy() for a in ctc_alpha_plain(
+        torch.from_numpy(lp), torch.from_numpy(lens), torch.from_numpy(targets),
+        torch.from_numpy(tl), C - 1))
+    got, got_ll, loops_ll, dead = _k4_replay(lp, lens, targets, tl, C - 1)
+    full, full_ll, _, _ = _k4_replay(lp, lens, targets, tl, C - 1, all_walk=True)
+    frames = np.arange(T)[None, :] < lens[:, None]
+    assert not np.isnan(got[frames]).any() and np.isnan(got[~frames]).all()
+    # both in float32, with the same order and functions
+    live = frames[:, :, None] & (want > -1e29)
+    assert np.all(np.abs(got - want)[live] <= 1e-6 * np.maximum(1.0, np.abs(want[live])))
+    assert np.all(np.abs(got_ll - want_ll) <= 1e-6 * np.maximum(1.0, np.abs(want_ll)))
+    impossible = (lens > 0) & (want_ll < -1e29)
+    assert impossible.any() and np.all(got_ll[impossible] == np.float32(NEG_INF))
+    assert np.array_equal(_bits(got_ll), _bits(loops_ll))       # ll from the final lanes
+    # the walkers alone give the full recursion's bits, and the constant of
+    # the warps out of the walk is what the recursion gives at their states
+    assert np.array_equal(_bits(got[frames]), _bits(full[frames]))
+    assert np.array_equal(_bits(got_ll), _bits(full_ll))
+    at_dead = frames[:, :, None] & dead[:, None, :]
+    assert np.array_equal(_bits(got[at_dead]), _bits(want[at_dead]))
+    assert dead.any() == (ctc_kernels._threads(2 * L + 1) > 32)

@@ -9,9 +9,11 @@ import numpy as np
 import pytest
 import torch
 
-from lightning_asr_torch.ops.ctc_kernels import (BETA_RING, ctc_alpha, ctc_alpha_plain, ctc_beta,
-                                                 ctc_beta_plain, ctc_beta_ring, ctc_beta_smem_bytes,
-                                                 ctc_beta_smem_on_card, ctc_loss)
+from lightning_asr_torch.ops.ctc_kernels import (BETA_RING, ctc_alpha, ctc_alpha_plain,
+                                                 ctc_alpha_smem_bytes, ctc_alpha_smem_on_card,
+                                                 ctc_beta, ctc_beta_plain, ctc_beta_ring,
+                                                 ctc_beta_smem_bytes, ctc_beta_smem_on_card,
+                                                 ctc_loss)
 from lightning_asr_torch.ops.depthwise_kernels import depthwise_wgrad, depthwise_wgrad_plain
 from lightning_asr_torch.ops.frontend import MelFrontendConfig
 from lightning_asr_torch.ops.frontend_kernels import (extend_preemph, extend_preemph_plain,
@@ -451,6 +453,43 @@ def test_k5_against_plain_on_its_own_inputs(dev, T, C, L, lengths):
 def test_k5_shared_memory_as_stated(dev, S):
     assert ctc_beta_smem_on_card(S) == ctc_beta_smem_bytes(S)
     assert ctc_beta_ring(S) == (6 if S > 3227 else BETA_RING)
+
+
+# K4's: K5's cases, and S = 1041 (two states a thread, the walkers' second
+# states past the end beside warps out of the walk)
+K4_CASES = K5_CASES + [(30, 29, 520, [30, 7, 9, 1, 0])]
+
+
+@pytest.mark.parametrize("T,C,L,lengths", K4_CASES)
+def test_k4_against_plain_on_its_own_inputs(dev, T, C, L, lengths):
+    """K4 on K5's cases against its plain version: within chip_smoke.py's
+    K45_TOL_REL (relative to the largest |ll|) at the reachable states of
+    the valid frames and in ll, the plain version's bits at the sentinel
+    states (-1e30 and -2e30, the warps out of the walk among them) and on
+    the rows with no alignment; the same bits on a second call; one launch
+    a call."""
+    lp, il, tg, tl = _k5_rows(dev, T, C, L, lengths, T + L)
+    before = ctc_alpha.launches
+    alpha, ll = ctc_alpha(lp, il, tg, tl, C - 1)
+    assert ctc_alpha.launches == before + 1
+    want, want_ll = ctc_alpha_plain(lp, il, tg, tl, C - 1)
+    assert alpha.shape == want.shape and ll.shape == want_ll.shape
+    valid = (torch.arange(T, device=dev)[None, :] < il[:, None])[:, :, None].expand_as(alpha)
+    live = valid & (want > -1e29)
+    possible = want_ll > -1e29
+    scale = max([1.0] + want_ll[possible].abs().tolist())
+    assert torch.where(live, alpha - want, 0.0).abs().max().item() <= 1e-5 * scale
+    assert torch.equal(alpha[valid & ~live], want[valid & ~live])
+    assert torch.where(possible, ll - want_ll, 0.0).abs().max().item() <= 1e-5 * scale
+    assert torch.equal(ll[~possible], want_ll[~possible])
+    again, again_ll = ctc_alpha(lp, il, tg, tl, C - 1)
+    assert ctc_alpha.launches == before + 2
+    assert torch.equal(again[valid], alpha[valid]) and torch.equal(again_ll, ll)
+
+
+@pytest.mark.parametrize("S", [1, 513, 1229, 3227, 4095])
+def test_k4_shared_memory_as_stated(dev, S):
+    assert ctc_alpha_smem_on_card(S) == ctc_alpha_smem_bytes(S)
 
 
 def test_ctc_loss_function_on_the_card(dev):

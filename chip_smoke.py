@@ -18,6 +18,10 @@ Phases, in order; any failed check exits non-zero before the last line:
   4. K2, the BiLSTM recurrence kernel (B=8, T=801, C=256, H=40, ragged
      lengths, both directions), the same way, with cuDNN's packed LSTM as
      the yardstick; its cell-state output (training) leaves h bit for bit;
+     its shared memory against the stated layout, its registers and
+     spills, its time a sequential step, and digests of h and c at that
+     shape and at the training shape (phase 9's inputs, with the cell
+     output);
   5. K6, the fused preemphasis + extension kernel, at the serving and the
      training shapes, against its plain version, bit for bit;
   6. K9, K10 and K11, the separable-conv forward and backward and the
@@ -101,6 +105,7 @@ Without a CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import http.client
 import io
 import json
@@ -139,6 +144,7 @@ from lightning_asr_torch.ops.frontend_kernels import (extend_preemph, extend_pre
                                                       window_range)
 from lightning_asr_torch.ops.lstm import stack_directions, stacked_valid, unstack_directions
 from lightning_asr_torch.ops.lstm_kernels import (backward_smem_bytes, backward_smem_on_card,
+                                                  forward_smem_bytes, forward_smem_on_card,
                                                   lstm_backward, lstm_backward_plain,
                                                   lstm_backward_stacked, lstm_backward_stacked_plain,
                                                   lstm_recurrence, lstm_recurrence_plain,
@@ -340,19 +346,36 @@ def _cudnn_bilstm(dev, w_ih, w_hh, b_ih, b_hh):
     return ref
 
 
-def phase_k2(dev) -> dict:
-    rng = np.random.default_rng(1)
-    B, T, C, H, D = 8, 801, 256, 40, 2
+def bilstm_inputs(dev, rng, B: int, T: int, lens_np=None):
+    """Seeded inputs of the BiLSTM kernels (C=256, H=40, both directions):
+    x (B, T, C), the weights (w_ih, w_hh, b_ih, b_hh), each (2, ...), the
+    row lengths (``train_rows``' unless given) and the input projection
+    xproj (B, T, 2, 4H)."""
+    C, H, D = 256, 40, 2
     s = 1.0 / np.sqrt(H)
     x = torch.from_numpy(rng.standard_normal((B, T, C)).astype(np.float32)).to(dev)
-    w_ih = torch.from_numpy(rng.uniform(-s, s, (D, 4 * H, C)).astype(np.float32)).to(dev)
-    w_hh = torch.from_numpy(rng.uniform(-s, s, (D, 4 * H, H)).astype(np.float32)).to(dev)
-    b_ih = torch.from_numpy(rng.uniform(-s, s, (D, 4 * H)).astype(np.float32)).to(dev)
-    b_hh = torch.from_numpy(rng.uniform(-s, s, (D, 4 * H)).astype(np.float32)).to(dev)
-    lens_np = np.array([T, 1, 750, 640, 512, 401, 233, 97], np.int32)
+    w_ih, w_hh, b_ih, b_hh = (torch.from_numpy(rng.uniform(-s, s, shape).astype(np.float32)).to(dev)
+                              for shape in ((D, 4 * H, C), (D, 4 * H, H), (D, 4 * H), (D, 4 * H)))
+    if lens_np is None:
+        lens_np = train_rows(rng, B)[2]
     lens = torch.from_numpy(lens_np).to(dev)
     xproj = (torch.matmul(x, w_ih.reshape(D * 4 * H, C).t()) + b_ih.reshape(-1)
              + b_hh.reshape(-1)).reshape(B, T, D, 4 * H).contiguous()
+    return x, (w_ih, w_hh, b_ih, b_hh), lens_np, lens, xproj
+
+
+def digest(*tensors) -> str:
+    """The first 16 hex digits of the sha256 of the tensors' bytes."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def phase_k2(dev, ptxas_report: str) -> dict:
+    B, T, C, H, D = 8, 801, 256, 40, 2
+    x, (w_ih, w_hh, b_ih, b_hh), lens_np, lens, xproj = bilstm_inputs(
+        dev, np.random.default_rng(1), B, T, np.array([T, 1, 750, 640, 512, 401, 233, 97], np.int32))
 
     lstm_recurrence.launches = 0
     got = lstm_recurrence(xproj, lens, w_hh)
@@ -370,6 +393,14 @@ def phase_k2(dev) -> dict:
     check(torch.equal(h_c, got), "K2 with the cell output changed h")
     check(cell_err <= 10 * K2_TOL, f"K2 cell states: max |kernel - plain| = {cell_err}")
 
+    smem = forward_smem_on_card(H, dev)
+    check(smem == forward_smem_bytes(H),
+          f"K2's shared memory on the card {smem} B, stated {forward_smem_bytes(H)} B")
+    # at the training shape (phase_k3's inputs, which checks and times K2
+    # there): h and c, for their digests
+    _, (_, w_hh_t, _, _), _, lens_t, xproj_t = bilstm_inputs(
+        dev, np.random.default_rng(3), TRAIN_BATCH, T_TRAIN)
+    h_t, c_t = lstm_recurrence(xproj_t, lens_t, w_hh_t, with_cell=True)
     ms = cuda_ms(lambda: lstm_recurrence(xproj, lens, w_hh), 20)
     plain_ms = cuda_ms(lambda: lstm_recurrence_plain(xproj, lens, w_hh), 2, warmup=1)
     # yardstick: cuDNN's bidirectional LSTM over the packed sequence, input
@@ -399,7 +430,10 @@ def phase_k2(dev) -> dict:
            "bound_by": bound_by, "library_ms": library_ms}
     print(json.dumps({"phase": "K2", "shape": [B, T, C, H, D], "tol": K2_TOL, "kernel_ms": ms,
                       "cudnn_max_abs_diff": lib_err, "sequential_steps": int(lens_np.max()),
-                      "cell_max_abs_err": cell_err,
+                      "cell_max_abs_err": cell_err, "us_per_step": 1e3 * ms / int(lens_np.max()),
+                      "smem_bytes": smem, "ptxas": ptxas_kernels(ptxas_report),
+                      "digest": {"h": digest(got), "c": digest(cell)},
+                      "training_digest": {"h": digest(h_t), "c": digest(c_t)},
                       "phase_launches": lstm_recurrence.launches, **res}), flush=True)
     return res
 
@@ -916,17 +950,8 @@ def ptxas_kernels(report: str) -> dict:
 
 def phase_k3(dev, hmma, ptxas_report: str) -> dict:
     rng = np.random.default_rng(3)
-    B, T, C, H, D = 32, T_TRAIN, 256, 40, 2
-    s = 1.0 / np.sqrt(H)
-    x = torch.from_numpy(rng.standard_normal((B, T, C)).astype(np.float32)).to(dev)
-    w_ih = torch.from_numpy(rng.uniform(-s, s, (D, 4 * H, C)).astype(np.float32)).to(dev)
-    w_hh = torch.from_numpy(rng.uniform(-s, s, (D, 4 * H, H)).astype(np.float32)).to(dev)
-    b_ih = torch.from_numpy(rng.uniform(-s, s, (D, 4 * H)).astype(np.float32)).to(dev)
-    b_hh = torch.from_numpy(rng.uniform(-s, s, (D, 4 * H)).astype(np.float32)).to(dev)
-    lens_np = train_rows(rng, B)[2]
-    lens = torch.from_numpy(lens_np).to(dev)
-    xproj = (torch.matmul(x, w_ih.reshape(D * 4 * H, C).t()) + b_ih.reshape(-1)
-             + b_hh.reshape(-1)).reshape(B, T, D, 4 * H).contiguous()
+    B, T, C, H, D = TRAIN_BATCH, T_TRAIN, 256, 40, 2
+    x, (w_ih, w_hh, b_ih, b_hh), lens_np, lens, xproj = bilstm_inputs(dev, rng, B, T)
     h, cell = lstm_recurrence(xproj, lens, w_hh, with_cell=True)
     grad_h = torch.from_numpy(rng.standard_normal((B, T, D * H)).astype(np.float32)).to(dev)
     # K2 with the cell output, whose h and c K3 takes, at this shape
@@ -1016,15 +1041,8 @@ def phase_k78(dev, hmma, ptxas_report: str):
     the training shape (B=32, T'=836, C=256, H=40, ragged lengths) against
     their plain versions and against K2 / K3 on the same inputs."""
     rng = np.random.default_rng(7)
-    B, T, C, H, D = 32, T_TRAIN, 256, 40, 2
-    s = 1.0 / np.sqrt(H)
-    x = torch.from_numpy(rng.standard_normal((B, T, C)).astype(np.float32)).to(dev)
-    w_ih, w_hh, b_ih, b_hh = (torch.from_numpy(rng.uniform(-s, s, shape).astype(np.float32)).to(dev)
-                              for shape in ((D, 4 * H, C), (D, 4 * H, H), (D, 4 * H), (D, 4 * H)))
-    lens_np = train_rows(rng, B)[2]
-    lens = torch.from_numpy(lens_np).to(dev)
-    xproj = (torch.matmul(x, w_ih.reshape(D * 4 * H, C).t()) + b_ih.reshape(-1)
-             + b_hh.reshape(-1)).reshape(B, T, D, 4 * H).contiguous()
+    B, T, C, H, D = TRAIN_BATCH, T_TRAIN, 256, 40, 2
+    x, (w_ih, w_hh, b_ih, b_hh), lens_np, lens, xproj = bilstm_inputs(dev, rng, B, T)
     grad_h = torch.from_numpy(rng.standard_normal((B, T, D * H)).astype(np.float32)).to(dev)
     # the stacked rows as ops/lstm.py builds them
     xp = stack_directions(xproj).contiguous()
@@ -1596,7 +1614,7 @@ def main() -> int:
                       "hmma": hmma, "ptxas": ptxas}), flush=True)
 
     k1 = phase_k1(dev)
-    k2 = phase_k2(dev)
+    k2 = phase_k2(dev, info["ptxas"].get("lstm", ""))
     k6 = phase_k6(dev)
     k9, k10, k11 = phase_sepconv(dev)
     serving, serving_sep, translator, served = phase_serving(dev)

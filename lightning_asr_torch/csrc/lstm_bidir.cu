@@ -23,7 +23,8 @@
 // into a ring of RING slots, RING - 1 steps ahead, V floats a copy (V = 4
 // where xproj starts 16-byte aligned, else 1); the list entries travel in
 // the same copy groups, into a ring of 2 RING ints, as in K8's walk.  So
-// the chain loads nothing from device memory.  Each step:
+// the chain loads nothing from device memory.  Each step (lstm_util.cuh
+// cell_forward, K2's step body):
 //   pre = x + sum_j W_hh[g, j] h[j] (dot_h's order); every lane takes both
 //   gate_act(pre)s and keeps its gate's (no divergent branch);
 //   the unit's four activations meet in its quad by __shfl_sync, and every
@@ -202,17 +203,8 @@ lstm_stacked_fwd_kernel(const int* __restrict__ steps,     // (2B, T): valid ste
       const int t_next = s + 1 < n ? list_s[(s + 1) % LR] : T;
       const int t_st = list_s[(s + RING - 1) % LR];
 
-      // the chain.  Every lane takes both activations of its pre-activation
-      // and keeps its gate's: a branch would serialize the two and fence
-      // them from the rest of the step
-      const float pre = ring[u][g] + lasr::dot_h<H>(w, h_s[u & 1]);
-      const float sg = lasr::gate_act(pre, false), th = lasr::gate_act(pre, true);
-      const float a = m == 2 ? th : sg;
-      const float ig = __shfl_sync(FULL, a, 0, 4), fg = __shfl_sync(FULL, a, 1, 4);
-      const float gg = __shfl_sync(FULL, a, 2, 4), og = __shfl_sync(FULL, a, 3, 4);
       const float h_old = h, c_old = c;
-      c = fg * c + ig * gg;
-      h = og * tanhf(c);
+      h = lasr::cell_forward<H>(ring[u][g], w, h_s[u & 1], m, c);
       if (m == 0) h_s[(u + 1) & 1][k] = h;
 
       // off the chain, in the order that costs the step least (PERF.md):

@@ -1,9 +1,10 @@
 // Device helpers of the BiLSTM kernels: the gate's dot in K2's and K7's
-// summation order (lstm_bidir.cu K7), the backward's gates pass body, and
-// the walk's serial chain (lstm_bwd.cu K3, lstm_bidir.cu K8).  The walks'
-// ring and its slot layout are stated once in Python
-// (ops/lstm_kernels.py BACKWARD_RING, backward_smem_bytes) and checked on
-// the card through each library's C entry.
+// summation order and their one forward step (lstm.cu K2, lstm_bidir.cu
+// K7), the backward's gates pass body, and the walk's serial chain
+// (lstm_bwd.cu K3, lstm_bidir.cu K8).  The walks' rings and slot layouts
+// are stated once in Python (ops/lstm_kernels.py BACKWARD_RING,
+// forward_smem_bytes, backward_smem_bytes, ...) and checked on the card
+// through each library's C entry.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,6 +32,24 @@ __device__ __forceinline__ float dot_h(const float (&w)[H], const float* h) {
     a3 = fmaf(w[k + 3], h[k + 3], a3);
   }
   return (a0 + a1) + (a2 + a3);
+}
+
+// One step of K2's and K7's forward chain for lane 4k + m, which owns gate
+// m (order i, f, g, o) of unit k: pre = x + W_hh[g, :] h in dot_h's order;
+// both gate_act()s, the lane's kept by a select (a branch would serialize
+// the two and fence them from the rest of the step); the quad's four
+// activations by __shfl_sync; c = f c + i g.  Returns h = o tanh(c), the
+// same in every lane of the quad.
+template <int H>
+__device__ __forceinline__ float cell_forward(float x, const float (&w)[H], const float* h, int m,
+                                              float& c) {
+  const float pre = x + dot_h<H>(w, h);
+  const float sg = gate_act(pre, false), th = gate_act(pre, true);
+  const float a = m == 2 ? th : sg;
+  const float ig = __shfl_sync(LSTM_FULL, a, 0, 4), fg = __shfl_sync(LSTM_FULL, a, 1, 4);
+  const float gg = __shfl_sync(LSTM_FULL, a, 2, 4), og = __shfl_sync(LSTM_FULL, a, 3, 4);
+  c = fg * c + ig * gg;
+  return og * tanhf(c);
 }
 
 // A gates thread's part: the dots W_hh[qH + k, :] h_prev of unit k's four

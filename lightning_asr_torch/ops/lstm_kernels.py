@@ -30,10 +30,22 @@ across the four gate groups).
 What the designs do about it (``csrc/lstm.cu``, ``csrc/lstm_bwd.cu``): one
 block per (row, direction), all rows and both directions in one launch, so
 the chains run in parallel; a thread keeps its row of W_hh in registers and
-h sits in shared memory, so a step touches device memory only for its own
-frame; rows stop at their own length.  K3 leaves on its walk's serial chain
-only ``dh -> dc -> dgates -> dh_prev = dgates·W_hh -> carry_h``, with one
-barrier a step.  A first kernel recomputes the gates of every valid frame
+h sits in shared memory; rows stop at their own length.  K2 is K7's walk
+(second half of this module) on K2's layout, without a step list, since a
+row's valid frames are contiguous: walk step s is frame s (direction 0) or
+len-1-s (direction 1), and its projection arrives in a ring of
+``BACKWARD_RING`` slots in shared memory by predicated ``cp.async``,
+``BACKWARD_RING - 1`` steps ahead, so the chain loads nothing from device
+memory; thread 4k + m owns gate m of unit k, every lane takes both
+activations and keeps its gate's by a select (no divergent branch), the
+unit's four meet in its quad by warp shuffles and every lane of the quad
+updates the cell; one barrier a step publishes h, double-buffered; h and c
+leave after the step's copies, the pad frames after the walk.  Its shared
+memory is ``forward_smem_bytes``, its copy width ``backward_copy_width``;
+it keeps the old kernel's dot order, activations and cell expression, so
+its bits (and K7's equality with it) are unchanged.  K3 leaves on its
+walk's serial chain only ``dh -> dc -> dgates -> dh_prev = dgates·W_hh ->
+carry_h``, with one barrier a step.  A first kernel recomputes the gates of every valid frame
 at once, in K2's summation order (the same bits as K2's), and stores the
 factors each gate gradient needs; each step's factors, h_prev and grad_h
 arrive in a ring of ``BACKWARD_RING`` slots in shared memory by
@@ -54,7 +66,14 @@ import torch
 
 _LOCK = threading.Lock()
 _KERNEL_HIDDEN = (40,)      # hidden sizes instantiated in csrc/lstm.cu
-BACKWARD_RING = 8           # K3's and K8's ring slots (csrc/lstm_util.cuh LSTM_RING)
+BACKWARD_RING = 8           # K2's, K3's, K7's and K8's ring slots (csrc/lstm_util.cuh LSTM_RING)
+
+
+def forward_smem_bytes(H: int) -> int:
+    """The static shared memory of K2's walk (csrc/lstm.cu): a ring of
+    ``BACKWARD_RING`` slots of one step's projection (4H floats), then h of
+    two steps."""
+    return 4 * (BACKWARD_RING * 4 * H + 2 * H)
 
 
 def backward_smem_bytes(H: int) -> int:
@@ -80,7 +99,7 @@ def stacked_backward_smem_bytes(H: int) -> int:
 
 
 def backward_copy_width(*tensors: torch.Tensor) -> int:
-    """Floats a ``cp.async`` copy of K3's, K7's or K8's walk moves: 4 (16
+    """Floats a ``cp.async`` copy of K2's, K3's, K7's or K8's walk moves: 4 (16
     bytes) where every tensor it stages starts 16-byte aligned, else 1.
     Every slice it stages (a frame's or a stacked step's 4H, 2H or H
     floats) then starts at a multiple of 4 floats from its tensor's start
@@ -173,13 +192,14 @@ def lstm_recurrence(xproj: torch.Tensor, lengths: torch.Tensor, w_hh: torch.Tens
 
     fn = library("lstm").lasr_lstm_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     out = torch.empty((B, T, D * H), dtype=torch.float32, device=xproj.device)
     cell = torch.empty((B, T, D, H), dtype=torch.float32, device=xproj.device) if with_cell else None
     if B and T:
         stream = torch.cuda.current_stream(xproj.device).cuda_stream
         err = fn(xproj.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(), out.data_ptr(),
-                 cell.data_ptr() if with_cell else None, B, T, D, H, xproj.device.index, stream)
+                 cell.data_ptr() if with_cell else None, B, T, D, H, backward_copy_width(xproj),
+                 xproj.device.index, stream)
         if err != 0:
             raise RuntimeError(f"LSTM kernel launch failed: CUDA error {err}")
         with _LOCK:
@@ -279,6 +299,13 @@ def _smem_on_card(source: str, entry: str, H: int, device: torch.device) -> int:
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     return fn(H, device.index or 0)
+
+
+def forward_smem_on_card(H: int, device: torch.device) -> int:
+    """The static shared memory of K2's walk as the compiler laid it out for
+    hidden size H (-1 without an instantiation): the card's check of
+    ``forward_smem_bytes``."""
+    return _smem_on_card("lstm", "lasr_lstm_fwd_smem", H, device)
 
 
 def backward_smem_on_card(H: int, device: torch.device) -> int:

@@ -26,6 +26,24 @@ def digest(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
+def cold_ms(fn, iters: int, flush) -> float:
+    """Mean time of one call on the card by CUDA events, each call after a
+    write of the tensor ``flush`` (64 MB evicts the 50 MB L2), so that the
+    call finds its inputs in device memory."""
+    import torch
+
+    start = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    end = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    fn()
+    for i in range(iters):
+        flush.fill_(i)
+        start[i].record()
+        fn()
+        end[i].record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in zip(start, end)) / iters
+
+
 def use_checkout(root: Path) -> None:
     """Import this process's modules of the repository from ``root``."""
     sys.path.insert(0, str(root))

@@ -24,7 +24,7 @@ from __future__ import annotations
 import sys
 from pathlib import Path
 
-from ab_checkouts import assert_from, digest, main, use_checkout
+from ab_checkouts import assert_from, cold_ms, digest, main, use_checkout
 
 ITERS = 20
 B, T = 32, 836
@@ -53,18 +53,6 @@ def run_one(root: Path) -> dict:
     gbar = torch.full((B,), 1.0 / B, device=dev)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
 
-    def cold_ms(fn) -> float:
-        start = [torch.cuda.Event(enable_timing=True) for _ in range(ITERS)]
-        end = [torch.cuda.Event(enable_timing=True) for _ in range(ITERS)]
-        fn()
-        for i in range(ITERS):
-            flush.fill_(i)
-            start[i].record()
-            fn()
-            end[i].record()
-        torch.cuda.synchronize()
-        return sum(a.elapsed_time(b) for a, b in zip(start, end)) / ITERS
-
     out = {"root": str(root), "card": torch.cuda.get_device_name(0),
            "S": 2 * targets_np.shape[1] + 1}
     for rows, lens_np in (("ragged", ragged), ("full", np.full(B, T, np.int32))):
@@ -74,7 +62,7 @@ def run_one(root: Path) -> dict:
         k5 = lambda: ctc_beta(lp, il, tg, tl, alpha, ll, gbar, blank)  # noqa: E731
         steps = int(lens_np.max())
         ms = {"K5": chip_smoke.cuda_ms(k5, ITERS), "K4": chip_smoke.cuda_ms(k4, ITERS)}
-        cold = {"K5": cold_ms(k5), "K4": cold_ms(k4)}
+        cold = {"K5": cold_ms(k5, ITERS, flush), "K4": cold_ms(k4, ITERS, flush)}
         try:
             split = chip_smoke.device_time(k5, 5)[2]
         except SystemExit as e:                 # the profiler saw no kernel: leave the split out

@@ -1,7 +1,9 @@
 """Time the PyTorch port's BiLSTM kernels of several checkouts in turns on one
-NVIDIA card: K8 (``lstm_backward_stacked``, the wrapper with its row sum),
-and on the same inputs K3 (``lstm_backward``), K2 with its cell output and
-K7, at the training shape (B=32, T'=836, C=256, H=40) on ragged rows
+NVIDIA card: K2 (``lstm_recurrence``) at the serving shape (B=8, T=801,
+h only, ``chip_smoke.phase_k2``'s lengths and inputs); then K8
+(``lstm_backward_stacked``, the wrapper with its row sum), and on the same
+inputs K3 (``lstm_backward``), K2 with its cell output and K7, at the
+training shape (B=32, T'=836, C=256, H=40) on ragged rows
 (``chip_smoke.train_rows``) and on rows that all fill T'.
 
 Each checkout runs in a process of its own, with the kernels built from its
@@ -11,11 +13,13 @@ git-ignored directory), the change, the change, the parent:
 
     python3 scripts/torch_lstm_ab.py build/archive/parent . . build/archive/parent
 
-Prints one JSON line a run (ms by CUDA events over ITERS calls, µs per
-sequential step, K8's device time by kernel from torch.profiler, and a
+Prints one JSON line a run (ms by CUDA events over ITERS calls with warm
+L2; K2's ``cold_ms``, each call after a 64 MB write that evicts L2; µs per
+sequential step; K8's device time by kernel from torch.profiler; the
+registers and spills of the BiLSTM forward kernels from ptxas; and a
 digest of each kernel's outputs, so that runs of checkouts that share a
-kernel show whether its bits moved) and a summary line last.  Needs a card;
-imports no JAX.
+kernel show whether its bits moved) and a summary line last.  Needs a
+card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -23,10 +27,13 @@ from __future__ import annotations
 import sys
 from pathlib import Path
 
-from ab_checkouts import assert_from, digest, main, use_checkout
+from ab_checkouts import assert_from, cold_ms, digest, main, use_checkout
 
 ITERS = 20
 B, T, C, H = 32, 836, 256, 40
+# the serving shape and row lengths of chip_smoke.phase_k2
+SERVE_B, SERVE_T = 8, 801
+SERVE_LENGTHS = (801, 1, 750, 640, 512, 401, 233, 97)
 
 
 def run_one(root: Path) -> dict:
@@ -37,6 +44,7 @@ def run_one(root: Path) -> dict:
 
     import chip_smoke
     import lightning_asr_torch
+    from lightning_asr_torch.ops import kernel_build
     from lightning_asr_torch.ops.lstm import stack_directions, stacked_valid
     from lightning_asr_torch.ops.lstm_kernels import (lstm_backward, lstm_backward_stacked,
                                                       lstm_recurrence, lstm_recurrence_stacked)
@@ -44,8 +52,27 @@ def run_one(root: Path) -> dict:
     assert_from(root, chip_smoke, lightning_asr_torch)           # this checkout's, no other
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    rng = np.random.default_rng(7)
+    reports = kernel_build.build_all()["ptxas"]
+    ptxas = {k: v for name in ("lstm", "lstm_bidir")
+             for k, v in chip_smoke.ptxas_kernels(reports.get(name, "")).items() if "fwd" in k}
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    out = {"root": str(root), "card": torch.cuda.get_device_name(0), "ptxas": ptxas}
+
+    rng = np.random.default_rng(1)
     s = 1.0 / np.sqrt(H)
+    x = torch.from_numpy(rng.standard_normal((SERVE_B, SERVE_T, C)).astype(np.float32)).to(dev)
+    w_ih, w_hh, b_ih, b_hh = (torch.from_numpy(rng.uniform(-s, s, shape).astype(np.float32)).to(dev)
+                              for shape in ((2, 4 * H, C), (2, 4 * H, H), (2, 4 * H), (2, 4 * H)))
+    xproj = (torch.matmul(x, w_ih.reshape(8 * H, C).t()) + b_ih.reshape(-1)
+             + b_hh.reshape(-1)).reshape(SERVE_B, SERVE_T, 2, 4 * H).contiguous()
+    lens = torch.tensor(SERVE_LENGTHS, dtype=torch.int32, device=dev)
+    k2 = lambda: lstm_recurrence(xproj, lens, w_hh)  # noqa: E731
+    ms = chip_smoke.cuda_ms(k2, ITERS)
+    out["serving"] = {"ms": {"K2": ms}, "cold_ms": {"K2": cold_ms(k2, ITERS, flush)},
+                      "sequential_steps": SERVE_T, "us_per_step": {"K2": 1e3 * ms / SERVE_T},
+                      "digest": {"K2_h": digest(k2())}}
+
+    rng = np.random.default_rng(7)
     x = torch.from_numpy(rng.standard_normal((B, T, C)).astype(np.float32)).to(dev)
     w_ih, w_hh, bias = (torch.from_numpy(rng.uniform(-s, s, shape).astype(np.float32)).to(dev)
                         for shape in ((2, 4 * H, C), (2, 4 * H, H), (2, 4 * H)))
@@ -54,7 +81,6 @@ def run_one(root: Path) -> dict:
     xp = stack_directions(xproj).contiguous()
     gs = stack_directions(grad_h.reshape(B, T, 2, H)).contiguous()
     w_f, w_b = w_hh[0].contiguous(), w_hh[1].contiguous()
-    out = {"root": str(root), "card": torch.cuda.get_device_name(0)}
     for rows, lens_np in (("ragged", chip_smoke.train_rows(rng, B)[2]),
                           ("full", np.full(B, T, np.int32))):
         lens = torch.from_numpy(lens_np).to(dev)
@@ -63,21 +89,22 @@ def run_one(root: Path) -> dict:
         k8 = lambda: lstm_backward_stacked(xp, valid, w_f, w_b, h7[1], h7[2], gs)  # noqa: E731
         h2, cell = lstm_recurrence(xproj, lens, w_hh, with_cell=True)
         k3 = lambda: lstm_backward(xproj, lens, w_hh, h2, cell, grad_h)  # noqa: E731
+        k2c = lambda: lstm_recurrence(xproj, lens, w_hh, with_cell=True)  # noqa: E731
         steps = int(lens_np.max())
         ms = {"K8": chip_smoke.cuda_ms(k8, ITERS), "K3": chip_smoke.cuda_ms(k3, ITERS),
-              "K2_with_cell": chip_smoke.cuda_ms(
-                  lambda: lstm_recurrence(xproj, lens, w_hh, with_cell=True), ITERS),
+              "K2_with_cell": chip_smoke.cuda_ms(k2c, ITERS),
               "K7": chip_smoke.cuda_ms(lambda: lstm_recurrence_stacked(xp, valid, w_f, w_b), ITERS)}
         try:
             split = chip_smoke.device_time(k8, 5)[2]
         except SystemExit as e:                 # the profiler saw no kernel: leave the split out
             split = {"none": str(e)}
-        out[rows] = {"ms": ms, "sequential_steps": steps,
+        out[rows] = {"ms": ms, "cold_ms": {"K2_with_cell": cold_ms(k2c, ITERS, flush)},
+                     "sequential_steps": steps,
                      "us_per_step": {k: 1e3 * v / steps for k, v in ms.items()},
                      "K8_split_ms": {k.replace("(anonymous namespace)::", "")[:60]: v
                                      for k, v in split.items()},
-                     "digest": {"K8": digest(*k8()), "K3": digest(*k3()), "K2_with_cell": digest(h2, cell),
-                                "K7": digest(*h7)}}
+                     "digest": {"K8": digest(*k8()), "K3": digest(*k3()), "K2_h": digest(h2),
+                                "K2_c": digest(cell), "K7": digest(*h7)}}
     return out
 
 

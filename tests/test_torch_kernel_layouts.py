@@ -8,10 +8,11 @@ layers ``chip_smoke.py`` times among them) fits K9's shared memory; the same
 for K10's transposed packing and its bf16 kernels' shared memory; K11's
 shared memory (``ops/depthwise_kernels.py``) for every block conv, and the
 bf16 K11's addressing (``csrc/depthwise.cu``) replayed in numpy against the
-plain weight gradient; K3's, K7's and K8's shared memory and copy width
-(``ops/lstm_kernels.py``), K3's ring (``csrc/lstm_bwd.cu``), K8's step
-lists, gates pass and ring and K7's walk (``csrc/lstm_bidir.cu``)
-replayed in numpy against the plain BiLSTM backwards and forward; K5's ring and shared memory
+plain weight gradient; K2's, K3's, K7's and K8's shared memory and copy
+width (``ops/lstm_kernels.py``), K3's ring (``csrc/lstm_bwd.cu``), K8's
+step lists, gates pass and ring and K7's walk (``csrc/lstm_bidir.cu``)
+replayed in numpy against the plain BiLSTM backwards and forward, and K2's
+walk (``csrc/lstm.cu``) against the plain forward; K5's ring and shared memory
 (``ops/ctc_kernels.py``) for every S it takes, and its walk
 (``csrc/ctc.cu``) replayed in numpy against the plain CTC beta; K4's
 shared memory for every S, and its walk replayed against the plain CTC
@@ -32,7 +33,8 @@ from lightning_asr_torch.ops import frontend_kernels as fk
 from lightning_asr_torch.ops.frontend import MelFrontendConfig, dft_filters, mel_filterbank
 from lightning_asr_torch.ops.kernel_build import SMEM_LIMIT
 from lightning_asr_torch.ops.lstm_kernels import (BACKWARD_RING, backward_copy_width,
-                                                  backward_smem_bytes, lstm_backward_plain,
+                                                  backward_smem_bytes, forward_smem_bytes,
+                                                  lstm_backward_plain,
                                                   lstm_backward_stacked_plain, lstm_recurrence_plain,
                                                   lstm_recurrence_stacked_plain,
                                                   stacked_backward_smem_bytes,
@@ -668,6 +670,105 @@ def test_k7_walk_replayed_gives_the_plain_forward(T, lengths, random_mask, V):
         w = w.double().numpy()
         assert np.abs(g - w).max() <= 1e-5 * max(1.0, np.abs(w).max())
     assert np.all(got[0][valid <= 0] == 0)
+
+
+def test_k2_shared_memory_and_copy_width():
+    """K2's walk: a ring of ``BACKWARD_RING`` slots of one step's 4H
+    projections, then h of two steps; each (b, t, d) slice of xproj it
+    stages starts a multiple of 4 floats from the tensor's start, so the
+    start decides its copy width."""
+    B, T, D, H = 3, 7, 2, 40
+    assert forward_smem_bytes(H) == 4 * (BACKWARD_RING * 4 * H + 2 * H) == 5440 <= STATIC_SMEM_LIMIT
+    assert all(((b * T + t) * D + d) * 4 * H % 4 == 0
+               for b in range(B) for t in range(T) for d in range(D))
+    xproj = torch.zeros((B, T, D, 4 * H))
+    assert backward_copy_width(xproj) == 4
+    assert backward_copy_width(torch.zeros(xproj.numel() + 1)[1:].view(xproj.shape)) == 1
+
+
+def _dot_h(w, h):
+    """W_hh h in float32 in dot_h's order (csrc/lstm_util.cuh): four chains
+    over j mod 4, then (a0 + a1) + (a2 + a3)."""
+    a = np.zeros((4, w.shape[0]), np.float32)
+    for j in range(w.shape[1]):
+        a[j % 4] = a[j % 4] + w[:, j] * h[j]
+    return (a[0] + a[1]) + (a[2] + a[3])
+
+
+def _k2_replay(xproj, lengths, w_hh, V):
+    """K2 of csrc/lstm.cu in float32, its schedule replayed, one walk a
+    (row, direction): walk step s is frame s (direction 0) or len-1-s
+    (direction 1); its projection copied V floats at a time into the ring
+    (``_Ring``), ``BACKWARD_RING - 1`` steps ahead, each step's copies
+    issued after its h; lane 4k + m's activation of gate m of unit k, the
+    quad's four taken by each of its lanes, h in two buffers; h and c stored
+    at the step's frame, and the pad frames filled after the walk.  The
+    outputs start as NaN, so a frame nobody writes would show."""
+    B, T, D, G = xproj.shape
+    H, R = G // 4, BACKWARD_RING
+    out = np.full((B, T, D * H), np.nan, np.float32)
+    cell = np.full((B, T, D, H), np.nan, np.float32)
+    xf = xproj.ravel()
+    for b in range(B):
+        n = max(0, min(int(lengths[b]), T))
+        for d in range(D):
+            t0, dt = (n - 1, -1) if d else (0, 1)
+            ring = _Ring(G)
+
+            def copies(s):
+                t = t0 + s * dt
+                assert 0 <= t < n, (b, d, s, t)
+                base = ((b * T + t) * D + d) * G
+                return [(e, xf[base + e:base + e + V]) for e in range(0, G, V)]
+
+            for s in range(R - 1):
+                ring.commit(*((s, copies(s)) if s < n else ()))
+            c = np.zeros(H, np.float32)
+            h_s = [(0, np.zeros(H, np.float32)), None]               # (step, h) in each buffer
+            for s in range(n):
+                ring.wait(R - 2)
+                step, hb = h_s[s & 1]
+                assert step == s
+                pre = ring.read(s).astype(np.float32) + _dot_h(w_hh[d], hb)
+                sg, th = _sig(pre).astype(np.float32), np.tanh(pre)
+                lane = np.array([th[g] if g // H == 2 else sg[g]
+                                 for g in ((l % 4) * H + l // 4 for l in range(G))])
+                quad = lane.reshape(H, 4)                            # __shfl_sync(a, q, 4) in each lane
+                c = quad[:, 1] * c + quad[:, 0] * quad[:, 2]
+                h = quad[:, 3] * np.tanh(c)
+                h_s[(s + 1) & 1] = (s + 1, h)
+                ring.commit(*((s + R - 1, copies(s + R - 1)) if s + R - 1 < n else ()))
+                t = t0 + s * dt
+                out[b, t, d * H:(d + 1) * H] = h
+                cell[b, t, d] = c
+            out[b, n:, d * H:(d + 1) * H] = 0.0                      # the pad frames, after the walk
+            cell[b, n:, d] = 0.0
+    return out, cell
+
+
+K2_REPLAY_T = 12
+
+
+# a row of each length beside a full one: 0, 1, around the ring's 8 slots
+# and T; copy widths 4 and 1; one direction and two
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("V", [4, 1])
+@pytest.mark.parametrize("length", [0, 1, 6, 7, 8, 9, K2_REPLAY_T])
+def test_k2_walk_replayed_gives_the_plain_forward(length, V, D):
+    rng = np.random.default_rng(length + 10 * V + D)
+    T, H = K2_REPLAY_T, 40
+    lengths = np.array([length, T], np.int32)
+    xproj = rng.standard_normal((2, T, D, 4 * H)).astype(np.float32)
+    w_hh = (rng.uniform(-1, 1, (D, 4 * H, H)) / np.sqrt(H)).astype(np.float32)
+    got_h, got_c = _k2_replay(xproj, lengths, w_hh, V)
+    want_h, want_c = lstm_recurrence_plain(torch.from_numpy(xproj), torch.from_numpy(lengths),
+                                           torch.from_numpy(w_hh), with_cell=True)
+    # float32 both, sums in another order, through at most 12 steps; |c| past 1
+    for got, want in ((got_h, want_h), (got_c, want_c)):
+        want = want.numpy()
+        assert np.abs(got - want).max() <= 1e-5 * max(1.0, np.abs(want).max())
+    for b, n in enumerate(lengths):
+        assert np.all(got_h[b, n:] == 0) and np.all(got_c[b, n:] == 0)
 
 
 def test_k5_ring_and_shared_memory_for_every_S():

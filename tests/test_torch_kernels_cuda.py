@@ -21,7 +21,8 @@ from lightning_asr_torch.ops.frontend_kernels import (extend_preemph, extend_pre
 from lightning_asr_torch.ops.lstm import (LSTMWeights, lstm, stack_directions, stacked_valid,
                                           unstack_directions)
 from lightning_asr_torch.ops.lstm_kernels import (backward_copy_width, backward_smem_bytes,
-                                                  backward_smem_on_card, lstm_backward,
+                                                  backward_smem_on_card, forward_smem_bytes,
+                                                  forward_smem_on_card, lstm_backward,
                                                   lstm_backward_plain,
                                                   lstm_backward_stacked, lstm_backward_stacked_plain,
                                                   lstm_recurrence, lstm_recurrence_plain,
@@ -141,6 +142,53 @@ def test_k2_cell_output(dev, D, T, lengths):
     assert (c - want_c).abs().max().item() <= 1e-4  # |c| grows past 1; same float32 math
     for b, n in enumerate(lengths):
         assert bool((c[b, n:] == 0).all())
+
+
+# K2's own cases (D, T, lengths): the training T' on ragged rows; lengths
+# around its 8-slot ring beside 0, 1 and T; one row (B=1); one direction;
+# T below the ring
+K2_CASES = [(2, 836, [836, 790, 702, 655, 519, 418, 417, 330, 241, 100]),
+            (2, 40, [0, 1, 6, 7, 8, 9, 15, 16, 17, 40]), (1, 20, [20, 7, 8, 9, 0, 1]),
+            (2, 801, [801]), (1, 1, [1]), (2, 5, [5, 0, 2])]
+
+
+def _k2_check(xproj, lens, w_hh, lengths):
+    before = lstm_recurrence.launches
+    h, c = lstm_recurrence(xproj, lens, w_hh, with_cell=True)
+    h_only = lstm_recurrence(xproj, lens, w_hh)
+    assert lstm_recurrence.launches == before + 2                            # one launch a call
+    assert torch.equal(h, h_only)                   # the cell output changes no bit of h
+    want_h, want_c = lstm_recurrence_plain(xproj, lens, w_hh, with_cell=True)
+    # float32; dot sums in another order, the card's expf/tanhf; |c| past 1
+    assert (h - want_h).abs().max().item() <= 1e-5
+    assert (c - want_c).abs().max().item() <= 1e-4
+    for b, n in enumerate(lengths):
+        assert bool((h[b, n:] == 0).all()) and bool((c[b, n:] == 0).all())
+    again = lstm_recurrence(xproj, lens, w_hh, with_cell=True)
+    assert torch.equal(again[0], h) and torch.equal(again[1], c)              # deterministic
+    return h, c
+
+
+@pytest.mark.parametrize("D,T,lengths", K2_CASES)
+def test_k2_against_plain(dev, D, T, lengths):
+    xproj, lens, w_hh, _ = _lstm_case(dev, D, T, lengths, T + 30 * D)
+    _k2_check(xproj, lens, w_hh, lengths)
+
+
+def test_k2_inputs_off_16_bytes(dev):
+    """xproj that starts one float past a 16-byte boundary: the ring's copies
+    move one float each (``backward_copy_width``), with the same bits."""
+    D, T, lengths = 2, 45, [45, 11, 3, 0, 8]
+    xproj, lens, w_hh, _ = _lstm_case(dev, D, T, lengths, 6)
+    off = torch.cat([xproj.new_zeros(1), xproj.flatten()])[1:].view(xproj.shape)
+    assert backward_copy_width(off) == 1 and backward_copy_width(xproj) == 4
+    got = _k2_check(off, lens, w_hh, lengths)
+    want = lstm_recurrence(xproj, lens, w_hh, with_cell=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_k2_shared_memory_as_stated(dev):
+    assert forward_smem_on_card(40, dev) == forward_smem_bytes(40)
 
 
 # K3's cases: one frame beside none; the training T' with ragged rows up to

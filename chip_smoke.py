@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and trainer paths on one NVIDIA
-GPU and check them.
+"""Drive the PyTorch port's serving, decoding, training and trainer paths on
+one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -9,7 +9,8 @@ Phases, in order; any failed check exits non-zero before the last line:
   1. the card's name and power limit (nvidia-smi);
   2. the build of every CUDA kernel from lightning_asr_torch/csrc (time,
      whether it came from the cache, and the tensor-core HMMA instructions
-     of each library from cuobjdump where the toolkit has it);
+     of each library from cuobjdump where the toolkit has it), and beside
+     it the g++ build of the native decoder library (native/ctc_decoder);
   3. K1, the fused log-mel kernel, at the serving shape (8 float32 rows of
      16 s, 1601 frames) and at the training shape (32 dithered int16 rows
      padded to 16.7 s, 1671 frames), against its plain PyTorch version on
@@ -20,10 +21,12 @@ Phases, in order; any failed check exits non-zero before the last line:
      the yardstick; its cell-state output (training) leaves h bit for bit;
      its shared memory against the stated layout, its registers and
      spills, its time a sequential step, and digests of h and c at that
-     shape and at the training shape (phase 9's inputs, with the cell
+     shape and at the training shape (phase 10's inputs, with the cell
      output);
   5. K6, the fused preemphasis + extension kernel, at the serving and the
-     training shapes, against its plain version, bit for bit;
+     training shapes, against its plain version, bit for bit, with the
+     wrapper's time by CUDA events and the kernel's own device time by
+     torch.profiler, each beside the bound;
   6. K9, K10 and K11, the separable-conv forward and backward and the
      depthwise weight gradient, in bf16 at B=32, T'=836 for three layers of
      the model (256->256 k33, 336->512 k51, 512->512 k87), against their
@@ -44,7 +47,26 @@ Phases, in order; any failed check exits non-zero before the last line:
      AsrTranslator(conv_kernel="sepconv"), K9 launched 14 times;
   8. profile: one steady serving batch's host-clock latency and, from
      torch.profiler, its device time by kernel group;
-  9. K3, the BiLSTM backward kernel (its gates pass and its walk), at the
+  9. decoding: over the serving checkpoint and the served batch's
+     log-probs on the card (8 rows of up to 801 frames, 29 classes): the
+     native library's build; a 3-gram ARPA LM by scripts/make_arpa_lm.py;
+     the greedy collapse on the card equal to the host's and to the served
+     texts; the device beam search (K=40) twice for the same bits, against
+     itself on the CPU (prefixes equal, scores within BEAM_SCORE_RTOL),
+     against the native search's texts (beam 64, no pruning, no LM) on a
+     lattice peaked as a trained model's, and on the served batch (the
+     same width; the rows that agree counted, the others scored by exact
+     CTC); the native search with the LM, and with one hot word that flips the
+     decision it was built for; translate_long of a 90 s wave (20 s
+     windows, 2 s overlap) against the CPU translator's stitched log-probs
+     and StreamingTranscriber fed 1 s blocks; evaluate_manifest over 16
+     WAVs with confidences and a CSV against word_error_rate; the predict
+     CLI with --manifest --lm --hotword --csv --confidence; K1, K2 and K6
+     once a forward; times of the device beam (events, host clock, its
+     device share and launches by torch.profiler), of the native search
+     with and without the LM, of translate_long, and evaluate_manifest's
+     audio-seconds per second;
+ 10. K3, the BiLSTM backward kernel (its gates pass and its walk), at the
      training shape (B=32, T'=836, the 16.7 s bucket after the stride-2
      stem), against its plain version, twice for the same bits, with its
      time a sequential step beside K2's, its device time by kernel, its
@@ -52,20 +74,20 @@ Phases, in order; any failed check exits non-zero before the last line:
      kernels' registers and spills, and cuDNN's packed LSTM forward +
      backward as the yardstick; K2 with its cell-state output at that shape
      against its plain version too;
- 10. K7 and K8, the batch-stacked BiLSTM recurrence (both directions as the
+ 11. K7 and K8, the batch-stacked BiLSTM recurrence (both directions as the
      2B rows of one walk) and its backward, at that shape against their
      plain versions and against K2 / K3 on the same inputs (K7's h equal
      to K2's bit for bit), run twice for the same bits, with cuDNN's packed
      LSTM forward (and forward + backward) as the yardsticks; K7's, K8's,
      K3's and K2's time a sequential step, K7's and K8's shared memory
      against the stated layouts, and K7's registers and spills;
- 11. K4 and K5, the CTC alpha and beta + gradient kernels (B=32, T'=836,
+ 12. K4 and K5, the CTC alpha and beta + gradient kernels (B=32, T'=836,
      C=29, ~15 labels a second, one impossible alignment), against their
      plain versions and against PyTorch's own CTC (its forward and backward
      ops as the yardsticks), each twice for the same bits, with their time
      a sequential step, their rings and shared memory against the stated
      layouts, and K4's registers and spills;
- 12. training: a seeded full-width bf16 quartznet12_context takes 20 steps
+ 13. training: a seeded full-width bf16 quartznet12_context takes 20 steps
      of the recipe (dither, SpecAugment, fused NovoGrad, the NaN guard) on
      one batch of 32 int16 waves of 2-16.7 s; the loss must be finite and
      fall, nan_count stay 0, and K1-K6 launch once a step; the steady
@@ -75,13 +97,13 @@ Phases, in order; any failed check exits non-zero before the last line:
      training_dw_wgrad and training_fused_bidir, 8 steps each of the model
      built with that conv_kernel or with fuse_directions, K9 and K10 (or
      K11) launched 14 times a step, or K7 and K8 once in place of K2 and K3;
- 13. training parity: one float32 step from one state and one batch (B=4,
+ 14. training parity: one float32 step from one state and one batch (B=4,
      4 s bucket, no dither, augmentation or dropout) on the card and on the
      CPU: loss, grad norm, per-tensor gradients, parameter updates; for each
      of the four configurations; for the default one also the same card
      step with K1's plain version in place of K1, which shows how much of
      the card-vs-CPU gap K1's summation order accounts for;
- 14. trainer: ``python -m lightning_asr_torch.train`` (its ``main``) with
+ 15. trainer: ``python -m lightning_asr_torch.train`` (its ``main``) with
      LASR_LSTM_FUSED_BIDIR=1 on a tone-language corpus of 128 + 32 WAVs of
      0.5-3 s written to a temporary directory, the default full-width model
      in bf16, batch 32, 3 epochs validated each, then one more epoch resumed
@@ -91,13 +113,14 @@ Phases, in order; any failed check exits non-zero before the last line:
      step and evaluation batch and K8 once a train step (K2, K3 never);
      AsrTranslator on the card transcribes an utterance from ``last``;
      epoch times, audio-seconds per second and the step's share of them;
- 15. a {"kernels": [...]} line: per kernel K1-K11 its launches on the main
-     paths (the two serving bursts, the training steps of the four
-     configurations and the trainer's runs), its error against the plain
+ 16. a {"kernels": [...]} line: per kernel K1-K11 its launches on the main
+     paths (the two serving bursts, the decoding phase's forwards, the
+     training steps of the four configurations and the trainer's runs),
+     its error against the plain
      version, its time, the plain version's, the library yardstick's, and
      the least time the card could take (K1 and K2 at the serving shape,
      K3-K8 at the training shape, K9-K11 at the widest layer);
- 16. {"ok": true, "device": {...}} as the last line.
+ 17. {"ok": true, "device": {...}} as the last line.
 
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -105,6 +128,7 @@ Without a CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import csv
 import hashlib
 import http.client
 import io
@@ -124,9 +148,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from lightning_asr_torch import native
 from lightning_asr_torch.data.audio import read_audio, wav_bytes, write_wav
-from lightning_asr_torch.inference.predict import AsrTranslator
+from lightning_asr_torch.decoding.beam_search import BeamSearchDecoderWithLM
+from lightning_asr_torch.decoding.device_beam import DeviceBeamSearchDecoder, beam_search_device
+from lightning_asr_torch.decoding.greedy import (compact_to_strings, greedy_collapse_device,
+                                                 greedy_emit_mask)
+from lightning_asr_torch.inference.predict import AsrTranslator, plan_chunks
 from lightning_asr_torch.inference.server import make_stdlib_server
+from lightning_asr_torch.inference.streaming import StreamingTranscriber
+from lightning_asr_torch.metrics.wer import word_error_rate
 from lightning_asr_torch.models.layers import MaskedBatchNorm
 from lightning_asr_torch.models.quartznet import build_model, reset_parameters
 from lightning_asr_torch.ops import kernel_build
@@ -158,6 +189,7 @@ from lightning_asr_torch.ops.sepconv_kernels import (sepconv_backward, sepconv_b
                                                      sepconv_forward, sepconv_forward_plain)
 from lightning_asr_torch.optim import cosine_annealing_warmup_restarts, novograd
 from lightning_asr_torch.optim.novograd import GradientTransformation
+from lightning_asr_torch.predict import main as predict_main
 from lightning_asr_torch.train import main as train_main
 from lightning_asr_torch.training.checkpoint import TRAIN_STATE_FILE, save_checkpoint
 from lightning_asr_torch.training.steps import create_train_state, make_train_step
@@ -238,6 +270,27 @@ BLANK = len(LABELS)
 TRAIN_BUCKET_S = 16.7                 # conf.yaml train_max_duration, a bucket
 T_TRAIN = 836                         # its frames after the stride-2 stem
 CHARS_PER_S = 15
+
+# the decoding phase: the sentences of the LM corpus, the peaked lattice
+# and the manifest
+LM_SENTENCES = ("the cat sat on the mat", "the dog sat on the log", "a cat and a dog",
+                "the cat ate the rat", "a dog ate a bone", "the rat sat")
+# device beam width, the native search's width when held against it on a
+# peaked lattice, and the long wave's length, window and overlap in seconds
+DEVICE_BEAM_K, NATIVE_BEAM_K = 40, 64
+LONG_S, CHUNK_S, OVERLAP_S = 90.0, 20.0, 2.0
+MANIFEST_UTTS, MANIFEST_BATCH = 16, 8
+MANIFEST_MIN_S, MANIFEST_MAX_S = 2.0, 16.0
+# device beam, card against the CPU: scores are float32 log-space sums over
+# up to 801 steps through the card's exp/log1p/log and the CPU's, a few ulps
+# a step (the CPU tests hold the CPU against JAX at 1e-5 over 32 steps)
+BEAM_SCORE_RTOL = 1e-5
+# boost above a runner-up's score gap that a hot word is given, and the
+# decisions tried until one flips
+HOTWORD_MARGIN, HOTWORD_TRIES = 20.0, 24
+# frames of the served batch over which torch.profiler reads the device
+# beam's kernels
+BEAM_PROFILE_STEPS = 100
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -452,11 +505,18 @@ def _k6_at(cfg: MelFrontendConfig, waves, lens) -> dict:
                                   f"(max |diff| {(got - want).abs().max().item()})")
     ms = cuda_ms(lambda: extend_preemph(waves, lens, None, cfg, out_total), 20)
     plain_ms = cuda_ms(lambda: extend_preemph_plain(waves, lens, None, cfg, out_total), 10)
+    # the kernel's own device time: back-to-back wrapper calls pace the
+    # events at the host's rate (argument checks, ctypes, the allocation)
+    kernels, _, passes = kernel_times(lambda: extend_preemph(waves, lens, None, cfg, out_total), 20)
+    device_ms = sum(v for k, v in kernels.items() if _category(k) == "K6 extend_preemph")
+    check(device_ms > 0, "K6: torch.profiler recorded no extend_kernel time")
     # bytes: the waves and lengths read once, q written once; a multiply and
     # a subtract per body sample
     bound_ms, bound_by = bound(waves.numel() * 4 + B * 4 + got.numel() * 4, 2 * waves.numel(), "fp32")
     return {"shape": [B, S, out_total], "max_abs_err": (got - want).abs().max().item(), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bound_share": bound_ms / ms, "device_ms": device_ms,
+            "device_bound_share": bound_ms / device_ms, "profiler_passes": passes}
 
 
 def phase_k6(dev) -> dict:
@@ -690,32 +750,38 @@ def _post(port: int, payload: bytes, field: str = "audio"):
         conn.close()
 
 
-def phase_serving(dev):
-    """The seeded full-width bf16 checkpoint served over HTTP twice: by
-    ``AsrTranslator`` as built by default, then with
-    ``conv_kernel="sepconv"`` (phase ``serving_sepconv``); each against the
-    same translator on the CPU."""
+def serving_checkpoint(root, compute_dtype: str = "bfloat16") -> str:
+    """The seeded full-width quartznet12_context checkpoint that the serving
+    and decoding phases load ("default" frontend tier), saved under
+    ``root``."""
     gen = torch.Generator().manual_seed(0)
     model = build_model(len(LABELS) + 1, "quartznet12_context", mask=True, dtype=torch.bfloat16)
     reset_parameters(model, gen)
     with_teeth(model, gen)
     hparams = {"labels": LABELS, "use_cer": False, "encoder": "quartznet12_context", "in_c": 64,
-               "mask": True, "compute_dtype": "bfloat16",
+               "mask": True, "compute_dtype": compute_dtype,
                "frontend": dict(MelFrontendConfig(precision="default").__dict__),
                "normalize": True}
+    return save_checkpoint(root, model.state_dict(), hparams)
+
+
+def phase_serving(dev):
+    """The seeded full-width bf16 checkpoint served over HTTP twice: by
+    ``AsrTranslator`` as built by default, then with
+    ``conv_kernel="sepconv"`` (phase ``serving_sepconv``); each against the
+    same translator on the CPU."""
     rng = np.random.default_rng(2)
     seconds = [2.0, 3.5, 5.0, 7.0, 9.0, 11.0, 13.5, 16.0]
     waves = [(rng.standard_normal(int(s * SR)) * 0.1).astype(np.float32) for s in seconds]
     blobs = [wav_bytes(w, SR) for w in waves]
 
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = save_checkpoint(tmp, model.state_dict(), hparams)
+        ckpt = serving_checkpoint(tmp)
         t0 = time.perf_counter()
         translator = AsrTranslator(ckpt, device="cuda")
         load_s = time.perf_counter() - t0
         cpu = AsrTranslator(ckpt, device="cpu")
-        cpu32 = AsrTranslator(save_checkpoint(f"{tmp}/fp32", model.state_dict(),
-                                              {**hparams, "compute_dtype": "float32"}), device="cpu")
+        cpu32 = AsrTranslator(serving_checkpoint(f"{tmp}/fp32", "float32"), device="cpu")
         sep = AsrTranslator(ckpt, device="cuda", conv_kernel="sepconv")
         sep_cpu = AsrTranslator(ckpt, device="cpu", conv_kernel="sepconv")
     check(translator.device.type == "cuda" and sep.device.type == "cuda", "translator is not on the card")
@@ -869,9 +935,303 @@ def phase_profile(translator: AsrTranslator, waves) -> dict:
     return res
 
 
-def device_time(fn, n: int):
-    """Device time per call of ``fn`` over ``n`` profiled calls, from
-    torch.profiler: (total ms, ms by kernel group, the 12 largest kernels,
+@contextlib.contextmanager
+def card_forwards():
+    """Count AsrTranslator._forward calls on the card, in every instance."""
+    inner = AsrTranslator._forward
+    count = {"n": 0}
+
+    def counting(self, waves, wave_lens):
+        if waves.device.type == "cuda":
+            count["n"] += 1
+        return inner(self, waves, wave_lens)
+
+    AsrTranslator._forward = counting
+    try:
+        yield count
+    finally:
+        AsrTranslator._forward = inner
+
+
+def _texts(prefixes, plens):
+    return ["".join(LABELS[i] for i in row[:n]) for row, n in zip(prefixes, plens)]
+
+
+def _hotword_candidates(beam_texts, scores, lm_texts):
+    """Decisions a hot word is built to flip: for each row and runner-up
+    beam k, the first word ``w`` where beam k's text differs from the best
+    beam's (2+ letters, neither a prefix of the other word, not in the
+    row's LM text), as (row, w, the beams' score gap), closest gap first."""
+    out = []
+    for r, (row, lm) in enumerate(zip(beam_texts, lm_texts)):
+        best = row[0].split()
+        for k in range(1, len(row)):
+            words = row[k].split()
+            j = next((i for i, (a, b) in enumerate(zip(best, words)) if a != b), None)
+            if j is None:
+                continue
+            w, w0 = words[j], best[j]
+            if len(w) >= 2 and not w.startswith(w0) and not w0.startswith(w) \
+                    and w not in lm.split() and all(w != c[1] for c in out if c[0] == r):
+                out.append((r, w, float(scores[r, 0] - scores[r, k])))
+    return sorted(out, key=lambda c: c[2])
+
+
+def spelled_lattice(rng, lengths, T: int) -> torch.Tensor:
+    """(B, T, 29) float32 log-probs peaked as a trained CTC model's: each
+    row spells words of LM_SENTENCES, a character over two frames then a
+    blank, half the characters with a runner-up letter at 0.45 of its
+    mass; the frames after the text blanks."""
+    words = " ".join(LM_SENTENCES).split()
+    blank = np.full(len(LABELS) + 1, 0.002)
+    blank[BLANK] = 1.0
+    out = np.tile(np.log(blank / blank.sum()), (len(lengths), T, 1))
+    for b, n in enumerate(lengths):
+        text = " ".join(rng.choice(words, size=n // 6 + 1))[: n // 3]
+        for i, ch in enumerate(text):
+            p = np.full(len(LABELS) + 1, 0.002)
+            p[LABELS.index(ch)] = 1.0
+            if rng.random() < 0.5:
+                p[rng.integers(2, len(LABELS))] += 0.45
+            out[b, 3 * i: 3 * i + 2] = np.log(p / p.sum())
+    return torch.from_numpy(out.astype(np.float32))
+
+
+def exact_ll(log_probs: torch.Tensor, length: int, text: str) -> float:
+    """log P(text | frames), summed over every alignment (CTC, float64 on
+    the CPU)."""
+    lp = log_probs[:length].double().cpu()[:, None]
+    target = torch.tensor([[LABELS.index(c) for c in text]], dtype=torch.long)
+    return -float(torch.nn.functional.ctc_loss(
+        lp, target, torch.tensor([length]), torch.tensor([len(text)]), blank=BLANK,
+        reduction="sum", zero_infinity=False))
+
+
+def phase_decoding(dev, translator: AsrTranslator, served, native_build: dict) -> dict:
+    """The decoding and offline-inference path on the card, over the
+    serving phase's checkpoint, translator and served batch."""
+    res = {"phase": "decoding", "native_build": native_build}
+    counters = {"mel": mel_from_extended, "lstm": lstm_recurrence, "extend": extend_preemph}
+    for fn in counters.values():
+        fn.launches = 0
+    with tempfile.TemporaryDirectory() as tmp, card_forwards() as forwards:
+        tmp = Path(tmp)
+        ckpt = serving_checkpoint(tmp / "ckpt")
+        cpu = AsrTranslator(ckpt, device="cpu")
+
+        # the served batch on the card: its greedy collapse against the
+        # host's and against the texts the server answered
+        batch, lens = translator.pad_batch(served)
+        lp, out_lens = translator._forward(torch.from_numpy(batch).to(dev),
+                                           torch.from_numpy(lens).to(dev))
+        check(lp.dtype == torch.float32 and lp.shape[0] == 8, f"served log-probs {lp.dtype}")
+        preds = torch.argmax(lp, dim=-1)
+        ids, emit = greedy_collapse_device(preds, out_lens, BLANK)
+        greedy_card = compact_to_strings(ids.cpu().numpy(), emit.cpu().numpy(), LABELS)
+        preds_np, lens_np = preds.cpu().numpy(), out_lens.cpu().numpy()
+        greedy_host = compact_to_strings(preds_np, greedy_emit_mask(preds_np, lens_np, BLANK), LABELS)
+        check(greedy_card == greedy_host, f"greedy collapse on the card {greedy_card} != host's "
+                                          f"{greedy_host}")
+        served_texts = translator.transcribe_batch(served)
+        check(greedy_card == served_texts, "greedy texts differ from the served batch's")
+
+        # LM: a 3-gram ARPA file by the repository's script, from a few
+        # sentences and the served batch's greedy texts
+        corpus = tmp / "corpus.txt"
+        corpus.write_text("\n".join(LM_SENTENCES + tuple(t for t in greedy_card if t.strip())) + "\n")
+        lm = tmp / "lm.arpa"
+        script = Path(__file__).resolve().parent / "scripts" / "make_arpa_lm.py"
+        proc = subprocess.run([sys.executable, str(script), "--text", str(corpus), "--order", "3",
+                               "--out", str(lm)], capture_output=True, text=True, timeout=120)
+        check(proc.returncode == 0 and lm.is_file(), f"make_arpa_lm.py failed: {proc.stderr}")
+        res["lm"] = json.loads(proc.stdout.strip().splitlines()[-1])
+
+        # device beam: twice the same bits, the CPU's beams, the native
+        # search's texts
+        lengths_i32 = out_lens.to(torch.int32)
+        run = lambda: beam_search_device(lp, lengths_i32, DEVICE_BEAM_K)  # noqa: E731
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(first, second)),
+              "device beam: two runs on the card differ")
+        prefixes, plens, scores = (x.cpu().numpy() for x in first)
+        c_prefixes, c_plens, c_scores = (x.numpy() for x in beam_search_device(
+            lp.cpu(), lengths_i32.cpu(), DEVICE_BEAM_K))
+        finite = c_scores > -1e29
+        same = [np.array_equal(prefixes[b, k, : plens[b, k]], c_prefixes[b, k, : c_plens[b, k]])
+                and plens[b, k] == c_plens[b, k] for b, k in zip(*np.nonzero(finite))]
+        score_rel = float(np.max(np.abs(scores - c_scores)[finite] / np.abs(c_scores[finite])))
+        res["device_beam"] = {"K": DEVICE_BEAM_K, "shape": list(lp.shape),
+                              "finite_beams": int(finite.sum()), "beams_equal_cpu": int(sum(same)),
+                              "score_max_rel_err": score_rel, "score_rtol": BEAM_SCORE_RTOL}
+        check(np.array_equal(finite, scores > -1e29) and all(same),
+              f"device beam: {len(same) - sum(same)} of {len(same)} beams differ card vs CPU")
+        check(score_rel <= BEAM_SCORE_RTOL, f"device beam scores card vs CPU: rel {score_rel}")
+        # against the native search: on a lattice peaked as a trained model's
+        # (the JAX package's test_device_beam.py pins agreement there) the
+        # texts must be equal; on the served batch's near-flat log-probs the
+        # two float32 searches may rank near-ties apart over 801 steps, so
+        # there the agreement is counted, with each differing row's two
+        # texts scored exactly (float64 CTC)
+        dev_dec = DeviceBeamSearchDecoder(LABELS, DEVICE_BEAM_K, device=dev)
+        peaked = spelled_lattice(np.random.default_rng(9), lens_np, lp.shape[1]).to(dev)
+        want = BeamSearchDecoderWithLM(LABELS, beam_width=NATIVE_BEAM_K, cutoff_prob=1.0,
+                                       cutoff_top_n=len(LABELS) + 1, num_cpus=8).forward(peaked, out_lens)
+        got = dev_dec.forward(peaked, out_lens)
+        check(got == want, f"device beam {got} != native {want} on the peaked lattice")
+        dev_texts = dev_dec.forward(lp, out_lens)
+        native_texts = BeamSearchDecoderWithLM(LABELS, beam_width=DEVICE_BEAM_K, cutoff_prob=1.0,
+                                               cutoff_top_n=len(LABELS) + 1,
+                                               num_cpus=8).forward(lp, out_lens)
+        differ = [b for b in range(8) if dev_texts[b] != native_texts[b]]
+        res["device_beam"].update(
+            texts_equal_native_peaked=True, native_beam_K_peaked=NATIVE_BEAM_K,
+            served_rows_equal_native=8 - len(differ),
+            served_differing_rows={b: {"device_ll": exact_ll(lp[b], lens_np[b], dev_texts[b]),
+                                       "native_ll": exact_ll(lp[b], lens_np[b], native_texts[b]),
+                                       "device_top2_gap": float(scores[b, 0] - scores[b, 1])}
+                                   for b in differ})
+
+        # the native search with the LM, then with one hot word: runner-up
+        # beams' words, the closest decisions first, each tried on its row
+        lm_dec = BeamSearchDecoderWithLM(LABELS, lm_path=str(lm), num_cpus=8)
+        lm_texts = lm_dec.forward(lp, out_lens)
+        check(len(lm_texts) == 8 and all(isinstance(t, str) for t in lm_texts), "LM texts")
+        beam_texts = [_texts(prefixes[b], plens[b]) for b in range(8)]
+        flipped, tried = None, 0
+        for row, word, gap in _hotword_candidates(beam_texts, scores, lm_texts)[:HOTWORD_TRIES]:
+            boost = gap + HOTWORD_MARGIN
+            tried += 1
+            text = BeamSearchDecoderWithLM(LABELS, lm_path=str(lm), num_cpus=1,
+                                           hotwords={word: boost}).forward(lp[row:row + 1],
+                                                                           out_lens[row:row + 1])[0]
+            if word in text.split() and word not in lm_texts[row].split():
+                flipped = {"word_chars": len(word), "boost": boost, "built_for_row": row}
+                hot = f"{word}:{boost}"
+                break
+        check(flipped is not None, f"no hot word flipped its decision ({tried} tried)")
+        hot_texts = BeamSearchDecoderWithLM(LABELS, lm_path=str(lm), num_cpus=8,
+                                            hotwords={word: boost}).forward(lp, out_lens)
+        rows = [r for r, (a, b) in enumerate(zip(lm_texts, hot_texts))
+                if a != b and word in b.split() and word not in a.split()]
+        check(len(hot_texts) == 8 and flipped["built_for_row"] in rows,
+              f"hot word: rows flipped {rows}, built for {flipped['built_for_row']}")
+        res["hotword"] = {**flipped, "rows_flipped": rows, "tried": tried}
+
+        # long audio: the card's stitched log-probs against the CPU's,
+        # translate_long's text, the stream's
+        long_wave = (np.random.default_rng(6).standard_normal(int(LONG_S * SR)) * 0.1).astype(np.float32)
+        long_blob = wav_bytes(long_wave, SR)
+        long16 = read_audio(long_blob)[0][0]
+        n_windows = len(plan_chunks(long16.shape[0], int(CHUNK_S * SR), int(OVERLAP_S * SR)))
+        long_card = translator.long_log_probs(long16, CHUNK_S, OVERLAP_S)
+        long_cpu = cpu.long_log_probs(long16, CHUNK_S, OVERLAP_S)
+        check(long_card.shape == long_cpu.shape and bool(np.isfinite(long_card).all()),
+              f"long log-probs {long_card.shape} vs {long_cpu.shape}")
+        err = np.abs(long_card - long_cpu)
+        agree = float(np.mean(long_card.argmax(-1) == long_cpu.argmax(-1)))
+        check(err.max() <= SERVE_TOL_MAX and err.mean() <= SERVE_TOL_MEAN,
+              f"long audio card vs CPU: max {err.max()}, mean {err.mean()}")
+        check(agree >= SERVE_MIN_ARGMAX, f"long audio argmax agreement {agree}")
+        long_text = translator.translate_long(long_blob, CHUNK_S, OVERLAP_S)
+        check(long_text == translator.decode_stitched(long_card), "translate_long's text")
+        st = StreamingTranscriber(translator, CHUNK_S, OVERLAP_S)
+        for lo in range(0, long16.shape[0], SR):
+            st.feed(long16[lo: lo + SR])
+        stream_text = st.finish()
+        check(stream_text == long_text, "StreamingTranscriber.finish() differs from translate_long")
+        res["long"] = {"seconds": LONG_S, "windows": n_windows, "frames": long_card.shape[0],
+                       "card_vs_cpu_max_abs": float(err.max()),
+                       "card_vs_cpu_mean_abs": float(err.mean()), "argmax_agreement": agree,
+                       "text_chars": len(long_text), "stream_equals_translate_long": True}
+
+        # a manifest of 16 WAVs: WER and the CSV with confidences
+        rng = np.random.default_rng(8)
+        entries, waves = [], []
+        for i in range(MANIFEST_UTTS):
+            n = int(rng.uniform(MANIFEST_MIN_S, MANIFEST_MAX_S) * SR)
+            wave = (rng.standard_normal(n) * 0.1).astype(np.float32)
+            write_wav(tmp / f"u{i}.wav", wave, SR)
+            waves.append(read_audio(tmp / f"u{i}.wav")[0][0])
+            entries.append({"audio_filepath": str(tmp / f"u{i}.wav"),
+                            "duration": wave.shape[0] / SR, "text": LM_SENTENCES[i % 6]})
+        manifest = tmp / "manifest.json"
+        manifest.write_text("".join(json.dumps(e) + "\n" for e in entries))
+        conf_tr = AsrTranslator(ckpt, device="cuda", return_confidence=True)
+        report = tmp / "report.csv"
+        t0 = time.perf_counter()
+        result = conf_tr.evaluate_manifest(manifest, batch_size=MANIFEST_BATCH, csv_path=report)
+        manifest_s = time.perf_counter() - t0
+        texts = [t for i in range(0, MANIFEST_UTTS, MANIFEST_BATCH)
+                 for t in translator.transcribe_batch(waves[i: i + MANIFEST_BATCH])]
+        want_wer = word_error_rate(texts, [e["text"] for e in entries])
+        check(result == {"wer": want_wer, "n_utterances": MANIFEST_UTTS},
+              f"evaluate_manifest {result}, want wer {want_wer}")
+        with open(report, newline="", encoding="utf-8") as f:
+            rows = list(csv.reader(f))[1:]
+        check(len(rows) == MANIFEST_UTTS and all(np.isfinite(float(r[4])) for r in rows),
+              "manifest CSV rows / confidences")
+        check([r[2] for r in rows] == texts, "manifest CSV hypotheses")
+        audio_s = sum(e["duration"] for e in entries)
+        res["manifest"] = {"utterances": MANIFEST_UTTS, "audio_s": audio_s, "wer": result["wer"],
+                           "seconds": manifest_s, "audio_s_per_s": audio_s / manifest_s}
+
+        # the CLI over the same manifest with the LM and the hot word
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            cli = predict_main(["--model", str(ckpt), "--manifest", str(manifest), "--lm", str(lm),
+                                "--hotword", hot,
+                                "--csv", str(tmp / "cli.csv"), "--confidence",
+                                "--batch_size", str(MANIFEST_BATCH), "--num_cpus", "8"])
+        check(cli["manifest"]["n_utterances"] == MANIFEST_UTTS and str(cli["manifest"]) in out.getvalue(),
+              f"predict CLI printed {out.getvalue()!r}")
+        with open(tmp / "cli.csv", newline="", encoding="utf-8") as f:
+            check(len(list(csv.reader(f))) == MANIFEST_UTTS + 1, "predict CLI CSV rows")
+        res["cli"] = cli["manifest"]
+
+        # times: the device beam (CUDA events, host clock, torch.profiler),
+        # the native search with and without the LM, translate_long
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        beam_host_ms = 1e3 * (time.perf_counter() - t0)
+        beam_ms = cuda_ms(run, 3, warmup=0)
+        # torch.profiler over the first BEAM_PROFILE_STEPS frames only: a
+        # whole batch is over 100,000 launches, and a profile of that size
+        # left the next phase's profiler with no device time
+        head = lp[:, :BEAM_PROFILE_STEPS]
+        kernels, launches, passes = kernel_times(
+            lambda: beam_search_device(head, lengths_i32.clamp_max(BEAM_PROFILE_STEPS), DEVICE_BEAM_K), 1)
+        step_device_ms = sum(kernels.values()) / BEAM_PROFILE_STEPS
+        native_ms = {}
+        for name, dec in (("no_lm", BeamSearchDecoderWithLM(LABELS, num_cpus=8)), ("lm", lm_dec)):
+            t0 = time.perf_counter()
+            dec.forward(lp, out_lens)
+            native_ms[name] = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        translator.translate_long(long_blob, CHUNK_S, OVERLAP_S)
+        torch.cuda.synchronize()
+        res["times"] = {
+            "device_beam_ms": beam_ms, "device_beam_host_ms": beam_host_ms,
+            "device_beam_profiled_steps": BEAM_PROFILE_STEPS,
+            "device_beam_device_ms_per_step": step_device_ms,
+            "device_beam_launches_per_step": launches / BEAM_PROFILE_STEPS,
+            "device_beam_host_ms_per_step": beam_ms / lp.shape[1],
+            "device_beam_device_share": step_device_ms * lp.shape[1] / beam_ms,
+            "native_beam_ms": native_ms, "translate_long_ms": 1e3 * (time.perf_counter() - t0),
+            "evaluate_manifest_audio_s_per_s": res["manifest"]["audio_s_per_s"],
+            "profiler_passes": passes}
+        res["forwards"] = forwards["n"]
+    res["launches"] = {key: fn.launches for key, fn in counters.items()}
+    check(res["forwards"] > 0 and all(n == res["forwards"] for n in res["launches"].values()),
+          f"decoding: launches {res['launches']} for {res['forwards']} forwards on the card")
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def kernel_times(fn, n: int):
+    """Device time per call of each kernel of ``fn`` over ``n`` profiled
+    calls, from torch.profiler: ({kernel: ms}, kernel launches per call,
     the passes it took).  A fresh process's profiler has once recorded no
     device time at all; such a pass runs again, up to PROFILER_PASSES
     passes, and the phase fails only if none records any."""
@@ -882,16 +1242,25 @@ def device_time(fn, n: int):
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        kernels = {}
+        kernels, launches = {}, 0
         for ev in prof.key_averages():
             dev_us = getattr(ev, "self_device_time_total", None)
             if dev_us is None:
                 dev_us = getattr(ev, "self_cuda_time_total", 0.0)
             if dev_us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
                 kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us / 1e3 / n
+                launches += ev.count
         if kernels:
             break
     check(bool(kernels), f"torch.profiler recorded no device time in {passes} passes")
+    return kernels, launches / n, passes
+
+
+def device_time(fn, n: int):
+    """Device time per call of ``fn`` over ``n`` profiled calls
+    (``kernel_times``): (total ms, ms by kernel group, the 12 largest
+    kernels, the passes it took)."""
+    kernels, _, passes = kernel_times(fn, n)
     by_cat = {}
     for name, ms in kernels.items():
         by_cat[_category(name)] = by_cat.get(_category(name), 0.0) + ms
@@ -1606,12 +1975,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    info = kernel_build.build_all()
+    with ThreadPoolExecutor(1) as pool:     # g++ beside the nvcc processes
+        native_build = pool.submit(native.build)
+        info = kernel_build.build_all()
+        native_build = native_build.result()
     ptxas = [line.strip() for out in info["ptxas"].values() for line in out.splitlines()
              if "registers" in line or "Compiling entry" in line]
     hmma = hmma_counts()
     print(json.dumps({"phase": "build", "seconds": info["seconds"], "cached": info["cached"],
-                      "hmma": hmma, "ptxas": ptxas}), flush=True)
+                      "native": native_build, "hmma": hmma, "ptxas": ptxas}), flush=True)
 
     k1 = phase_k1(dev)
     k2 = phase_k2(dev, info["ptxas"].get("lstm", ""))
@@ -1619,6 +1991,7 @@ def main() -> int:
     k9, k10, k11 = phase_sepconv(dev)
     serving, serving_sep, translator, served = phase_serving(dev)
     phase_profile(translator, served)
+    decoding = phase_decoding(dev, translator, served, native_build)
     del translator
     k3 = phase_k3(dev, hmma, info["ptxas"].get("lstm_bwd", ""))
     k7, k8 = phase_k78(dev, hmma, info["ptxas"].get("lstm_bidir", ""))
@@ -1629,10 +2002,11 @@ def main() -> int:
     for conv_kernel, fused in ((None, False), ("sepconv", False), ("dw_wgrad", False), (None, True)):
         phase_train_parity(dev, conv_kernel, fused)
     trainer = phase_trainer(dev)
-    # launches on the main paths: the two serving bursts, the training steps
-    # of the four configurations and the trainer's runs
+    # launches on the main paths: the two serving bursts, the decoding
+    # phase's forwards, the training steps of the four configurations and
+    # the trainer's runs
     serve = {key: serving["launches"].get(key, 0) + serving_sep["launches"].get(key, 0)
-             for key in ("mel", "lstm", "extend", "sepconv_forward")}
+             + decoding["launches"].get(key, 0) for key in ("mel", "lstm", "extend", "sepconv_forward")}
     train = {name: sum(t["launches"][name] for t in trainings) for name in trainings[0]["launches"]}
     k1["launches"] = serve["mel"] + train["mel_from_extended"]
     k2["launches"] = serve["lstm"] + train["lstm_recurrence"]

@@ -15,14 +15,20 @@ Layering (bottom → top):
   optim/     NovoGrad (also with a runtime lr), cosine warmup restarts,
              ReduceLROnPlateau, gradient clipping
   metrics/   WER / CER
-  decoding/  greedy CTC decode
+  decoding/  greedy CTC collapse on the device, LM-free prefix beam search
+             as batched tensor ops, the native LM beam search with hot words
+  ssl_codec/ CTC confidence scores
   training/  train and eval steps, the trainer, checkpoints of train state
              (state.pt + train_state.pt + metadata.json), callbacks,
              loggers, profiler
   utils/     device selection, config (own YAML reader), logging, the
              flax <-> torch weight and optimizer-state bridge
-  inference/ AsrTranslator + HTTP server
+  native.py  the repository's C++ decoder, Levenshtein distance and WAV
+             parser (native/ctc_decoder), built by g++ at first use
+  inference/ AsrTranslator (long audio, manifest evaluation), streaming,
+             HTTP server
   train.py   the training CLI (python -m lightning_asr_torch.train)
+  predict.py the inference CLI (python -m lightning_asr_torch.predict)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 On a CPU tensor every kernel wrapper runs its plain PyTorch version; on a

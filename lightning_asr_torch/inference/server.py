@@ -4,10 +4,10 @@ model loaded once at startup, ``POST /`` with a multipart form file field
 malformed audio or a wrong sample rate; 503 when the request queue is full.
 
 A dynamic batcher collects concurrent requests for up to ``max_wait_ms`` or
-``max_batch`` and transcribes them as one device batch.  It decodes WAVs
-with ``data/audio.py::read_audio`` in its assembler thread (the JAX
-package's native parser is not ported yet), and serving uses the stdlib
-``http.server`` only.
+``max_batch`` and transcribes them as one device batch.  Its assembler
+thread decodes each batch's request bodies in one pass of the native WAV
+parser (``native.parse_wav_batch_mem``: a C++ thread pool, without the
+interpreter lock).  Serving uses the stdlib ``http.server`` only.
 
 Run on the GPU with ``python -m lightning_asr_torch.inference.server --model <dir>``.
 """
@@ -25,12 +25,13 @@ from concurrent.futures import Future
 from pathlib import Path
 from typing import List, Optional, Sequence
 
-from ..data.audio import read_audio
+from ..native import get_lib, parse_wav_batch_mem
 from .predict import AsrTranslator
 
 logger = logging.getLogger(__name__)
 
 _MAX_SECONDS = 60.0  # longer requests are cut to this many seconds
+_DECODE_THREADS = 4  # the native parser's threads for a batch's bodies
 
 
 class ServerOverloaded(RuntimeError):
@@ -41,10 +42,10 @@ class DynamicBatcher:
     """Collect concurrent transcription requests into device batches.
 
     Two stages, each in a daemon thread: the assembler collects raw request
-    bytes into a batch and decodes it; the device loop submits batch N+1
-    before resolving batch N, so the copy of N's result overlaps N+1's
-    compute.  The request queue is bounded (``max_queue``); when it is full,
-    ``translate`` raises ``ServerOverloaded``."""
+    bytes into a batch and decodes it in one native pass; the device loop
+    submits batch N+1 before resolving batch N, so the copy of N's result
+    overlaps N+1's compute.  The request queue is bounded (``max_queue``);
+    when it is full, ``translate`` raises ``ServerOverloaded``."""
 
     def __init__(self, translator: AsrTranslator, max_batch: int = 8,
                  max_wait_ms: float = 20.0, max_queue: int = 64):
@@ -52,6 +53,7 @@ class DynamicBatcher:
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1000.0
         self.max_samples = int(_MAX_SECONDS * translator.frontend.sample_rate)
+        get_lib()  # build the parser now: a failed build raises here, not in a request
         self._queue: "queue.Queue" = queue.Queue(maxsize=max_queue)
         self._ready: "queue.Queue" = queue.Queue(maxsize=1)
         threading.Thread(target=self._assemble, daemon=True).start()
@@ -74,18 +76,18 @@ class DynamicBatcher:
         return fut.result()
 
     def _decode(self, blobs: List[bytes]) -> List:
-        """bytes -> 1-D float32 waveform per row, or the row's Exception
-        (malformed / wrong sample rate)."""
+        """bytes -> 1-D float32 waveform per row, or the row's ValueError
+        (malformed / wrong sample rate), in one native pass."""
         sr_expect = self.translator.frontend.sample_rate
+        waves, lens, srs = parse_wav_batch_mem(blobs, self.max_samples, _DECODE_THREADS)
         out: List = []
-        for blob in blobs:
-            try:
-                samples, sr = read_audio(io.BytesIO(blob), mono=True)
-                if sr != sr_expect:
-                    raise ValueError(f"expected {sr_expect} Hz audio, got {sr}")
-                out.append(samples[0][: self.max_samples])
-            except Exception as e:  # reported to that request only
-                out.append(e)
+        for wave, n, sr in zip(waves, lens, srs):
+            if n < 0:
+                out.append(ValueError("malformed or unsupported wav body"))
+            elif sr != sr_expect:
+                out.append(ValueError(f"expected {sr_expect} Hz audio, got {int(sr)}"))
+            else:
+                out.append(wave[:n])
         return out
 
     def _assemble(self) -> None:

@@ -137,3 +137,17 @@ def test_port_imports_no_jax():
     bad = [(str(p.relative_to(REPO)), root) for p in files for root in _imported_roots(p)
            if root in _FORBIDDEN]
     assert not bad, bad
+
+
+@pytest.mark.parametrize("module", ["native.py", "predict.py", "decoding/__init__.py",
+                                    "decoding/beam_search.py", "decoding/device_beam.py",
+                                    "decoding/greedy.py", "inference/predict.py",
+                                    "inference/server.py", "inference/streaming.py",
+                                    "ssl_codec/confidence.py"])
+def test_decoding_and_inference_modules_import_no_jax(module):
+    """The decoding and offline-inference modules import neither JAX nor the
+    JAX package, not even its JAX-free ``native`` binding."""
+    path = REPO / "lightning_asr_torch" / module
+    roots = set(_imported_roots(path))
+    assert not roots & set(_FORBIDDEN), roots
+    assert "import jax" not in path.read_text() and "lightning_asr_tpu.native" not in path.read_text()

@@ -21,7 +21,7 @@ Phases, in order; any failed check exits non-zero before the last line:
      the yardstick; its cell-state output (training) leaves h bit for bit;
      its shared memory against the stated layout, its registers and
      spills, its time a sequential step, and digests of h and c at that
-     shape and at the training shape (phase 10's inputs, with the cell
+     shape and at the training shape (phase 11's inputs, with the cell
      output);
   5. K6, the fused preemphasis + extension kernel, at the serving and the
      training shapes, against its plain version, bit for bit, with the
@@ -47,7 +47,24 @@ Phases, in order; any failed check exits non-zero before the last line:
      AsrTranslator(conv_kernel="sepconv"), K9 launched 14 times;
   8. profile: one steady serving batch's host-clock latency and, from
      torch.profiler, its device time by kernel group;
-  9. decoding: over the serving checkpoint and the served batch's
+  9. encoders: the other three encoders (quartznet12_context_se,
+     quartznet15x5, quartznet10x5), each a seeded full-width checkpoint
+     (with_teeth's BatchNorm terms, running statistics from train-mode
+     passes, the decoder scaled to a class std of 0.8: calibrated_teeth)
+     served as in phase 7 (K2 once in the SE burst, none in the others;
+     15x5 also with conv_kernel="sepconv", K9 26 times), the served batch in
+     float32 on the card against the CPU, a steady batch profiled as in
+     phase 8, and for the SE encoder a 90 s wave through translate_long
+     against StreamingTranscriber (C13: the stitched log-probs within the
+     bf16 serving bounds, the texts compared); then five training configurations
+     (SE, SE with fuse_directions, 15x5 sepconv, 15x5 dw_wgrad, 10x5), 8
+     bf16 steps each as in phase 14 and one float32 step each card against
+     CPU as in phase 15, but from the CPU's log-mels and bound by the card's
+     own move under a 1e-7 change of them (the seeded stacks are chaotic),
+     the step from waves recorded beside; one ``encoders`` line an encoder: served ms a
+     batch, audio-s/s, device busy share, card-vs-CPU errors in bf16 and
+     float32, each training configuration's step and parity;
+ 10. decoding: over the serving checkpoint and the served batch's
      log-probs on the card (8 rows of up to 801 frames, 29 classes): the
      native library's build; a 3-gram ARPA LM by scripts/make_arpa_lm.py;
      the greedy collapse on the card equal to the host's and to the served
@@ -66,7 +83,7 @@ Phases, in order; any failed check exits non-zero before the last line:
      device share and launches by torch.profiler), of the native search
      with and without the LM, of translate_long, and evaluate_manifest's
      audio-seconds per second;
- 10. K3, the BiLSTM backward kernel (its gates pass and its walk), at the
+ 11. K3, the BiLSTM backward kernel (its gates pass and its walk), at the
      training shape (B=32, T'=836, the 16.7 s bucket after the stride-2
      stem), against its plain version, twice for the same bits, with its
      time a sequential step beside K2's, its device time by kernel, its
@@ -74,20 +91,20 @@ Phases, in order; any failed check exits non-zero before the last line:
      kernels' registers and spills, and cuDNN's packed LSTM forward +
      backward as the yardstick; K2 with its cell-state output at that shape
      against its plain version too;
- 11. K7 and K8, the batch-stacked BiLSTM recurrence (both directions as the
+ 12. K7 and K8, the batch-stacked BiLSTM recurrence (both directions as the
      2B rows of one walk) and its backward, at that shape against their
      plain versions and against K2 / K3 on the same inputs (K7's h equal
      to K2's bit for bit), run twice for the same bits, with cuDNN's packed
      LSTM forward (and forward + backward) as the yardsticks; K7's, K8's,
      K3's and K2's time a sequential step, K7's and K8's shared memory
      against the stated layouts, and K7's registers and spills;
- 12. K4 and K5, the CTC alpha and beta + gradient kernels (B=32, T'=836,
+ 13. K4 and K5, the CTC alpha and beta + gradient kernels (B=32, T'=836,
      C=29, ~15 labels a second, one impossible alignment), against their
      plain versions and against PyTorch's own CTC (its forward and backward
      ops as the yardsticks), each twice for the same bits, with their time
      a sequential step, their rings and shared memory against the stated
      layouts, and K4's registers and spills;
- 13. training: a seeded full-width bf16 quartznet12_context takes 20 steps
+ 14. training: a seeded full-width bf16 quartznet12_context takes 20 steps
      of the recipe (dither, SpecAugment, fused NovoGrad, the NaN guard) on
      one batch of 32 int16 waves of 2-16.7 s; the loss must be finite and
      fall, nan_count stay 0, and K1-K6 launch once a step; the steady
@@ -97,13 +114,13 @@ Phases, in order; any failed check exits non-zero before the last line:
      training_dw_wgrad and training_fused_bidir, 8 steps each of the model
      built with that conv_kernel or with fuse_directions, K9 and K10 (or
      K11) launched 14 times a step, or K7 and K8 once in place of K2 and K3;
- 14. training parity: one float32 step from one state and one batch (B=4,
+ 15. training parity: one float32 step from one state and one batch (B=4,
      4 s bucket, no dither, augmentation or dropout) on the card and on the
      CPU: loss, grad norm, per-tensor gradients, parameter updates; for each
      of the four configurations; for the default one also the same card
      step with K1's plain version in place of K1, which shows how much of
      the card-vs-CPU gap K1's summation order accounts for;
- 15. trainer: ``python -m lightning_asr_torch.train`` (its ``main``) with
+ 16. trainer: ``python -m lightning_asr_torch.train`` (its ``main``) with
      LASR_LSTM_FUSED_BIDIR=1 on a tone-language corpus of 128 + 32 WAVs of
      0.5-3 s written to a temporary directory, the default full-width model
      in bf16, batch 32, 3 epochs validated each, then one more epoch resumed
@@ -113,14 +130,15 @@ Phases, in order; any failed check exits non-zero before the last line:
      step and evaluation batch and K8 once a train step (K2, K3 never);
      AsrTranslator on the card transcribes an utterance from ``last``;
      epoch times, audio-seconds per second and the step's share of them;
- 16. a {"kernels": [...]} line: per kernel K1-K11 its launches on the main
-     paths (the two serving bursts, the decoding phase's forwards, the
-     training steps of the four configurations and the trainer's runs),
+ 17. a {"kernels": [...]} line: per kernel K1-K11 its launches on the main
+     paths (the serving bursts of every encoder, the decoding phase's
+     forwards, the training steps of the nine configurations and the
+     trainer's runs),
      its error against the plain
      version, its time, the plain version's, the library yardstick's, and
      the least time the card could take (K1 and K2 at the serving shape,
      K3-K8 at the training shape, K9-K11 at the widest layer);
- 17. {"ok": true, "device": {...}} as the last line.
+ 18. {"ok": true, "device": {...}} as the last line.
 
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -167,7 +185,7 @@ from lightning_asr_torch.ops.ctc_kernels import (ALPHA_RING, ctc_alpha, ctc_alph
                                                  ctc_beta_smem_bytes, ctc_beta_smem_on_card,
                                                  ctc_loss)
 from lightning_asr_torch.ops.frontend import (MelFrontendConfig, _preemphasis, expand_wire,
-                                              extended_batch, mel_filterbank)
+                                              extended_batch, log_mel_spectrogram, mel_filterbank)
 from lightning_asr_torch.ops.depthwise_kernels import depthwise_wgrad, depthwise_wgrad_plain
 from lightning_asr_torch.ops import frontend_kernels
 from lightning_asr_torch.ops.frontend_kernels import (extend_preemph, extend_preemph_plain,
@@ -263,6 +281,40 @@ CONV_TRAIN_STEPS = 8
 # bucket, batch 32, epochs before the resume and after it
 TRAINER_UTTS, TRAINER_DEV_UTTS, TRAINER_EPOCHS = 128, 32, 3
 FUSED_SWITCH = "LASR_LSTM_FUSED_BIDIR"
+
+# the encoders phase: the encoders besides the default, their configurations
+# trained for CONV_TRAIN_STEPS steps and held card against CPU (encoder,
+# conv_kernel, fuse_directions), and the stride-1 SepConvs of each encoder
+# that conv_kernel routes (the SE convs have no route)
+DEFAULT_ENCODER = "quartznet12_context"
+OTHER_ENCODERS = ("quartznet12_context_se", "quartznet15x5", "quartznet10x5")
+LSTM_ENCODERS = ("quartznet12_context", "quartznet12_context_se")
+ROUTED_CONVS = {"quartznet12_context": 14, "quartznet12_context_se": 0, "quartznet15x5": 26,
+                "quartznet10x5": 51}
+SEPCONV_SERVED = "quartznet15x5"       # also served with conv_kernel="sepconv"
+ENCODER_CONFIGS = (("quartznet12_context_se", None, False), ("quartznet12_context_se", None, True),
+                   ("quartznet15x5", "sepconv", False), ("quartznet15x5", "dw_wgrad", False),
+                   ("quartznet10x5", None, False))
+# float32 step of the other encoders, card against CPU from the same
+# features: these seeded train-mode stacks are chaotic (a ReLU input within
+# rounding of 0 flips, and the flip reaches every gradient before it); on an
+# H100 the card's own gradients moved by up to 2.5% (SE), 2.0% (15x5) and
+# 8.1% (10x5) when its features moved by 1e-7 relative, and its gap to the
+# CPU was 0.83-1.88 times that move.  So each bound is the larger of
+# TRAIN_TOL's and this factor times the move measured in the run.
+CHAOS_GAP_RATIO = 2.0
+# conv biases that a train-mode BatchNorm follows: their gradient is zero
+ZERO_GRAD_BIASES = {"quartznet15x5": ("encoder.first_cnn.bias", "encoder.last_conv.bias"),
+                    "quartznet10x5": ("encoder.last_conv.bias",)}
+# float32 served log-probs, card against CPU, over valid frames: the card's
+# K1 sums the frontend in another order (within 0.031 dB, C4), which the
+# float32 network carries into the log-probs; the bounds of the CPU test of
+# the same frontend gap (tests/test_torch_serving.py)
+SERVE32_TOL_MAX, SERVE32_TOL_MEAN, SERVE32_MIN_ARGMAX = 5e-2, 1e-3, 0.98
+# calibrated_teeth: the train-mode passes that set the other encoders'
+# BatchNorm statistics, and the class std their log-probs are scaled to on
+# random features (0.6-0.8 on the served batch, above its check's 0.5)
+CALIBRATION_PASSES, TEETH_CLASS_STD = 30, 0.8
 
 SR = 16000
 LABELS = [" ", "'"] + [chr(ord("a") + i) for i in range(26)]
@@ -723,6 +775,33 @@ def with_teeth(model, gen: torch.Generator, decoder_scale: float = 50.0) -> None
         model.decoder.bias.mul_(decoder_scale)
 
 
+def calibrated_teeth(model, gen: torch.Generator) -> None:
+    """``with_teeth``'s random BatchNorm terms, then running statistics
+    moved towards what training leaves (CALIBRATION_PASSES train-mode passes,
+    momentum 0.1, over random features of 2 x 200 frames) and a decoder
+    scaled to a set spread: its bias cancels its input's mean on one more
+    such batch, and its scale brings that batch's log-probs to a class std of
+    TEETH_CLASS_STD.  With ``with_teeth``'s random running statistics alone
+    the SE encoder's log-probs are nearly constant (class std 0.19 at scale
+    50) and its bf16 log-probs agree with its float32 ones on 21% of the
+    frames' argmax: the constant terms swamp the signal."""
+    with_teeth(model, gen, 1.0)
+    with torch.no_grad():
+        model.train()
+        for _ in range(CALIBRATION_PASSES):
+            model(torch.randn((2, 200, 64), generator=gen), torch.ones(2))
+        seen = {}
+        hook = model.decoder.register_forward_pre_hook(lambda mod, args: seen.update(x=args[0].float()))
+        model.eval()(torch.randn((2, 200, 64), generator=gen), torch.ones(2))
+        hook.remove()
+        w = model.decoder.weight[:, :, 0]
+        model.decoder.bias.copy_(-(w @ seen["x"].mean(dim=(0, 2))))
+        logits = torch.einsum("oc,bct->bto", w, seen["x"]) + model.decoder.bias
+        scale = TEETH_CLASS_STD / logits.std(dim=-1).mean().item()
+        model.decoder.weight.mul_(scale)
+        model.decoder.bias.mul_(scale)
+
+
 def _edits(a: str, b: str) -> int:
     """Levenshtein distance between two strings."""
     prev = list(range(len(b) + 1))
@@ -750,19 +829,29 @@ def _post(port: int, payload: bytes, field: str = "audio"):
         conn.close()
 
 
-def serving_checkpoint(root, compute_dtype: str = "bfloat16") -> str:
-    """The seeded full-width quartznet12_context checkpoint that the serving
-    and decoding phases load ("default" frontend tier), saved under
-    ``root``."""
+def serving_checkpoint(root, compute_dtype: str = "bfloat16",
+                       encoder: str = DEFAULT_ENCODER) -> str:
+    """The seeded full-width checkpoint of ``encoder`` that the serving,
+    decoding and encoders phases load ("default" frontend tier), saved under
+    ``root``: ``with_teeth`` for the default encoder, ``calibrated_teeth``
+    for the others."""
     gen = torch.Generator().manual_seed(0)
-    model = build_model(len(LABELS) + 1, "quartznet12_context", mask=True, dtype=torch.bfloat16)
+    model = build_model(len(LABELS) + 1, encoder, mask=True, dtype=torch.bfloat16)
     reset_parameters(model, gen)
-    with_teeth(model, gen)
-    hparams = {"labels": LABELS, "use_cer": False, "encoder": "quartznet12_context", "in_c": 64,
+    (with_teeth if encoder == DEFAULT_ENCODER else calibrated_teeth)(model, gen)
+    hparams = {"labels": LABELS, "use_cer": False, "encoder": encoder, "in_c": 64,
                "mask": True, "compute_dtype": compute_dtype,
                "frontend": dict(MelFrontendConfig(precision="default").__dict__),
                "normalize": True}
     return save_checkpoint(root, model.state_dict(), hparams)
+
+
+def serving_burst():
+    """The seconds and WAV bodies of the 8 requests every serving burst sends."""
+    rng = np.random.default_rng(2)
+    seconds = [2.0, 3.5, 5.0, 7.0, 9.0, 11.0, 13.5, 16.0]
+    waves = [(rng.standard_normal(int(s * SR)) * 0.1).astype(np.float32) for s in seconds]
+    return seconds, [wav_bytes(w, SR) for w in waves]
 
 
 def phase_serving(dev):
@@ -770,11 +859,7 @@ def phase_serving(dev):
     ``AsrTranslator`` as built by default, then with
     ``conv_kernel="sepconv"`` (phase ``serving_sepconv``); each against the
     same translator on the CPU."""
-    rng = np.random.default_rng(2)
-    seconds = [2.0, 3.5, 5.0, 7.0, 9.0, 11.0, 13.5, 16.0]
-    waves = [(rng.standard_normal(int(s * SR)) * 0.1).astype(np.float32) for s in seconds]
-    blobs = [wav_bytes(w, SR) for w in waves]
-
+    seconds, blobs = serving_burst()
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = serving_checkpoint(tmp)
         t0 = time.perf_counter()
@@ -796,7 +881,7 @@ def phase_serving(dev):
 def _serve_and_check(dev, name: str, translator, cpu, cpu32, blobs, extra: dict, **info) -> dict:
     """8 concurrent requests and a wrong form field over HTTP, served as one
     device batch; the kernels' launches during the burst (K1, K2 and K6 once,
-    ``extra``'s as many times as given); the served batch's log-probs on the
+    ``extra``'s as many times as given, overriding those); the served batch's log-probs on the
     card against ``cpu``'s (the same model on the CPU) over valid frames, the
     card's and the CPU's gap to ``cpu32`` (float32 on the CPU), and the
     served texts."""
@@ -876,7 +961,7 @@ def _serve_and_check(dev, name: str, translator, cpu, cpu32, blobs, extra: dict,
            "texts_equal_cpu": sum(a == b for a, b in zip(card_texts, cpu_texts)),
            "batch_shape": list(batch.shape)}
     print(json.dumps(res), flush=True)
-    return {**res, "served": served}
+    return {**res, "served": served, "fp32_cpu": (batch, lens, lp_fp32, out_lens_cpu)}
 
 
 def _category(name: str) -> str:
@@ -909,7 +994,7 @@ def _category(name: str) -> str:
     return "other"
 
 
-def phase_profile(translator: AsrTranslator, waves) -> dict:
+def phase_profile(translator: AsrTranslator, waves, name: str = "profile") -> dict:
     """Where one steady serving batch's time goes: the host-clock latency of
     transcribe_batch over PROFILE_ITERS[0] batches after warm-up, and with
     torch.profiler the device time of each kernel per batch over
@@ -926,7 +1011,7 @@ def phase_profile(translator: AsrTranslator, waves) -> dict:
         lat.append(time.perf_counter() - t0)
     device_ms, by_cat, top, passes = device_time(lambda: translator.transcribe_batch(waves), prof_iters)
     median_ms = 1e3 * statistics.median(lat)
-    res = {"phase": "profile", "batch": len(waves), "audio_s_per_batch": sum(len(w) for w in waves) / SR,
+    res = {"phase": name, "batch": len(waves), "audio_s_per_batch": sum(len(w) for w in waves) / SR,
            "steady_latency_ms": {"median": median_ms, "min": 1e3 * min(lat), "max": 1e3 * max(lat),
                                  "n": iters},
            "device_ms_per_batch": device_ms, "device_busy_share": device_ms / median_ms,
@@ -1656,17 +1741,21 @@ def train_batch(rng, B: int, bucket_s: float, max_s: float):
     return {"waves": waves, "wave_lens": lens, "targets": targets, "target_lens": tl}, float(seconds.sum())
 
 
-def _config_name(prefix: str, conv_kernel, fuse_directions: bool) -> str:
-    return prefix + ("_fused_bidir" if fuse_directions else "") + (f"_{conv_kernel}" if conv_kernel else "")
+def _config_name(prefix: str, conv_kernel, fuse_directions: bool,
+                 encoder: str = DEFAULT_ENCODER) -> str:
+    return (prefix + ("" if encoder == DEFAULT_ENCODER else f"_{encoder}")
+            + ("_fused_bidir" if fuse_directions else "") + (f"_{conv_kernel}" if conv_kernel else ""))
 
 
-def phase_training(dev, conv_kernel=None, steps: int = TRAIN_STEPS, fuse_directions: bool = False) -> dict:
+def phase_training(dev, conv_kernel=None, steps: int = TRAIN_STEPS, fuse_directions: bool = False,
+                   encoder: str = DEFAULT_ENCODER) -> dict:
     """The recipe's train step at full width, ``steps`` steps on one batch,
-    the model built with ``conv_kernel`` / ``fuse_directions`` (phase
-    ``training``, ``training_<conv_kernel>`` or ``training_fused_bidir``)."""
-    name = _config_name("training", conv_kernel, fuse_directions)
+    the ``encoder`` model built with ``conv_kernel`` / ``fuse_directions``
+    (phase ``training``, ``training_<conv_kernel>``,
+    ``training_fused_bidir``, or with ``_<encoder>`` after ``training``)."""
+    name = _config_name("training", conv_kernel, fuse_directions, encoder)
     gen = torch.Generator().manual_seed(5)
-    model = build_model(len(LABELS) + 1, "quartznet12_context", mask=True, dtype=torch.bfloat16,
+    model = build_model(len(LABELS) + 1, encoder, mask=True, dtype=torch.bfloat16,
                         conv_kernel=conv_kernel, fuse_directions=fuse_directions)
     reset_parameters(model, gen)
     model.to(dev)
@@ -1684,14 +1773,17 @@ def phase_training(dev, conv_kernel=None, steps: int = TRAIN_STEPS, fuse_directi
     torch.cuda.reset_peak_memory_stats()
 
     # launches a step: K1, K4-K6 once, K2 and K3 (or K7 and K8 with
-    # fuse_directions) once; the 14 stride-1 block convs each run K9 and K10
-    # (sepconv) or K11 (dw_wgrad) once
-    per_step = {mel_from_extended: 1, lstm_recurrence: int(not fuse_directions),
-                lstm_backward: int(not fuse_directions), lstm_recurrence_stacked: int(fuse_directions),
-                lstm_backward_stacked: int(fuse_directions), ctc_alpha: 1, ctc_beta: 1, extend_preemph: 1,
-                sepconv_forward: 14 * (conv_kernel == "sepconv"),
-                sepconv_backward: 14 * (conv_kernel == "sepconv"),
-                depthwise_wgrad: 14 * (conv_kernel == "dw_wgrad")}
+    # fuse_directions) once in an encoder with a BiLSTM; the stride-1 block
+    # convs (ROUTED_CONVS) each run K9 and K10 (sepconv) or K11 (dw_wgrad)
+    # once
+    lstm, routed = int(encoder in LSTM_ENCODERS), ROUTED_CONVS[encoder]
+    per_step = {mel_from_extended: 1, lstm_recurrence: lstm * (not fuse_directions),
+                lstm_backward: lstm * (not fuse_directions),
+                lstm_recurrence_stacked: lstm * fuse_directions,
+                lstm_backward_stacked: lstm * fuse_directions, ctc_alpha: 1, ctc_beta: 1,
+                extend_preemph: 1, sepconv_forward: routed * (conv_kernel == "sepconv"),
+                sepconv_backward: routed * (conv_kernel == "sepconv"),
+                depthwise_wgrad: routed * (conv_kernel == "dw_wgrad")}
     for fn in per_step:
         fn.launches = 0
     losses, times = [], []
@@ -1722,7 +1814,8 @@ def phase_training(dev, conv_kernel=None, steps: int = TRAIN_STEPS, fuse_directi
         holder["state"], _ = step(holder["state"], batch, rng)
 
     device_ms, by_cat, top, passes = device_time(one_step, TRAIN_PROFILE_STEPS)
-    res = {"phase": name, "batch": TRAIN_BATCH, "bucket_s": TRAIN_BUCKET_S, "audio_s_per_batch": audio_s,
+    res = {"phase": name, "encoder": encoder, "batch": TRAIN_BATCH, "bucket_s": TRAIN_BUCKET_S,
+           "audio_s_per_batch": audio_s,
            "steps": steps, "losses": losses, "launches": launches,
            "step_ms": {"median": median_ms, "min": 1e3 * min(steady), "max": 1e3 * max(steady),
                        "mean": 1e3 * steady_s / len(steady), "first": 1e3 * times[0],
@@ -1745,69 +1838,245 @@ def _capture(inner):
                                              inner.init(p)), update)
 
 
-def phase_train_parity(dev, conv_kernel=None, fuse_directions: bool = False) -> dict:
+def _step_errors(card, cpu, skip=()):
+    """(errors of one step against another, the worst gradient's tensor),
+    each a ``one_step`` result; the tensors in ``skip`` are left out."""
+    rel = lambda a, b: (a - b).norm().item() / max(b.norm().item(), 1e-30)  # noqa: E731
+    old, cpu_new, cpu_g, cpu_m = cpu
+    _, card_new, card_g, card_m = card
+    grads = {k: rel(card_g[k], cpu_g[k]) for k in cpu_g if k not in skip}
+    errs = {
+        "loss_rel": abs(card_m["loss"].item() - cpu_m["loss"].item()) / abs(cpu_m["loss"].item()),
+        "grad_norm_rel": rel(card_m["grad_norm"], cpu_m["grad_norm"]),
+        "grad_rel": max(grads.values()),
+        "update_rel": max(rel(card_new[k] - old[k], cpu_new[k] - old[k]) for k in old if k not in skip),
+    }
+    return errs, max(grads, key=grads.get)
+
+
+def phase_train_parity(dev, conv_kernel=None, fuse_directions: bool = False,
+                       encoder: str = DEFAULT_ENCODER) -> dict:
     """One float32 step from one state and one batch, on the card and on
-    the CPU (plain versions of every kernel), the model built with
-    ``conv_kernel`` / ``fuse_directions``.  For the default model, also the
-    card step with K1 swapped for its plain version (on the card), recorded
-    beside the checked one."""
-    name = _config_name("training_parity", conv_kernel, fuse_directions)
+    the CPU (plain versions of every kernel), the ``encoder`` model built
+    with ``conv_kernel`` / ``fuse_directions``.
+
+    The default encoder takes the step from int16 waves under TRAIN_TOL;
+    without a route, also the card step with K1 swapped for its plain
+    version (on the card), recorded beside the checked one.  The other
+    encoders take it from the CPU's log-mels of those waves (K1's summation
+    order, C4, held against its plain version in phase K1, stays out), each
+    bound the larger of TRAIN_TOL's and CHAOS_GAP_RATIO times the card's own
+    move when its features move by 1e-7 relative (``chaos_floor``); the
+    waves' step is recorded beside (``card_vs_cpu_from_waves``).  A conv
+    bias that a train-mode BatchNorm follows (ZERO_GRAD_BIASES) has a zero
+    gradient: it is checked to be below 1e-6 of its weight's on both sides
+    and left out of the relative errors."""
+    name = _config_name("training_parity", conv_kernel, fuse_directions, encoder)
     gen = torch.Generator().manual_seed(6)
-    model0 = build_model(len(LABELS) + 1, "quartznet12_context", mask=True,
+    model0 = build_model(len(LABELS) + 1, encoder, mask=True,
                          conv_kernel=conv_kernel, fuse_directions=fuse_directions)
     reset_parameters(model0, gen)
     init = {k: v.clone() for k, v in model0.state_dict().items()}
     batch_np, _ = train_batch(np.random.default_rng(6), 4, 4.0, 3.9)
+    waves = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    frontend = MelFrontendConfig(dither=0.0, precision="default")
+    from_features = encoder != DEFAULT_ENCODER
+    batch = waves
+    if from_features:
+        feats, feat_lens = log_mel_spectrogram(waves["waves"], waves["wave_lens"], frontend)
+        batch = {**waves, "waves": feats, "wave_lens": feat_lens}
 
-    def one_step(where):
-        model = build_model(len(LABELS) + 1, "quartznet12_context", mask=True,
+    def one_step(where, batch, from_features=from_features):
+        model = build_model(len(LABELS) + 1, encoder, mask=True,
                             conv_kernel=conv_kernel, fuse_directions=fuse_directions)
         model.load_state_dict(init)
         model.to(where)
         opt = _capture(novograd(1e-2, betas=(0.8, 0.5), weight_decay=1e-3, fused=True))
-        step = make_train_step(model, opt, BLANK, MelFrontendConfig(dither=0.0, precision="default"),
-                               augment=None)
+        step = make_train_step(model, opt, BLANK, frontend, augment=None, from_features=from_features)
         state = create_train_state(model, opt)
-        new, metrics = step(state, {k: torch.from_numpy(v).to(where) for k, v in batch_np.items()})
+        new, metrics = step(state, {k: v.to(where) for k, v in batch.items()})
         return ({k: v.cpu() for k, v in state.params.items()},
                 {k: v.cpu() for k, v in new.params.items()},
                 {k: v.cpu() for k, v in new.opt_state[0].items()},
                 {k: v.cpu() if torch.is_tensor(v) else v for k, v in metrics.items()})
 
-    rel = lambda a, b: (a - b).norm().item() / max(b.norm().item(), 1e-30)  # noqa: E731
-    old, cpu_new, cpu_g, cpu_m = one_step("cpu")
-
-    def against_cpu(card):
-        _, card_new, card_g, card_m = card
-        errs = {
-            "loss_rel": abs(card_m["loss"].item() - cpu_m["loss"].item()) / abs(cpu_m["loss"].item()),
-            "grad_norm_rel": rel(card_m["grad_norm"], cpu_m["grad_norm"]),
-            "grad_rel": max(rel(card_g[k], cpu_g[k]) for k in cpu_g),
-            "update_rel": max(rel(card_new[k] - old[k], cpu_new[k] - old[k]) for k in old),
-        }
-        return errs, max(cpu_g, key=lambda k: rel(card_g[k], cpu_g[k]))
-
-    card = one_step(dev)
-    card_m = card[3]
-    errs, worst = against_cpu(card)
+    skip = ZERO_GRAD_BIASES.get(encoder, ())
+    cpu = one_step("cpu", batch)
+    card = one_step(dev, batch)
+    card_m, cpu_m = card[3], cpu[3]
+    errs, worst = _step_errors(card, cpu, skip)
+    limits, floor = dict(TRAIN_TOL), None
+    if from_features:
+        jitter = torch.randn(batch["waves"].shape, generator=torch.Generator().manual_seed(7))
+        moved = one_step(dev, {**batch, "waves": batch["waves"] * (1 + 1e-7 * jitter)})
+        floor, _ = _step_errors(moved, card, skip)
+        limits.update({k: max(TRAIN_TOL[k], CHAOS_GAP_RATIO * floor[k])
+                       for k in ("grad_norm_rel", "grad_rel", "update_rel")})
     check(bool(card_m["finite"]) and bool(cpu_m["finite"]), f"{name}: loss not finite")
     check(torch.equal(card_m["pred_lens"], cpu_m["pred_lens"]), f"{name}: pred_lens differ")
-    for key, lim in TRAIN_TOL.items():
+    for key, lim in limits.items():
         check(errs[key] <= lim, f"{name}: {key} {errs[key]} > {lim} (worst tensor {worst})")
-    res = {"phase": name, "batch": 4, "bucket_s": 4.0, "dtype": "float32",
-           "loss_card": card_m["loss"].item(), "loss_cpu": cpu_m["loss"].item(), **errs,
-           "limits": TRAIN_TOL, "worst_grad_tensor": worst,
-           "preds_agreement": float((card_m["preds"] == cpu_m["preds"]).float().mean())}
-    if conv_kernel is None and not fuse_directions:
+    zero = {}
+    for key in skip:
+        weight = key.rsplit(".", 1)[0] + ".weight"
+        zero[key] = max(side[2][key].norm().item() / side[2][weight].norm().item() for side in (card, cpu))
+        check(zero[key] <= 1e-6, f"{name}: {key}'s gradient is {zero[key]} of its weight's, not zero")
+    res = {"phase": name, "encoder": encoder, "batch": 4, "bucket_s": 4.0, "dtype": "float32",
+           "from_features": from_features, "loss_card": card_m["loss"].item(),
+           "loss_cpu": cpu_m["loss"].item(), **errs, "limits": limits, "worst_grad_tensor": worst,
+           "preds_agreement": float((card_m["preds"] == cpu_m["preds"]).float().mean()),
+           "chaos_floor": floor, "zero_grad_biases": zero}
+    if from_features:
+        with_k1, with_k1_worst = _step_errors(one_step(dev, waves, False), one_step("cpu", waves, False), skip)
+        res["card_vs_cpu_from_waves"] = {**with_k1, "worst_grad_tensor": with_k1_worst}
+    elif conv_kernel is None and not fuse_directions:
         kernel = frontend_kernels.mel_from_extended
         frontend_kernels.mel_from_extended = mel_from_extended_plain
         try:
-            plain_errs, plain_worst = against_cpu(one_step(dev))
+            plain_errs, plain_worst = _step_errors(one_step(dev, batch), cpu)
         finally:
             frontend_kernels.mel_from_extended = kernel
         res["card_with_plain_k1"] = {**plain_errs, "worst_grad_tensor": plain_worst}
     print(json.dumps(res), flush=True)
     return res
+
+
+class _KeepLogProbs:
+    """A beam decoder that keeps the stitched log-probs it is given."""
+
+    def forward(self, log_probs, lengths):
+        self.log_probs = np.asarray(log_probs)[0, :int(lengths[0])]
+        return [""]
+
+
+def _stream_against_long(translator: AsrTranslator) -> dict:
+    """C13 on ``translator``: a LONG_S wave through translate_long (its
+    windows as rows of one batch) and through StreamingTranscriber fed 1 s
+    blocks (one row a window).  PyTorch's depthwise conv gives the SE
+    encoder's stride-2 stem other bf16 bits for odd rows of a batch than for
+    the same row alone on an H100 (``scripts/torch_row_invariance.py``), so
+    the stream's stitched log-probs are bound as the card's are against the
+    CPU's (SERVE_TOL_*), its text by SERVE_MAX_CER; whether the texts are
+    equal is reported."""
+    wave = (np.random.default_rng(6).standard_normal(int(LONG_S * SR)) * 0.1).astype(np.float32)
+    blob = wav_bytes(wave, SR)
+    wave16 = read_audio(blob)[0][0]
+    long_text = translator.translate_long(blob, CHUNK_S, OVERLAP_S)
+    long_lp = translator.long_log_probs(wave16, CHUNK_S, OVERLAP_S)
+
+    def stream():
+        st = StreamingTranscriber(translator, CHUNK_S, OVERLAP_S)
+        for lo in range(0, wave16.shape[0], SR):
+            st.feed(wave16[lo: lo + SR])
+        return st.finish()
+
+    stream_text = stream()
+    keep = translator.beam_decoder = _KeepLogProbs()
+    try:
+        stream()
+    finally:
+        translator.beam_decoder = None
+    check(keep.log_probs.shape == long_lp.shape,
+          f"stream log-probs {keep.log_probs.shape} vs translate_long's {long_lp.shape}")
+    err = np.abs(keep.log_probs - long_lp)
+    agree = float(np.mean(keep.log_probs.argmax(-1) == long_lp.argmax(-1)))
+    cer = _edits(stream_text, long_text) / max(1, len(long_text))
+    check(err.max() <= SERVE_TOL_MAX and err.mean() <= SERVE_TOL_MEAN and agree >= SERVE_MIN_ARGMAX
+          and cer <= SERVE_MAX_CER,
+          f"stream against translate_long: max {err.max()}, mean {err.mean()}, argmax {agree}, CER {cer}")
+    return {"seconds": LONG_S, "text_chars": len(long_text),
+            "stream_equals_translate_long": stream_text == long_text, "cer": cer,
+            "max_abs": float(err.max()), "mean_abs": float(err.mean()), "argmax_agreement": agree}
+
+
+def _serve_encoder(dev, encoder: str, blobs, seconds) -> tuple:
+    """One encoder's seeded bf16 checkpoint served as phase_serving serves
+    the default one (and for SEPCONV_SERVED with conv_kernel="sepconv", K9
+    ROUTED_CONVS times a batch), the
+    served batch in float32 on the card against the CPU, one steady batch
+    profiled.  Returns (summary, the bursts' launches)."""
+    lstm = {"lstm": (lstm_recurrence, int(encoder in LSTM_ENCODERS))}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = serving_checkpoint(tmp, encoder=encoder)
+        ckpt32 = serving_checkpoint(f"{tmp}/fp32", "float32", encoder)
+        translator = AsrTranslator(ckpt, device="cuda")
+        cpu = AsrTranslator(ckpt, device="cpu")
+        card32 = AsrTranslator(ckpt32, device="cuda")
+        cpu32 = AsrTranslator(ckpt32, device="cpu")
+        routes = []
+        if encoder == SEPCONV_SERVED:
+            routes.append(("sepconv", AsrTranslator(ckpt, device="cuda", conv_kernel="sepconv"),
+                           AsrTranslator(ckpt, device="cpu", conv_kernel="sepconv")))
+    check(translator.device.type == "cuda", f"{encoder}: translator is not on the card")
+    served = _serve_and_check(dev, f"encoders_serving_{encoder}", translator, cpu, cpu32, blobs,
+                              lstm, encoder=encoder, seconds=seconds)
+    bursts = [served["launches"]]
+    summary = {"card_vs_cpu_bf16": {k: served[k] for k in (
+        "card_vs_cpu_max_abs", "card_vs_cpu_mean_abs", "argmax_agreement", "card_vs_cpu_cer",
+        "card_bf16_vs_fp32_mean_abs", "cpu_bf16_vs_fp32_mean_abs", "texts_equal_cpu")}}
+    for route, card, card_cpu in routes:
+        extra = {**lstm, "sepconv_forward": (sepconv_forward, ROUTED_CONVS[encoder])}
+        res = _serve_and_check(dev, f"encoders_serving_{encoder}_{route}", card, card_cpu, cpu32,
+                               blobs, extra, encoder=encoder)
+        bursts.append(res["launches"])
+        summary[f"card_vs_cpu_bf16_{route}"] = {k: res[k] for k in (
+            "card_vs_cpu_max_abs", "card_vs_cpu_mean_abs", "argmax_agreement", "card_vs_cpu_cer")}
+
+    # the served batch in float32, card against CPU, over valid frames
+    batch, lens, lp_cpu32, out_lens_cpu = served["fp32_cpu"]
+    lp32, out_lens32 = card32._forward(torch.from_numpy(batch).to(dev), torch.from_numpy(lens).to(dev))
+    lp32 = lp32.cpu().numpy()
+    check(np.array_equal(out_lens32.cpu().numpy(), out_lens_cpu), f"{encoder}: float32 out_lens differ")
+    valid = np.arange(lp32.shape[1])[None, :] < out_lens_cpu[:, None]
+    err = np.abs(lp32 - lp_cpu32)[valid]
+    agree = float(np.mean(lp32.argmax(-1)[valid] == lp_cpu32.argmax(-1)[valid]))
+    check(bool(np.isfinite(lp32).all()) and err.max() <= SERVE32_TOL_MAX
+          and err.mean() <= SERVE32_TOL_MEAN and agree >= SERVE32_MIN_ARGMAX,
+          f"{encoder}: float32 card vs CPU log-probs: max {err.max()}, mean {err.mean()}, "
+          f"argmax agreement {agree}")
+    summary["card_vs_cpu_fp32"] = {"max_abs": float(err.max()), "mean_abs": float(err.mean()),
+                                   "argmax_agreement": agree,
+                                   "limits": [SERVE32_TOL_MAX, SERVE32_TOL_MEAN, SERVE32_MIN_ARGMAX]}
+    prof = phase_profile(translator, served["served"], f"encoders_profile_{encoder}")
+    median_ms = prof["steady_latency_ms"]["median"]
+    summary.update(served_ms_per_batch=median_ms,
+                   audio_s_per_s=prof["audio_s_per_batch"] / (median_ms / 1e3),
+                   device_ms_per_batch=prof["device_ms_per_batch"],
+                   device_busy_share=prof["device_busy_share"])
+    if encoder in LSTM_ENCODERS:
+        summary["long"] = _stream_against_long(translator)
+    return summary, bursts
+
+
+def phase_encoders(dev):
+    """The encoders besides the default one, at full width: each served
+    (``_serve_encoder``), then the training configurations of
+    ENCODER_CONFIGS, CONV_TRAIN_STEPS bf16 steps each and one float32 step
+    card against CPU.  One ``encoders`` line an encoder; returns (the serving
+    bursts' launches, the training phases)."""
+    seconds, blobs = serving_burst()
+    summaries, bursts = {}, []
+    for encoder in OTHER_ENCODERS:
+        summaries[encoder], launches = _serve_encoder(dev, encoder, blobs, seconds)
+        bursts.extend(launches)
+    trainings = [phase_training(dev, ck, CONV_TRAIN_STEPS, fused, enc)
+                 for enc, ck, fused in ENCODER_CONFIGS]
+    parities = [phase_train_parity(dev, ck, fused, enc) for enc, ck, fused in ENCODER_CONFIGS]
+    for encoder in OTHER_ENCODERS:
+        training = {t["phase"]: {"step_ms_median": t["step_ms"]["median"],
+                                 "audio_s_trained_per_s": t["audio_s_trained_per_s"],
+                                 "device_ms_per_step": t["device_ms_per_step"],
+                                 "device_busy_share": t["device_busy_share"],
+                                 "loss_first": t["losses"][0], "loss_last": t["losses"][-1],
+                                 "launches": t["launches"]}
+                    for t in trainings if t["encoder"] == encoder}
+        parity = {r["phase"]: {k: r[k] for k in ("loss_rel", "grad_norm_rel", "grad_rel",
+                                                 "update_rel", "worst_grad_tensor", "limits",
+                                                 "chaos_floor", "card_vs_cpu_from_waves")}
+                  for r in parities if r["encoder"] == encoder}
+        print(json.dumps({"phase": "encoders", "encoder": encoder, **summaries[encoder],
+                          "training": training, "training_parity": parity}), flush=True)
+    return bursts, trainings
 
 
 def tone_corpus(root: Path, n: int, seed: int, name: str, lo: float = 0.5, hi: float = 3.0) -> Path:
@@ -1991,6 +2260,7 @@ def main() -> int:
     k9, k10, k11 = phase_sepconv(dev)
     serving, serving_sep, translator, served = phase_serving(dev)
     phase_profile(translator, served)
+    encoder_bursts, encoder_trainings = phase_encoders(dev)
     decoding = phase_decoding(dev, translator, served, native_build)
     del translator
     k3 = phase_k3(dev, hmma, info["ptxas"].get("lstm_bwd", ""))
@@ -2002,11 +2272,13 @@ def main() -> int:
     for conv_kernel, fused in ((None, False), ("sepconv", False), ("dw_wgrad", False), (None, True)):
         phase_train_parity(dev, conv_kernel, fused)
     trainer = phase_trainer(dev)
-    # launches on the main paths: the two serving bursts, the decoding
-    # phase's forwards, the training steps of the four configurations and
-    # the trainer's runs
-    serve = {key: serving["launches"].get(key, 0) + serving_sep["launches"].get(key, 0)
-             + decoding["launches"].get(key, 0) for key in ("mel", "lstm", "extend", "sepconv_forward")}
+    # launches on the main paths: the serving bursts of every encoder, the
+    # decoding phase's forwards, the training steps of every configuration
+    # and the trainer's runs
+    serve = {key: sum(b.get(key, 0) for b in [serving["launches"], serving_sep["launches"],
+                                              decoding["launches"], *encoder_bursts])
+             for key in ("mel", "lstm", "extend", "sepconv_forward")}
+    trainings += encoder_trainings
     train = {name: sum(t["launches"][name] for t in trainings) for name in trainings[0]["launches"]}
     k1["launches"] = serve["mel"] + train["mel_from_extended"]
     k2["launches"] = serve["lstm"] + train["lstm_recurrence"]

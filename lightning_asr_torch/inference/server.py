@@ -30,9 +30,6 @@ from .predict import AsrTranslator
 
 logger = logging.getLogger(__name__)
 
-_MAX_SECONDS = 60.0  # longer requests are cut to this many seconds
-_DECODE_THREADS = 4  # the native parser's threads for a batch's bodies
-
 
 class ServerOverloaded(RuntimeError):
     """Request queue full — shed with 503 instead of queueing unboundedly."""
@@ -45,14 +42,18 @@ class DynamicBatcher:
     bytes into a batch and decodes it in one native pass; the device loop
     submits batch N+1 before resolving batch N, so the copy of N's result
     overlaps N+1's compute.  The request queue is bounded (``max_queue``);
-    when it is full, ``translate`` raises ``ServerOverloaded``."""
+    when it is full, ``translate`` raises ``ServerOverloaded``.  A request
+    longer than ``max_seconds`` is cut to that many seconds; the native
+    parser decodes a batch's bodies on ``decode_threads`` threads."""
 
     def __init__(self, translator: AsrTranslator, max_batch: int = 8,
-                 max_wait_ms: float = 20.0, max_queue: int = 64):
+                 max_wait_ms: float = 20.0, max_queue: int = 64,
+                 max_seconds: float = 60.0, decode_threads: int = 4):
         self.translator = translator
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1000.0
-        self.max_samples = int(_MAX_SECONDS * translator.frontend.sample_rate)
+        self.max_samples = int(max_seconds * translator.frontend.sample_rate)
+        self.decode_threads = decode_threads
         get_lib()  # build the parser now: a failed build raises here, not in a request
         self._queue: "queue.Queue" = queue.Queue(maxsize=max_queue)
         self._ready: "queue.Queue" = queue.Queue(maxsize=1)
@@ -79,7 +80,7 @@ class DynamicBatcher:
         """bytes -> 1-D float32 waveform per row, or the row's ValueError
         (malformed / wrong sample rate), in one native pass."""
         sr_expect = self.translator.frontend.sample_rate
-        waves, lens, srs = parse_wav_batch_mem(blobs, self.max_samples, _DECODE_THREADS)
+        waves, lens, srs = parse_wav_batch_mem(blobs, self.max_samples, self.decode_threads)
         out: List = []
         for wave, n, sr in zip(waves, lens, srs):
             if n < 0:

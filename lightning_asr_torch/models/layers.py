@@ -1,4 +1,4 @@
-"""Building blocks of QuartNet12Context (port of
+"""Building blocks of the QuartzNet encoders (port of
 ``lightning_asr_tpu/models/layers.py``), eval and train paths.
 
 Modules take and return NCT tensors (B, C, T), the layout of ``F.conv1d``;
@@ -22,6 +22,11 @@ the model's public functions keep the JAX package's (B, T, C).
     ``U < keep``, else 0.
   * with a compute ``dtype`` (bf16), convs take bf16 input and weights and
     give bf16 output; parameters stay float32.
+  * ``SepConvSE`` adds a squeeze-excite stage (``SELayer``) after the
+    BatchNorm: the mean over the whole padded time axis in float32, rounded
+    to the activation type, then two bias-free ``Dense`` layers with float32
+    weights.  As in the JAX package the float32 weights promote: with bf16
+    activations the block returns float32, and the next conv casts back.
   * ``conv_kernel`` picks what runs the separable convs of an eligible
     ``SepConv`` (stride 1, odd k; the JAX package's rule, so the stride-2
     stem keeps ``F.conv1d``): None the ``F.conv1d`` pair (JAX's default);
@@ -29,7 +34,8 @@ the model's public functions keep the JAX package's (B, T, C).
     float32 weight gradients; ``"dw_wgrad"`` ``F.conv1d`` with K11 as the
     depthwise weight gradient (``LASR_DW_WGRAD_PALLAS=1``), the weight cast
     to the compute type before it, as JAX does.  The parameters are the same
-    in every case.
+    in every case.  ``SepConvSE`` has no route: the JAX package's always
+    runs ``nn.Conv``.
 
 Parameters are created as zeros (BatchNorm scale and variance as ones);
 weights come from a checkpoint or from ``reset_parameters(generator)``,
@@ -176,10 +182,75 @@ class SepConv(nn.Module):
             x = self.pointwise_conv(self.depthwise_conv(x))
         if self.mask:
             x = mask_by_percents(x, percents)
-        x = self.bn(x)
+        x = self.excite(self.bn(x))
         if not self.last:
             x = F.relu(x)
         return dropout(x, self.drop_rate, generator) if self.training else x
+
+    def excite(self, x: torch.Tensor) -> torch.Tensor:
+        """The stage between BN and ReLU: none here, squeeze-excite in
+        ``SepConvSE``."""
+        return x
+
+
+class Dense(nn.Module):
+    """Bias-free linear layer, ``weight`` (out, in) in float32: flax's
+    ``nn.Dense(use_bias=False)``, whose ``kernel`` is (in, out).  Each
+    output is a product summed over the last axis, whose bits do not depend
+    on the row count: ``F.linear`` (and a batched matmul, on the card) picks
+    another kernel for 1 row than for 8, so a row's bits would depend on its
+    batch, and in bf16 a stream (one row a window) would not equal
+    ``translate_long`` (8 rows; ROADMAP C13)."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(out_features, in_features))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _uniform_(self.weight, 1.0 / math.sqrt(self.weight.shape[1]), generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return (x.float()[:, None, :] * self.weight).sum(dim=-1)
+
+
+class SELayer(nn.Module):
+    """Squeeze-excite (``layers.py::SELayer``) on (B, C, T): the mean over
+    every frame, padding included, then fc1 (C -> C/r), ReLU, fc2, sigmoid
+    and a rescale of the channels.  Returns float32 (see the module
+    docstring)."""
+
+    def __init__(self, channels: int, reduction: int = 8):
+        super().__init__()
+        self.fc1 = Dense(channels, channels // reduction)
+        self.fc2 = Dense(channels // reduction, channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        squeezed = x.float().mean(dim=2).to(x.dtype)     # jnp.mean: float32 sum, input type
+        y = torch.sigmoid(self.fc2(F.relu(self.fc1(squeezed))))
+        return x * y[:, :, None]
+
+
+class SepConvSE(SepConv):
+    """SepConv with the squeeze-excite stage after BN, before the ReLU
+    (``layers.py::SepConvSE``); always the ``F.conv1d`` pair."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int = 33, last: bool = False,
+                 mask: bool = True, stride: int = 1, drop_rate: float = 0.1,
+                 dtype: Optional[torch.dtype] = None, reduction: int = 8):
+        super().__init__(in_ch, out_ch, k, last, mask, stride, drop_rate, dtype)
+        self.se = SELayer(out_ch, reduction)
+
+    def excite(self, x: torch.Tensor) -> torch.Tensor:
+        return self.se(x)
+
+
+def sep_conv(use_se: bool, in_ch: int, out_ch: int, k: int,
+             conv_kernel: Optional[str] = None, **kwargs) -> SepConv:
+    """``SepConvSE`` when ``use_se`` (where ``conv_kernel`` has no effect,
+    as in the JAX package), else ``SepConv``."""
+    if use_se:
+        return SepConvSE(in_ch, out_ch, k, **kwargs)
+    return SepConv(in_ch, out_ch, k, conv_kernel=conv_kernel, **kwargs)
 
 
 class QuartNetBlock(nn.Module):
@@ -189,14 +260,13 @@ class QuartNetBlock(nn.Module):
 
     def __init__(self, repeat: int = 3, in_ch: int = 1, out_ch: int = 32, k: int = 33,
                  mask: bool = True, drop_rate: float = 0.0, dtype: Optional[torch.dtype] = None,
-                 conv_kernel: Optional[str] = None):
+                 conv_kernel: Optional[str] = None, use_se: bool = False):
         super().__init__()
         self.seps = [f"sep{i}" for i in range(repeat - 1)] + ["sep_last"]
+        common = dict(mask=mask, drop_rate=drop_rate, dtype=dtype, conv_kernel=conv_kernel)
         for i in range(repeat - 1):
-            self.add_module(f"sep{i}", SepConv(in_ch, in_ch, k, mask=mask, drop_rate=drop_rate,
-                                               dtype=dtype, conv_kernel=conv_kernel))
-        self.sep_last = SepConv(in_ch, out_ch, k, last=True, mask=mask, drop_rate=drop_rate,
-                                dtype=dtype, conv_kernel=conv_kernel)
+            self.add_module(f"sep{i}", sep_conv(use_se, in_ch, in_ch, k, **common))
+        self.sep_last = sep_conv(use_se, in_ch, out_ch, k, last=True, **common)
         self.reside_conv = Conv(in_ch, out_ch, 1, dtype=dtype)
         self.reside_bn = MaskedBatchNorm(out_ch)
 

@@ -1,18 +1,27 @@
-"""QuartNet12Context + CTC head (port of
+"""The QuartzNet encoders + CTC head (port of
 ``lightning_asr_tpu/models/quartznet.py``), eval and train paths.
 
-``QuartNet12Context``: SepConv stem 64->256 k33 stride 2 (padding 16); 3
-blocks k33 and 3 blocks k39 at 256ch; a BiLSTM(256->2x40) context branch,
-run in float32 and cast back to the compute dtype, concatenated onto the
-256ch stream (336ch); 3 blocks k51 (336->512), 3 blocks k63, one k75, one
-k87; epilog 1x1 conv 512->1024 + BN + ReLU + dropout.  ``AsrModel`` adds
-the 1x1-conv decoder to (vocab+1) classes and log-softmax, both in float32.
-``module.train()`` selects batch statistics and dropout; a dropout rate
-above 0 needs a ``torch.Generator`` passed to ``forward``.
+  * ``QuartNet12Context`` (``quartznet12_context``, the default): SepConv
+    stem 64->256 k33 stride 2 (padding 16); 3 blocks k33 and 3 blocks k39 at
+    256ch; a BiLSTM(256->2x40) context branch, run in float32 and cast to
+    the activation type, concatenated onto the 256ch stream (336ch); 3
+    blocks k51 (336->512), 3 blocks k63, one k75, one k87; epilog 1x1 conv
+    512->1024 + BN + ReLU + dropout.  ``use_se`` (``quartznet12_context_se``)
+    makes every SepConv a ``SepConvSE``.
+  * ``QuartNet15x5`` (``quartznet15x5``): a plain conv stem 64->256 k33
+    stride 2 with bias + BN + ReLU; five repeat-5 blocks; a k87 SepConv; a
+    1x1 conv 512->1024 with bias + BN + ReLU.
+  * ``QuartNet105`` (``quartznet10x5``): a SepConv stem 64->256 k33 stride
+    2; ten repeat-5 blocks; the epilog of 15x5.
+
+``AsrModel`` adds the 1x1-conv decoder to (vocab+1) classes and
+log-softmax, both in float32.  ``module.train()`` selects batch statistics
+and dropout; a dropout rate above 0 needs a ``torch.Generator`` passed to
+``forward``.
 
 Module names follow the flax parameter tree, so ``utils/jax_params.py``
-maps one onto the other key by key.  The SE, 15x5 and 10x5 encoders, the
-LSTM head and the SSL feature mapping are not ported yet.
+maps one onto the other key by key.  The LSTM head and the SSL feature
+mapping are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,38 +32,40 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import (BatchLSTM, Conv, MaskedBatchNorm, QuartNetBlock, SepConv,
-                     _lengths_from_percents, dropout)
-
-MODEL_REGISTRY = ("quartznet12_context", "quartznet12_context_se", "quartznet15x5",
-                  "quartznet10x5")
-PORTED_ENCODERS = ("quartznet12_context",)
+from .layers import (BatchLSTM, Conv, Dense, MaskedBatchNorm, QuartNetBlock, SepConv,
+                     _lengths_from_percents, dropout, sep_conv)
 
 _BLOCKS = ([(n, 256, 256, 33) for n in ("block1", "block12", "block13")]
            + [(n, 256, 256, 39) for n in ("block2", "block22", "block23")])
 _CONTEXT_BLOCKS = ([("block3", None, 512, 51), ("block32", 512, 512, 51), ("block33", 512, 512, 51)]
                    + [(n, 512, 512, 63) for n in ("block4", "block42", "block43")]
                    + [("block5", 512, 512, 75), ("block6", 512, 512, 87)])
+# (in, out, k) of the repeat-5 blocks, named block1, block2, ...
+_PLAN_15X5 = [(256, 256, 33), (256, 256, 39), (256, 512, 51), (512, 512, 63), (512, 512, 75)]
+_PLAN_10X5 = ([(256, 256, 33)] * 2 + [(256, 256, 39)] * 2 + [(256, 512, 51), (512, 512, 51)]
+              + [(512, 512, 63)] * 2 + [(512, 512, 75)] * 2)
 
 
 class QuartNet12Context(nn.Module):
-    """QuartzNet 12x1 with BiLSTM context branch (the default encoder).
-    (B, C, T) -> (B, 1024, T') with T' = ceil(T / 2)."""
+    """QuartzNet 12x1 with BiLSTM context branch (the default encoder; with
+    ``use_se`` the squeeze-excite variant).  (B, C, T) -> (B, 1024, T') with
+    T' = ceil(T / 2)."""
 
     def __init__(self, in_c: int = 64, mask: bool = False, lstm_hidden: int = 40,
                  drop_rate: float = 0.0, dtype: Optional[torch.dtype] = None,
-                 conv_kernel: Optional[str] = None, fuse_directions: bool = False):
+                 conv_kernel: Optional[str] = None, fuse_directions: bool = False,
+                 use_se: bool = False):
         super().__init__()
         self.drop_rate = drop_rate
-        self.first_cnn = SepConv(in_c, 256, k=33, stride=2, mask=mask, drop_rate=drop_rate,
-                                 dtype=dtype, conv_kernel=conv_kernel)
+        self.first_cnn = sep_conv(use_se, in_c, 256, 33, stride=2, mask=mask,
+                                  drop_rate=drop_rate, dtype=dtype, conv_kernel=conv_kernel)
         ctx_ch = 256 + 2 * lstm_hidden
         self.trunk = [name for name, *_ in _BLOCKS]
         self.head = [name for name, *_ in _CONTEXT_BLOCKS]
         for name, cin, cout, k in _BLOCKS + _CONTEXT_BLOCKS:
             self.add_module(name, QuartNetBlock(repeat=1, in_ch=cin or ctx_ch, out_ch=cout,
                                                 k=k, mask=mask, drop_rate=drop_rate, dtype=dtype,
-                                                conv_kernel=conv_kernel))
+                                                conv_kernel=conv_kernel, use_se=use_se))
         self.context_rnn = BatchLSTM(256, lstm_hidden, fuse_directions)
         self.last_conv = Conv(512, 1024, 1, dtype=dtype)
         self.last_bn = MaskedBatchNorm(1024)
@@ -74,6 +85,74 @@ class QuartNet12Context(nn.Module):
         return dropout(x, self.drop_rate, generator) if self.training else x
 
 
+class _Repeat5(nn.Module):
+    """The repeat-5 QuartzNets (``quartznet.py::QuartNet15x5``,
+    ``QuartNet105``): a stride-2 stem, repeat-5 blocks ``block1``, ... on
+    ``plan``, the k87 SepConv ``last_cnn`` and the 1x1 conv 512->1024 with
+    bias + BN + ReLU, without a final dropout.  (B, C, T) -> (B, 1024, T')."""
+
+    def __init__(self, stem: nn.Module, plan, mask: bool, drop_rate: float,
+                 dtype: Optional[torch.dtype], conv_kernel: Optional[str]):
+        super().__init__()
+        self.first_cnn = stem
+        self.blocks = [f"block{i + 1}" for i in range(len(plan))]
+        for name, (cin, cout, k) in zip(self.blocks, plan):
+            self.add_module(name, QuartNetBlock(repeat=5, in_ch=cin, out_ch=cout, k=k, mask=mask,
+                                                drop_rate=drop_rate, dtype=dtype,
+                                                conv_kernel=conv_kernel))
+        self.last_cnn = SepConv(512, 512, 87, last=False, mask=mask, drop_rate=drop_rate,
+                                dtype=dtype, conv_kernel=conv_kernel)
+        self.last_conv = Conv(512, 1024, 1, bias=True, dtype=dtype)
+        self.last_bn = MaskedBatchNorm(1024)
+
+    def stem(self, x: torch.Tensor, percents: torch.Tensor, generator) -> torch.Tensor:
+        return self.first_cnn(x, percents, generator)
+
+    def forward(self, x: torch.Tensor, percents: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.stem(x, percents, generator)
+        for name in self.blocks:
+            x = getattr(self, name)(x, percents, generator)
+        x = self.last_cnn(x, percents, generator)
+        return F.relu(self.last_bn(self.last_conv(x)))
+
+
+class QuartNet15x5(_Repeat5):
+    """QuartzNet 15x5: the stem is a full conv 64->256 k33 stride 2 with
+    bias (``F.conv1d``; no kernel of the JAX package runs it), then BN and
+    ReLU."""
+
+    def __init__(self, in_c: int = 64, mask: bool = True, drop_rate: float = 0.0,
+                 dtype: Optional[torch.dtype] = None, conv_kernel: Optional[str] = None):
+        super().__init__(Conv(in_c, 256, 33, stride=2, padding=16, bias=True, dtype=dtype),
+                         _PLAN_15X5, mask, drop_rate, dtype, conv_kernel)
+        self.first_bn = MaskedBatchNorm(256)
+
+    def stem(self, x: torch.Tensor, percents: torch.Tensor, generator) -> torch.Tensor:
+        return F.relu(self.first_bn(self.first_cnn(x)))
+
+
+class QuartNet105(_Repeat5):
+    """QuartzNet 10x5: a SepConv stem 64->256 k33 stride 2."""
+
+    def __init__(self, in_c: int = 64, mask: bool = True, drop_rate: float = 0.0,
+                 dtype: Optional[torch.dtype] = None, conv_kernel: Optional[str] = None):
+        super().__init__(SepConv(in_c, 256, 33, stride=2, mask=mask, drop_rate=drop_rate,
+                                 dtype=dtype, conv_kernel=conv_kernel),
+                         _PLAN_10X5, mask, drop_rate, dtype, conv_kernel)
+
+
+# encoder name -> (class, its own arguments), as the JAX package's _ENCODERS
+_ENCODERS = {
+    "quartznet12_context": (QuartNet12Context, {}),
+    "quartznet12_context_se": (QuartNet12Context, {"use_se": True}),
+    "quartznet15x5": (QuartNet15x5, {}),
+    "quartznet10x5": (QuartNet105, {}),
+}
+MODEL_REGISTRY = tuple(_ENCODERS)
+PORTED_ENCODERS = MODEL_REGISTRY
+
+
 class AsrModel(nn.Module):
     """Encoder + CTC head (the reference's ``MyModel2``).
 
@@ -85,12 +164,12 @@ class AsrModel(nn.Module):
                  dtype: Optional[torch.dtype] = None, conv_kernel: Optional[str] = None,
                  fuse_directions: bool = False):
         super().__init__()
-        if encoder_name not in PORTED_ENCODERS:
-            raise NotImplementedError(f"encoder {encoder_name!r} is not ported yet "
-                                      f"(ported: {PORTED_ENCODERS})")
+        enc_cls, enc_kwargs = _ENCODERS[encoder_name]
+        if enc_cls is QuartNet12Context:            # the encoders with a BiLSTM
+            enc_kwargs = {**enc_kwargs, "fuse_directions": fuse_directions}
         self.dtype = dtype                                          # conv compute type
-        self.encoder = QuartNet12Context(in_c=in_c, mask=mask, drop_rate=drop_rate, dtype=dtype,
-                                         conv_kernel=conv_kernel, fuse_directions=fuse_directions)
+        self.encoder = enc_cls(in_c=in_c, mask=mask, drop_rate=drop_rate, dtype=dtype,
+                               conv_kernel=conv_kernel, **enc_kwargs)
         self.decoder = Conv(1024, num_classes, 1, bias=True)       # float32 head
 
     def forward(self, x: torch.Tensor, percents: torch.Tensor,
@@ -104,17 +183,21 @@ class AsrModel(nn.Module):
 def build_model(num_classes: int, encoder: str = "quartznet12_context", in_c: int = 64,
                 drop_rate: float = 0.0, mask: bool = False, feature_in: Optional[int] = None,
                 dtype: Optional[torch.dtype] = None, conv_kernel: Optional[str] = None,
-                fuse_directions: bool = False) -> AsrModel:
-    """``build_model`` of the JAX package for the ported encoders.
-    ``conv_kernel`` (None, ``"sepconv"``, ``"dw_wgrad"``) stands for the
-    JAX package's ``LASR_SEPCONV_PALLAS`` and ``LASR_DW_WGRAD_PALLAS``
-    switches (``models/layers.py``), ``fuse_directions`` for
-    ``LASR_LSTM_FUSED_BIDIR`` (the BiLSTM through K7 / K8); neither changes
-    the parameters."""
+                fuse_directions: bool = False, lstm_head: bool = False) -> AsrModel:
+    """``build_model`` of the JAX package.  ``conv_kernel`` (None,
+    ``"sepconv"``, ``"dw_wgrad"``) stands for the JAX package's
+    ``LASR_SEPCONV_PALLAS`` and ``LASR_DW_WGRAD_PALLAS`` switches
+    (``models/layers.py``; the SE convs ignore them, as there),
+    ``fuse_directions`` for ``LASR_LSTM_FUSED_BIDIR`` (the BiLSTM through K7
+    / K8; the repeat-5 encoders have none); neither changes the parameters.
+    ``feature_in`` (the SSL path) and ``lstm_head`` (a BiLSTM of hidden size
+    128, which the port's LSTM kernels do not take) are not ported."""
     if encoder not in MODEL_REGISTRY:
         raise ValueError(f"unknown encoder {encoder!r}; choose from {sorted(MODEL_REGISTRY)}")
     if feature_in is not None:
         raise NotImplementedError("the SSL feature path (feature_in) is not ported yet")
+    if lstm_head:
+        raise NotImplementedError("the LSTM head (lstm_head, hidden 128) is not ported yet")
     return AsrModel(num_classes, encoder, in_c=in_c, drop_rate=drop_rate, mask=mask, dtype=dtype,
                     conv_kernel=conv_kernel, fuse_directions=fuse_directions)
 
@@ -123,5 +206,5 @@ def reset_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Draw every weight as the JAX package's initializers do (torch's
     default U(±1/sqrt(fan_in)); BatchNorm ones/zeros), from ``generator``."""
     for m in model.modules():
-        if isinstance(m, (Conv, MaskedBatchNorm, BatchLSTM)):
+        if isinstance(m, (Conv, Dense, MaskedBatchNorm, BatchLSTM)):
             m.reset_parameters(generator)

@@ -3,6 +3,8 @@ state_dict (layouts as ``lightning_asr_tpu/utils/torch_import.py``
 documents).
 
   * conv ``kernel`` (k, in/groups, out)     <-> ``weight`` (out, in/groups, k)
+  * Dense ``kernel`` (in, out)              <-> ``weight`` (out, in)
+    (a kernel's axes reversed, either way)
   * conv ``bias``                           <-> ``bias``
   * BN ``scale``/``bias`` (params) and ``mean``/``var`` (batch_stats)
                                             <-> ``weight``/``bias``/``running_mean``/``running_var``
@@ -16,7 +18,7 @@ which are the port's module names.  Trees are nested dicts of numpy arrays
 ``opt_state_from_jax`` / ``opt_state_to_jax`` carry a fused NovoGrad state
 across, bit for bit: the JAX buffers order tensors as JAX flattens the flax
 tree (keys sorted) and keep conv kernels as (k, in, out); the port's follow
-its parameter dict and (out, in, k).
+its parameter dict and (out, in, k) / (out, in).
 """
 
 from __future__ import annotations
@@ -60,9 +62,10 @@ def from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
                 raise ValueError(f"unexpected BatchNorm leaf {'/'.join(path)}")
             name = _BN_PARAMS[leaf]
         elif leaf == "kernel":
-            if value.ndim != 3:
-                raise ValueError(f"{'/'.join(path)}: only conv kernels are ported, got {value.shape}")
-            name, value = "weight", np.transpose(value, (2, 1, 0))
+            if value.ndim not in (2, 3):
+                raise ValueError(f"{'/'.join(path)}: a conv or Dense kernel is 3-D or 2-D, "
+                                 f"got {value.shape}")
+            name, value = "weight", np.transpose(value)
         else:
             name = leaf                          # conv bias, LSTM weights
         sd[".".join(module + (name,))] = torch.from_numpy(np.array(value))
@@ -87,8 +90,8 @@ def to_jax(state_dict: Dict[str, torch.Tensor]) -> Tuple[dict, dict]:
             _set(batch_stats, path + (stats_of[name],), value)
         elif module in bn_modules:
             _set(params, path + ({"weight": "scale", "bias": "bias"}[name],), value)
-        elif name == "weight":
-            _set(params, path + ("kernel",), np.transpose(value, (2, 1, 0)))
+        elif name == "weight":                    # conv or Dense; LSTM tensors are w_ih_f, ...
+            _set(params, path + ("kernel",), np.transpose(value))
         else:
             _set(params, path + (name,), value)
     return params, batch_stats
@@ -126,7 +129,7 @@ def opt_state_from_jax(opt_state, params: dict, batch_stats: dict,
     ``FusedNovogradState`` over ``port_params`` (the port's parameter dict,
     whose order and shapes set the port's layout).  Exact: both layouts pad
     each tensor to whole 2048-element chunks; only the tensor order and the
-    conv kernels' element order differ."""
+    conv and Dense kernels' element order differ."""
     field = (lambda k: opt_state[k]) if isinstance(opt_state, dict) else (
         lambda k: getattr(opt_state, k))
     leaves = _sorted_leaves(params)
@@ -139,7 +142,7 @@ def opt_state_from_jax(opt_state, params: dict, batch_stats: dict,
             flat = np.asarray(field(k)).reshape(-1)[off * _CHUNK: off * _CHUNK + leaf.size]
             value = flat.reshape(leaf.shape)
             if path[-1] == "kernel":
-                value = np.transpose(value, (2, 1, 0))
+                value = np.transpose(value)
             per_leaf[k][name] = torch.from_numpy(np.array(value))
         for k in ("exp_avg_sq", "max_exp_avg_sq"):
             per_leaf[k][name] = torch.from_numpy(np.array(np.asarray(field(k))[i]))

@@ -17,7 +17,8 @@ from lightning_asr_tpu.models import build_model as jax_build_model
 from lightning_asr_tpu.ops import frontend as jf
 from lightning_asr_torch.data.audio import wav_bytes
 from lightning_asr_torch.inference.predict import AsrTranslator
-from lightning_asr_torch.inference.server import make_stdlib_server
+from lightning_asr_torch.inference import server as server_mod
+from lightning_asr_torch.inference.server import DynamicBatcher, make_stdlib_server
 from lightning_asr_torch.training.checkpoint import save_checkpoint
 from lightning_asr_torch.utils.jax_params import from_jax
 from test_torch_model import NUM_CLASSES, class_std, with_teeth
@@ -112,6 +113,33 @@ def test_http_server_contract(served, batching):
         server.server_close()
         thread.join(timeout=10)
     assert not thread.is_alive()
+
+
+def test_dynamic_batcher_takes_max_seconds_and_decode_threads(served, monkeypatch):
+    """``DynamicBatcher(max_seconds=, decode_threads=)``, as the JAX
+    batcher takes them: a request longer than ``max_seconds`` is cut to that
+    many samples before it is transcribed, and the native parser runs on
+    ``decode_threads`` threads."""
+    translator = served[4]
+    calls = []
+    real = server_mod.parse_wav_batch_mem
+
+    def spy(blobs, max_samples, threads):
+        calls.append((len(blobs), max_samples, threads))
+        return real(blobs, max_samples, threads)
+
+    monkeypatch.setattr(server_mod, "parse_wav_batch_mem", spy)
+    wave = _waves(5, [20000])[0]
+    blob = wav_bytes(wave, 16000)
+    batcher = DynamicBatcher(translator, max_batch=1, max_wait_ms=1.0, max_seconds=0.5,
+                             decode_threads=3)
+    assert batcher.max_samples == 8000 and batcher.decode_threads == 3
+    decoded = batcher._decode([blob])[0]
+    assert decoded.shape == (8000,)
+    np.testing.assert_array_equal(decoded, batcher._decode([wav_bytes(wave[:8000], 16000)])[0])
+    # the request is transcribed as its first 8000 samples
+    assert batcher.translate(blob) == translator.transcribe_batch([decoded])[0]
+    assert calls and all(c[1:] == (8000, 3) for c in calls), calls
 
 
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "lightning_asr_tpu")

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, decoding, training and trainer paths on
-one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, decoding, training, trainer and SSL paths
+on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -130,15 +130,35 @@ Phases, in order; any failed check exits non-zero before the last line:
      step and evaluation batch and K8 once a train step (K2, K3 never);
      AsrTranslator on the card transcribes an utterance from ``last``;
      epoch times, audio-seconds per second and the step's share of them;
- 17. a {"kernels": [...]} line: per kernel K1-K11 its launches on the main
+ 17. ssl: the SSL paths at the ssl-conf batch, 32 rows of 2-16.7 s (835
+     wav2vec2 frames, T'=418 after the stem), each a handful of steps on one
+     batch with K1-K6's launches a step, step times, audio-seconds trained
+     per second, device time by kernel group, peak memory and the losses,
+     and one float32 step card against CPU (bound as phase 9's, by the
+     card's own move under a 1e-7 change of its inputs): the feature step
+     (AsrModel(feature_in=512) in bf16, cutout, 512 features a frame); the
+     dual step (DualStreamAsrModel in float32, the mel stream at
+     DUAL_MEL_CONFIG from 267,200 raw samples a row: K6 at pad 0, hop 320
+     held bit for bit against its plain version on that batch; K1 does not
+     run); the retrain step (SSLRetrainAsrModel, the 7 x 512 "layer" feature
+     encoder in float32 on int16 waves, 834 frames), with its forward card
+     against CPU; then ``python -m lightning_asr_torch.train_ssl`` (a pseudo
+     pass after epochs 1 and 2 that decodes, injects and grows the next
+     epoch), ``train_ssl ssl.retrain=true`` and ``python -m
+     lightning_asr_torch.train_ssl_double`` through their ``main`` on a
+     tone-language corpus with seeded feature pickles, each one's launches
+     against its steps and evaluation batches; and the train_ssl checkpoint
+     served: the translator's feature forward on the card against the CPU
+     (bf16 and float32) on precomputed features;
+ 18. a {"kernels": [...]} line: per kernel K1-K11 its launches on the main
      paths (the serving bursts of every encoder, the decoding phase's
-     forwards, the training steps of the nine configurations and the
-     trainer's runs),
+     forwards, the training steps of the nine configurations, the
+     trainer's runs and the SSL phase's steps, runs and served forwards),
      its error against the plain
      version, its time, the plain version's, the library yardstick's, and
      the least time the card could take (K1 and K2 at the serving shape,
      K3-K8 at the training shape, K9-K11 at the widest layer);
- 18. {"ok": true, "device": {...}} as the last line.
+ 19. {"ok": true, "device": {...}} as the last line.
 
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -147,11 +167,13 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import dataclasses
 import hashlib
 import http.client
 import io
 import json
 import os
+import pickle
 import re
 import shutil
 import statistics
@@ -176,6 +198,7 @@ from lightning_asr_torch.inference.predict import AsrTranslator, plan_chunks
 from lightning_asr_torch.inference.server import make_stdlib_server
 from lightning_asr_torch.inference.streaming import StreamingTranscriber
 from lightning_asr_torch.metrics.wer import word_error_rate
+from lightning_asr_torch.models.dual_stream import DUAL_MEL_CONFIG, DualStreamAsrModel
 from lightning_asr_torch.models.layers import MaskedBatchNorm
 from lightning_asr_torch.models.quartznet import build_model, reset_parameters
 from lightning_asr_torch.ops import kernel_build
@@ -208,9 +231,16 @@ from lightning_asr_torch.ops.sepconv_kernels import (sepconv_backward, sepconv_b
 from lightning_asr_torch.optim import cosine_annealing_warmup_restarts, novograd
 from lightning_asr_torch.optim.novograd import GradientTransformation
 from lightning_asr_torch.predict import main as predict_main
+from lightning_asr_torch.ssl_codec.retrain import SSLRetrainAsrModel
+from lightning_asr_torch.ssl_codec.wav2vec import output_lengths as ssl_output_lengths
 from lightning_asr_torch.train import main as train_main
-from lightning_asr_torch.training.checkpoint import TRAIN_STATE_FILE, save_checkpoint
-from lightning_asr_torch.training.steps import create_train_state, make_train_step
+from lightning_asr_torch.train_ssl import main as ssl_train_main
+from lightning_asr_torch.train_ssl_double import main as ssl_double_main
+from lightning_asr_torch.training import steps as ssl_steps
+from lightning_asr_torch.training.checkpoint import (TRAIN_STATE_FILE, load_checkpoint,
+                                                     save_checkpoint)
+from lightning_asr_torch.training.steps import (create_train_state, make_dual_train_step,
+                                                make_raw_ssl_train_step, make_train_step)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_S = 3.35e12
@@ -249,9 +279,17 @@ K3_TOL_DX, K3_TOL_DW = 1e-4, 1e-4
 K45_TOL_REL, K45_TOL_GRAD = 1e-5, 1e-5
 # the port's CTC losses against PyTorch's (another algorithm, float32)
 CTC_TORCH_TOL_REL = 1e-4
-# profiled passes device_time runs before it gives up on a profiler that
-# recorded no device time
-PROFILER_PASSES = 3
+# torch.profiler on the H100 host drops some of the card's kernel records:
+# now and then one of thousands, at times every record of a short pass (a
+# 5-call pass of K5, three passes running).  A pass counts if the card
+# recorded all but at most PROFILER_MISSING_SHARE of the kernels the host
+# launched in it; after PROFILER_PASSES passes without one, CUDA events time
+# the calls instead, under EVENTS_KEY: the span of the calls on the stream,
+# idle gaps included
+PROFILER_PASSES, PROFILER_MISSING_SHARE = 6, 0.01
+EVENTS_KEY = "all kernels (CUDA events)"
+# what kernel_times saw in each call: printed as the "profiler" line
+PROFILER_LOG = []
 # training: rows of the batch, steps on it, and steps profiled
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_PROFILE_STEPS = 32, 20, 3
 # training parity, card vs CPU, one float32 step (no TF32): conv sums in
@@ -560,8 +598,8 @@ def _k6_at(cfg: MelFrontendConfig, waves, lens) -> dict:
     # the kernel's own device time: back-to-back wrapper calls pace the
     # events at the host's rate (argument checks, ctypes, the allocation)
     kernels, _, passes = kernel_times(lambda: extend_preemph(waves, lens, None, cfg, out_total), 20)
-    device_ms = sum(v for k, v in kernels.items() if _category(k) == "K6 extend_preemph")
-    check(device_ms > 0, "K6: torch.profiler recorded no extend_kernel time")
+    device_ms = sum(v for k, v in kernels.items() if _category(k) in ("K6 extend_preemph", EVENTS_KEY))
+    check(device_ms > 0, "K6: no extend_kernel time recorded")
     # bytes: the waves and lengths read once, q written once; a multiply and
     # a subtract per body sample
     bound_ms, bound_by = bound(waves.numel() * 4 + B * 4 + got.numel() * 4, 2 * waves.numel(), "fp32")
@@ -748,14 +786,22 @@ def phase_sepconv(dev):
     return rows
 
 
-def with_teeth(model, gen: torch.Generator, decoder_scale: float = 50.0) -> None:
+def mel_inputs(gen: torch.Generator) -> tuple:
+    """A calibration batch of the mel models: 2 x 200 frames of 64 random
+    features, all valid."""
+    return torch.randn((2, 200, 64), generator=gen), torch.ones(2)
+
+
+def with_teeth(model, gen: torch.Generator, decoder_scale: float = 50.0,
+               inputs=mel_inputs) -> None:
     """Non-trivial BatchNorm statistics and affine terms and a scaled-up
     decoder: freshly initialised weights give nearly uniform log-probs.
 
     The decoder's input is non-negative (ReLU) with a large common mean, so
     one class would win every frame; its bias is set to cancel that mean on
-    a calibration batch, and the head is then scaled, so that the greedy
-    argmax varies from frame to frame."""
+    a calibration batch (``inputs(gen)``, the model's arguments), and the
+    head is then scaled, so that the greedy argmax varies from frame to
+    frame."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, MaskedBatchNorm):
@@ -766,8 +812,7 @@ def with_teeth(model, gen: torch.Generator, decoder_scale: float = 50.0) -> None
                 m.running_var.copy_(torch.rand(n, generator=gen) * 1.5 + 0.5)
         seen = {}
         hook = model.decoder.register_forward_pre_hook(lambda mod, args: seen.setdefault("x", args[0]))
-        feats = torch.randn((2, 200, 64), generator=gen)
-        model.eval()(feats, torch.ones(2))
+        model.eval()(*inputs(gen))
         hook.remove()
         mean_in = seen["x"].float().mean(dim=(0, 2))
         model.decoder.bias.copy_(-(model.decoder.weight[:, :, 0] @ mean_in))
@@ -775,24 +820,26 @@ def with_teeth(model, gen: torch.Generator, decoder_scale: float = 50.0) -> None
         model.decoder.bias.mul_(decoder_scale)
 
 
-def calibrated_teeth(model, gen: torch.Generator) -> None:
+def calibrated_teeth(model, gen: torch.Generator, inputs=mel_inputs,
+                     passes: int = CALIBRATION_PASSES) -> None:
     """``with_teeth``'s random BatchNorm terms, then running statistics
-    moved towards what training leaves (CALIBRATION_PASSES train-mode passes,
-    momentum 0.1, over random features of 2 x 200 frames) and a decoder
+    moved towards what training leaves (``passes`` train-mode passes,
+    momentum 0.1, over ``inputs(gen)``, by default random features of 2 x
+    200 frames) and a decoder
     scaled to a set spread: its bias cancels its input's mean on one more
     such batch, and its scale brings that batch's log-probs to a class std of
     TEETH_CLASS_STD.  With ``with_teeth``'s random running statistics alone
     the SE encoder's log-probs are nearly constant (class std 0.19 at scale
     50) and its bf16 log-probs agree with its float32 ones on 21% of the
     frames' argmax: the constant terms swamp the signal."""
-    with_teeth(model, gen, 1.0)
+    with_teeth(model, gen, 1.0, inputs)
     with torch.no_grad():
         model.train()
-        for _ in range(CALIBRATION_PASSES):
-            model(torch.randn((2, 200, 64), generator=gen), torch.ones(2))
+        for _ in range(passes):
+            model(*inputs(gen))
         seen = {}
         hook = model.decoder.register_forward_pre_hook(lambda mod, args: seen.update(x=args[0].float()))
-        model.eval()(torch.randn((2, 200, 64), generator=gen), torch.ones(2))
+        model.eval()(*inputs(gen))
         hook.remove()
         w = model.decoder.weight[:, :, 0]
         model.decoder.bias.copy_(-(w @ seen["x"].mean(dim=(0, 2))))
@@ -965,6 +1012,8 @@ def _serve_and_check(dev, name: str, translator, cpu, cpu32, blobs, extra: dict,
 
 
 def _category(name: str) -> str:
+    if name == EVENTS_KEY:
+        return EVENTS_KEY
     low = name.lower()
     # K7's names (lstm_stacked_fwd_steps_kernel, lstm_stacked_fwd_kernel) and
     # K8's (lstm_stacked_steps_kernel, lstm_stacked_bwd_gates_kernel,
@@ -1282,8 +1331,7 @@ def phase_decoding(dev, translator: AsrTranslator, served, native_build: dict) -
         beam_host_ms = 1e3 * (time.perf_counter() - t0)
         beam_ms = cuda_ms(run, 3, warmup=0)
         # torch.profiler over the first BEAM_PROFILE_STEPS frames only: a
-        # whole batch is over 100,000 launches, and a profile of that size
-        # left the next phase's profiler with no device time
+        # whole batch is over 100,000 launches
         head = lp[:, :BEAM_PROFILE_STEPS]
         kernels, launches, passes = kernel_times(
             lambda: beam_search_device(head, lengths_i32.clamp_max(BEAM_PROFILE_STEPS), DEVICE_BEAM_K), 1)
@@ -1316,29 +1364,41 @@ def phase_decoding(dev, translator: AsrTranslator, served, native_build: dict) -
 
 def kernel_times(fn, n: int):
     """Device time per call of each kernel of ``fn`` over ``n`` profiled
-    calls, from torch.profiler: ({kernel: ms}, kernel launches per call,
-    the passes it took).  A fresh process's profiler has once recorded no
-    device time at all; such a pass runs again, up to PROFILER_PASSES
-    passes, and the phase fails only if none records any."""
+    calls, from torch.profiler: ({kernel: ms}, device records per call, the
+    passes it took).  A pass counts only if its kernel records on the card
+    fall short of the host's kernel launches by at most
+    PROFILER_MISSING_SHARE; after PROFILER_PASSES passes without such a
+    pass the calls are timed by CUDA events, as ({EVENTS_KEY: ms}, host
+    launches per call, "cuda_events").  Each call adds its entry to
+    PROFILER_LOG."""
     from torch.profiler import ProfilerActivity, profile
 
+    entry = {"caller": fn.__qualname__.split(".<locals>")[0], "calls": n, "missing": []}
+    PROFILER_LOG.append(entry)
     for passes in range(1, PROFILER_PASSES + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        kernels, launches = {}, 0
+        kernels, records, kernel_records, host_launches = {}, 0, 0, 0
         for ev in prof.key_averages():
+            if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+                host_launches += ev.count if "LaunchKernel" in ev.key else 0
+                continue
+            kernel_records += 0 if ev.key.startswith(("Memcpy", "Memset")) else ev.count
             dev_us = getattr(ev, "self_device_time_total", None)
             if dev_us is None:
                 dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-            if dev_us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            if dev_us > 0:
                 kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us / 1e3 / n
-                launches += ev.count
-        if kernels:
-            break
-    check(bool(kernels), f"torch.profiler recorded no device time in {passes} passes")
-    return kernels, launches / n, passes
+                records += ev.count
+        missing = host_launches - kernel_records
+        entry.update(host_launches=host_launches, passes=passes)
+        entry["missing"].append(missing)
+        if kernels and missing <= PROFILER_MISSING_SHARE * host_launches:
+            return kernels, records / n, passes
+    entry["passes"] = "cuda_events"
+    return {EVENTS_KEY: cuda_ms(fn, n, warmup=0)}, host_launches / n, "cuda_events"
 
 
 def device_time(fn, n: int):
@@ -2217,6 +2277,445 @@ def phase_trainer(dev) -> dict:
             "k8_launches": sum(r["launches"]["lstm_backward_stacked"] for r in runs)}
 
 
+# --- the SSL paths (feature step, dual stream, encoder retrain, entry points) ---
+
+# the SSL steps' batch: B rows of 2-16.7 s at the 16.7 s bucket, 835
+# wav2vec2 frames (50 a second) of 512 features, 267,200 raw samples (320 a
+# frame); steps timed on one batch, and steps profiled
+SSL_FRAMES, SSL_FEATURE_DIM, SSL_HOP = 835, 512, 320
+SSL_STEPS, SSL_RETRAIN_STEPS, SSL_PROFILE_STEPS = 8, 4, 2
+SSL_RETRAIN_BATCH = 32
+# the float32 card-vs-CPU steps: rows and bucket seconds
+SSL_PARITY_ROWS, SSL_PARITY_S = 4, 4.0
+SSL_RETRAIN_PARITY_ROWS, SSL_RETRAIN_PARITY_S = 2, 2.0
+# the entry points' corpus: utterances (train, dev, unlabeled pool) of
+# 0.5-3.5 s in one 4 s bucket, batch, epochs of train_ssl (a pseudo pass
+# after epochs 1 and 2 on a threshold that keeps every non-empty text)
+SSL_CLI_UTTS, SSL_CLI_BATCH, SSL_CLI_EPOCHS = (64, 16, 32), 16, 3
+# train-mode passes of calibrated_teeth for the retrain forward and the
+# served SSL checkpoint
+SSL_CALIBRATION_PASSES = 5
+
+
+def ssl_batch(rng, B: int, bucket_s: float, waves: str = None):
+    """B rows of 2-``bucket_s`` s (the first fills the bucket): float32
+    wav2vec2 features at 50 frames a second with ~15 labels a second;
+    ``waves="raw"`` adds the rows' float32 raw waves (``raw_waves``, as the
+    dual batcher gives them), ``waves="int16"`` gives int16 waves in place
+    of the features (the retrain mode's wire).  Numpy, and the audio
+    seconds."""
+    seconds = np.sort(rng.uniform(2.0, bucket_s, B))[::-1].copy()
+    seconds[0] = bucket_s
+    frames = (seconds * 50).astype(np.int32)
+    T = int(round(bucket_s * 50))
+    targets, tl = train_targets(rng, seconds)
+    batch = {"targets": targets, "target_lens": tl}
+    if waves == "int16":
+        S = T * SSL_HOP
+        lens = np.minimum((seconds * SR).astype(np.int32), S)
+        w = np.zeros((B, S), np.int16)
+        for b, n in enumerate(lens):
+            w[b, :n] = (rng.standard_normal(n) * 3000).astype(np.int16)
+        return {**batch, "waves": w, "wave_lens": lens}, float(lens.sum()) / SR
+    feats = np.zeros((B, T, SSL_FEATURE_DIM), np.float32)
+    for b, n in enumerate(frames):
+        feats[b, :n] = rng.standard_normal((n, SSL_FEATURE_DIM))
+    batch.update(waves=feats, wave_lens=frames)
+    if waves == "raw":
+        raw = np.zeros((B, T * SSL_HOP), np.float32)
+        for b, n in enumerate(frames):
+            raw[b, : n * SSL_HOP] = rng.standard_normal(n * SSL_HOP) * 0.1
+        batch.update(raw_waves=raw, raw_wave_lens=frames * SSL_HOP)
+    return batch, float(frames.sum()) / 50
+
+
+SSL_COUNTERS = (mel_from_extended, extend_preemph, lstm_recurrence, lstm_backward, ctc_alpha,
+                ctc_beta)
+
+
+def _ssl_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in SSL_COUNTERS}
+
+
+def _ssl_zero() -> None:
+    for fn in SSL_COUNTERS:
+        fn.launches = 0
+
+
+def _ssl_steps(dev, name: str, step, state, batch_np, audio_s: float, steps: int,
+               per_step: dict) -> dict:
+    """``steps`` steps of ``step`` on one batch on the card: the launches
+    of K1-K6 (``per_step`` a step), losses finite, nan_count 0, the steady
+    steps' times, audio-seconds a second, device time by kernel group and
+    peak memory."""
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+    rng = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _ssl_zero()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, rng)
+        losses.append(metrics["loss"].item())
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = _ssl_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {fn.__name__: per_step.get(fn, 0) * steps for fn in SSL_COUNTERS}
+    check(launches == want, f"{name}: kernel launches over {steps} steps: {launches}, want {want}")
+    check(all(np.isfinite(losses)), f"{name}: losses not finite: {losses}")
+    check(int(state.nan_count) == 0 and int(state.step) == steps,
+          f"{name}: nan_count {int(state.nan_count)}, step {int(state.step)}")
+    holder = {"state": state}
+
+    def one_step():
+        holder["state"], _ = step(holder["state"], batch, rng)
+
+    device_ms, by_cat, top, passes = device_time(one_step, SSL_PROFILE_STEPS)
+    steady = times[1:]
+    mean_s = sum(steady) / len(steady)
+    return {"phase": name, "batch": int(batch_np["targets"].shape[0]),
+            "shape": list(batch_np["waves"].shape), "audio_s_per_batch": audio_s, "steps": steps,
+            "losses": losses, "loss_first": losses[0], "loss_last": losses[-1],
+            "launches": launches,
+            "step_ms": {"median": 1e3 * statistics.median(steady), "min": 1e3 * min(steady),
+                        "max": 1e3 * max(steady), "first": 1e3 * times[0], "n": len(steady)},
+            "audio_s_trained_per_s": audio_s / mean_s, "device_ms_per_step": device_ms,
+            "device_busy_share": device_ms / (1e3 * mean_s), "device_ms_by_category": by_cat,
+            "top_kernels_ms": top, "profiler_passes": passes, "peak_memory_gb": peak_gb}
+
+
+def _ssl_parity(dev, name: str, build, make_step, batch_np, jitter=("waves",)) -> dict:
+    """One float32 step of ``build()``'s model (seeded weights) on the card
+    and on the CPU from the same batch, each against TRAIN_TOL or
+    CHAOS_GAP_RATIO times the card's own move when the ``jitter`` inputs
+    move by 1e-7 relative, whichever is larger (the seeded train-mode
+    stacks are chaotic: phase_train_parity)."""
+    init = {k: v.clone() for k, v in build().state_dict().items()}
+    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+
+    def one_step(where, b):
+        model = build()
+        model.load_state_dict(init)
+        model.to(where)
+        opt = _capture(novograd(1e-2, betas=(0.8, 0.5), weight_decay=1e-3, fused=True))
+        state = create_train_state(model, opt)
+        gen = torch.Generator(device=where).manual_seed(0)
+        new, metrics = make_step(model, opt)(state, {k: v.to(where) for k, v in b.items()}, gen)
+        return ({k: v.cpu() for k, v in state.params.items()},
+                {k: v.cpu() for k, v in new.params.items()},
+                {k: v.cpu() for k, v in new.opt_state[0].items()},
+                {k: v.cpu() if torch.is_tensor(v) else v for k, v in metrics.items()})
+
+    cpu, card = one_step("cpu", batch), one_step(dev, batch)
+    gen = torch.Generator().manual_seed(7)
+    moved = {k: (v.float() * (1 + 1e-7 * torch.randn(v.shape, generator=gen)) if k in jitter
+                 else v) for k, v in batch.items()}
+    floor, _ = _step_errors(one_step(dev, moved), card)
+    errs, worst = _step_errors(card, cpu)
+    limits = {**TRAIN_TOL, **{k: max(TRAIN_TOL[k], CHAOS_GAP_RATIO * floor[k])
+                              for k in ("grad_norm_rel", "grad_rel", "update_rel")}}
+    card_m, cpu_m = card[3], cpu[3]
+    check(bool(card_m["finite"]) and bool(cpu_m["finite"]), f"{name}: loss not finite")
+    check(torch.equal(card_m["pred_lens"], cpu_m["pred_lens"]), f"{name}: pred_lens differ")
+    for key, lim in limits.items():
+        check(errs[key] <= lim, f"{name}: {key} {errs[key]} > {lim} (worst tensor {worst})")
+    return {**errs, "limits": limits, "chaos_floor": floor, "worst_grad_tensor": worst,
+            "loss_card": card_m["loss"].item(), "loss_cpu": cpu_m["loss"].item(),
+            "rows": int(batch_np["targets"].shape[0]), "dtype": "float32"}
+
+
+@contextlib.contextmanager
+def _no_cutout():
+    """The dual step's cutout (the one augmentation it draws whatever its
+    widths) as the identity, so that the card and the CPU, whose generators
+    draw other numbers, take the same step."""
+    kept = ssl_steps.cutout
+    ssl_steps.cutout = lambda feats, *a, **k: feats
+    try:
+        yield
+    finally:
+        ssl_steps.cutout = kept
+
+
+def _ssl_optimizer():
+    schedule = cosine_annealing_warmup_restarts(first_cycle_steps=1000, cycle_mult=1, max_lr=1e-2,
+                                                min_lr=1e-4, warmup_steps=5, gamma=0.1)
+    return novograd(schedule, betas=(0.8, 0.5), weight_decay=1e-3, fused=True)
+
+
+def _seeded(model, seed: int):
+    reset_parameters(model, torch.Generator().manual_seed(seed))
+    return model
+
+
+def phase_ssl_feature(dev) -> dict:
+    """The SSL feature step: ``AsrModel(feature_in=512)`` in bf16, cutout, no
+    normalization, at B=32 x 835 frames x 512; and one float32 step card
+    against CPU."""
+    build = lambda dtype=None: _seeded(build_model(  # noqa: E731
+        len(LABELS) + 1, mask=True, feature_in=SSL_FEATURE_DIM, dtype=dtype), 11)
+    model = build(torch.bfloat16).to(dev)
+    opt = _ssl_optimizer()
+    step = make_train_step(model, opt, BLANK, augment="cutout", from_features=True, normalize=False)
+    batch, audio_s = ssl_batch(np.random.default_rng(11), TRAIN_BATCH, TRAIN_BUCKET_S)
+    check(batch["waves"].shape == (TRAIN_BATCH, SSL_FRAMES, SSL_FEATURE_DIM), "feature batch shape")
+    res = _ssl_steps(dev, "ssl_feature_step", step, create_train_state(model, opt), batch, audio_s,
+                     SSL_STEPS, {lstm_recurrence: 1, lstm_backward: 1, ctc_alpha: 1, ctc_beta: 1})
+    res["dtype"] = "bfloat16"
+    pbatch, _ = ssl_batch(np.random.default_rng(12), SSL_PARITY_ROWS, SSL_PARITY_S)
+    res["card_vs_cpu_fp32"] = _ssl_parity(
+        dev, "ssl_feature_step_parity", build,
+        lambda m, o: make_train_step(m, o, BLANK, augment=None, from_features=True,
+                                     normalize=False), pbatch)
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def phase_ssl_dual(dev) -> tuple:
+    """The dual step: ``DualStreamAsrModel`` (float32), the mel stream at
+    DUAL_MEL_CONFIG from 267,200 raw samples a row (K6, not K1), at B=32;
+    K6 on that batch bit for bit against its plain version; one float32
+    step card against CPU (cutout off, SpecAugment widths 0, no dither)."""
+    build = lambda: _seeded(DualStreamAsrModel(len(LABELS) + 1, mask=True), 12)  # noqa: E731
+    model = build().to(dev)
+    opt = _ssl_optimizer()
+    step = make_dual_train_step(model, opt, BLANK, DUAL_MEL_CONFIG)
+    batch, audio_s = ssl_batch(np.random.default_rng(13), TRAIN_BATCH, TRAIN_BUCKET_S, "raw")
+    check(batch["raw_waves"].shape == (TRAIN_BATCH, SSL_FRAMES * SSL_HOP), "dual batch shape")
+    res = _ssl_steps(dev, "ssl_dual_step", step, create_train_state(model, opt), batch, audio_s,
+                     SSL_STEPS, {extend_preemph: 1, lstm_recurrence: 1, lstm_backward: 1,
+                                 ctc_alpha: 1, ctc_beta: 1})
+    res["dtype"] = "float32"
+    # K6 at the dual config on the dual batch, dithered as the step dithers it
+    raw = torch.from_numpy(batch["raw_waves"]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    raw = raw + DUAL_MEL_CONFIG.dither * torch.randn(raw.shape, generator=gen, device=dev)
+    k6 = _k6_at(DUAL_MEL_CONFIG, raw.contiguous(), torch.from_numpy(batch["raw_wave_lens"]).to(dev))
+    res["K6_dual_config"] = {**k6, "config": {"pad": DUAL_MEL_CONFIG.pad,
+                                              "hop": DUAL_MEL_CONFIG.hop_length,
+                                              "win": DUAL_MEL_CONFIG.win_length}}
+    pbatch, _ = ssl_batch(np.random.default_rng(14), SSL_PARITY_ROWS, SSL_PARITY_S, "raw")
+    quiet = dataclasses.replace(DUAL_MEL_CONFIG, dither=0.0)
+    with _no_cutout():
+        res["card_vs_cpu_fp32"] = _ssl_parity(
+            dev, "ssl_dual_step_parity", build,
+            lambda m, o: make_dual_train_step(m, o, BLANK, quiet, freq_mask=0, time_mask=0),
+            pbatch, jitter=("waves", "raw_waves"))
+    print(json.dumps(res), flush=True)
+    return res, k6
+
+
+def phase_ssl_retrain(dev) -> dict:
+    """The retrain step: ``SSLRetrainAsrModel`` ("layer", 7 x 512 feature
+    encoder, float32) on int16 waves of 267,200 samples; its eval forward
+    on the card against the CPU (the float32 serving bounds) and one
+    float32 step card against CPU (cutout off)."""
+    build = lambda cut=True: _seeded(SSLRetrainAsrModel(  # noqa: E731
+        len(LABELS) + 1, mask=True, feat_extract_norm="layer", conv_bias=True,
+        augment_cutout=cut), 13)
+    model = build().to(dev)
+    opt = _ssl_optimizer()
+    step = make_raw_ssl_train_step(model, opt, BLANK)
+    batch, audio_s = ssl_batch(np.random.default_rng(15), SSL_RETRAIN_BATCH, TRAIN_BUCKET_S, "int16")
+    check(int(ssl_output_lengths(batch["waves"].shape[1])) == 834, "retrain frames")
+    res = _ssl_steps(dev, "ssl_retrain_step", step, create_train_state(model, opt), batch, audio_s,
+                     SSL_RETRAIN_STEPS, {lstm_recurrence: 1, lstm_backward: 1, ctc_alpha: 1,
+                                         ctc_beta: 1})
+    res["dtype"] = "float32"
+    del model, step, opt
+    torch.cuda.empty_cache()
+    # the forward, card against CPU, over the valid frames, of the model
+    # with calibrated_teeth (its seeded log-probs are nearly uniform)
+    fbatch, _ = ssl_batch(np.random.default_rng(16), SSL_PARITY_ROWS, SSL_PARITY_S, "int16")
+    ref = build(False)
+    calibrated_teeth(ref, torch.Generator().manual_seed(16), lambda g: (
+        torch.round(torch.randn((2, SR), generator=g) * 3000), torch.full((2,), SR)),
+        SSL_CALIBRATION_PASSES)
+    ref.eval()
+    with torch.no_grad():
+        lp_cpu, lens_cpu = ref(torch.from_numpy(fbatch["waves"]), torch.from_numpy(fbatch["wave_lens"]))
+        ref.to(dev)
+        lp, lens = ref(torch.from_numpy(fbatch["waves"]).to(dev),
+                       torch.from_numpy(fbatch["wave_lens"]).to(dev))
+    lp, lp_cpu = lp.cpu().numpy(), lp_cpu.numpy()
+    check(np.array_equal(lens.cpu().numpy(), lens_cpu.numpy()), "retrain forward: lengths differ")
+    valid = np.arange(lp.shape[1])[None, :] < lens_cpu.numpy()[:, None]
+    err = np.abs(lp - lp_cpu)[valid]
+    agree = float(np.mean(lp.argmax(-1)[valid] == lp_cpu.argmax(-1)[valid]))
+    check(np.isfinite(lp).all() and err.max() <= SERVE32_TOL_MAX and err.mean() <= SERVE32_TOL_MEAN
+          and agree >= SERVE32_MIN_ARGMAX,
+          f"retrain forward card vs CPU: max {err.max()}, mean {err.mean()}, argmax {agree}")
+    res["forward_card_vs_cpu_fp32"] = {"max_abs": float(err.max()), "mean_abs": float(err.mean()),
+                                       "argmax_agreement": agree, "class_std": float(lp_cpu.std(-1).mean()),
+                                       "limits": [SERVE32_TOL_MAX, SERVE32_TOL_MEAN,
+                                                  SERVE32_MIN_ARGMAX]}
+    pbatch, _ = ssl_batch(np.random.default_rng(17), SSL_RETRAIN_PARITY_ROWS, SSL_RETRAIN_PARITY_S,
+                          "int16")
+    pbatch["waves"] = pbatch["waves"].astype(np.float32)      # the model's cast, made here
+    res["card_vs_cpu_fp32"] = _ssl_parity(dev, "ssl_retrain_step_parity", lambda: build(False),
+                                          lambda m, o: make_raw_ssl_train_step(m, o, BLANK), pbatch)
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def ssl_corpus(root: Path) -> dict:
+    """The entry points' corpus under ``root``: tone-language WAVs
+    (``tone_corpus``) and beside each a feature pickle of int(duration · 50)
+    frames of seeded features; manifests ``train``, ``dev``, ``pool``."""
+    feats = root / "feats"
+    feats.mkdir()
+    rng = np.random.default_rng(18)
+    out = {}
+    for i, (name, n) in enumerate(zip(("train", "dev", "pool"), SSL_CLI_UTTS)):
+        out[name] = tone_corpus(root, n, 20 + i, name, lo=0.5, hi=3.5)
+        for line in out[name].read_text().splitlines():
+            row = json.loads(line)
+            f = rng.standard_normal((1, int(row["duration"] * 50), SSL_FEATURE_DIM)).astype(np.float32)
+            with open(feats / (Path(row["audio_filepath"]).stem + ".pkl"), "wb") as fh:
+                pickle.dump(f, fh)
+    return out
+
+
+def _run_entry(main_fn, args):
+    """An SSL entry point's ``main`` on the card in this process (its
+    printed config kept out of this output), with its launches of K1-K6."""
+    _ssl_zero()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = main_fn(args)
+    torch.cuda.synchronize()
+    return out, _ssl_counts()
+
+
+def phase_ssl_entry_points(dev) -> dict:
+    """``python -m lightning_asr_torch.train_ssl`` (with the pseudo pass),
+    ``train_ssl ssl.retrain=true`` and ``python -m
+    lightning_asr_torch.train_ssl_double`` through their ``main`` on the
+    card on a small corpus; then the SSL checkpoint served: the
+    translator's feature forward on the card against the CPU, in bf16 and
+    float32, fed precomputed features (its extractor needs transformers)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        m = ssl_corpus(root)
+        common = [f"data.train_manifest={m['train']}", f"data.val_manifest={m['dev']}",
+                  f"data.test_manifest={m['dev']}", f"ssl.feature_folder={root / 'feats'}",
+                  "data.bucket_seconds=[4.0]", f"train.train_batch_size={SSL_CLI_BATCH}",
+                  f"train.dev_batch_size={SSL_CLI_BATCH}", "train.warmup_steps=1",
+                  "train.log_every_n_steps=1"]
+        runs = {}
+        run = root / "ssl"
+        # a CTC model trained a few steps decodes every row as blanks, and
+        # the pass keeps no empty text: a learning rate of 1e-6 keeps the
+        # seeded model's decodes as they start, so that the pass injects
+        out, launches = _run_entry(ssl_train_main, common + [
+            f"log.run.dir={run}", f"train.total_epoch={SSL_CLI_EPOCHS}",
+            "train.learning_rate=1e-6", "train.min_lr=1e-7",
+            f"data.pseudo_manifest={m['pool']}", "ssl.pseudo_start_epoch=1",
+            "ssl.pseudo_every_n_epochs=1", "ssl.pseudo_confidence_threshold=1e9"])
+        tr = out["trainer"]
+        rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+        pseudo = [r for r in rows if "pseudo_total" in r]
+        pool = len(tr.dm.unlabeled_entries)
+        batches = [e["batches"] for e in tr.epoch_stats]
+        check([r["pseudo_total"] for r in pseudo] == [pool] * (SSL_CLI_EPOCHS - 1),
+              f"train_ssl: pseudo passes {pseudo}, pool {pool}")
+        check(pseudo[0]["pseudo_kept"] > 0 and batches[2] > batches[1],
+              f"train_ssl: kept {pseudo[0]['pseudo_kept']}, batches a epoch {batches}")
+        runs["train_ssl"] = (out, launches, len(pseudo) * len(tr.dm.pseudo_train_dataloader()), 0)
+        for name, main_fn, extra in (("train_ssl_retrain", ssl_train_main, ["ssl.retrain=true"]),
+                                     ("train_ssl_double", ssl_double_main, [])):
+            out, launches = _run_entry(main_fn, common + extra + [
+                f"log.run.dir={root / name}", "train.total_epoch=1"])
+            runs[name] = (out, launches, 0, int(name == "train_ssl_double"))
+        summary = {}
+        for name, (out, launches, pseudo_batches, dual) in runs.items():
+            tr = out["trainer"]
+            steps = sum(e["batches"] for e in tr.epoch_stats)
+            evals = tr.profiler.counts["val_step"] + tr.profiler.counts["test_step"] + pseudo_batches
+            want = {"mel_from_extended": 0, "extend_preemph": dual * (steps + evals),
+                    "lstm_recurrence": steps + evals, "lstm_backward": steps,
+                    "ctc_alpha": steps + evals, "ctc_beta": steps}
+            check(launches == want, f"{name}: launches {launches}, want {want}")
+            losses = [e["loss_mean"] for e in tr.epoch_stats]
+            check(all(np.isfinite(losses)) and np.isfinite(out["test"]["test_loss"]),
+                  f"{name}: losses {losses}, test {out['test']}")
+            summary[name] = {"epochs": len(losses), "train_steps": steps, "eval_batches": evals,
+                             "loss_means": losses, "test_loss": out["test"]["test_loss"],
+                             "epoch_wall_s": [e["wall_sec"] for e in tr.epoch_stats],
+                             "launches": launches}
+        summary["train_ssl"].update(pseudo=pseudo, pool=pool, batches_per_epoch=batches)
+        served, served_launches = _serve_ssl(dev, run / "checkpoints" / "last", root)
+    total = {k: sum(r[1][k] for r in runs.values()) + served_launches.get(k, 0)
+             for k in _ssl_counts()}
+    res = {"phase": "ssl_entry_points", "corpus_utts": list(SSL_CLI_UTTS), "bucket_s": 4.0,
+           "batch": SSL_CLI_BATCH, **summary, "served": served, "launches": total}
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def _serve_ssl(dev, ckpt: Path, root: Path):
+    """The ``feature_in`` checkpoint, its weights given calibrated_teeth
+    (saved again, in its bf16 and with compute_dtype float32), through the
+    translator on the card and on the CPU, on 8 rows of precomputed
+    features of 2-16 s: log-probs over valid frames within the serving
+    bounds, and K2 once a card forward."""
+    state_dict, meta = load_checkpoint(ckpt)
+    model = build_model(len(meta["hparams"]["labels"]) + 1, mask=True, feature_in=SSL_FEATURE_DIM)
+    model.load_state_dict(state_dict)
+    calibrated_teeth(model, torch.Generator().manual_seed(19), lambda g: (
+        torch.randn((2, 200, SSL_FEATURE_DIM), generator=g), torch.ones(2)), SSL_CALIBRATION_PASSES)
+    ckpt = save_checkpoint(root / "served", model.state_dict(), meta["hparams"])
+    ckpt32 = save_checkpoint(root / "served32", model.state_dict(),
+                             {**meta["hparams"], "compute_dtype": "float32"})
+    rng = np.random.default_rng(19)
+    seconds = [2.0, 3.5, 5.0, 7.0, 9.0, 11.0, 13.5, 16.0]
+    frames = np.asarray([int(s * 50) for s in seconds], np.int32)
+    feats = np.zeros((8, int(frames.max()), SSL_FEATURE_DIM), np.float32)
+    for b, n in enumerate(frames):
+        feats[b, :n] = rng.standard_normal((n, SSL_FEATURE_DIM))
+    out, launches = {}, {}
+    for tag, path, tols in (("bf16", ckpt, (SERVE_TOL_MAX, SERVE_TOL_MEAN, SERVE_MIN_ARGMAX)),
+                            ("fp32", ckpt32, (SERVE32_TOL_MAX, SERVE32_TOL_MEAN, SERVE32_MIN_ARGMAX))):
+        card, cpu = AsrTranslator(path, device="cuda"), AsrTranslator(path, device="cpu")
+        check(card.ssl_extractor is not None and card.model.feature_mapping is not None,
+              f"served SSL {tag}: not a feature checkpoint")
+        lp_cpu, lens_cpu = cpu._forward_feats(torch.from_numpy(feats), torch.from_numpy(frames))
+        _ssl_zero()
+        t0 = time.perf_counter()
+        lp, lens = card._forward_feats(torch.from_numpy(feats).to(dev), torch.from_numpy(frames).to(dev))
+        lp = lp.cpu().numpy()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = {k: launches.get(k, 0) + v for k, v in _ssl_counts().items()}
+        check(_ssl_counts()["lstm_recurrence"] == 1, f"served SSL {tag}: launches {_ssl_counts()}")
+        lp_cpu = lp_cpu.numpy()
+        check(np.array_equal(lens.cpu().numpy(), lens_cpu.numpy()), f"served SSL {tag}: lengths")
+        valid = np.arange(lp.shape[1])[None, :] < lens_cpu.numpy()[:, None]
+        err = np.abs(lp - lp_cpu)[valid]
+        agree = float(np.mean(lp.argmax(-1)[valid] == lp_cpu.argmax(-1)[valid]))
+        check(np.isfinite(lp).all() and err.max() <= tols[0] and err.mean() <= tols[1]
+              and agree >= tols[2], f"served SSL {tag}: max {err.max()}, mean {err.mean()}, "
+                                    f"argmax {agree}")
+        out[tag] = {"max_abs": float(err.max()), "mean_abs": float(err.mean()),
+                    "argmax_agreement": agree, "limits": list(tols), "first_forward_ms": ms,
+                    "class_std": float(lp_cpu.std(-1).mean())}
+    return {"rows": 8, "frames": frames.tolist(), **out}, launches
+
+
+def phase_ssl(dev) -> dict:
+    """The SSL paths: the feature, dual and retrain steps, then the entry
+    points and the served checkpoint; returns their launches of K1-K6."""
+    results = [phase_ssl_feature(dev)]
+    dual, k6_dual = phase_ssl_dual(dev)
+    results += [dual, phase_ssl_retrain(dev)]
+    entry = phase_ssl_entry_points(dev)
+    launches = {k: sum(r["launches"][k] for r in results) + entry["launches"][k]
+                for k in _ssl_counts()}
+    print(json.dumps({"phase": "ssl", "launches": launches, "K6_dual_config_max_abs_err":
+                      k6_dual["max_abs_err"]}), flush=True)
+    return launches
+
+
 def hmma_counts():
     """Tensor-core (HMMA) instructions in each built library's SASS, from
     the toolkit's cuobjdump; None where the toolkit has none."""
@@ -2272,20 +2771,21 @@ def main() -> int:
     for conv_kernel, fused in ((None, False), ("sepconv", False), ("dw_wgrad", False), (None, True)):
         phase_train_parity(dev, conv_kernel, fused)
     trainer = phase_trainer(dev)
+    ssl = phase_ssl(dev)
     # launches on the main paths: the serving bursts of every encoder, the
-    # decoding phase's forwards, the training steps of every configuration
-    # and the trainer's runs
+    # decoding phase's forwards, the training steps of every configuration,
+    # the trainer's runs and the SSL phase's steps, runs and served forwards
     serve = {key: sum(b.get(key, 0) for b in [serving["launches"], serving_sep["launches"],
                                               decoding["launches"], *encoder_bursts])
              for key in ("mel", "lstm", "extend", "sepconv_forward")}
     trainings += encoder_trainings
     train = {name: sum(t["launches"][name] for t in trainings) for name in trainings[0]["launches"]}
-    k1["launches"] = serve["mel"] + train["mel_from_extended"]
-    k2["launches"] = serve["lstm"] + train["lstm_recurrence"]
-    k3["launches"] = train["lstm_backward"]
-    k4["launches"] = train["ctc_alpha"]
-    k5["launches"] = train["ctc_beta"]
-    k6["launches"] = serve["extend"] + train["extend_preemph"]
+    k1["launches"] = serve["mel"] + train["mel_from_extended"] + ssl["mel_from_extended"]
+    k2["launches"] = serve["lstm"] + train["lstm_recurrence"] + ssl["lstm_recurrence"]
+    k3["launches"] = train["lstm_backward"] + ssl["lstm_backward"]
+    k4["launches"] = train["ctc_alpha"] + ssl["ctc_alpha"]
+    k5["launches"] = train["ctc_beta"] + ssl["ctc_beta"]
+    k6["launches"] = serve["extend"] + train["extend_preemph"] + ssl["extend_preemph"]
     k7["launches"] = train["lstm_recurrence_stacked"] + trainer["k7_launches"]
     k8["launches"] = train["lstm_backward_stacked"] + trainer["k8_launches"]
     k9["launches"] = serve["sepconv_forward"] + train["sepconv_forward"]
@@ -2295,6 +2795,8 @@ def main() -> int:
     check(all(r["launches"] > 0 for r in rows), "a kernel of the main paths was never launched")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"phase": "profiler", "missing_share": PROFILER_MISSING_SHARE,
+                      "calls": PROFILER_LOG}), flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -11,14 +11,19 @@ Layering (bottom → top):
              CTC loss (+ alpha / beta kernels), separable and depthwise
              convs (+ kernels), wave crop and SpecAugment
   data/      vocabulary, WAV decode, manifests, bucketed batches, datamodule
-  models/    QuartNet12Context + CTC head (nn.Modules, eval and train)
+             (with the SSL pseudo-label pool)
+  models/    the four QuartzNet encoders + CTC head (nn.Modules, eval and
+             train), the SSL feature mapping, the dual-stream model
   optim/     NovoGrad (also with a runtime lr), cosine warmup restarts,
              ReduceLROnPlateau, gradient clipping
   metrics/   WER / CER
   decoding/  greedy CTC collapse on the device, LM-free prefix beam search
              as batched tensor ops, the native LM beam search with hot words
-  ssl_codec/ CTC confidence scores
-  training/  train and eval steps, the trainer, checkpoints of train state
+  ssl_codec/ CTC confidence scores, the wav2vec2 extractor wrapper and
+             feature pickles, the SSL and dual datamodules, the trainable
+             wav2vec2 feature encoder and the retrain model
+  training/  train and eval steps (also the dual and raw-SSL ones), the
+             trainer and the SSL trainers, checkpoints of train state
              (state.pt + train_state.pt + metadata.json), callbacks,
              loggers, profiler
   utils/     device selection, config (own YAML reader), logging, the
@@ -28,6 +33,8 @@ Layering (bottom → top):
   inference/ AsrTranslator (long audio, manifest evaluation), streaming,
              HTTP server
   train.py   the training CLI (python -m lightning_asr_torch.train)
+  train_ssl.py, train_ssl_double.py
+             the SSL training CLIs
   predict.py the inference CLI (python -m lightning_asr_torch.predict)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

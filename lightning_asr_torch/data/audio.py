@@ -92,3 +92,9 @@ def wav_bytes(samples: np.ndarray, sample_rate: int) -> bytes:
     header += b"fmt " + struct.pack("<IHHIIHH", 16, 1, channels, sample_rate, byte_rate, channels * 2, 16)
     header += b"data" + struct.pack("<I", len(pcm))
     return header + pcm
+
+
+def duration_seconds(source: Union[str, Path]) -> float:
+    """A WAV file's length in seconds."""
+    samples, sr = read_wav(source)
+    return samples.shape[1] / float(sr)

@@ -3,9 +3,13 @@
 filters (train 16.7 s, dev 40 s) and train-time shuffle and crop.
 
 ``cache='ram'`` keeps every decoded waveform (int16) for the life of the
-module, so later epochs slice crops from RAM.  Not ported: ``cache='mmap'``
-(the persistent packed cache), the multi-process loaders and the SSL
-pseudo-label pool.
+module, so later epochs slice crops from RAM.  The SSL path's pseudo-label
+pool: ``pseudo_manifest`` lists unlabeled utterances (``unlabeled_entries``,
+cut at ``pseudo_max_duration``), ``pseudo_train_dataloader`` iterates them
+in order, and ``inject_pseudo_datasets`` sets the pseudo-labeled entries
+that train batches draw from beside the train set.  Not ported:
+``cache='mmap'`` (the persistent packed cache) and the multi-process
+loaders.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from __future__ import annotations
 from pathlib import Path
 from typing import List, Optional, Sequence, Union
 
+from .audio import duration_seconds
 from .manifest import ManifestEntry, read_manifests
 from .pipeline import BucketBatcher
 from .vocab import Vocabulary
@@ -41,6 +46,8 @@ class AsrDataModule:
         crop: bool = True,
         bucket_seconds: Optional[Sequence[float]] = None,
         prefetch_depth: int = 2,
+        pseudo_manifest=None,
+        pseudo_max_duration: float = 16.7,
         cache: Optional[str] = None,
         cache_dir=None,
         wire: str = "int16",
@@ -65,6 +72,10 @@ class AsrDataModule:
         self.train_entries: List[ManifestEntry] = []
         self.dev_entries: List[ManifestEntry] = []
         self.test_entries: List[ManifestEntry] = []
+        self.pseudo_manifest = _as_list(pseudo_manifest)
+        self.pseudo_max_duration = pseudo_max_duration
+        self.unlabeled_entries: List[ManifestEntry] = []
+        self.pseudo_entries: List[ManifestEntry] = []
         self._wave_cache = {} if cache == "ram" else None
         self._setup_done = False
 
@@ -77,6 +88,8 @@ class AsrDataModule:
             self.dev_entries = read_manifests(self.dev_manifest, self.dev_max_duration)
         if self.test_manifest:
             self.test_entries = read_manifests(self.test_manifest, self.dev_max_duration)
+        if self.pseudo_manifest:
+            self.unlabeled_entries = read_manifests(self.pseudo_manifest, self.pseudo_max_duration)
         self._setup_done = True
 
     def _batcher(self, entries, bs: int, train: bool) -> BucketBatcher:
@@ -87,7 +100,8 @@ class AsrDataModule:
 
     def train_dataloader(self, epoch: int = 0) -> BucketBatcher:
         self.setup()
-        batcher = self._batcher(self.train_entries, self.train_bs, train=True)
+        batcher = self._batcher(self.train_entries + self.pseudo_entries, self.train_bs,
+                                train=True)
         batcher.set_epoch(epoch)
         return batcher
 
@@ -102,4 +116,21 @@ class AsrDataModule:
     def steps_per_epoch(self) -> int:
         """Batches of a train epoch: the reference sizes its LR cycle by it."""
         self.setup()
-        return len(self._batcher(self.train_entries, self.train_bs, train=True))
+        return len(self._batcher(self.train_entries + self.pseudo_entries, self.train_bs,
+                                 train=True))
+
+    def pseudo_train_dataloader(self):
+        """The unlabeled pool in order, for pseudo-label generation."""
+        self.setup()
+        return self._batcher(self.unlabeled_entries, self.dev_bs, train=False)
+
+    def inject_pseudo_datasets(self, pairs: Sequence[tuple]) -> None:
+        """(audio_path, text[, duration]) pairs become the pseudo-labeled
+        entries, replacing those injected before; a missing duration is read
+        from the WAV file."""
+        entries = []
+        for pair in pairs:
+            path, text = pair[0], pair[1]
+            duration = pair[2] if len(pair) > 2 else duration_seconds(path)
+            entries.append(ManifestEntry(str(path), float(duration), text))
+        self.pseudo_entries = entries

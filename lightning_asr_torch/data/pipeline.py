@@ -46,12 +46,14 @@ WIRES = ("int16", "mulaw8", "float32")
 @dataclass
 class Batch:
     waves: np.ndarray          # (B, S_bucket) int16, uint8 mu-law or float32
-    wave_lens: np.ndarray      # (B,) int32 true sample counts
+                               # (or SSL features (B, T, F) float32)
+    wave_lens: np.ndarray      # (B,) int32 true sample (or frame) counts
     prev_samples: np.ndarray   # (B,) float32 sample preceding each crop
     targets: np.ndarray        # (B, L_bucket) int32 padded label ids
     target_lens: np.ndarray    # (B,) int32
     paths: List[str] = field(default_factory=list)
     texts: List[str] = field(default_factory=list)
+    extra: Optional[dict] = None  # more arrays for the device (the dual stream's raw waves)
 
     @property
     def size(self) -> int:

@@ -10,7 +10,12 @@ config.  Waveforms are padded to a small ladder of bucket lengths and the
 batch to the next power of two (rows copied from row 0), as the JAX
 translator does, so a server sees few distinct shapes.
 
-Not ported yet: the SSL feature path (a wav2vec2 feature extractor).
+An SSL checkpoint (``feature_in`` in its hparams) takes wav2vec2 features
+in place of log-mels: a ``Wav2Vec2Extractor`` on the translator's device
+gives them, each row's frames are the conv stack's output lengths (capped
+at the feature length), and the batch is padded to a power of two.  The
+long-audio paths (``long_log_probs``, ``translate_long``) take the mel path
+only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ from ..models.quartznet import build_model
 from ..ops.frontend import (MelFrontendConfig, log_mel_spectrogram, mel_num_frames,
                             normalize_features)
 from ..ssl_codec.confidence import sum_logprob
+from ..ssl_codec.extractor import DEFAULT_MODEL, Wav2Vec2Extractor
+from ..ssl_codec.wav2vec import output_lengths
 from ..training.checkpoint import load_checkpoint
 from ..utils.device import resolve_device
 
@@ -141,6 +148,10 @@ class AsrTranslator:
         )
         self.model.load_state_dict(state_dict, strict=True)
         self.model.to(self.device).eval()
+        self.ssl_extractor = None
+        if hparams.get("feature_in"):
+            self.ssl_extractor = Wav2Vec2Extractor(hparams.get("ssl_model_name", DEFAULT_MODEL),
+                                                   device=self.device)
         logger.info("loaded checkpoint in %.2fs on %s", time.time() - t0, self.device)
 
     @torch.inference_mode()
@@ -153,6 +164,27 @@ class AsrTranslator:
         percents = feat_lens.to(torch.float32) / torch.full((), feats.shape[1], dtype=torch.float32,
                                                             device=feats.device)
         return self.model(feats, percents)
+
+    @torch.inference_mode()
+    def _forward_feats(self, feats: torch.Tensor, feat_lens: torch.Tensor):
+        """(B, T, feature_in) float32 features + (B,) frame counts on the
+        device -> (log_probs (B, T', V+1) float32, out_lens (B,))."""
+        percents = feat_lens.to(torch.float32) / torch.full((), feats.shape[1], dtype=torch.float32,
+                                                            device=feats.device)
+        return self.model(feats, percents)
+
+    def feature_batch(self, waves: List[np.ndarray]):
+        """The extractor's features of 1-D waves, with each row's frames
+        (``output_lengths`` of its samples, capped at the feature length),
+        the batch padded to the next power of two with copies of row 0.
+        Returns numpy (feats (Bp, T, 512) float32, frames (Bp,) int32)."""
+        feats, _ = self.ssl_extractor(list(waves))
+        frames = output_lengths(np.asarray([w.shape[0] for w in waves], np.int64))
+        frames = np.minimum(frames, feats.shape[1]).astype(np.int32)
+        B = len(waves)
+        Bp = 1 << (B - 1).bit_length()
+        feats = np.concatenate([feats, np.repeat(feats[:1], Bp - B, axis=0)])
+        return feats, np.concatenate([frames, np.repeat(frames[:1], Bp - B)])
 
     def _bucket_len(self, n: int) -> int:
         for s in _BUCKET_SECONDS:
@@ -197,7 +229,12 @@ class AsrTranslator:
         (``server.DynamicBatcher``, ``evaluate_manifest``) submits batch N+1
         before resolving batch N."""
         B = len(waves)
-        log_probs, out_lens = self._forward_batch(*self.pad_batch(waves))
+        if self.ssl_extractor is not None:
+            feats, frames = self.feature_batch(waves)
+            log_probs, out_lens = self._forward_feats(torch.from_numpy(feats).to(self.device),
+                                                      torch.from_numpy(frames).to(self.device))
+        else:
+            log_probs, out_lens = self._forward_batch(*self.pad_batch(waves))
         # padding rows are trimmed by views of the device tensors
         log_probs, out_lens = log_probs[:B], out_lens[:B]
         if self.beam_decoder is None:
@@ -252,6 +289,9 @@ class AsrTranslator:
         of ``chunk_seconds`` overlapping by 2·``overlap_seconds``, run as one
         batch (rows padded to a power of two with copies of row 0), each
         window's frames trimmed to its keep-region, concatenated."""
+        if self.ssl_extractor is not None:
+            raise NotImplementedError("long audio takes the mel path; this checkpoint takes "
+                                      "wav2vec2 features")
         sr = self.frontend.sample_rate
         chunk, overlap = int(chunk_seconds * sr), int(overlap_seconds * sr)
         plans = plan_chunks(wave.shape[0], chunk, overlap)

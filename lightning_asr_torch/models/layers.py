@@ -194,23 +194,29 @@ class SepConv(nn.Module):
 
 
 class Dense(nn.Module):
-    """Bias-free linear layer, ``weight`` (out, in) in float32: flax's
-    ``nn.Dense(use_bias=False)``, whose ``kernel`` is (in, out).  Each
-    output is a product summed over the last axis, whose bits do not depend
-    on the row count: ``F.linear`` (and a batched matmul, on the card) picks
-    another kernel for 1 row than for 8, so a row's bits would depend on its
-    batch, and in bf16 a stream (one row a window) would not equal
-    ``translate_long`` (8 rows; ROADMAP C13)."""
+    """Linear layer on the last axis, ``weight`` (out, in) [+ ``bias``] in
+    float32: flax's ``nn.Dense``, whose ``kernel`` is (in, out); bias-free
+    unless ``bias``, both drawn U(±1/sqrt(in)).  Each output is a product
+    summed over the last axis, whose bits do not depend on the row count:
+    ``F.linear`` (and a batched matmul, on the card) picks another kernel
+    for 1 row than for 8, so a row's bits would depend on its batch, and in
+    bf16 a stream (one row a window) would not equal ``translate_long`` (8
+    rows; ROADMAP C13)."""
 
-    def __init__(self, in_features: int, out_features: int):
+    def __init__(self, in_features: int, out_features: int, bias: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        _uniform_(self.weight, 1.0 / math.sqrt(self.weight.shape[1]), generator)
+        bound = 1.0 / math.sqrt(self.weight.shape[1])
+        _uniform_(self.weight, bound, generator)
+        if self.bias is not None:
+            _uniform_(self.bias, bound, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (x.float()[:, None, :] * self.weight).sum(dim=-1)
+        y = (x.float().unsqueeze(-2) * self.weight).sum(dim=-1)
+        return y if self.bias is None else y + self.bias
 
 
 class SELayer(nn.Module):

@@ -15,13 +15,14 @@
     2; ten repeat-5 blocks; the epilog of 15x5.
 
 ``AsrModel`` adds the 1x1-conv decoder to (vocab+1) classes and
-log-softmax, both in float32.  ``module.train()`` selects batch statistics
+log-softmax, both in float32; with ``feature_in`` (the SSL path) a float32
+``Dense`` ``feature_mapping`` (feature_in -> in_c, with bias) runs before
+the encoder.  ``module.train()`` selects batch statistics
 and dropout; a dropout rate above 0 needs a ``torch.Generator`` passed to
 ``forward``.
 
 Module names follow the flax parameter tree, so ``utils/jax_params.py``
-maps one onto the other key by key.  The LSTM head and the SSL feature
-mapping are not ported yet.
+maps one onto the other key by key.  The LSTM head is not ported yet.
 """
 
 from __future__ import annotations
@@ -157,27 +158,45 @@ class AsrModel(nn.Module):
     """Encoder + CTC head (the reference's ``MyModel2``).
 
     ``forward(feats (B, T, in_c), percents (B,))`` returns
-    ``(log_probs (B, T', num_classes), out_lengths (B,) int32)``."""
+    ``(log_probs (B, T', num_classes), out_lengths (B,) int32)``; with
+    ``feature_in`` the features are (B, T, feature_in)."""
 
     def __init__(self, num_classes: int, encoder_name: str = "quartznet12_context",
                  in_c: int = 64, drop_rate: float = 0.0, mask: bool = False,
                  dtype: Optional[torch.dtype] = None, conv_kernel: Optional[str] = None,
-                 fuse_directions: bool = False):
+                 fuse_directions: bool = False, feature_in: Optional[int] = None):
         super().__init__()
-        enc_cls, enc_kwargs = _ENCODERS[encoder_name]
-        if enc_cls is QuartNet12Context:            # the encoders with a BiLSTM
-            enc_kwargs = {**enc_kwargs, "fuse_directions": fuse_directions}
         self.dtype = dtype                                          # conv compute type
-        self.encoder = enc_cls(in_c=in_c, mask=mask, drop_rate=drop_rate, dtype=dtype,
-                               conv_kernel=conv_kernel, **enc_kwargs)
+        self.feature_mapping = None if feature_in is None else Dense(feature_in, in_c, bias=True)
+        self.encoder = make_encoder(encoder_name, in_c, mask, drop_rate, dtype, conv_kernel,
+                                    fuse_directions)
         self.decoder = Conv(1024, num_classes, 1, bias=True)       # float32 head
 
     def forward(self, x: torch.Tensor, percents: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = self.encoder(x.transpose(1, 2), percents, generator)
-        x = self.decoder(x.float())                                 # (B, V+1, T')
-        log_probs = F.log_softmax(x, dim=1).transpose(1, 2)
-        return log_probs, _lengths_from_percents(log_probs.shape[1], percents)
+        if self.feature_mapping is not None:
+            x = self.feature_mapping(x)
+        return ctc_head(self.decoder, self.encoder(x.transpose(1, 2), percents, generator),
+                        percents)
+
+
+def make_encoder(encoder_name: str, in_c: int, mask: bool, drop_rate: float,
+                 dtype: Optional[torch.dtype], conv_kernel: Optional[str],
+                 fuse_directions: bool) -> nn.Module:
+    """The ``encoder_name`` encoder; ``fuse_directions`` reaches the
+    encoders with a BiLSTM."""
+    enc_cls, enc_kwargs = _ENCODERS[encoder_name]
+    if enc_cls is QuartNet12Context:
+        enc_kwargs = {**enc_kwargs, "fuse_directions": fuse_directions}
+    return enc_cls(in_c=in_c, mask=mask, drop_rate=drop_rate, dtype=dtype,
+                   conv_kernel=conv_kernel, **enc_kwargs)
+
+
+def ctc_head(decoder: Conv, x: torch.Tensor, percents: torch.Tensor):
+    """The float32 1x1-conv decoder and log-softmax on the encoder's (B, 1024,
+    T'): (log_probs (B, T', V+1), out_lengths (B,) int32)."""
+    log_probs = F.log_softmax(decoder(x.float()), dim=1).transpose(1, 2)
+    return log_probs, _lengths_from_percents(log_probs.shape[1], percents)
 
 
 def build_model(num_classes: int, encoder: str = "quartznet12_context", in_c: int = 64,
@@ -190,21 +209,25 @@ def build_model(num_classes: int, encoder: str = "quartznet12_context", in_c: in
     (``models/layers.py``; the SE convs ignore them, as there),
     ``fuse_directions`` for ``LASR_LSTM_FUSED_BIDIR`` (the BiLSTM through K7
     / K8; the repeat-5 encoders have none); neither changes the parameters.
-    ``feature_in`` (the SSL path) and ``lstm_head`` (a BiLSTM of hidden size
-    128, which the port's LSTM kernels do not take) are not ported."""
+    ``feature_in`` maps SSL features (wav2vec2's 512) to ``in_c`` first.
+    ``lstm_head`` (a BiLSTM of hidden size 128, which the port's LSTM
+    kernels do not take) is not ported."""
     if encoder not in MODEL_REGISTRY:
         raise ValueError(f"unknown encoder {encoder!r}; choose from {sorted(MODEL_REGISTRY)}")
-    if feature_in is not None:
-        raise NotImplementedError("the SSL feature path (feature_in) is not ported yet")
     if lstm_head:
         raise NotImplementedError("the LSTM head (lstm_head, hidden 128) is not ported yet")
     return AsrModel(num_classes, encoder, in_c=in_c, drop_rate=drop_rate, mask=mask, dtype=dtype,
-                    conv_kernel=conv_kernel, fuse_directions=fuse_directions)
+                    conv_kernel=conv_kernel, fuse_directions=fuse_directions,
+                    feature_in=feature_in)
 
 
 def reset_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Draw every weight as the JAX package's initializers do (torch's
-    default U(±1/sqrt(fan_in)); BatchNorm ones/zeros), from ``generator``."""
+    default U(±1/sqrt(fan_in)); the wav2vec2 convs flax's default
+    lecun-normal and zero bias; BatchNorm, LayerNorm and GroupNorm
+    ones/zeros), from ``generator``."""
     for m in model.modules():
         if isinstance(m, (Conv, Dense, MaskedBatchNorm, BatchLSTM)):
             m.reset_parameters(generator)
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+            m.reset_parameters()

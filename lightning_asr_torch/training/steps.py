@@ -29,8 +29,15 @@ same numbers to both sides.
 ``crop=True`` applies the reference's random wave crop on the device
 (``ops/augment.py::wave_crop``, the ``device_cache`` mode of the trainer,
 whose cached batches hold uncropped waves); its two draws a row come first
-from the step's generator.  Not ported yet: the SSL, dual-stream and
-raw-SSL steps.
+from the step's generator.
+
+The SSL paths have steps of their own: ``make_dual_train_step`` /
+``make_dual_eval_step`` (wav2vec2 features and a mel stream computed here
+from the raw waves in ``batch``'s ``raw_waves``; SpecAugment and
+normalization on the mel stream, cutout on the features) and
+``make_raw_ssl_train_step`` / ``make_raw_ssl_eval_step`` (raw waves into
+``SSLRetrainAsrModel``, which holds the trainable wav2vec2 encoder and its
+cutout).
 """
 
 from __future__ import annotations
@@ -132,6 +139,34 @@ def _features(batch: dict, frontend: MelFrontendConfig, from_features: bool, nor
         return feats, feat_lens.to(device=feats.device, dtype=torch.float32) / T
 
 
+def _loss_and_grads(model: torch.nn.Module, blank_id: int, params: Tensors, stats: Tensors,
+                    inputs: tuple, targets, target_lens, generator):
+    """The model in train mode on ``inputs`` (its positional arguments; the
+    generator goes by keyword) and the batch mean of the CTC losses: (loss,
+    gradients, new BatchNorm statistics, log-probs, out_lens)."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    new_stats = {k: v.clone() for k, v in stats.items()}
+    with torch.enable_grad():
+        log_probs, out_lens = functional_call(model, {**leaves, **new_stats}, inputs,
+                                              {"generator": generator})
+        loss = torch.mean(ctc_loss(log_probs, out_lens, targets, target_lens, blank_id))
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads)), new_stats, log_probs.detach(), out_lens
+
+
+def _eval_outputs(model: torch.nn.Module, state: AsrTrainState, inputs: tuple, batch: dict,
+                  blank_id: int) -> dict:
+    """The model in eval mode on ``inputs``: per-sample CTC losses,
+    log-probs, argmax and out_lens."""
+    model.eval()
+    with torch.no_grad():
+        log_probs, out_lens = functional_call(model, {**state.params, **state.batch_stats},
+                                              inputs)
+        losses = ctc_loss(log_probs, out_lens, batch["targets"], batch["target_lens"], blank_id)
+    return {"losses": losses, "log_probs": log_probs,
+            "preds": torch.argmax(log_probs, dim=-1).to(torch.int32), "pred_lens": out_lens}
+
+
 def make_train_step(
     model: torch.nn.Module,
     optimizer: GradientTransformation,
@@ -173,14 +208,8 @@ def make_train_step(
     augment = "specaugment" if augment is True else (augment or None)
 
     def grad_fn(params, stats, feats, percents, targets, target_lens, generator):
-        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        new_stats = {k: v.clone() for k, v in stats.items()}
-        with torch.enable_grad():
-            log_probs, out_lens = functional_call(model, {**leaves, **new_stats},
-                                                  (feats, percents), {"generator": generator})
-            loss = torch.mean(ctc_loss(log_probs, out_lens, targets, target_lens, blank_id))
-            grads = torch.autograd.grad(loss, list(leaves.values()))
-        return loss.detach(), dict(zip(leaves, grads)), new_stats, log_probs.detach(), out_lens
+        return _loss_and_grads(model, blank_id, params, stats, (feats, percents), targets,
+                               target_lens, generator)
 
     def train_step(state: AsrTrainState, batch: dict,
                    generator: Optional[torch.Generator] = None):
@@ -223,14 +252,88 @@ def make_eval_step(model: torch.nn.Module, blank_id: int,
     resolve_device(next(model.parameters()).device)
 
     def eval_step(state: AsrTrainState, batch: dict) -> dict:
-        model.eval()
-        feats, percents = _features(batch, frontend, from_features, normalize, None)
-        with torch.no_grad():
-            log_probs, out_lens = functional_call(model, {**state.params, **state.batch_stats},
-                                                  (feats, percents))
-            losses = ctc_loss(log_probs, out_lens, batch["targets"], batch["target_lens"],
-                              blank_id)
-        return {"losses": losses, "log_probs": log_probs,
-                "preds": torch.argmax(log_probs, dim=-1).to(torch.int32), "pred_lens": out_lens}
+        return _eval_outputs(model, state, _features(batch, frontend, from_features, normalize,
+                                                     None), batch, blank_id)
+
+    return eval_step
+
+
+def _dual_inputs(batch: dict, mel_frontend: MelFrontendConfig,
+                 generator: Optional[torch.Generator], augment: bool, freq_mask=27,
+                 time_mask=0.07) -> tuple:
+    """(wav2vec2 features, mel stream, percents) of a dual batch, without
+    gradient: the log-mel of ``raw_waves`` at ``mel_frontend`` (dithered when
+    training), then in training SpecAugment on it and cutout on the
+    features, in that order of draws; the mel stream normalized."""
+    with torch.no_grad():
+        w2v, w2v_lens = batch["waves"], batch["wave_lens"]
+        mel, mel_lens = log_mel_spectrogram(
+            batch["raw_waves"], batch["raw_wave_lens"], mel_frontend,
+            generator=generator if augment and mel_frontend.dither > 0 else None)
+        if augment:
+            mel = spec_augment(mel, mel_lens, generator, freq_mask, time_mask)
+        mel = normalize_features(mel, mel_lens)
+        if augment:
+            w2v = cutout(w2v, generator, rect_masks=5, rect_freq=150, rect_time=100)
+        T = torch.full((), w2v.shape[1], dtype=torch.float32, device=w2v.device)
+        return w2v, mel, w2v_lens.to(device=w2v.device, dtype=torch.float32) / T
+
+
+def make_dual_train_step(model: torch.nn.Module, optimizer: GradientTransformation,
+                         blank_id: int, mel_frontend: MelFrontendConfig, freq_mask=27,
+                         time_mask=0.07) -> Callable:
+    """``train_step(state, batch, generator)`` of ``DualStreamAsrModel``:
+    ``batch`` holds the features (``waves``, ``wave_lens``), ``raw_waves``
+    (B, S) float32, ``raw_wave_lens``, ``targets`` and ``target_lens``.  Pins
+    float32 precision on a CUDA model as ``make_train_step`` does."""
+    resolve_device(next(model.parameters()).device)
+
+    def train_step(state: AsrTrainState, batch: dict,
+                   generator: Optional[torch.Generator] = None):
+        model.train()
+        inputs = _dual_inputs(batch, mel_frontend, generator, True, freq_mask, time_mask)
+        loss, grads, new_stats, log_probs, out_lens = _loss_and_grads(
+            model, blank_id, state.params, state.batch_stats, inputs, batch["targets"],
+            batch["target_lens"], generator)
+        return _guarded_update(state, optimizer, loss, grads, new_stats, log_probs, out_lens)
+
+    return train_step
+
+
+def make_dual_eval_step(model: torch.nn.Module, blank_id: int,
+                        mel_frontend: MelFrontendConfig) -> Callable:
+    resolve_device(next(model.parameters()).device)
+
+    def eval_step(state: AsrTrainState, batch: dict) -> dict:
+        return _eval_outputs(model, state, _dual_inputs(batch, mel_frontend, None, False),
+                             batch, blank_id)
+
+    return eval_step
+
+
+def make_raw_ssl_train_step(model: torch.nn.Module, optimizer: GradientTransformation,
+                            blank_id: int) -> Callable:
+    """``train_step(state, batch, generator)`` of ``SSLRetrainAsrModel``: the
+    raw ``waves`` and ``wave_lens`` go to the model, which draws its cutout
+    and dropout from ``generator``."""
+    resolve_device(next(model.parameters()).device)
+
+    def train_step(state: AsrTrainState, batch: dict,
+                   generator: Optional[torch.Generator] = None):
+        model.train()
+        loss, grads, new_stats, log_probs, out_lens = _loss_and_grads(
+            model, blank_id, state.params, state.batch_stats,
+            (batch["waves"], batch["wave_lens"]), batch["targets"], batch["target_lens"],
+            generator)
+        return _guarded_update(state, optimizer, loss, grads, new_stats, log_probs, out_lens)
+
+    return train_step
+
+
+def make_raw_ssl_eval_step(model: torch.nn.Module, blank_id: int) -> Callable:
+    resolve_device(next(model.parameters()).device)
+
+    def eval_step(state: AsrTrainState, batch: dict) -> dict:
+        return _eval_outputs(model, state, (batch["waves"], batch["wave_lens"]), batch, blank_id)
 
     return eval_step

@@ -10,7 +10,11 @@ the optimizer state, ``limit_train_batches`` / ``limit_val_batches``,
 ``accumulate_grad_batches`` (micro-batches of one batch),
 ``device_cache`` (train batches resident on the card after epoch 0, the
 crop in the step), and a background thread that assembles the next batches
-and copies them to the device while the current step runs.
+and copies them to the device while the current step runs.  The SSL path's
+knobs: ``from_features`` (batches of features in place of waves),
+``normalize``, ``augment="cutout"``, ``batch.extra`` copied beside the
+batch, and the hooks ``on_train_epoch_end`` and ``on_resume`` for the
+pseudo-labeling trainers.
 
 Random draws of a step (crop, dither, SpecAugment, dropout) come from one
 generator on the model's device, reseeded from (seed, step) before every
@@ -83,9 +87,11 @@ class Trainer:
         augment=True,
         freq_mask=27,
         time_mask=0.07,
+        normalize: bool = True,
         checkpoint_top_k: int = 3,
         seed: int = 0,
         hparams: Optional[dict] = None,
+        from_features: bool = False,
         callbacks: Optional[list] = None,
         plateau=None,
         plateau_monitor: str = "val_loss",
@@ -121,10 +127,9 @@ class Trainer:
         self.hparams = dict(hparams or {})
         self.hparams.setdefault("frontend", dataclasses.asdict(frontend))
         self.hparams.setdefault("compute_dtype", _compute_dtype_name(model))
-        # the trainer trains on normalized features of waves; AsrTranslator
-        # reads these two from the checkpoint
-        self.hparams.setdefault("normalize", True)
-        self.hparams.setdefault("from_features", False)
+        # AsrTranslator reads these two from the checkpoint
+        self.hparams.setdefault("normalize", bool(normalize))
+        self.hparams.setdefault("from_features", bool(from_features))
         self.generator = torch.Generator(device=self.device)
         self.profiler = SimpleProfiler()
         self.wer = WER(self.vocab.labels, self.vocab.use_cer)
@@ -140,15 +145,17 @@ class Trainer:
         self.limit_val_batches = limit_val_batches
         self.device_cache = device_cache
         self._epoch_cache: Optional[list] = None       # [(Batch, device batch)]
-        crop_in_step = device_cache and getattr(datamodule, "crop", False)
+        crop_in_step = device_cache and getattr(datamodule, "crop", False) and not from_features
         if crop_in_step:
             datamodule.crop = False   # cached batches hold uncropped waves
         self._train_step = make_train_step(
             model, optimizer, self.vocab.blank_id, frontend, augment=augment,
-            freq_mask=freq_mask, time_mask=time_mask, crop=crop_in_step,
+            freq_mask=freq_mask, time_mask=time_mask, from_features=from_features,
+            normalize=normalize, crop=crop_in_step,
             crop_weight=getattr(datamodule, "crop_weight", 0.98),
             accum_steps=int(accumulate_grad_batches))
-        self._eval_step = make_eval_step(model, self.vocab.blank_id, frontend)
+        self._eval_step = make_eval_step(model, self.vocab.blank_id, frontend,
+                                         from_features=from_features, normalize=normalize)
 
     # ------------------------------------------------------------------
     def init_state(self) -> AsrTrainState:
@@ -157,7 +164,7 @@ class Trainer:
     def _device_batch(self, batch: Batch) -> dict:
         arrays = {"waves": batch.waves, "wave_lens": batch.wave_lens,
                   "prev_samples": batch.prev_samples, "targets": batch.targets,
-                  "target_lens": batch.target_lens}
+                  "target_lens": batch.target_lens, **(batch.extra or {})}
         cuda = self.device.type == "cuda"
         return {k: (torch.from_numpy(v).pin_memory() if cuda else torch.from_numpy(v))
                 .to(self.device, non_blocking=cuda) for k, v in arrays.items()}
@@ -234,6 +241,10 @@ class Trainer:
 
     def on_resume(self, state, start_epoch) -> None:
         """Hook for subclasses, called once after a checkpoint is restored."""
+
+    def on_train_epoch_end(self, state, epoch) -> None:
+        """Hook for subclasses, called after each train epoch, before the
+        callbacks' and the validation."""
 
     def _device_iter(self, batcher, limit: Optional[int] = None):
         """(host batch, device batch) pairs; decode, assembly and the copy to
@@ -317,6 +328,7 @@ class Trainer:
             "loss_mean": float(np.mean(loss_values)) if loss_values else float("nan")})
         logger.info("epoch %d: %d batches, %.1fs, %.1f audio-sec/sec", epoch, len(losses), dt,
                     audio_seconds / max(dt, 1e-9))
+        self.on_train_epoch_end(state, epoch)
         for cb in self.callbacks:
             cb.on_train_epoch_end(self, state, epoch)
         return state

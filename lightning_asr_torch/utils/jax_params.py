@@ -8,6 +8,9 @@ documents).
   * conv ``bias``                           <-> ``bias``
   * BN ``scale``/``bias`` (params) and ``mean``/``var`` (batch_stats)
                                             <-> ``weight``/``bias``/``running_mean``/``running_var``
+  * LayerNorm / GroupNorm ``scale``/``bias`` (no batch_stats)
+                                            <-> ``weight``/``bias``
+    (a 1-D ``weight`` is a norm's scale: conv and Dense weights are 2-D or 3-D)
   * ``context_rnn`` ``w_ih_f``/``w_hh_f``/``b_ih_f``/``b_hh_f`` (and ``_b``) keep
     their names and shapes.
 
@@ -66,8 +69,10 @@ def from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
                 raise ValueError(f"{'/'.join(path)}: a conv or Dense kernel is 3-D or 2-D, "
                                  f"got {value.shape}")
             name, value = "weight", np.transpose(value)
+        elif leaf == "scale":                    # LayerNorm, GroupNorm
+            name = "weight"
         else:
-            name = leaf                          # conv bias, LSTM weights
+            name = leaf                          # biases, LSTM weights
         sd[".".join(module + (name,))] = torch.from_numpy(np.array(value))
     for path, value in _flatten(batch_stats).items():
         if path[-1] not in _BN_STATS:
@@ -90,6 +95,8 @@ def to_jax(state_dict: Dict[str, torch.Tensor]) -> Tuple[dict, dict]:
             _set(batch_stats, path + (stats_of[name],), value)
         elif module in bn_modules:
             _set(params, path + ({"weight": "scale", "bias": "bias"}[name],), value)
+        elif name == "weight" and value.ndim == 1:   # LayerNorm, GroupNorm
+            _set(params, path + ("scale",), value)
         elif name == "weight":                    # conv or Dense; LSTM tensors are w_ih_f, ...
             _set(params, path + ("kernel",), np.transpose(value))
         else:
@@ -114,7 +121,7 @@ def _port_name(path: Tuple[str, ...], bn_modules) -> str:
     module, leaf = path[:-1], path[-1]
     if module in bn_modules:
         return ".".join(module + (_BN_PARAMS[leaf],))
-    return ".".join(module + ("weight" if leaf == "kernel" else leaf,))
+    return ".".join(module + ("weight" if leaf in ("kernel", "scale") else leaf,))
 
 
 def _chunks(n: int) -> int:

@@ -307,16 +307,20 @@ def test_weight_and_optimizer_bridges_round_trip(encoder):
 
 
 def test_registry_and_refusals():
-    """All four encoders are ported and built; ``feature_in`` (A7) and
-    ``lstm_head`` (hidden 128, which the LSTM kernels refuse) raise
+    """All four encoders are ported and built; ``feature_in`` (the SSL
+    path) builds a mapping 512 -> in_c before the encoder; ``lstm_head``
+    (hidden 128, which the LSTM kernels refuse) raises
     ``NotImplementedError``; an unknown name raises ``ValueError``."""
     assert PORTED_ENCODERS == MODEL_REGISTRY == (
         "quartznet12_context", "quartznet12_context_se", "quartznet15x5", "quartznet10x5")
     for encoder in MODEL_REGISTRY:
         assert type(build_model(NUM_CLASSES, encoder).encoder).__name__ in (
             "QuartNet12Context", "QuartNet15x5", "QuartNet105")
-    with pytest.raises(NotImplementedError, match="feature_in"):
-        build_model(NUM_CLASSES, "quartznet15x5", feature_in=512)
+    ssl = build_model(NUM_CLASSES, "quartznet15x5", feature_in=512).eval()
+    assert tuple(ssl.feature_mapping.weight.shape) == (64, 512)
+    with torch.no_grad():
+        assert ssl.feature_mapping(torch.ones(2, 7, 512)).shape == (2, 7, 64)
+        assert ssl(torch.ones(2, 8, 512), torch.ones(2))[0].shape == (2, 4, NUM_CLASSES)
     with pytest.raises(NotImplementedError, match="lstm_head"):
         build_model(NUM_CLASSES, "quartznet12_context", lstm_head=True)
     with pytest.raises(ValueError, match="unknown encoder"):

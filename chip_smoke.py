@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, decoding, training, trainer and SSL paths
-on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, decoding, training, trainer, SSL and
+data-parallel paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -150,15 +150,31 @@ Phases, in order; any failed check exits non-zero before the last line:
      against its steps and evaluation batches; and the train_ssl checkpoint
      served: the translator's feature forward on the card against the CPU
      (bf16 and float32) on precomputed features;
- 18. a {"kernels": [...]} line: per kernel K1-K11 its launches on the main
+ 18. data_parallel: ranks in worker processes of this script
+     (``chip_smoke.py --dp-worker TASK SPEC``, started with a launcher's
+     variables): 2 ranks sharing the card over gloo take 4 steps of phase
+     14's recipe on its batch, 16 rows each: their losses and parameters bit
+     for bit, their losses within DP_BF16_LOSS_RTOL of one process on the
+     whole batch, K1-K6 once a step on each rank; one float32 step (no dither
+     or augmentation) and one at accumulate_grad_batches=2, 2 ranks against
+     one process, under DP_TOL; 2 steps at a world of 1 over NCCL against
+     the same steps with no process group, bit for bit (cuDNN deterministic);
+     ``python -m lightning_asr_torch.train`` (its ``main``) as 2 ranks over
+     gloo on phase 16's corpus for one epoch and a validation: the same val
+     and test metrics on both ranks, ``last`` written once (by rank 0), K1-K6
+     once a train step (K1, K2, K4, K6 once an eval batch), AsrTranslator on
+     the card loading ``last``; the step ms of one process and of each rank
+     sharing the card and the gloo all-reduce of the flat gradient, beside
+     the card's name and power limit;
+ 19. a {"kernels": [...]} line: per kernel K1-K11 its launches on the main
      paths (the serving bursts of every encoder, the decoding phase's
      forwards, the training steps of the nine configurations, the
-     trainer's runs and the SSL phase's steps, runs and served forwards),
-     its error against the plain
+     trainer's runs, the SSL phase's steps, runs and served forwards, and
+     the data-parallel ranks' steps and CLI runs), its error against the plain
      version, its time, the plain version's, the library yardstick's, and
      the least time the card could take (K1 and K2 at the serving shape,
      K3-K8 at the training shape, K9-K11 at the widest layer);
- 19. {"ok": true, "device": {...}} as the last line.
+ 20. {"ok": true, "device": {...}} as the last line.
 
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -176,6 +192,7 @@ import os
 import pickle
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -230,6 +247,8 @@ from lightning_asr_torch.ops.sepconv_kernels import (sepconv_backward, sepconv_b
                                                      sepconv_forward, sepconv_forward_plain)
 from lightning_asr_torch.optim import cosine_annealing_warmup_restarts, novograd
 from lightning_asr_torch.optim.novograd import GradientTransformation
+from lightning_asr_torch.parallel import distributed
+from lightning_asr_torch.parallel.mesh import local_rows
 from lightning_asr_torch.predict import main as predict_main
 from lightning_asr_torch.ssl_codec.retrain import SSLRetrainAsrModel
 from lightning_asr_torch.ssl_codec.wav2vec import output_lengths as ssl_output_lengths
@@ -2716,6 +2735,286 @@ def phase_ssl(dev) -> dict:
     return launches
 
 
+# --- data parallelism: ranks in worker processes of this script ---
+
+# ranks that share the one card over gloo, the recipe's bf16 steps they
+# take, and the steps of the NCCL run at a world of 1
+DP_WORLD, DP_STEPS, DP_NCCL_STEPS = 2, 4, 2
+# 2 ranks against one process, the same global batch and draws: the bf16
+# losses differ by the order of the BatchNorm, loss and gradient sums and
+# by cuDNN's algorithms at 16 rows against 32, carried through 4 steps of
+# this seeded network (the bound of BF16_TOL's loss in the CPU tests)
+DP_BF16_LOSS_RTOL = 2e-2
+# the float32 step and the accumulated step, 2 ranks against one: reduction
+# order only, under TRAIN_TOL (the card-vs-CPU bound of the same network)
+DP_TOL = TRAIN_TOL
+# a worker's wall limit, the group's collective timeout, and the flat
+# gradient all-reduces timed under gloo
+DP_TIMEOUT_S, DP_ALLREDUCE_ITERS = 300, 10
+DP_COUNTERS = (mel_from_extended, lstm_recurrence, lstm_backward, ctc_alpha, ctc_beta,
+               extend_preemph)
+
+
+def _dp_recipe(dev, recipe: bool = True, accum: int = 1, data_parallel: bool = False):
+    """(step, state) of phase ``training``'s seeded full-width model and
+    optimizer: bf16 with the recipe's dither and SpecAugment, or float32
+    without either behind ``_capture``."""
+    model = build_model(len(LABELS) + 1, DEFAULT_ENCODER, mask=True,
+                        dtype=torch.bfloat16 if recipe else None)
+    reset_parameters(model, torch.Generator().manual_seed(5))
+    model.to(dev)
+    schedule = cosine_annealing_warmup_restarts(first_cycle_steps=1000, cycle_mult=2, max_lr=1e-2,
+                                                min_lr=1e-4, warmup_steps=5, gamma=0.5)
+    opt = novograd(schedule, betas=(0.8, 0.5), weight_decay=1e-3, fused=True)
+    if not recipe:
+        opt = _capture(opt)
+    frontend = MelFrontendConfig(precision="default") if recipe else \
+        MelFrontendConfig(dither=0.0, precision="default")
+    step = make_train_step(model, opt, BLANK, frontend, augment=recipe, freq_mask=27,
+                           time_mask=0.07, accum_steps=accum, data_parallel=data_parallel)
+    if data_parallel:
+        distributed.broadcast_(dict(model.named_parameters()))
+    return step, create_train_state(model, opt)
+
+
+def _dp_batch(dev, rank: int = 0, world: int = 1, accum: int = 1) -> dict:
+    """This rank's rows of phase ``training``'s batch (32 int16 waves of
+    2-16.7 s) on ``dev``."""
+    batch_np, _ = train_batch(np.random.default_rng(5), TRAIN_BATCH, TRAIN_BUCKET_S, TRAIN_BUCKET_S)
+    rows = local_rows(TRAIN_BATCH, rank, world, accum)
+    return {k: torch.from_numpy(v[rows]).to(dev) for k, v in batch_np.items()}
+
+
+def _dp_steps(dev, step, state, batch, steps: int):
+    """``steps`` steps on one batch from one generator, as phase
+    ``training``: (losses, step ms on the host clock, state)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        losses.append(metrics["loss"].item())
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return losses, ms, state
+
+
+def _dp_float32(dev, rank: int = 0, world: int = 1, accum: int = 1) -> tuple:
+    """One float32 step without dither or augmentation: (old params, new
+    params, gradients, metrics) on the CPU, ``_step_errors``' operands."""
+    step, state = _dp_recipe(dev, recipe=False, accum=accum, data_parallel=world > 1)
+    new, metrics = step(state, _dp_batch(dev, rank, world, accum))
+    cpu = lambda tree: {k: v.cpu() for k, v in tree.items()}  # noqa: E731
+    return (cpu(state.params), cpu(new.params), cpu(new.opt_state[0]),
+            {k: metrics[k].cpu() for k in ("loss", "grad_norm", "finite")})
+
+
+def _dp_digest(state) -> str:
+    return digest(*state.params.values(), *state.batch_stats.values())
+
+
+def _dp_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in DP_COUNTERS}
+
+
+def _dp_zero() -> None:
+    for fn in DP_COUNTERS:
+        fn.launches = 0
+
+
+def dp_worker(task: str, spec_path: str) -> int:
+    """One rank of phase ``data_parallel`` (``chip_smoke.py --dp-worker TASK
+    SPEC``, the launcher's variables in the environment): writes its results
+    beside SPEC."""
+    spec = json.loads(Path(spec_path).read_text())
+    env = distributed.launcher_env()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    if task == "steps":           # the recipe's steps, the float32 and accumulated steps
+        rank = distributed.init(env, "cuda", DP_TIMEOUT_S)
+        dev = rank.device
+        step, state = _dp_recipe(dev, data_parallel=True)
+        _dp_zero()
+        losses, ms, state = _dp_steps(dev, step, state, _dp_batch(dev, rank.rank, rank.world),
+                                      DP_STEPS)
+        out.update(backend=rank.backend, device=str(dev), losses=losses, step_ms=ms,
+                   launches=_dp_counts(), digest=_dp_digest(state))
+        flat = torch.zeros(sum(v.numel() for v in state.params.values()) + 1, device=dev)
+        distributed.all_reduce_(flat)
+        distributed.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_ALLREDUCE_ITERS):
+            distributed.all_reduce_(flat)
+        torch.cuda.synchronize()
+        out.update(allreduce_ms=1e3 * (time.perf_counter() - t0) / DP_ALLREDUCE_ITERS,
+                   allreduce_floats=flat.numel())
+        _dp_zero()
+        out["float32"] = _dp_float32(dev, rank.rank, rank.world)
+        out["accum2"] = _dp_float32(dev, rank.rank, rank.world, accum=2)
+        out["parity_launches"] = _dp_counts()
+        distributed.shutdown()
+    elif task == "nccl1":         # a world of 1 over NCCL against no group, bit for bit
+        torch.backends.cudnn.deterministic = True
+        dev = torch.device("cuda", 0)
+        step, state = _dp_recipe(dev)
+        plain, _, plain_state = _dp_steps(dev, step, state, _dp_batch(dev), DP_NCCL_STEPS)
+        rank = distributed.init(env, "cuda", DP_TIMEOUT_S)
+        step, state = _dp_recipe(rank.device, data_parallel=True)
+        _dp_zero()
+        losses, ms, state = _dp_steps(rank.device, step, state, _dp_batch(rank.device),
+                                      DP_NCCL_STEPS)
+        out.update(backend=rank.backend, losses=losses, plain_losses=plain, step_ms=ms,
+                   launches=_dp_counts(), digest=_dp_digest(state),
+                   plain_digest=_dp_digest(plain_state))
+        distributed.shutdown()
+    elif task == "cli":           # python -m lightning_asr_torch.train under a launcher
+        from lightning_asr_torch.training import checkpoint
+        from lightning_asr_torch.training.trainer import Trainer
+
+        writes, vals = [], []
+        save, validate = checkpoint.save_checkpoint, Trainer.validate
+        checkpoint.save_checkpoint = lambda *a, **k: (writes.append(str(a[0])), save(*a, **k))[1]
+        Trainer.validate = lambda self, state: (vals.append(validate(self, state)), vals[-1])[1]
+        _dp_zero()
+        result = _run_train(spec["args"])
+        tr = result["trainer"]
+        out.update(launches=_dp_counts(), writes=writes, val=vals, test=result["test"],
+                   data_parallel=tr.data_parallel,
+                   losses=[loss for e in tr.epoch_stats for loss in e["losses"]],
+                   epochs=[{k: e[k] for k in ("wall_sec", "audio_sec", "audio_sec_per_sec")}
+                           for e in tr.epoch_stats],
+                   train_steps=sum(e["batches"] for e in tr.epoch_stats),
+                   eval_batches=tr.profiler.counts["val_step"] + tr.profiler.counts["test_step"],
+                   digest=digest(*result["state"].params.values()))
+    else:
+        raise ValueError(f"unknown data-parallel task {task!r}")
+    torch.save(out, Path(spec_path).with_name(f"{task}_{env['RANK']}.pt"))
+    return 0
+
+
+def _dp_launch(task: str, world: int, tmp: Path, **spec) -> list:
+    """Run ``world`` ranks of ``dp_worker(task)``, started as a launcher
+    starts them (a free local port); returns each rank's results."""
+    spec_path = tmp / f"{task}.json"
+    spec_path.write_text(json.dumps(spec))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(world):
+        env = {**os.environ, "RANK": str(r), "WORLD_SIZE": str(world), "LOCAL_RANK": str(r),
+               "LOCAL_WORLD_SIZE": str(world), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+        procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-worker",
+                                       task, str(spec_path)], env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    try:
+        logs = [p.communicate(timeout=DP_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"data_parallel: {task} rank {r} exited {p.returncode}:\n{log[-3000:]}")
+    return [torch.load(tmp / f"{task}_{r}.pt", weights_only=False) for r in range(world)]
+
+
+def phase_data_parallel(dev, card: str) -> dict:
+    """Data parallelism on the one card: 2 ranks over gloo take the
+    recipe's steps on phase ``training``'s batch (16 rows each) against one
+    process on the whole batch, then one float32 step and one step at
+    ``accumulate_grad_batches=2``; 2 steps at a world of 1 over NCCL against
+    no group, bit for bit; the training CLI as 2 ranks over gloo on the
+    trainer phase's corpus for one epoch and a validation, and
+    AsrTranslator on the card loading its ``last``.  Returns the ranks'
+    launches of K1-K6."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ranks = _dp_launch("steps", DP_WORLD, tmp)
+        step, state = _dp_recipe(dev)
+        one_losses, one_ms, _ = _dp_steps(dev, step, state, _dp_batch(dev), DP_STEPS)
+        one_f32, one_acc = _dp_float32(dev), _dp_float32(dev, accum=2)
+        nccl, = _dp_launch("nccl1", 1, tmp)
+        train = tone_corpus(tmp, TRAINER_UTTS, 0, "train")
+        dev_m = tone_corpus(tmp, TRAINER_DEV_UTTS, 1, "dev")
+        run = tmp / "run"
+        cli = _dp_launch("cli", DP_WORLD, tmp, args=[
+            f"data.train_manifest={train}", f"data.val_manifest={dev_m}",
+            f"data.test_manifest={dev_m}", "data.bucket_seconds=[3.0]", "train.total_epoch=1",
+            "train.train_batch_size=32", "train.dev_batch_size=32", "train.warmup_steps=1",
+            "train.log_every_n_steps=1", "model.compute_dtype=bf16", f"log.run.dir={run}",
+            f"train.dist_timeout_s={DP_TIMEOUT_S}"])
+        index = json.loads((run / "checkpoints" / "index.json").read_text())
+        translator = AsrTranslator(run / "checkpoints" / "last", device="cuda")
+        text = translator.translate(json.loads(train.read_text().splitlines()[0])["audio_filepath"])
+        loaded = digest(*(translator.model.state_dict()[k] for k in translator.model.state_dict()
+                          if not k.endswith(("running_mean", "running_var"))))
+        del translator
+
+    r0, r1 = ranks
+    check(r0["backend"] == r1["backend"] == "gloo", f"data_parallel: backends {r0['backend']}, {r1['backend']}")
+    check(r0["losses"] == r1["losses"] and r0["digest"] == r1["digest"],
+          f"data_parallel: the ranks differ: losses {r0['losses']} / {r1['losses']}")
+    check(all(np.isfinite(r0["losses"])), f"data_parallel: losses {r0['losses']}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], one_losses))
+    check(loss_rel <= DP_BF16_LOSS_RTOL,
+          f"data_parallel: 2 ranks against one: losses {r0['losses']} / {one_losses}")
+    per_step = {fn.__name__: DP_STEPS for fn in DP_COUNTERS}
+    check(r0["launches"] == r1["launches"] == per_step,
+          f"data_parallel: launches {r0['launches']} / {r1['launches']}, want {per_step}")
+    parity = {}
+    for name, one in (("float32", one_f32), ("accum2", one_acc)):
+        check(r0[name][1].keys() == one[1].keys()
+              and all(torch.equal(r0[name][1][k], r1[name][1][k]) for k in one[1]),
+              f"data_parallel: {name}: the ranks' updates differ")
+        errs, worst = _step_errors(r0[name], one)
+        for key, lim in DP_TOL.items():
+            check(errs[key] <= lim, f"data_parallel: {name}: {key} {errs[key]} > {lim} ({worst})")
+        parity[name] = {**errs, "worst_grad_tensor": worst}
+    check(nccl["backend"] == "nccl" and nccl["losses"] == nccl["plain_losses"]
+          and nccl["digest"] == nccl["plain_digest"],
+          f"data_parallel: NCCL at a world of 1 against no group: {nccl['losses']} / "
+          f"{nccl['plain_losses']}")
+    c0, c1 = cli
+    check(c0["val"] == c1["val"] and len(c0["val"]) == 1 and np.isfinite(c0["val"][0]["val_loss"]),
+          f"data_parallel: CLI val metrics {c0['val']} / {c1['val']}")
+    check(c0["test"] == c1["test"] and c0["losses"] == c1["losses"] and c0["digest"] == c1["digest"],
+          "data_parallel: the CLI's ranks differ")
+    check([len(c["writes"]) for c in cli] == [1, 0] and index["last"] == "last",
+          f"data_parallel: checkpoints written {[c['writes'] for c in cli]}")
+    check(loaded == c0["digest"], "data_parallel: the translator's weights are not rank 0's last")
+    check(isinstance(text, str) and set(text) <= set(LABELS), f"data_parallel: translator gave {text!r}")
+    for c in cli:
+        t, e = c["train_steps"], c["eval_batches"]
+        want = {"mel_from_extended": t + e, "lstm_recurrence": t + e, "lstm_backward": t,
+                "ctc_alpha": t + e, "ctc_beta": t, "extend_preemph": t + e}
+        check(c["launches"] == want, f"data_parallel: CLI launches {c['launches']}, want {want}")
+    median = lambda ms: statistics.median(ms[1:])  # noqa: E731
+    res = {"phase": "data_parallel", "card": card, "world": DP_WORLD, "backend": r0["backend"],
+           "rows_per_rank": TRAIN_BATCH // DP_WORLD, "steps": DP_STEPS,
+           "losses": r0["losses"], "one_process_losses": one_losses,
+           "loss_rel_vs_one_process": loss_rel, "loss_rtol": DP_BF16_LOSS_RTOL,
+           "launches_per_rank": r0["launches"], "parity": parity, "limits": DP_TOL,
+           "nccl_world1": {"backend": nccl["backend"], "steps": DP_NCCL_STEPS,
+                           "bit_equal": True, "cudnn_deterministic": True,
+                           "step_ms": nccl["step_ms"]},
+           "cli": {"ranks": DP_WORLD, "val": c0["val"][0], "test": c0["test"],
+                   "epochs": c0["epochs"], "train_steps": c0["train_steps"],
+                   "eval_batches": c0["eval_batches"], "checkpoint_writes": [len(c["writes"]) for c in cli],
+                   "top_k": [e["name"] for e in index["saved"]], "translated_chars": len(text)},
+           "times": {"step_ms_one_process": median(one_ms),
+                     "step_ms_two_ranks_sharing_the_card": [median(r["step_ms"]) for r in ranks],
+                     "gloo_flat_gradient_allreduce_ms": [r["allreduce_ms"] for r in ranks],
+                     "allreduce_floats": r0["allreduce_floats"]}}
+    print(json.dumps(res), flush=True)
+    launches = {}
+    for out in (*ranks, nccl, *cli):
+        for name, n in out["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    return launches
+
+
 def hmma_counts():
     """Tensor-core (HMMA) instructions in each built library's SASS, from
     the toolkit's cuobjdump; None where the toolkit has none."""
@@ -2737,7 +3036,8 @@ def main() -> int:
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     torch.backends.cudnn.allow_tf32 = False
@@ -2772,9 +3072,12 @@ def main() -> int:
         phase_train_parity(dev, conv_kernel, fused)
     trainer = phase_trainer(dev)
     ssl = phase_ssl(dev)
+    dp = phase_data_parallel(dev, card)
     # launches on the main paths: the serving bursts of every encoder, the
     # decoding phase's forwards, the training steps of every configuration,
-    # the trainer's runs and the SSL phase's steps, runs and served forwards
+    # the trainer's runs, the SSL phase's steps, runs and served forwards,
+    # and the data-parallel ranks' steps and CLI runs
+    ssl = {k: n + dp.get(k, 0) for k, n in ssl.items()}
     serve = {key: sum(b.get(key, 0) for b in [serving["launches"], serving_sep["launches"],
                                               decoding["launches"], *encoder_bursts])
              for key in ("mel", "lstm", "extend", "sepconv_forward")}
@@ -2804,4 +3107,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(*sys.argv[2:4]))
     sys.exit(main())

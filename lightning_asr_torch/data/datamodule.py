@@ -7,15 +7,19 @@ module, so later epochs slice crops from RAM.  The SSL path's pseudo-label
 pool: ``pseudo_manifest`` lists unlabeled utterances (``unlabeled_entries``,
 cut at ``pseudo_max_duration``), ``pseudo_train_dataloader`` iterates them
 in order, and ``inject_pseudo_datasets`` sets the pseudo-labeled entries
-that train batches draw from beside the train set.  Not ported:
-``cache='mmap'`` (the persistent packed cache) and the multi-process
-loaders.
+that train batches draw from beside the train set.  In a data-parallel
+process group every loader gives this rank's rows of the global batches
+(``_shard_info``; train batches laid out for ``micro_batches``, which the
+trainer sets from ``accumulate_grad_batches``).  Not ported:
+``cache='mmap'`` (the persistent packed cache).
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import List, Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
+
+import torch.distributed as dist
 
 from .audio import duration_seconds
 from .manifest import ManifestEntry, read_manifests
@@ -77,6 +81,7 @@ class AsrDataModule:
         self.unlabeled_entries: List[ManifestEntry] = []
         self.pseudo_entries: List[ManifestEntry] = []
         self._wave_cache = {} if cache == "ram" else None
+        self.micro_batches = 1
         self._setup_done = False
 
     def setup(self) -> None:
@@ -92,8 +97,21 @@ class AsrDataModule:
             self.unlabeled_entries = read_manifests(self.pseudo_manifest, self.pseudo_max_duration)
         self._setup_done = True
 
+    @staticmethod
+    def _shard_info() -> Tuple[int, int]:
+        """(rank, world) of the data-parallel process group, (0, 1) without
+        one: each rank assembles its rows of every global batch (the
+        reference's DDP sampler, PL's ``DistributedSampler``)."""
+        if dist.is_available() and dist.is_initialized():
+            return dist.get_rank(), dist.get_world_size()
+        return 0, 1
+
     def _batcher(self, entries, bs: int, train: bool) -> BucketBatcher:
         kwargs = {} if self.bucket_seconds is None else {"bucket_seconds": self.bucket_seconds}
+        rank, world = self._shard_info()
+        if world > 1:
+            kwargs.update(shard_rank=rank, shard_count=world, pad_to=world,
+                          micro_batches=self.micro_batches if train else 1)
         return BucketBatcher(entries, self.vocab, bs, train=train, crop=self.crop and train,
                              seed=self.seed, wave_cache=self._wave_cache, wire_dtype=self.wire,
                              **kwargs)

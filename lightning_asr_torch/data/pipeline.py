@@ -16,16 +16,24 @@ padding to a multiple of 32 and wire encoding.
   * ``cache='ram'`` decodes every file once, as int16, and slices crops
     from RAM on later epochs;
   * ``prefetch`` runs the assembly, and whatever the caller adds to it (the
-    trainer's host-to-device copies), in a background thread.
+    trainer's host-to-device copies), in a background thread;
+  * data parallelism (``shard_rank`` / ``shard_count`` / ``pad_to``): every
+    rank follows the same global plan (deterministic in entries, seed and
+    epoch), takes the target padding L from the global chunk, and assembles
+    only its rows of each global batch (``parallel/mesh.py::local_rows``;
+    with ``micro_batches`` > 1 its share of each micro-batch).  The global
+    batch is padded to a multiple of ``pad_to`` (and of ``shard_count`` ×
+    ``micro_batches``) with rows of ``wave_lens`` 160 and ``target_lens`` 0;
+    ``Batch.global_size`` and ``Batch.valid_size`` say which rows are data.
 
 Audio is decoded by the port's own ``data/audio.py::read_audio``.  Not
-ported: the JAX package's native threaded WAV loader, the multi-process
-row sharding (``shard_rank`` / ``shard_count`` / ``pad_to``) and the
-memory-mapped cache (``wave_cache.py``).
+ported: the JAX package's native threaded WAV loader and the memory-mapped
+cache (``wave_cache.py``).
 """
 
 from __future__ import annotations
 
+import math
 import queue
 import threading
 from dataclasses import dataclass, field
@@ -33,6 +41,7 @@ from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from ..parallel.mesh import local_rows
 from .audio import read_audio
 from .manifest import ManifestEntry
 from .vocab import Vocabulary
@@ -54,10 +63,15 @@ class Batch:
     paths: List[str] = field(default_factory=list)
     texts: List[str] = field(default_factory=list)
     extra: Optional[dict] = None  # more arrays for the device (the dual stream's raw waves)
+    # data parallelism: the arrays hold this rank's rows of a global batch of
+    # this many rows (None: the arrays are the batch) ...
+    global_size: Optional[int] = None
+    # ... of which this many, the first, are data and the rest pad rows
+    valid_size: Optional[int] = None
 
     @property
     def size(self) -> int:
-        return self.waves.shape[0]
+        return self.waves.shape[0] if self.valid_size is None else self.valid_size
 
     @property
     def audio_seconds(self) -> float:
@@ -111,9 +125,17 @@ class BucketBatcher:
         pad_to: int = 1,
         wire_dtype: str = "int16",
         wave_cache: Optional[dict] = None,
+        micro_batches: int = 1,
     ):
-        if shard_count > 1 or pad_to > 1 or shard_rank:
-            raise NotImplementedError("multi-process row sharding is not ported yet")
+        """``shard_rank`` of ``shard_count`` ranks assembles its rows of
+        every global batch (see the module docstring); ``pad_to`` (the
+        world) must be a multiple of ``shard_count``."""
+        if shard_count > 1 and pad_to % shard_count != 0:
+            raise ValueError(f"pad_to={pad_to} must be a multiple of shard_count={shard_count}")
+        self.shard_rank = shard_rank
+        self.shard_count = shard_count
+        self.pad_to = max(pad_to, 1)
+        self.micro_batches = micro_batches
         if wire_dtype not in WIRES:
             raise ValueError(f"wire_dtype must be int16|mulaw8|float32, got {wire_dtype!r}")
         self.wire_dtype = wire_dtype
@@ -180,9 +202,18 @@ class BucketBatcher:
             yield self._assemble(bucket, chunk)
 
     def _assemble(self, bucket: int, chunk) -> Batch:
+        # L from the global chunk, so that every rank has the same shapes
         max_tgt = max((len(self._encoded[idx]) for idx, _, _ in chunk), default=1)
         L = max(_round_up(max_tgt, self.target_pad_multiple), self.target_pad_multiple)
+        global_size = valid = None
         B = len(chunk)
+        if self.shard_count > 1:
+            global_size = _round_up(len(chunk), math.lcm(self.pad_to,
+                                                         self.shard_count * self.micro_batches))
+            rows = local_rows(global_size, self.shard_rank, self.shard_count, self.micro_batches)
+            valid = int((rows < len(chunk)).sum())       # ascending: the pad rows come last
+            chunk = [chunk[g] for g in rows[:valid]]
+            B = len(rows)
         targets = np.zeros((B, L), np.int32)
         target_lens = np.zeros(B, np.int32)
         paths, texts = [], []
@@ -195,9 +226,15 @@ class BucketBatcher:
         waves, wave_lens, prev_samples = self._decode_chunk(bucket, chunk, paths)
         if self.wire_dtype in ("int16", "mulaw8") and waves.dtype != np.int16:
             waves = _to_int16(waves)
+        if len(chunk) < B:                   # pad rows: 160 samples keep normalization finite
+            pad = B - len(chunk)
+            waves = np.concatenate([waves, np.zeros((pad, bucket), waves.dtype)])
+            wave_lens = np.concatenate([wave_lens, np.full(pad, 160, np.int32)])
+            prev_samples = np.concatenate([prev_samples, np.zeros(pad, np.float32)])
         if self.wire_dtype == "mulaw8":
             waves = mulaw_encode(waves)      # last, so pad and crop zeros become 128
-        return Batch(waves, wave_lens, prev_samples, targets, target_lens, paths, texts)
+        return Batch(waves, wave_lens, prev_samples, targets, target_lens, paths, texts,
+                     global_size=global_size, valid_size=valid)
 
     def _decode_chunk(self, bucket: int, chunk, paths):
         """Decode and crop the chunk's audio (float32, or int16 from the

@@ -15,11 +15,19 @@ the model's public functions keep the JAX package's (B, T, C).
     frames instead and updates the running statistics (momentum 0.1, the
     variance scaled by n/(n-1)) in place, without gradient; the same cast
     order follows.  ``F.batch_norm`` is not used: it computes in the input
-    dtype.
+    dtype.  Inside a data-parallel step (``parallel/mesh.py::row_shard``)
+    the statistics are the global batch's, as the JAX SPMD step takes them
+    over its sharded batch (PARITY.md deviation 3): every rank holds the
+    same number of rows, so the mean is the all-reduced sum of the ranks'
+    means over W, and the variance likewise of their mean squared
+    deviations from that global mean (the same two passes; with W = 1 the
+    same bits); n counts the global frames; the gradient flows through both
+    all-reduces.
   * dropout (``drop_rate`` > 0, train mode only) draws its keep mask from
     the ``torch.Generator`` passed down the forward call, as flax's
     ``nn.Dropout`` draws from the ``dropout`` rng: ``x / keep`` where
-    ``U < keep``, else 0.
+    ``U < keep``, else 0 (in a data-parallel step, this rank's rows of the
+    global batch's draw).
   * with a compute ``dtype`` (bf16), convs take bf16 input and weights and
     give bf16 output; parameters stay float32.
   * ``SepConvSE`` adds a squeeze-excite stage (``SELayer``) after the
@@ -54,6 +62,8 @@ from torch import nn
 from ..ops.depthwise_kernels import depthwise_conv
 from ..ops.lstm import LSTMWeights, lstm
 from ..ops.sepconv_kernels import sepconv
+from ..parallel.distributed import all_reduce_sum
+from ..parallel.mesh import current_shard, draw
 
 CONV_KERNELS = (None, "sepconv", "dw_wgrad")
 
@@ -66,7 +76,7 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) 
     if generator is None:
         raise ValueError("dropout in train mode needs a torch.Generator")
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=x.device, dtype=torch.float32)
+    u = draw(x.shape, generator, x.device)
     return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -140,8 +150,14 @@ class MaskedBatchNorm(nn.Module):
         if self.training:
             xf = x.to(torch.float32)
             n = x.shape[0] * x.shape[2]
-            mean = torch.mean(xf, dim=(0, 2))
-            var = torch.mean((xf - mean[:, None]) ** 2, dim=(0, 2))  # biased, for normalizing
+            shard = current_shard()
+            if shard is None:
+                mean = torch.mean(xf, dim=(0, 2))
+                var = torch.mean((xf - mean[:, None]) ** 2, dim=(0, 2))  # biased, for normalizing
+            else:                                   # the global batch's (module docstring)
+                mean = all_reduce_sum(torch.mean(xf, dim=(0, 2))) / shard.world
+                var = all_reduce_sum(torch.mean((xf - mean[:, None]) ** 2, dim=(0, 2))) / shard.world
+                n *= shard.world
             with torch.no_grad():
                 unbiased = var * (n / max(n - 1, 1))
                 m = self.MOMENTUM

@@ -15,8 +15,10 @@
     normalization, like the reference.
   * ``cutout``: ``rect_masks`` random rectangles per sample.
 
-Random draws come from a ``torch.Generator``, or are handed in as
-``uniforms`` so that a test can feed both packages the same numbers:
+Random draws come from a ``torch.Generator`` (in a data-parallel step,
+this rank's rows of the global batch's draw: ``parallel/mesh.py::draw``),
+or are handed in as ``uniforms`` so that a test can feed both packages the
+same numbers:
 ``jax.random`` and ``torch.Generator`` cannot give the same bits.  Given
 the same uniforms the masks are the reference's bit for bit: widths and
 starts are float32 products truncated to int32 on both sides.
@@ -33,6 +35,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from ..parallel.mesh import draw
 from .frontend import expand_wire
 
 
@@ -50,7 +53,7 @@ def _draw(uniforms, shape, generator, device) -> torch.Tensor:
         return u
     if generator is None:
         raise ValueError("augmentation needs a torch.Generator or explicit uniforms")
-    return torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+    return draw(shape, generator, device, axis=-1)
 
 
 def wave_crop(waves: torch.Tensor, wave_lens: torch.Tensor,
@@ -69,7 +72,7 @@ def wave_crop(waves: torch.Tensor, wave_lens: torch.Tensor,
     if uniforms is None:
         if generator is None:
             raise ValueError("wave_crop needs a torch.Generator or explicit uniforms")
-        u = torch.rand((2, B), generator=generator, device=dev, dtype=torch.float32)
+        u = draw((2, B), generator, dev, axis=-1)
         scale = torch.maximum(u[0] * (1.0 - weight) + weight, torch.tensor(weight, device=dev))
         uniforms = (scale, u[1])
     scale, u_off = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in uniforms)

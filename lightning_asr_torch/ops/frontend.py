@@ -26,6 +26,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import draw
+
 PRECISIONS = ("highest", "high", "default")
 
 
@@ -214,8 +216,7 @@ def extended_batch(
 
     waves = expand_wire(waves).contiguous()
     if generator is not None and cfg.dither > 0:
-        waves = waves + cfg.dither * torch.randn(
-            waves.shape, generator=generator, device=waves.device, dtype=torch.float32)
+        waves = waves + cfg.dither * draw(waves.shape, generator, waves.device, normal=True)
     S_ext = waves.shape[1] + 2 * cfg.pad + cfg.n_fft
     T = (S_ext - cfg.n_fft) // cfg.hop_length + 1
     needed = (T + -(-cfg.n_fft // cfg.hop_length)) * cfg.hop_length

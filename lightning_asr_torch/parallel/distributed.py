@@ -1,0 +1,273 @@
+"""Data-parallel processes (port of ``lightning_asr_tpu/parallel/distributed.py``
+and of the multi-process part of its ``train.py``): one process a card, all
+in one ``torch.distributed`` process group.
+
+The reference trains with Lightning's DDP over NCCL across ``gpus ×
+num_nodes`` processes; the JAX package forms one runtime over its hosts
+(``jax.distributed.initialize``) and shards each batch over a ``data`` mesh
+axis.  Here each process is a rank of a global batch (``parallel/mesh.py``):
+
+  * ``launcher_env`` reads a launcher's variables (``torchrun`` sets
+    ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``,
+    ``MASTER_ADDR`` and ``MASTER_PORT``).  ``spawn_local_ranks`` starts ranks
+    1..N-1 of a one-host run itself, the caller being rank 0, as Lightning's
+    DDP launcher does.
+  * ``init`` forms the group.  The backend rule: NCCL when every rank of the
+    host has a card of its own (local world <= visible cards), gloo when
+    ranks share a card (rank r on card r mod cards) and on the CPU.  It is
+    decided before the group forms and logged; no failure is retried on
+    another backend.
+  * a rank on CUDA is pinned to its card (``torch.cuda.set_device``), which
+    ``utils/device.py::resolve_device`` follows.
+  * the collectives are ``all_reduce`` (a sum) and ``broadcast`` on tensors
+    of the rank's device, so one code path runs on NCCL, on gloo over CUDA
+    tensors and on gloo on the CPU.  The group has a timeout: a collective
+    that hangs fails the run.  ``all_reduce_sum`` carries a gradient (its
+    backward is the same all-reduce); ``torch.distributed.nn``'s is
+    deprecated.
+
+With no group every helper is the one-process computation: rank 0 of 1, a
+barrier and a broadcast do nothing.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import socket
+import subprocess
+import sys
+from dataclasses import dataclass
+from datetime import timedelta
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import torch
+import torch.distributed as dist
+
+logger = logging.getLogger(__name__)
+
+LAUNCH_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+DEFAULT_TIMEOUT_S = 1800.0
+_PACKAGE_ROOT = Path(__file__).resolve().parents[2]
+
+
+@dataclass(frozen=True)
+class Rank:
+    rank: int
+    world: int
+    backend: str
+    device: torch.device
+
+
+_RANK: Optional[Rank] = None
+
+
+def launcher_env(environ=None) -> Optional[Dict[str, str]]:
+    """The launcher's variables (with ``LOCAL_WORLD_SIZE``, which defaults
+    to ``WORLD_SIZE``: one host), or None when none of them is set; raises
+    when only some are."""
+    environ = os.environ if environ is None else environ
+    present = [v for v in LAUNCH_VARS if v in environ]
+    if not present:
+        return None
+    missing = [v for v in LAUNCH_VARS if v not in environ]
+    if missing:
+        raise RuntimeError(f"the launcher's environment is incomplete: {missing} missing "
+                           f"beside {present}")
+    env = {v: environ[v] for v in LAUNCH_VARS}
+    env["LOCAL_WORLD_SIZE"] = environ.get("LOCAL_WORLD_SIZE", environ["WORLD_SIZE"])
+    return env
+
+
+def backend_for(device_type: str, local_world: int, cards: int) -> str:
+    """The backend rule: ``nccl`` when each of the host's ``local_world``
+    ranks has a card of its own, ``gloo`` when they share cards, and on the
+    CPU."""
+    if device_type == "cpu":
+        return "gloo"
+    if device_type != "cuda":
+        raise ValueError(f"data parallelism runs on cuda or cpu, not {device_type!r}")
+    if cards < 1:
+        raise RuntimeError("CUDA was requested but no card is visible; pass --device cpu "
+                           "to run on the CPU")
+    return "nccl" if local_world <= cards else "gloo"
+
+
+def init(env: Dict[str, str], device_type: str = "cuda",
+         timeout_s: float = DEFAULT_TIMEOUT_S) -> Rank:
+    """Join the process group that ``env`` (``launcher_env``) describes and
+    pin this rank to its card; returns the rank."""
+    global _RANK
+    if _RANK is not None:
+        raise RuntimeError(f"this process is already rank {_RANK.rank} of {_RANK.world}")
+    rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
+    local_rank, local_world = int(env["LOCAL_RANK"]), int(env.get("LOCAL_WORLD_SIZE", world))
+    cards = 0
+    device = torch.device("cpu")
+    if device_type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA was requested but torch.cuda.is_available() is False; "
+                               "pass --device cpu to run on the CPU")
+        cards = torch.cuda.device_count()
+        device = torch.device("cuda", local_rank % cards)
+    backend = backend_for(device_type, local_world, cards)
+    if not {"nccl": dist.is_nccl_available, "gloo": dist.is_gloo_available}[backend]():
+        raise RuntimeError(f"the {backend} backend is not available in this torch build")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    logger.info("rank %d of %d (local %d of %d) on %s over %s: %s", rank, world, local_rank,
+                local_world, device, backend,
+                "a card each" if backend == "nccl" else
+                ("ranks share a card" if device_type == "cuda" else "the CPU"))
+    dist.init_process_group(backend, init_method=f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
+                            world_size=world, rank=rank, timeout=timedelta(seconds=timeout_s))
+    _RANK = Rank(rank, world, backend, device)
+    return _RANK
+
+
+def shutdown(wait: bool = True) -> None:
+    """Leave the process group; with ``wait`` after a barrier, so that no
+    rank leaves while another still reduces (a failed rank leaves at once)."""
+    global _RANK
+    if _RANK is None:
+        return
+    try:
+        if wait:
+            barrier()
+    finally:
+        dist.destroy_process_group()
+        _RANK = None
+
+
+def current() -> Optional[Rank]:
+    return _RANK
+
+
+def rank() -> int:
+    return 0 if _RANK is None else _RANK.rank
+
+
+def world() -> int:
+    return 1 if _RANK is None else _RANK.world
+
+
+def is_primary() -> bool:
+    return rank() == 0
+
+
+def all_reduce_(tensor: torch.Tensor) -> torch.Tensor:
+    """Sum ``tensor`` over the ranks, in place."""
+    if _RANK is not None:
+        dist.all_reduce(tensor)
+    return tensor
+
+
+def barrier() -> None:
+    """Return once every rank has reached this call (an all-reduce read on
+    the host)."""
+    if _RANK is not None:
+        one = torch.ones(1, device=_RANK.device)
+        dist.all_reduce(one)
+        one.item()
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """y = Σ_ranks x, each rank holding y; the gradient of x is Σ_ranks of
+    the gradients of y (every rank's loss reads y)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = x.contiguous().clone()
+        dist.all_reduce(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad)
+        return grad
+
+
+def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
+    """Σ_ranks x, differentiable."""
+    return _AllReduceSum.apply(x)
+
+
+def _tensors(tree) -> List[torch.Tensor]:
+    if torch.is_tensor(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _tensors(v)]
+    if dataclasses.is_dataclass(tree):
+        return [t for f in dataclasses.fields(tree) for t in _tensors(getattr(tree, f.name))]
+    return []
+
+
+def broadcast_(tree, src: int = 0):
+    """Every tensor of ``tree`` (tensors in dicts, tuples, dataclasses) set to
+    rank ``src``'s, in place: one broadcast of a flat buffer a dtype."""
+    if _RANK is None:
+        return tree
+    unique = {id(t): t for t in _tensors(tree)}
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for t in unique.values():
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for dtype, ts in by_dtype.items():
+        flat = torch.cat([t.detach().reshape(-1).to(_RANK.device) for t in ts])
+        dist.broadcast(flat, src)
+        offset = 0
+        with torch.no_grad():
+            for t in ts:
+                t.copy_(flat[offset: offset + t.numel()].view(t.shape))
+                offset += t.numel()
+    return tree
+
+
+def broadcast_str(text: str, src: int = 0) -> str:
+    """Rank ``src``'s ``text`` on every rank."""
+    if _RANK is None:
+        return text
+    data = torch.tensor(list(text.encode()), dtype=torch.uint8, device=_RANK.device)
+    size = torch.tensor([data.numel()], dtype=torch.int64, device=_RANK.device)
+    dist.broadcast(size, src)
+    if _RANK.rank != src:
+        data = torch.zeros(int(size.item()), dtype=torch.uint8, device=_RANK.device)
+    dist.broadcast(data, src)
+    return bytes(data.cpu().tolist()).decode()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_local_ranks(module: str, argv: List[str], n: int):
+    """Start ranks 1..n-1 of a one-host run as ``python -m module *argv``;
+    returns (rank 0's environment for ``init``, the started processes)."""
+    env0 = {"RANK": "0", "WORLD_SIZE": str(n), "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": str(n),
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+    path = os.pathsep.join(p for p in (str(_PACKAGE_ROOT), os.environ.get("PYTHONPATH")) if p)
+    procs = []
+    for r in range(1, n):
+        env = {**os.environ, **env0, "RANK": str(r), "LOCAL_RANK": str(r), "PYTHONPATH": path}
+        procs.append(subprocess.Popen([sys.executable, "-m", module, *argv], env=env))
+    logger.info("started ranks 1..%d of %d on this host (rendezvous 127.0.0.1:%s)", n - 1, n,
+                env0["MASTER_PORT"])
+    return env0, procs
+
+
+def join_ranks(procs, failed: bool = False) -> None:
+    """Wait for the processes of ``spawn_local_ranks``; raises if one
+    failed.  With ``failed`` (rank 0 failed) they are ended first."""
+    if failed:
+        for p in procs:
+            p.kill()
+    codes = [p.wait() for p in procs]
+    bad = {r + 1: c for r, c in enumerate(codes) if c}
+    if bad and not failed:
+        raise RuntimeError(f"ranks exited with an error: {bad}")

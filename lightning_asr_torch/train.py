@@ -9,6 +9,20 @@ warmup restarts (or the plateau recipe, ``train.scheduler=reduce_on_plateau``),
 gradient clipping, then runs ``Trainer.fit`` and a test pass.  It runs on
 the card unless ``--device cpu`` asks for the CPU, and raises without one.
 
+Data parallelism (``parallel/``): one process a card, each with its rows of
+every global batch of ``train_batch_size`` rows.  Under a launcher
+(``torchrun --nproc_per_node=N [--nnodes=M ...] -m lightning_asr_torch.train
+...``) every process joins the group its environment describes.  Started
+alone, it starts ``train.n_devices`` processes itself (null: one a visible
+card; 1: this process alone), this one being rank 0, as the reference's
+Lightning DDP launcher does; on the CPU (``--device cpu``) ``n_devices`` is
+the count of gloo processes.  More processes than cards share the cards
+over gloo (``parallel/distributed.py``, the backend rule).
+``train.num_nodes`` > 1 needs a launcher on every node, and
+``train.dist_timeout_s`` (default 1800) ends a run whose collective hangs.
+Rank 0 alone prints, logs and writes checkpoints.  ``train.tp`` > 1
+(tensor parallelism) is not ported and raises.
+
 The JAX package picks its opt-in kernels by environment; here they are read
 once, in this entry point, and become ``build_model`` arguments:
 ``LASR_LSTM_FUSED_BIDIR=1`` -> ``fuse_directions=True`` (K7, K8),
@@ -32,6 +46,7 @@ from .models.quartznet import build_model, reset_parameters
 from .ops.frontend import MelFrontendConfig
 from .optim import (ReduceLROnPlateau, cosine_annealing_warmup_restarts, novograd,
                     novograd_with_runtime_lr, with_gradient_clipping)
+from .parallel import distributed
 from .training.loggers import init_loggers
 from .training.trainer import Trainer
 from .utils.config import load_config
@@ -52,24 +67,73 @@ def kernel_switches(environ=os.environ) -> dict:
     return {"fuse_directions": on("LASR_LSTM_FUSED_BIDIR"), "conv_kernel": conv_kernel}
 
 
+def _local_processes(device_type: str, n_devices) -> int:
+    """Processes a run started alone takes: ``n_devices``, or with null one
+    a visible card (one on the CPU)."""
+    if n_devices is not None:
+        return int(n_devices)
+    return torch.cuda.device_count() if device_type == "cuda" else 1
+
+
 def main(argv=None) -> dict:
-    """Train as configured; returns {"trainer", "state", "test"}."""
+    """Train as configured; returns {"trainer", "state", "test"} (rank 0's
+    where this process started the other ranks)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--config", default=str(DEFAULT_CONFIG))
-    args, rest = ap.parse_known_args(sys.argv[1:] if argv is None else list(argv))
+    args, rest = ap.parse_known_args(argv)
     bad = [a for a in rest if "=" not in a]
     if bad:
         ap.error(f"unrecognized arguments: {' '.join(bad)}")
-    log = get_logger("lightning_asr_torch.train")
-    logging.getLogger("lightning_asr_torch").setLevel(logging.INFO)
     cfg = load_config(args.config, rest)
-    print(cfg.to_json(), flush=True)
-    device = resolve_device(args.device)
+    train_cfg = cfg.train
+    if int(train_cfg.get("tp", 1) or 1) > 1:
+        raise NotImplementedError("tensor parallelism (train.tp > 1) is not ported yet; "
+                                  "train over data-parallel processes with train.tp=1")
+    device_type = torch.device(args.device or "cuda").type
+    env = distributed.launcher_env()
+    procs = []
+    if env is None:
+        num_nodes = int(train_cfg.get("num_nodes", 1) or 1)
+        if num_nodes > 1:
+            raise RuntimeError(f"train.num_nodes={num_nodes} needs a launcher on every node: "
+                               f"torchrun --nnodes={num_nodes} --nproc_per_node=<cards a node> "
+                               "--rdzv-endpoint=<host:port> -m lightning_asr_torch.train ...")
+        if device_type == "cuda":
+            resolve_device(args.device)          # raises without a card
+        n = _local_processes(device_type, train_cfg.get("n_devices"))
+        if n > 1:
+            env, procs = distributed.spawn_local_ranks("lightning_asr_torch.train", argv, n)
+    if env is not None:
+        if args.device not in (None, "cpu", "cuda"):
+            raise ValueError(f"--device {args.device}: each data-parallel rank takes its own "
+                             "card; pass cuda or cpu")
+        try:
+            distributed.init(env, device_type,
+                             float(train_cfg.get("dist_timeout_s", distributed.DEFAULT_TIMEOUT_S)))
+        except BaseException:
+            distributed.join_ranks(procs, failed=True)
+            raise
+    try:
+        out = _train(cfg, resolve_device(args.device if env is None else device_type))
+    except BaseException:
+        distributed.shutdown(wait=False)
+        distributed.join_ranks(procs, failed=True)
+        raise
+    distributed.shutdown()
+    distributed.join_ranks(procs)
+    return out
 
+
+def _train(cfg, device: torch.device) -> dict:
+    primary = distributed.is_primary()
+    log = get_logger("lightning_asr_torch.train")
+    for name in ("lightning_asr_torch", log.name):     # the other ranks say only what is wrong
+        logging.getLogger(name).setLevel(logging.INFO if primary else logging.WARNING)
+    if primary:
+        print(cfg.to_json(), flush=True)
     data_cfg, train_cfg, model_cfg = cfg.data, cfg.train, cfg.model
-    if int(train_cfg.get("num_nodes", 1) or 1) > 1 or int(train_cfg.get("tp", 1) or 1) > 1:
-        raise NotImplementedError("multi-process and tensor-parallel training are not ported yet")
     seed = int(train_cfg.get("seed", 0))
     seed_everything(seed)
 
@@ -121,7 +185,9 @@ def main(argv=None) -> dict:
     optimizer = with_gradient_clipping(optimizer, float(train_cfg.get("gradient_clip_val", 0) or 0),
                                        train_cfg.get("gradient_clip_algorithm", "value"))
 
-    run_dir = setup_run_dir(cfg, default="outputs/run")
+    # rank 0's run directory (a templated one names the time) on every rank
+    run_dir = Path(distributed.broadcast_str(
+        str(setup_run_dir(cfg, default="outputs/run")) if primary else ""))
     log.info("run dir: %s", run_dir)
     trainer = Trainer(
         model=model,
@@ -131,7 +197,7 @@ def main(argv=None) -> dict:
         check_val_every_n_epoch=train_cfg.get("check_val_every_n_epoch", 1),
         log_every_n_steps=train_cfg.get("log_every_n_steps", 10),
         run_dir=run_dir,
-        loggers=init_loggers(cfg.get("loggers"), run_dir),
+        loggers=init_loggers(cfg.get("loggers"), run_dir) if primary else None,
         lr_schedule=schedule,
         frontend=MelFrontendConfig(precision=data_cfg.get("frontend_precision", "default")),
         augment=data_cfg.get("augment", True),

@@ -19,6 +19,13 @@ metric (``val_wer``, lower is better) as ``asr-epochNN-val_werX.XX``, with
 ``index.json`` listing them.  ``restore`` rebuilds a train state in the
 structure of a template, converting a NovoGrad state between the fused and
 per-tensor variants when they differ (``migrate_novograd_opt_state``).
+
+In a data-parallel process group every rank calls ``save`` and ``restore``
+with the same directory (a shared file system across hosts): rank 0 alone
+writes the checkpoint, prunes the top-k and writes ``index.json``, and a
+barrier follows each save, so no rank reads a checkpoint before it is
+whole; ``restore`` reads on every rank (the JAX package's
+``training/checkpoint.py:33-89``, where orbax writes from the primary).
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 
 from ..optim.novograd import (FusedNovogradState, InjectHyperparamsState, NovogradState,
                               migrate_novograd_opt_state)
+from ..parallel import distributed
 
 STATE_FILE = "state.pt"
 TRAIN_STATE_FILE = "train_state.pt"
@@ -127,7 +135,14 @@ class CheckpointManager:
     def save(self, state, epoch: int, metrics: dict, hparams: Optional[dict] = None,
              trainer_meta: Optional[dict] = None) -> None:
         """Save ``last`` always; keep the ``top_k`` best by the monitored
-        metric.  ``trainer_meta`` carries host-side controller state."""
+        metric.  ``trainer_meta`` carries host-side controller state.  Rank
+        0 writes; every rank waits for it."""
+        if distributed.is_primary():
+            self._save(state, epoch, metrics, hparams, trainer_meta)
+        distributed.barrier()
+
+    def _save(self, state, epoch: int, metrics: dict, hparams: Optional[dict],
+              trainer_meta: Optional[dict]) -> None:
         metadata: Dict[str, Any] = {"epoch": epoch,
                                     "metrics": {k: float(v) for k, v in metrics.items()}}
         if trainer_meta:

@@ -26,6 +26,17 @@ Random draws (dither, SpecAugment, dropout) come from the
 give ``jax.random``'s bits, so parity tests run with them off or hand the
 same numbers to both sides.
 
+``data_parallel=True`` makes the step one rank's share of a global step
+(port of the JAX step jitted over a ``data``-sharded batch): the batch holds
+this rank's rows (``parallel/mesh.py``); the random draws are this rank's
+rows of the global batch's; train-mode BatchNorm takes the global batch's
+statistics; the loss is the mean over the global rows, pad rows included
+(every rank holds as many rows, so the mean of the ranks' means); and one
+all-reduce of the flattened gradient, the loss beside it, divided by the
+world, comes before clipping, the NaN guard and NovoGrad, so that every
+rank takes the same decision and the same update.  With one rank it gives
+the bits of the step without it.
+
 ``crop=True`` applies the reference's random wave crop on the device
 (``ops/augment.py::wave_crop``, the ``device_cache`` mode of the trainer,
 whose cached batches hold uncropped waves); its two draws a row come first
@@ -52,6 +63,8 @@ from ..ops.augment import cutout, spec_augment, wave_crop
 from ..ops.ctc_kernels import ctc_loss
 from ..ops.frontend import MelFrontendConfig, log_mel_spectrogram, normalize_features
 from ..optim.novograd import GradientTransformation, apply_updates, global_norm
+from ..parallel import distributed
+from ..parallel.mesh import RowShard, local_rows, row_shard
 from ..utils.device import resolve_device
 
 Tensors = Dict[str, torch.Tensor]
@@ -154,6 +167,31 @@ def _loss_and_grads(model: torch.nn.Module, blank_id: int, params: Tensors, stat
     return loss.detach(), dict(zip(leaves, grads)), new_stats, log_probs.detach(), out_lens
 
 
+def _rank_shards(rows: int, device, accum_steps: int):
+    """This rank's ``RowShard`` of a step's batch of ``rows`` local rows, and
+    of each of its ``accum_steps`` micro-batches."""
+    rank, world = distributed.rank(), distributed.world()
+    total = rows * world
+    whole = RowShard(torch.as_tensor(local_rows(total, rank, world, accum_steps), device=device),
+                     total, world)
+    share = rows // accum_steps
+    micro = RowShard(torch.arange(rank * share, (rank + 1) * share, device=device),
+                     share * world, world)
+    return whole, micro
+
+
+def _mean_over_ranks(loss: torch.Tensor, grads: Tensors):
+    """(loss, gradients) averaged over the ranks: one all-reduce of one flat
+    buffer."""
+    flat = torch.cat([g.reshape(-1) for g in grads.values()] + [loss.reshape(1)])
+    flat = distributed.all_reduce_(flat) / distributed.world()
+    out, offset = {}, 0
+    for k, g in grads.items():
+        out[k] = flat[offset: offset + g.numel()].view(g.shape)
+        offset += g.numel()
+    return flat[-1], out
+
+
 def _eval_outputs(model: torch.nn.Module, state: AsrTrainState, inputs: tuple, batch: dict,
                   blank_id: int) -> dict:
     """The model in eval mode on ``inputs``: per-sample CTC losses,
@@ -180,6 +218,7 @@ def make_train_step(
     crop: bool = False,
     crop_weight: float = 0.98,
     accum_steps: int = 1,
+    data_parallel: bool = False,
 ) -> Callable:
     """Build ``train_step(state, batch, generator=None) -> (state,
     metrics)``.
@@ -197,6 +236,9 @@ def make_train_step(
     in order: BatchNorm statistics carry from one to the next, the summed
     gradients and losses are divided by the count, and the optimizer
     updates once.  The batch size must divide by ``accum_steps``.
+    ``data_parallel`` (the module docstring) needs a process group
+    (``parallel/distributed.py``); with it, micro-batch i is this rank's
+    i-th slice of rows, its share of global micro-batch i.
 
     On a CUDA model this turns TF32 off for float32 matmuls and convolutions
     (``resolve_device``): the CTC gradient's one-hot scatter to classes and
@@ -214,22 +256,31 @@ def make_train_step(
     def train_step(state: AsrTrainState, batch: dict,
                    generator: Optional[torch.Generator] = None):
         model.train()
-        feats, percents = _features(batch, frontend, from_features, normalize, generator,
-                                    augment, freq_mask, time_mask, crop_weight if crop else None)
+        B = batch["waves"].shape[0]
+        if B % accum_steps:
+            raise ValueError(f"batch size {B} must divide by accum_steps={accum_steps}")
+        whole = micro = None
+        if data_parallel:
+            whole, micro = _rank_shards(B, batch["waves"].device, accum_steps)
+        with row_shard(whole):
+            feats, percents = _features(batch, frontend, from_features, normalize, generator,
+                                        augment, freq_mask, time_mask,
+                                        crop_weight if crop else None)
         targets, target_lens = batch["targets"], batch["target_lens"]
         if accum_steps <= 1:
-            loss, grads, new_stats, log_probs, out_lens = grad_fn(
-                state.params, state.batch_stats, feats, percents, targets, target_lens, generator)
+            with row_shard(whole):
+                loss, grads, new_stats, log_probs, out_lens = grad_fn(
+                    state.params, state.batch_stats, feats, percents, targets, target_lens,
+                    generator)
         else:
-            B = feats.shape[0]
-            if B % accum_steps:
-                raise ValueError(f"batch size {B} must divide by accum_steps={accum_steps}")
             mb = B // accum_steps
             stats, grad_sum, loss_sum, lps, ols = state.batch_stats, None, 0.0, [], []
             for i in range(accum_steps):
                 sl = slice(i * mb, (i + 1) * mb)
-                loss_i, g, stats, lp, ol = grad_fn(state.params, stats, feats[sl], percents[sl],
-                                                   targets[sl], target_lens[sl], generator)
+                with row_shard(micro):
+                    loss_i, g, stats, lp, ol = grad_fn(state.params, stats, feats[sl],
+                                                       percents[sl], targets[sl],
+                                                       target_lens[sl], generator)
                 grad_sum = g if grad_sum is None else {k: grad_sum[k] + v for k, v in g.items()}
                 loss_sum = loss_sum + loss_i
                 lps.append(lp)
@@ -237,6 +288,8 @@ def make_train_step(
             loss = loss_sum / accum_steps
             grads = {k: v / accum_steps for k, v in grad_sum.items()}
             new_stats, log_probs, out_lens = stats, torch.cat(lps), torch.cat(ols)
+        if data_parallel:
+            loss, grads = _mean_over_ranks(loss, grads)
         return _guarded_update(state, optimizer, loss, grads, new_stats, log_probs, out_lens)
 
     return train_step

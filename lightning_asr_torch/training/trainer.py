@@ -19,8 +19,21 @@ pseudo-labeling trainers.
 Random draws of a step (crop, dither, SpecAugment, dropout) come from one
 generator on the model's device, reseeded from (seed, step) before every
 step, so a run resumed from a checkpoint draws what an uninterrupted run
-draws.  Not ported: multi-process data parallelism, meshes and tensor
-parallelism.
+draws.
+
+In a data-parallel process group (``parallel/distributed.py``) each rank
+runs this loop on its rows of the same global batches (the datamodule
+shards them; ``parallel/mesh.py``) with the data-parallel step: the
+parameters, BatchNorm statistics and optimizer state are broadcast from
+rank 0 at init and at resume and stay equal on every rank after; the eval
+loop all-reduces its sums, so every rank reads the same metrics and the
+plateau and early stopping step alike; rank 0 alone logs, prints and writes
+checkpoints (the caller gives the other ranks no loggers).  The JAX
+trainer's ahead-of-time compile and coordination barrier before a new
+shape's first step (``training/trainer.py:402-450`` there) work around
+XLA's compile deadline for a collective's first exchange; an eager step has
+no compile to wait for, so nothing here stands for them.  Not ported:
+tensor parallelism.
 """
 
 from __future__ import annotations
@@ -41,6 +54,7 @@ from ..decoding.greedy import greedy_decode_to_strings
 from ..metrics.wer import WER
 from ..ops.frontend import MelFrontendConfig
 from ..optim.novograd import InjectHyperparamsState
+from ..parallel import distributed
 from .checkpoint import CheckpointManager
 from .loggers import BaseLogger, MultiLogger
 from .profiler import SimpleProfiler
@@ -145,6 +159,10 @@ class Trainer:
         self.limit_val_batches = limit_val_batches
         self.device_cache = device_cache
         self._epoch_cache: Optional[list] = None       # [(Batch, device batch)]
+        self.data_parallel = distributed.current() is not None
+        self.primary = distributed.is_primary()
+        # train batches hold this rank's share of each micro-batch
+        datamodule.micro_batches = int(accumulate_grad_batches)
         crop_in_step = device_cache and getattr(datamodule, "crop", False) and not from_features
         if crop_in_step:
             datamodule.crop = False   # cached batches hold uncropped waves
@@ -153,12 +171,15 @@ class Trainer:
             freq_mask=freq_mask, time_mask=time_mask, from_features=from_features,
             normalize=normalize, crop=crop_in_step,
             crop_weight=getattr(datamodule, "crop_weight", 0.98),
-            accum_steps=int(accumulate_grad_batches))
+            accum_steps=int(accumulate_grad_batches), data_parallel=self.data_parallel)
         self._eval_step = make_eval_step(model, self.vocab.blank_id, frontend,
                                          from_features=from_features, normalize=normalize)
 
     # ------------------------------------------------------------------
     def init_state(self) -> AsrTrainState:
+        """The state from the module's weights, rank 0's on every rank."""
+        distributed.broadcast_(dict(itertools.chain(self.model.named_parameters(),
+                                                    self.model.named_buffers())))
         return create_train_state(self.model, self.optimizer)
 
     def _device_batch(self, batch: Batch) -> dict:
@@ -180,6 +201,9 @@ class Trainer:
         start_epoch = 0
         if resume:
             state, meta = self.checkpoints.restore(state, resume)
+        if resume or initial_state is not None:
+            distributed.broadcast_(state)
+        if resume:
             start_epoch = int(meta.get("epoch", -1)) + 1
             if self.plateau is not None:
                 saved = meta.get("trainer", {}).get("plateau")
@@ -226,7 +250,8 @@ class Trainer:
                 break
         for cb in self.callbacks:
             cb.on_fit_end(self, state)
-        print(self.profiler.summary())
+        if self.primary:
+            print(self.profiler.summary())
         return state
 
     def _set_lr(self, state: AsrTrainState, lr: float) -> AsrTrainState:
@@ -311,7 +336,7 @@ class Trainer:
                         log["train_wer"] = WER(self.vocab.labels, self.vocab.use_cer).update(
                             self._decode(metrics, batch.size), refs)
                     self.loggers.log_metrics(log, step)
-            if i % self.sample_log_every_n_batches == 0 and batch.size:
+            if self.primary and i % self.sample_log_every_n_batches == 0 and batch.size:
                 refs = self.wer.decode_reference(batch.targets, batch.target_lens)
                 logger.info("pred: %s", self._decode(metrics, 1)[0])
                 logger.info("true: %s", refs[0])
@@ -343,12 +368,26 @@ class Trainer:
             with self.profiler.profile(f"{tag}_step"):
                 out = self._eval_step(state, dev_batch)
                 losses.extend(out["losses"][:n].cpu().tolist())
+            if n == 0:                     # a rank's share of the tail: pad rows only
+                continue
             hyps = self._decode(out, n)
             refs = self.wer.decode_reference(batch.targets[:n], batch.target_lens[:n])
             batch_wers.append(metric.update(hyps, refs))
-            if i % self.sample_log_every_n_batches == 0:
+            if self.primary and i % self.sample_log_every_n_batches == 0:
                 logger.info("[%s] pred: %s", tag, hyps[0])
                 logger.info("[%s] true: %s", tag, refs[0])
+        if self.data_parallel:
+            # the JAX trainer's cross-process reduction (its trainer.py:596-610,
+            # the reference's torchmetrics dist_reduce_fx="sum"): sums of
+            # errors, words, losses and batch WERs and their counts over the
+            # ranks, in float64, then the same three ratios on every rank
+            tot = distributed.all_reduce_(torch.tensor(
+                [metric.scores, metric.words, float(np.sum(losses)), float(len(losses)),
+                 float(np.sum(batch_wers)), float(len(batch_wers))],
+                dtype=torch.float64, device=self.device)).tolist()
+            ratio = lambda a, b: a / b if b else float("inf")  # noqa: E731
+            return {f"{tag}_loss": ratio(tot[2], tot[3]), f"{tag}_wer": ratio(tot[4], tot[5]),
+                    f"{tag}_wer_corpus": ratio(tot[0], tot[1])}
         return {
             f"{tag}_loss": float(np.mean(losses)) if losses else float("inf"),
             # the reference logs the epoch mean of batch WERs

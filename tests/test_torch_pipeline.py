@@ -224,7 +224,9 @@ def test_prefetch_order_and_error():
 
 
 def test_unported_options_raise(corpus):
-    with pytest.raises(NotImplementedError):
+    # row sharding is ported (tests/test_torch_data_parallel.py); a world
+    # that pad_to does not divide is refused, as in the JAX batcher
+    with pytest.raises(ValueError, match="pad_to"):
         BucketBatcher(read_manifests(corpus), Vocabulary(LABELS), 4, shard_count=2)
     with pytest.raises(NotImplementedError):
         AsrDataModule(train_manifest=str(corpus), labels=LABELS, cache="mmap")

@@ -1,0 +1,198 @@
+"""One rank of the port's data-parallel CPU tests (``test_torch_data_parallel.py``):
+
+    python tests/torch_dp_worker.py TASK RANK WORLD PORT IN.pt OUT.pt
+
+joins a gloo group of WORLD ranks on 127.0.0.1:PORT, runs TASK on its rows
+of the global inputs in IN.pt and writes its results to OUT.pt.  It imports
+only torch and the port.  Tasks:
+
+  * ``bn``: ``MaskedBatchNorm`` in train mode on the rank's rows of x inside
+    ``row_shard``: the output, x's gradient, the summed weight and bias
+    gradients of sum(y · cotangent), the running statistics;
+  * ``step``: the small model's ``make_train_step(data_parallel=True)`` on
+    the rank's rows of one batch, ``steps`` times: each step's loss and
+    grad norm, the final state, the captured gradients, preds and
+    pred_lens;
+  * ``fit``: ``Trainer.fit`` of the small model for one epoch on a corpus:
+    the logged train losses, the val metrics, the batch WERs of a second
+    validation, the number of checkpoints this rank wrote.
+
+``SmallAsr`` is the tests' model: ``AsrModel``'s interface at narrow widths
+(a SepConv stem 64->32 k11 stride 2, a repeat-2 block 32->32 k7, the BiLSTM
+32->2x8 concatenated, a block 48->64 k5, the float32 1x1 decoder).
+"""
+
+import sys
+
+import torch
+from torch import nn
+
+from lightning_asr_torch.models.layers import (BatchLSTM, Conv, MaskedBatchNorm, QuartNetBlock,
+                                               SepConv, _lengths_from_percents)
+from lightning_asr_torch.models.quartznet import ctc_head
+from lightning_asr_torch.optim.novograd import GradientTransformation
+from lightning_asr_torch.parallel import distributed
+from lightning_asr_torch.parallel.mesh import RowShard, local_rows, row_shard
+
+TIMEOUT_S = 120.0
+
+
+class SmallEncoder(nn.Module):
+    def __init__(self, dtype=None, drop_rate: float = 0.0):
+        super().__init__()
+        common = dict(mask=True, drop_rate=drop_rate, dtype=dtype)
+        self.first_cnn = SepConv(64, 32, 11, stride=2, **common)
+        self.block1 = QuartNetBlock(repeat=2, in_ch=32, out_ch=32, k=7, **common)
+        self.context_rnn = BatchLSTM(32, 8)
+        self.block2 = QuartNetBlock(repeat=1, in_ch=48, out_ch=64, k=5, **common)
+
+    def forward(self, x, percents, generator=None):
+        x = self.block1(self.first_cnn(x, percents, generator), percents, generator)
+        lengths = _lengths_from_percents(x.shape[-1], percents)
+        c = self.context_rnn(x.transpose(1, 2).float(), lengths)
+        x = torch.cat([x, c.to(x.dtype).transpose(1, 2)], dim=1)
+        return self.block2(x, percents, generator)
+
+
+class SmallAsr(nn.Module):
+    def __init__(self, num_classes: int, dtype=None, drop_rate: float = 0.0):
+        super().__init__()
+        self.dtype = dtype
+        self.encoder = SmallEncoder(dtype, drop_rate)
+        self.decoder = Conv(64, num_classes, 1, bias=True)
+
+    def forward(self, x, percents, generator=None):
+        return ctc_head(self.decoder, self.encoder(x.transpose(1, 2), percents, generator),
+                        percents)
+
+
+def capture(inner: GradientTransformation) -> GradientTransformation:
+    """The optimizer behind a transform that keeps the raw gradients in the
+    first slot of its state."""
+    def update(grads, state, params):
+        updates, new_inner = inner.update(grads, state[1], params)
+        return updates, (grads, new_inner)
+
+    return GradientTransformation(
+        lambda p: ({k: torch.zeros_like(v) for k, v in p.items()}, inner.init(p)), update)
+
+
+def rank_rows(batch: dict, rank: int, world: int, micro_batches: int = 1) -> dict:
+    """This rank's rows of a global batch of tensors (``local_rows``)."""
+    total = next(iter(batch.values())).shape[0]
+    rows = torch.as_tensor(local_rows(total, rank, world, micro_batches))
+    return {k: v[rows] for k, v in batch.items()}
+
+
+def task_bn(rank, world, inp):
+    x, cot = inp["x"], inp["cotangent"]
+    bn = MaskedBatchNorm(x.shape[1])
+    bn.load_state_dict(inp["state"])
+    bn.train()
+    rows = torch.as_tensor(local_rows(x.shape[0], rank, world))
+    xr = x[rows].clone().requires_grad_(True)
+    with row_shard(RowShard(rows, x.shape[0], world)):
+        y = bn(xr)
+    (y * cot[rows]).sum().backward()
+    grads = torch.cat([bn.weight.grad, bn.bias.grad])
+    distributed.all_reduce_(grads)
+    C = x.shape[1]
+    return {"y": y.detach(), "x_grad": xr.grad, "weight_grad": grads[:C], "bias_grad": grads[C:],
+            "running_mean": bn.running_mean, "running_var": bn.running_var, "rows": rows}
+
+
+def task_step(rank, world, inp):
+    from lightning_asr_torch.ops.frontend import MelFrontendConfig
+    from lightning_asr_torch.optim import cosine_annealing_warmup_restarts, novograd
+    from lightning_asr_torch.training.steps import create_train_state, make_train_step
+
+    model = SmallAsr(inp["num_classes"])
+    model.load_state_dict(inp["state_dict"])
+    opt = capture(novograd(cosine_annealing_warmup_restarts(**inp["schedule"]), betas=(0.8, 0.5),
+                           weight_decay=1e-3, fused=True))
+    step = make_train_step(model, opt, inp["num_classes"] - 1, MelFrontendConfig(**inp["frontend"]),
+                           augment=inp["augment"], accum_steps=inp["accum"], data_parallel=True)
+    state = create_train_state(model, opt)
+    batch = rank_rows(inp["batch"], rank, world, inp["accum"])
+    losses, norms = [], []
+    for i in range(inp["steps"]):
+        state, metrics = step(state, batch, torch.Generator().manual_seed(100 + i))
+        losses.append(metrics["loss"])
+        norms.append(metrics["grad_norm"])
+    return {"losses": torch.stack(losses), "grad_norms": torch.stack(norms), "state": state,
+            "preds": metrics["preds"], "pred_lens": metrics["pred_lens"],
+            "rows": torch.as_tensor(local_rows(inp["batch"]["waves"].shape[0], rank, world,
+                                               inp["accum"]))}
+
+
+def task_fit(rank, world, inp):
+    from lightning_asr_torch.data.datamodule import AsrDataModule
+    from lightning_asr_torch.metrics import wer as wer_module
+    from lightning_asr_torch.optim import cosine_annealing_warmup_restarts, novograd
+    from lightning_asr_torch.training import checkpoint
+    from lightning_asr_torch.training.callbacks import Callback
+    from lightning_asr_torch.training.loggers import BaseLogger
+    from lightning_asr_torch.training.trainer import Trainer
+
+    class Capture(BaseLogger):
+        def __init__(self):
+            self.rows = []
+
+        def log_metrics(self, metrics, step):
+            self.rows.append((int(step), {k: float(v) for k, v in metrics.items()}))
+
+    writes = []
+    save = checkpoint.save_checkpoint
+
+    def counted(*args, **kwargs):
+        writes.append(str(args[0]))
+        return save(*args, **kwargs)
+
+    checkpoint.save_checkpoint = counted
+    dm = AsrDataModule(**inp["datamodule"])
+    model = SmallAsr(inp["num_classes"])
+    model.load_state_dict(inp["state_dict"])
+    sched = cosine_annealing_warmup_restarts(**inp["schedule"])
+    log = Capture()
+    trainer = Trainer(model, novograd(sched, betas=(0.8, 0.5), weight_decay=1e-3, fused=True), dm,
+                      total_epochs=1, run_dir=inp["run_dir"], log_every_n_steps=1,
+                      train_wer_every_n_steps=10**6, loggers=log if rank == 0 else None,
+                      lr_schedule=sched, hparams={"labels": dm.vocab.labels}, seed=4,
+                      **inp.get("trainer", {}))
+    losses = []
+
+    class Losses(Callback):
+        def on_train_batch_end(self, trainer, state, metrics, batch, i):
+            losses.append(float(metrics["loss"]))
+
+    trainer.callbacks.append(Losses())
+    state = trainer.fit()
+    batch_wers = []
+    update = wer_module.WER.update
+
+    def recorded(self, hyps, refs):
+        batch_wers.append(update(self, hyps, refs))
+        return batch_wers[-1]
+
+    wer_module.WER.update = recorded
+    val = trainer.validate(state)
+    return {"losses": losses, "val": val, "batch_wers": batch_wers, "writes": writes,
+            "logged": log.rows, "step": int(state.step),
+            "params": {k: v for k, v in state.params.items()}}
+
+
+def main():
+    task, rank, world, port, inp, out = sys.argv[1:7]
+    torch.set_num_threads(1)
+    env = {"RANK": rank, "WORLD_SIZE": world, "LOCAL_RANK": rank, "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": port}
+    distributed.init(env, "cpu", TIMEOUT_S)
+    result = {"task_bn": task_bn, "task_step": task_step,
+              "task_fit": task_fit}[f"task_{task}"](int(rank), int(world),
+                                                     torch.load(inp, weights_only=False))
+    distributed.shutdown()
+    torch.save(result, out)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, decoding, training, trainer, SSL and
-data-parallel paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, decoding, training, trainer, SSL,
+data-parallel, LSTM-head and mmap-cache paths on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py
 
@@ -166,15 +167,36 @@ Phases, in order; any failed check exits non-zero before the last line:
      the card loading ``last``; the step ms of one process and of each rank
      sharing the card and the gloo all-reduce of the flat gradient, beside
      the card's name and power limit;
- 19. a {"kernels": [...]} line: per kernel K1-K11 its launches on the main
+ 19. lstm_head_and_data: the LSTM head and the data surface.  First
+     (``lstm_h128``) K2, K3, K7 and K8 at the head's H=128 at the training
+     shape (B=32, T'=836, ragged rows, input width 1024) against their
+     plain versions, twice for the same bits, K7's h equal to K2's, their
+     shared memory as stated, their times, bounds, cuDNN's packed BiLSTM at
+     hidden 128 and the registers and spills of the H=128 instantiations.
+     Then the head model (quartznet12_context with ``lstm_head=True``, bf16
+     convs, mask on, seeded by ``head_teeth``): an eval forward at the
+     serving shape (8 rows of 2-16 s, 1601 frames), also with
+     ``fuse_directions``, against the CPU under the serving bounds;
+     ``training_lstm_head`` and ``training_lstm_head_fused_bidir``, HEAD_STEPS
+     bf16 recipe steps each (finite, falling loss; the LSTM kernels twice a
+     step, once at H=128); one float32 step of each against the CPU under
+     TRAIN_TOL.  Then ``data.cache=mmap``: the native loader on a tone
+     corpus against ``read_audio``'s int16, the training CLI with
+     ``data.cache=mmap`` in this process (every file decoded by the loader,
+     none by ``read_audio``), again in a fresh process (no append: the
+     bin's size and the index unchanged) and with ``data.cache=ram``, the
+     three runs' metrics equal; the H=40 digests of phase 4 are repeated;
+ 20. a {"kernels": [...]} line: per kernel K1-K11 its launches on the main
      paths (the serving bursts of every encoder, the decoding phase's
-     forwards, the training steps of the nine configurations, the
-     trainer's runs, the SSL phase's steps, runs and served forwards, and
-     the data-parallel ranks' steps and CLI runs), its error against the plain
-     version, its time, the plain version's, the library yardstick's, and
-     the least time the card could take (K1 and K2 at the serving shape,
-     K3-K8 at the training shape, K9-K11 at the widest layer);
- 20. {"ok": true, "device": {...}} as the last line.
+     forwards, the training steps of the nine configurations and of the
+     head's two, the trainer's runs, the mmap and RAM CLI runs, the SSL
+     phase's steps, runs and served forwards, and the data-parallel ranks'
+     steps and CLI runs), its error against the plain version, its time,
+     the plain version's, the library yardstick's, and the least time the
+     card could take (K1 and K2 at the serving shape, K3-K8 at the training
+     shape, K9-K11 at the widest layer); K2, K3, K7 and K8 also under
+     ``h128`` at H=128 (launches on the head's paths);
+ 21. {"ok": true, "device": {...}} as the last line.
 
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -207,6 +229,7 @@ import torch
 
 from lightning_asr_torch import native
 from lightning_asr_torch.data.audio import read_audio, wav_bytes, write_wav
+from lightning_asr_torch.data.pipeline import BucketBatcher
 from lightning_asr_torch.decoding.beam_search import BeamSearchDecoderWithLM
 from lightning_asr_torch.decoding.device_beam import DeviceBeamSearchDecoder, beam_search_device
 from lightning_asr_torch.decoding.greedy import (compact_to_strings, greedy_collapse_device,
@@ -378,6 +401,11 @@ LABELS = [" ", "'"] + [chr(ord("a") + i) for i in range(26)]
 BLANK = len(LABELS)
 TRAIN_BUCKET_S = 16.7                 # conf.yaml train_max_duration, a bucket
 T_TRAIN = 836                         # its frames after the stride-2 stem
+HEAD_HIDDEN = 128                     # the LSTM head's hidden size (build_model lstm_head)
+# the LSTM head phase: its bf16 steps, the train-mode passes that set its
+# BatchNorm statistics, and the mmap trainer's corpus and epochs
+HEAD_STEPS, HEAD_CALIBRATION_PASSES = 6, 10
+MMAP_UTTS, MMAP_DEV_UTTS, MMAP_EPOCHS, MMAP_BATCH = 64, 32, 2, 32
 CHARS_PER_S = 15
 
 # the decoding phase: the sentences of the LM corpus, the peaked lattice
@@ -508,12 +536,12 @@ def _cudnn_bilstm(dev, w_ih, w_hh, b_ih, b_hh):
     return ref
 
 
-def bilstm_inputs(dev, rng, B: int, T: int, lens_np=None):
-    """Seeded inputs of the BiLSTM kernels (C=256, H=40, both directions):
-    x (B, T, C), the weights (w_ih, w_hh, b_ih, b_hh), each (2, ...), the
-    row lengths (``train_rows``' unless given) and the input projection
-    xproj (B, T, 2, 4H)."""
-    C, H, D = 256, 40, 2
+def bilstm_inputs(dev, rng, B: int, T: int, lens_np=None, C: int = 256, H: int = 40):
+    """Seeded inputs of the BiLSTM kernels (the context BiLSTM's C=256, H=40
+    unless given; both directions): x (B, T, C), the weights (w_ih, w_hh,
+    b_ih, b_hh), each (2, ...), the row lengths (``train_rows``' unless
+    given) and the input projection xproj (B, T, 2, 4H)."""
+    D = 2
     s = 1.0 / np.sqrt(H)
     x = torch.from_numpy(rng.standard_normal((B, T, C)).astype(np.float32)).to(dev)
     w_ih, w_hh, b_ih, b_hh = (torch.from_numpy(rng.uniform(-s, s, shape).astype(np.float32)).to(dev)
@@ -597,6 +625,8 @@ def phase_k2(dev, ptxas_report: str) -> dict:
                       "digest": {"h": digest(got), "c": digest(cell)},
                       "training_digest": {"h": digest(h_t), "c": digest(c_t)},
                       "phase_launches": lstm_recurrence.launches, **res}), flush=True)
+    res["digests"] = {"serving": {"h": digest(got), "c": digest(cell)},
+                      "training": {"h": digest(h_t), "c": digest(c_t)}}
     return res
 
 
@@ -811,6 +841,18 @@ def mel_inputs(gen: torch.Generator) -> tuple:
     return torch.randn((2, 200, 64), generator=gen), torch.ones(2)
 
 
+def bn_teeth(model, gen: torch.Generator) -> None:
+    """Random BatchNorm affine terms and running statistics."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, MaskedBatchNorm):
+                n = m.weight.numel()
+                m.weight.copy_(torch.rand(n, generator=gen) + 0.5)
+                m.bias.copy_(torch.randn(n, generator=gen) * 0.2)
+                m.running_mean.copy_(torch.randn(n, generator=gen) * 0.5)
+                m.running_var.copy_(torch.rand(n, generator=gen) * 1.5 + 0.5)
+
+
 def with_teeth(model, gen: torch.Generator, decoder_scale: float = 50.0,
                inputs=mel_inputs) -> None:
     """Non-trivial BatchNorm statistics and affine terms and a scaled-up
@@ -821,14 +863,8 @@ def with_teeth(model, gen: torch.Generator, decoder_scale: float = 50.0,
     a calibration batch (``inputs(gen)``, the model's arguments), and the
     head is then scaled, so that the greedy argmax varies from frame to
     frame."""
+    bn_teeth(model, gen)
     with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, MaskedBatchNorm):
-                n = m.weight.numel()
-                m.weight.copy_(torch.rand(n, generator=gen) + 0.5)
-                m.bias.copy_(torch.randn(n, generator=gen) * 0.2)
-                m.running_mean.copy_(torch.randn(n, generator=gen) * 0.5)
-                m.running_var.copy_(torch.rand(n, generator=gen) * 1.5 + 0.5)
         seen = {}
         hook = model.decoder.register_forward_pre_hook(lambda mod, args: seen.setdefault("x", args[0]))
         model.eval()(*inputs(gen))
@@ -1691,6 +1727,368 @@ def phase_k78(dev, hmma, ptxas_report: str):
     return rows
 
 
+def h128_kernels(dev, reports: dict) -> dict:
+    """K2, K3, K7 and K8 at the LSTM head's hidden size (H=128) at the
+    training shape (B=32, T'=836, ragged rows, input width 1024: the 12x1
+    encoder's output) against their plain versions, twice for the same
+    bits, with their times, bounds and cuDNN's packed BiLSTM at hidden 128
+    as the yardstick; their shared memory against the stated layouts, and
+    the registers and spills of the H=128 instantiations.  Returns
+    {"K2": row, ...} of the kernels line's keys (launches: this call's)."""
+    rng = np.random.default_rng(128)
+    B, T, C, H, D = TRAIN_BATCH, T_TRAIN, 1024, HEAD_HIDDEN, 2
+    x, (w_ih, w_hh, b_ih, b_hh), lens_np, lens, xproj = bilstm_inputs(dev, rng, B, T, C=C, H=H)
+    grad_h = torch.from_numpy(rng.standard_normal((B, T, D * H)).astype(np.float32)).to(dev)
+    xp = stack_directions(xproj).contiguous()
+    valid = stacked_valid(T, lens)
+    gs = stack_directions(grad_h.reshape(B, T, D, H)).contiguous()
+    w_f, w_b = w_hh[0].contiguous(), w_hh[1].contiguous()
+    counters = (lstm_recurrence, lstm_backward, lstm_recurrence_stacked, lstm_backward_stacked)
+    for fn in counters:
+        fn.launches = 0
+
+    k2 = lambda: lstm_recurrence(xproj, lens, w_hh, with_cell=True)  # noqa: E731
+    h, cell = k2()
+    k3 = lambda: lstm_backward(xproj, lens, w_hh, h, cell, grad_h)  # noqa: E731
+    d_x, dw = k3()
+    k7 = lambda: lstm_recurrence_stacked(xp, valid, w_f, w_b)  # noqa: E731
+    h7, h_prev, c_prev = k7()
+    k8 = lambda: lstm_backward_stacked(xp, valid, w_f, w_b, h_prev, c_prev, gs)  # noqa: E731
+    d_x8, dw_f, dw_b = k8()
+    outs = (h, cell, d_x, dw, h7, h_prev, c_prev, d_x8, dw_f, dw_b)
+    check(all(bool(torch.isfinite(t).all()) for t in outs), "H=128 LSTM kernels: outputs finite")
+    again = (*k2(), *k3(), *k7(), *k8())
+    check(all(torch.equal(a, b) for a, b in zip(again, outs)), "H=128 LSTM kernels: two runs differ")
+    launches = {fn.__name__: fn.launches for fn in counters}
+    plain2 = lambda: lstm_recurrence_plain(xproj, lens, w_hh, with_cell=True)  # noqa: E731
+    plain3 = lambda: lstm_backward_plain(xproj, lens, w_hh, h, cell, grad_h)  # noqa: E731
+    plain7 = lambda: lstm_recurrence_stacked_plain(xp, valid, w_f, w_b)  # noqa: E731
+    plain8 = lambda: lstm_backward_stacked_plain(xp, valid, w_f, w_b, h_prev, c_prev, gs)  # noqa: E731
+    want_h, want_c = plain2()
+    want_dx, want_dw = plain3()
+    want7 = plain7()
+    want_dx8, want_f, want_b = plain8()
+    torch.cuda.synchronize()
+    rel = lambda a, b: (a - b).abs().max().item() / b.abs().max().item()  # noqa: E731
+    errs = {"K2_h": (h - want_h).abs().max().item(), "K2_c": (cell - want_c).abs().max().item(),
+            "K3_dx": (d_x - want_dx).abs().max().item(), "K3_dw_rel": rel(dw, want_dw),
+            "K7_h": (h7 - want7[0]).abs().max().item(),
+            "K7_h_prev": (h_prev - want7[1]).abs().max().item(),
+            "K7_c_prev": (c_prev - want7[2]).abs().max().item(),
+            "K7_h_vs_K2": (unstack_directions(h7).reshape(B, T, D * H) - h).abs().max().item(),
+            "K8_dx": (d_x8 - want_dx8).abs().max().item(),
+            "K8_dw_rel": max(rel(dw_f, want_f), rel(dw_b, want_b))}
+    check(all(bool((h[b, n:] == 0).all()) and bool((d_x[b, n:] == 0).all())
+              for b, n in enumerate(lens_np)), "H=128 K2 h / K3 d_xproj at pad frames not exactly 0")
+    check(bool((h7[valid == 0] == 0).all()) and bool((d_x8[valid == 0] == 0).all()),
+          "H=128 K7 h / K8 d_xproj at invalid steps not exactly 0")
+    check(errs["K2_h"] <= K2_TOL and errs["K2_c"] <= 10 * K2_TOL and errs["K7_h"] <= K2_TOL
+          and errs["K7_h_prev"] <= K2_TOL and errs["K7_c_prev"] <= 10 * K2_TOL,
+          f"H=128 K2/K7 against plain: {errs}")
+    check(errs["K7_h_vs_K2"] == 0.0, f"H=128 K7's h is not K2's bit for bit: {errs}")
+    check(errs["K3_dx"] <= K3_TOL_DX and errs["K3_dw_rel"] <= K3_TOL_DW and errs["K8_dx"] <= K3_TOL_DX
+          and errs["K8_dw_rel"] <= K3_TOL_DW, f"H=128 K3/K8 against plain: {errs}")
+    smem = {"K2": (forward_smem_on_card(H, dev), forward_smem_bytes(H)),
+            "K3": (backward_smem_on_card(H, dev), backward_smem_bytes(H)),
+            "K7": (stacked_forward_smem_on_card(H, dev), stacked_forward_smem_bytes(H)),
+            "K8": (stacked_backward_smem_on_card(H, dev), stacked_backward_smem_bytes(H))}
+    check(all(a == b for a, b in smem.values()), f"H=128 shared memory on the card vs stated: {smem}")
+
+    ref = _cudnn_bilstm(dev, w_ih, w_hh, b_ih, b_hh)
+    lens_cpu = torch.from_numpy(lens_np.astype(np.int64))
+    xg = x.clone().requires_grad_(True)
+
+    def cudnn(backward: bool):
+        with torch.set_grad_enabled(backward):
+            packed = torch.nn.utils.rnn.pack_padded_sequence(xg if backward else x, lens_cpu,
+                                                             batch_first=True, enforce_sorted=False)
+            out = torch.nn.utils.rnn.pad_packed_sequence(ref(packed)[0], batch_first=True,
+                                                         total_length=T)[0]
+            if backward:
+                torch.autograd.backward(out, grad_h)
+            return out
+
+    with torch.no_grad():
+        cudnn_diff = (cudnn(False) - h).abs().max().item()
+    fwd_lib, bwd_lib = cuda_ms(lambda: cudnn(False), 5), cuda_ms(lambda: cudnn(True), 3)
+    G = 4 * H
+    steps = int(lens_np.sum()) * D                  # valid row-steps
+    small = w_hh.numel() * 4 + lens.numel() * 4
+    f_fwd, f_bwd = steps * (2 * G * H + 2 * G + 5 * H), steps * (3 * 2 * G * H + 30 * H)
+    bounds = {
+        # the valid frames' projections, W_hh and the lengths in; all of h
+        # and the valid frames' cell states out
+        "K2": bound(steps * G * 4 + small + h.numel() * 4 + steps * H * 4, f_fwd, "fp32"),
+        # per valid step its projection, h_prev, c_prev and dh in; all of
+        # d_xproj and dW_hh out
+        "K3": bound(steps * (G + 3 * H) * 4 + small + d_x.numel() * 4 + dw.numel() * 4, f_bwd, "fp32"),
+        # the valid steps' projections, the mask and both W_hh in; h, h_prev
+        # and c_prev out for every step
+        "K7": bound(steps * G * 4 + valid.numel() * 4 + w_hh.numel() * 4 + 3 * h7.numel() * 4,
+                    f_fwd, "fp32"),
+        "K8": bound(steps * (G + 3 * H) * 4 + valid.numel() * 4 + w_hh.numel() * 4
+                    + d_x8.numel() * 4 + 2 * dw_f.numel() * 4, f_bwd, "fp32"),
+    }
+    timed = {"K2": (k2, plain2, fwd_lib, errs["K2_h"]), "K3": (k3, plain3, bwd_lib, errs["K3_dx"]),
+             "K7": (k7, plain7, fwd_lib, errs["K7_h"]), "K8": (k8, plain8, bwd_lib, errs["K8_dx"])}
+    rows = {}
+    for key, (fn, plain, library_ms, err) in timed.items():
+        ms = cuda_ms(fn, 5)
+        rows[key] = {"launches": 0, "max_abs_err": err, "ms": ms,
+                     "plain_ms": cuda_ms(plain, 1, warmup=0), "bound_ms": bounds[key][0],
+                     "bound_by": bounds[key][1], "library_ms": library_ms,
+                     "us_per_step": 1e3 * ms / int(lens_np.max())}
+    ptxas = {k: v for name in ("lstm", "lstm_bwd", "lstm_bidir")
+             for k, v in ptxas_kernels(reports.get(name, "")).items() if "<128" in k}
+    print(json.dumps({"phase": "lstm_h128", "shape": [B, T, C, H, D], "tol": K2_TOL,
+                      "tol_dx": K3_TOL_DX, "tol_dw_rel": K3_TOL_DW, **errs,
+                      "cudnn_max_abs_diff": cudnn_diff, "valid_row_steps": steps,
+                      "sequential_steps": int(lens_np.max()), "smem_bytes": smem,
+                      "ptxas": ptxas, "check_launches": launches, "kernels": rows}), flush=True)
+    return rows
+
+
+def head_teeth(model, gen: torch.Generator, dev) -> None:
+    """The LSTM head model's seeded terms: ``bn_teeth``'s BatchNorm terms,
+    running statistics from HEAD_CALIBRATION_PASSES train-mode passes on the
+    card over random features (``mel_inputs``), then ``head_fc`` centred
+    (its bias cancels its logits' mean on one more such batch) and scaled to
+    a class std of TEETH_CLASS_STD, as ``calibrated_teeth`` sets a decoder."""
+    bn_teeth(model, gen)
+    inputs = lambda: tuple(t.to(dev) for t in mel_inputs(gen))  # noqa: E731
+    with torch.no_grad():
+        model.train()
+        for _ in range(HEAD_CALIBRATION_PASSES):
+            model(*inputs())
+        seen = {}
+        hook = model.head_fc.register_forward_pre_hook(lambda mod, args: seen.update(x=args[0]))
+        model.eval()(*inputs())
+        hook.remove()
+        logits = model.head_fc(seen["x"])
+        model.head_fc.bias.sub_(logits.mean(dim=(0, 1)))
+        scale = TEETH_CLASS_STD / (logits - logits.mean(dim=(0, 1))).std(dim=-1).mean().item()
+        model.head_fc.weight.mul_(scale)
+        model.head_fc.bias.mul_(scale)
+
+
+def _head_counts() -> dict:
+    """The LSTM kernels' launches at H=128 so far."""
+    return {fn.__name__: fn.launches_at.get(HEAD_HIDDEN, 0)
+            for fn in (lstm_recurrence, lstm_backward, lstm_recurrence_stacked, lstm_backward_stacked)}
+
+
+def _head_serving(dev) -> dict:
+    """The head model (quartznet12_context, ``lstm_head=True``, bf16 convs,
+    mask on, ``head_teeth``) in eval mode at the serving shape, the serving
+    burst's 8 rows of 2-16 s as log-mels (1601 frames) from the CPU
+    frontend: on the card,
+    also with ``fuse_directions``, against the CPU under the serving bounds
+    (SERVE_TOL_*, over valid frames); K2 (or K7) once at H=40 and once at
+    H=128 a forward."""
+    model = build_model(len(LABELS) + 1, mask=True, dtype=torch.bfloat16, lstm_head=True)
+    reset_parameters(model, torch.Generator().manual_seed(19))
+    model.to(dev)
+    head_teeth(model, torch.Generator().manual_seed(20), dev)
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    rows = [torch.from_numpy(read_audio(blob)[0][0]) for blob in serving_burst()[1]]
+    waves = torch.nn.utils.rnn.pad_sequence(rows, batch_first=True)
+    feats, feat_lens = log_mel_spectrogram(waves, torch.tensor([len(r) for r in rows]),
+                                           MelFrontendConfig(precision="default"))
+    percents = feat_lens.float() / feats.shape[1]
+
+    def forward(where, fuse: bool):
+        m = build_model(len(LABELS) + 1, mask=True, dtype=torch.bfloat16, lstm_head=True,
+                        fuse_directions=fuse)
+        m.load_state_dict(state)
+        m.to(where).eval()
+        with torch.no_grad():
+            lp, lens = m(feats.to(where), percents.to(where))
+        return lp.float().cpu(), lens.cpu()
+
+    cpu, cpu_lens = forward("cpu", False)
+    out = {}
+    for fuse in (False, True):
+        before = {fn.__name__: fn.launches for fn in (lstm_recurrence, lstm_recurrence_stacked)}
+        before_h = _head_counts()
+        card, lens = forward(dev, fuse)
+        ran = {fn.__name__: fn.launches - before[fn.__name__]
+               for fn in (lstm_recurrence, lstm_recurrence_stacked)}
+        ran_h = {k: v - before_h[k] for k, v in _head_counts().items()}
+        key = "lstm_recurrence_stacked" if fuse else "lstm_recurrence"
+        check(ran[key] == 2 and ran_h[key] == 1 and sum(ran.values()) == 2,
+              f"head serving (fuse {fuse}): LSTM launches {ran}, at H=128 {ran_h}")
+        check(torch.equal(lens, cpu_lens) and bool(torch.isfinite(card).all()),
+              "head serving: lengths or finite")
+        valid = torch.arange(card.shape[1])[None, :] < lens[:, None]
+        err = (card - cpu).abs()[valid]
+        agree = float((card.argmax(-1) == cpu.argmax(-1))[valid].float().mean())
+        class_std = float(cpu.std(dim=-1)[valid].mean())
+        check(err.max().item() <= SERVE_TOL_MAX and err.mean().item() <= SERVE_TOL_MEAN
+              and agree >= SERVE_MIN_ARGMAX,
+              f"head serving (fuse {fuse}) card vs CPU: max {err.max().item()}, mean "
+              f"{err.mean().item()}, argmax agreement {agree}")
+        out["fused_bidir" if fuse else "default"] = {
+            "max_abs": err.max().item(), "mean_abs": err.mean().item(), "argmax_agreement": agree,
+            "cpu_class_std": class_std, "lstm_launches": ran, "at_h128": ran_h}
+    return {"shape": list(feats.shape), "valid_frames": int(lens.sum()), **out}
+
+
+def _head_parity(dev) -> dict:
+    """One float32 step of the head model (B=4, 4 s, no dither,
+    augmentation or dropout) from the CPU's log-mels, on the card (also
+    with ``fuse_directions``) against the CPU, under TRAIN_TOL (worst
+    gradient 5e-2); the card's own move when the log-mels move by 1e-7
+    relative is recorded beside (``chaos_floor``), not used as a bound."""
+    gen = torch.Generator().manual_seed(6)
+    model0 = build_model(len(LABELS) + 1, mask=True, lstm_head=True)
+    reset_parameters(model0, gen)
+    init = {k: v.clone() for k, v in model0.state_dict().items()}
+    batch_np, _ = train_batch(np.random.default_rng(6), 4, 4.0, 3.9)
+    waves = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    frontend = MelFrontendConfig(dither=0.0, precision="default")
+    feats, feat_lens = log_mel_spectrogram(waves["waves"], waves["wave_lens"], frontend)
+    batch = {**waves, "waves": feats, "wave_lens": feat_lens}
+
+    def one_step(where, batch, fuse: bool):
+        return parity_step(init, where, batch, frontend, True, lstm_head=True, fuse_directions=fuse)
+
+    cpu = one_step("cpu", batch, False)
+    out = {}
+    for fuse in (False, True):
+        card = one_step(dev, batch, fuse)
+        errs, worst = _step_errors(card, cpu)
+        check(bool(card[3]["finite"]) and bool(cpu[3]["finite"]), "head parity: loss not finite")
+        check(torch.equal(card[3]["pred_lens"], cpu[3]["pred_lens"]), "head parity: pred_lens differ")
+        for key, lim in TRAIN_TOL.items():
+            check(errs[key] <= lim, f"head parity (fuse {fuse}): {key} {errs[key]} > {lim} "
+                                    f"(worst tensor {worst})")
+        out["fused_bidir" if fuse else "default"] = {**errs, "worst_grad_tensor": worst,
+                                                     "loss_card": card[3]["loss"].item()}
+        if not fuse:
+            jitter = torch.randn(feats.shape, generator=torch.Generator().manual_seed(7))
+            moved = one_step(dev, {**batch, "waves": feats * (1 + 1e-7 * jitter)}, False)
+            out["chaos_floor"] = _step_errors(moved, card)[0]
+    return {"batch": 4, "bucket_s": 4.0, "dtype": "float32", "from_features": True,
+            "loss_cpu": cpu[3]["loss"].item(), "limits": TRAIN_TOL, **out}
+
+
+MMAP_COUNTERS = (mel_from_extended, lstm_recurrence, lstm_backward, ctc_alpha, ctc_beta,
+                 extend_preemph)
+
+
+def _mmap_trainer(dev) -> dict:
+    """``data.cache=mmap`` on the card, on a tone corpus as phase 16's: the
+    native loader on every file against ``read_audio``'s int16; the training
+    CLI's ``main`` with ``data.cache=mmap`` in this process (the cache at
+    its default place, beside the train manifest), then again in a fresh
+    process (``python -c``), which must append nothing, and with
+    ``data.cache=ram`` in this process: the three runs' losses and metrics
+    equal (cuDNN deterministic in each)."""
+    deterministic = torch.backends.cudnn.deterministic
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        train = tone_corpus(root, MMAP_UTTS, 0, "train")
+        dev_m = tone_corpus(root, MMAP_DEV_UTTS, 1, "dev")
+        paths = [json.loads(line)["audio_filepath"]
+                 for m in (train, dev_m) for line in m.read_text().splitlines()]
+        t0 = time.perf_counter()
+        waves, lens, _, srs = native.load_wav_batch(paths, None, 3 * SR, dtype="int16")
+        loader_s = time.perf_counter() - t0
+        check(bool((lens > 0).all()) and bool((srs == SR).all()), f"native loader: lens {lens}")
+        for i, p in enumerate(paths):
+            want = np.round(read_audio(p)[0][0] * 32768.0).clip(-32768, 32767).astype(np.int16)
+            check(lens[i] == want.shape[0] and np.array_equal(waves[i, : lens[i]], want),
+                  f"native loader: {p} differs from read_audio's int16")
+        cache = train.parent / "_lasr_wave_cache"
+        common = [f"data.train_manifest={train}", f"data.val_manifest={dev_m}",
+                  f"data.test_manifest={dev_m}", "data.bucket_seconds=[3.0]",
+                  f"train.total_epoch={MMAP_EPOCHS}", f"train.train_batch_size={MMAP_BATCH}",
+                  f"train.dev_batch_size={MMAP_BATCH}", "train.warmup_steps=2",
+                  "train.log_every_n_steps=1", "model.compute_dtype=bf16"]
+
+        def results(run: Path) -> dict:
+            metrics = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+            return {"metrics": [{k: v for k, v in m.items() if k != "time"} for m in metrics]}
+
+        def stat():
+            lines = (cache / "index.jsonl").read_text().splitlines()
+            return (cache / "waves.bin").stat().st_size, {json.loads(line)["p"] for line in lines}
+
+        torch.backends.cudnn.deterministic = True
+        try:
+            runs = {}
+            for name, extra in (("mmap", ["data.cache=mmap"]), ("ram", ["data.cache=ram"])):
+                for fn in MMAP_COUNTERS:
+                    fn.launches = 0
+                rows, reads = native.load_wav_batch.rows, BucketBatcher.audio_reads
+                t0 = time.perf_counter()
+                _run_train(common + extra + [f"log.run.dir={root / name}"])
+                runs[name] = {"wall_s": time.perf_counter() - t0, **results(root / name),
+                              "launches": {fn.__name__: fn.launches for fn in MMAP_COUNTERS},
+                              "loader_rows": native.load_wav_batch.rows - rows,
+                              "read_audio_files": BucketBatcher.audio_reads - reads}
+                if name == "mmap":
+                    size, cached = stat()
+            check(cached == set(paths), f"mmap: the index holds {len(cached)} of {len(paths)} files")
+            code = ("import sys, torch; sys.path.insert(0, '.'); "
+                    "torch.backends.cudnn.deterministic = True; "
+                    "torch.backends.cuda.matmul.allow_tf32 = False; "
+                    "torch.backends.cudnn.allow_tf32 = False; "
+                    "from lightning_asr_torch.train import main; main(sys.argv[1:])")
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", code, *common, "data.cache=mmap",
+                                   f"log.run.dir={root / 'mmap_again'}"], cwd=Path(__file__).parent,
+                                  capture_output=True, text=True, timeout=600)
+            again_s = time.perf_counter() - t0
+            check(proc.returncode == 0, f"mmap rerun failed:\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+            size2, cached2 = stat()
+            runs["mmap_again"] = {"wall_s": again_s, **results(root / "mmap_again")}
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+    check(size2 == size and cached2 == cached, f"mmap rerun appended: {size} -> {size2} bytes")
+    m = runs["mmap"]
+    check(m["loader_rows"] >= len(paths) and m["read_audio_files"] == 0,
+          f"mmap run: the loader decoded {m['loader_rows']} rows, read_audio {m['read_audio_files']}")
+    check(runs["ram"]["metrics"] == m["metrics"] == runs["mmap_again"]["metrics"],
+          f"mmap / mmap again / ram metrics differ: {[r['metrics'][-1] for r in runs.values()]}")
+    losses = [x["train_loss"] for x in m["metrics"] if "train_loss" in x]
+    check(len(losses) > 0 and all(np.isfinite(losses)), f"mmap run: losses {losses}")
+    return {"utterances": [MMAP_UTTS, MMAP_DEV_UTTS], "epochs": MMAP_EPOCHS,
+            "loader": {"files": len(paths), "ms": 1e3 * loader_s},
+            "waves_bin_bytes": size, "indexed_files": len(cached), "rerun_appended_bytes": size2 - size,
+            "metrics_equal": True, "last_metrics": m["metrics"][-1],
+            "runs": {k: {kk: v for kk, v in r.items() if kk != "metrics"} for k, r in runs.items()}}
+
+
+def phase_lstm_head_and_data(dev, reports: dict, k2_digests: dict) -> tuple:
+    """The LSTM head (K2, K3, K7, K8 at H=128: ``h128_kernels``; the head
+    model served, trained and held against the CPU) and the data surface
+    (``cache='mmap'`` and the native loader through the training CLI).
+    Returns (the kernels' H=128 rows with their launches on the head's
+    paths, the launches of K1-K6 on those paths)."""
+    t0 = time.perf_counter()
+    rows = h128_kernels(dev, reports)
+    before = _head_counts()
+    serving = _head_serving(dev)
+    trainings = [phase_training(dev, steps=HEAD_STEPS, lstm_head=True),
+                 phase_training(dev, steps=HEAD_STEPS, fuse_directions=True, lstm_head=True)]
+    parity = _head_parity(dev)
+    head = {k: v - before[k] for k, v in _head_counts().items()}
+    mmap = _mmap_trainer(dev)
+    for key, fn in (("K2", "lstm_recurrence"), ("K3", "lstm_backward"),
+                    ("K7", "lstm_recurrence_stacked"), ("K8", "lstm_backward_stacked")):
+        rows[key]["launches"] = head[fn]
+    check(all(r["launches"] > 0 for r in rows.values()), f"a kernel at H=128 never ran: {head}")
+    launches = {name: sum(t["launches"][name] for t in trainings) for name in trainings[0]["launches"]}
+    for name, n in mmap["runs"]["mmap"]["launches"].items():
+        launches[name] = launches.get(name, 0) + n + mmap["runs"]["ram"]["launches"][name]
+    print(json.dumps({"phase": "lstm_head_and_data", "seconds": time.perf_counter() - t0,
+                      "k2_digests_h40": k2_digests, "head_serving": serving, "head_parity": parity,
+                      "head_launches_h128": head, "mmap": mmap,
+                      "training_launches": launches}), flush=True)
+    return rows, launches
+
+
 def phase_k45(dev, ptxas_report: str):
     rng = np.random.default_rng(4)
     B, T, C = 32, T_TRAIN, len(LABELS) + 1
@@ -1821,21 +2219,24 @@ def train_batch(rng, B: int, bucket_s: float, max_s: float):
 
 
 def _config_name(prefix: str, conv_kernel, fuse_directions: bool,
-                 encoder: str = DEFAULT_ENCODER) -> str:
+                 encoder: str = DEFAULT_ENCODER, lstm_head: bool = False) -> str:
     return (prefix + ("" if encoder == DEFAULT_ENCODER else f"_{encoder}")
+            + ("_lstm_head" if lstm_head else "")
             + ("_fused_bidir" if fuse_directions else "") + (f"_{conv_kernel}" if conv_kernel else ""))
 
 
 def phase_training(dev, conv_kernel=None, steps: int = TRAIN_STEPS, fuse_directions: bool = False,
-                   encoder: str = DEFAULT_ENCODER) -> dict:
+                   encoder: str = DEFAULT_ENCODER, lstm_head: bool = False) -> dict:
     """The recipe's train step at full width, ``steps`` steps on one batch,
-    the ``encoder`` model built with ``conv_kernel`` / ``fuse_directions``
-    (phase ``training``, ``training_<conv_kernel>``,
-    ``training_fused_bidir``, or with ``_<encoder>`` after ``training``)."""
-    name = _config_name("training", conv_kernel, fuse_directions, encoder)
+    the ``encoder`` model built with ``conv_kernel`` / ``fuse_directions`` /
+    ``lstm_head`` (phase ``training``, ``training_<conv_kernel>``,
+    ``training_fused_bidir``, ``training_lstm_head[_fused_bidir]``, or with
+    ``_<encoder>`` after ``training``)."""
+    name = _config_name("training", conv_kernel, fuse_directions, encoder, lstm_head)
     gen = torch.Generator().manual_seed(5)
     model = build_model(len(LABELS) + 1, encoder, mask=True, dtype=torch.bfloat16,
-                        conv_kernel=conv_kernel, fuse_directions=fuse_directions)
+                        conv_kernel=conv_kernel, fuse_directions=fuse_directions,
+                        lstm_head=lstm_head)
     reset_parameters(model, gen)
     model.to(dev)
     schedule = cosine_annealing_warmup_restarts(first_cycle_steps=1000, cycle_mult=2, max_lr=1e-2,
@@ -1852,10 +2253,10 @@ def phase_training(dev, conv_kernel=None, steps: int = TRAIN_STEPS, fuse_directi
     torch.cuda.reset_peak_memory_stats()
 
     # launches a step: K1, K4-K6 once, K2 and K3 (or K7 and K8 with
-    # fuse_directions) once in an encoder with a BiLSTM; the stride-1 block
-    # convs (ROUTED_CONVS) each run K9 and K10 (sepconv) or K11 (dw_wgrad)
-    # once
-    lstm, routed = int(encoder in LSTM_ENCODERS), ROUTED_CONVS[encoder]
+    # fuse_directions) once in an encoder with a BiLSTM and once more in the
+    # LSTM head; the stride-1 block convs (ROUTED_CONVS) each run K9 and K10
+    # (sepconv) or K11 (dw_wgrad) once
+    lstm, routed = int(encoder in LSTM_ENCODERS) + int(lstm_head), ROUTED_CONVS[encoder]
     per_step = {mel_from_extended: 1, lstm_recurrence: lstm * (not fuse_directions),
                 lstm_backward: lstm * (not fuse_directions),
                 lstm_recurrence_stacked: lstm * fuse_directions,
@@ -1893,8 +2294,8 @@ def phase_training(dev, conv_kernel=None, steps: int = TRAIN_STEPS, fuse_directi
         holder["state"], _ = step(holder["state"], batch, rng)
 
     device_ms, by_cat, top, passes = device_time(one_step, TRAIN_PROFILE_STEPS)
-    res = {"phase": name, "encoder": encoder, "batch": TRAIN_BATCH, "bucket_s": TRAIN_BUCKET_S,
-           "audio_s_per_batch": audio_s,
+    res = {"phase": name, "encoder": encoder, "lstm_head": lstm_head, "batch": TRAIN_BATCH,
+           "bucket_s": TRAIN_BUCKET_S, "audio_s_per_batch": audio_s,
            "steps": steps, "losses": losses, "launches": launches,
            "step_ms": {"median": median_ms, "min": 1e3 * min(steady), "max": 1e3 * max(steady),
                        "mean": 1e3 * steady_s / len(steady), "first": 1e3 * times[0],
@@ -1933,6 +2334,24 @@ def _step_errors(card, cpu, skip=()):
     return errs, max(grads, key=grads.get)
 
 
+def parity_step(init: dict, where, batch: dict, frontend: MelFrontendConfig,
+                from_features: bool, **build) -> tuple:
+    """One float32 step (no augmentation) of ``build_model(**build)`` from
+    the state dict ``init`` on ``where``: (the parameters before and after,
+    the captured gradients, the metrics), on the CPU."""
+    model = build_model(len(LABELS) + 1, mask=True, **build)
+    model.load_state_dict(init)
+    model.to(where)
+    opt = _capture(novograd(1e-2, betas=(0.8, 0.5), weight_decay=1e-3, fused=True))
+    step = make_train_step(model, opt, BLANK, frontend, augment=None, from_features=from_features)
+    state = create_train_state(model, opt)
+    new, metrics = step(state, {k: v.to(where) for k, v in batch.items()})
+    return ({k: v.cpu() for k, v in state.params.items()},
+            {k: v.cpu() for k, v in new.params.items()},
+            {k: v.cpu() for k, v in new.opt_state[0].items()},
+            {k: v.cpu() if torch.is_tensor(v) else v for k, v in metrics.items()})
+
+
 def phase_train_parity(dev, conv_kernel=None, fuse_directions: bool = False,
                        encoder: str = DEFAULT_ENCODER) -> dict:
     """One float32 step from one state and one batch, on the card and on
@@ -1966,18 +2385,8 @@ def phase_train_parity(dev, conv_kernel=None, fuse_directions: bool = False,
         batch = {**waves, "waves": feats, "wave_lens": feat_lens}
 
     def one_step(where, batch, from_features=from_features):
-        model = build_model(len(LABELS) + 1, encoder, mask=True,
-                            conv_kernel=conv_kernel, fuse_directions=fuse_directions)
-        model.load_state_dict(init)
-        model.to(where)
-        opt = _capture(novograd(1e-2, betas=(0.8, 0.5), weight_decay=1e-3, fused=True))
-        step = make_train_step(model, opt, BLANK, frontend, augment=None, from_features=from_features)
-        state = create_train_state(model, opt)
-        new, metrics = step(state, {k: v.to(where) for k, v in batch.items()})
-        return ({k: v.cpu() for k, v in state.params.items()},
-                {k: v.cpu() for k, v in new.params.items()},
-                {k: v.cpu() for k, v in new.opt_state[0].items()},
-                {k: v.cpu() if torch.is_tensor(v) else v for k, v in metrics.items()})
+        return parity_step(init, where, batch, frontend, from_features, encoder=encoder,
+                           conv_kernel=conv_kernel, fuse_directions=fuse_directions)
 
     skip = ZERO_GRAD_BIASES.get(encoder, ())
     cpu = one_step("cpu", batch)
@@ -3073,6 +3482,7 @@ def main() -> int:
     trainer = phase_trainer(dev)
     ssl = phase_ssl(dev)
     dp = phase_data_parallel(dev, card)
+    h128, head_launches = phase_lstm_head_and_data(dev, info["ptxas"], k2["digests"])
     # launches on the main paths: the serving bursts of every encoder, the
     # decoding phase's forwards, the training steps of every configuration,
     # the trainer's runs, the SSL phase's steps, runs and served forwards,
@@ -3083,6 +3493,8 @@ def main() -> int:
              for key in ("mel", "lstm", "extend", "sepconv_forward")}
     trainings += encoder_trainings
     train = {name: sum(t["launches"][name] for t in trainings) for name in trainings[0]["launches"]}
+    for name, n in head_launches.items():
+        train[name] += n
     k1["launches"] = serve["mel"] + train["mel_from_extended"] + ssl["mel_from_extended"]
     k2["launches"] = serve["lstm"] + train["lstm_recurrence"] + ssl["lstm_recurrence"]
     k3["launches"] = train["lstm_backward"] + ssl["lstm_backward"]
@@ -3098,9 +3510,14 @@ def main() -> int:
     check(all(r["launches"] > 0 for r in rows), "a kernel of the main paths was never launched")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
+    # the LSTM kernels at the head's H=128: their launches on the head's
+    # paths, their error, times, bound and cuDNN's at the training shape
+    for row, key in ((k2, "K2"), (k3, "K3"), (k7, "K7"), (k8, "K8")):
+        row["h128"] = {k: h128[key][k] for k in keys if k in h128[key]}
     print(json.dumps({"phase": "profiler", "missing_share": PROFILER_MISSING_SHARE,
                       "calls": PROFILER_LOG}), flush=True)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}), flush=True)
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + ("h128",) if k in r} for r in rows]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -7,15 +7,18 @@ tested against; this package imports neither it nor JAX.
 Layering (bottom → top):
   csrc/      hand-written CUDA C++ kernels for Hopper (sm_90a)
   ops/       mel frontend (+ fused log-mel and extension kernels), LSTM
-             recurrence and its backward, also batch-stacked (+ kernels),
-             CTC loss (+ alpha / beta kernels), separable and depthwise
-             convs (+ kernels), wave crop and SpecAugment
-  data/      vocabulary, WAV decode, manifests, bucketed batches, datamodule
+             recurrence and its backward, also batch-stacked, at hidden 40
+             and 128 (+ kernels), CTC loss (+ alpha / beta kernels),
+             separable and depthwise convs (+ kernels), crops, SpecAugment
+             and the other augmentations, length masks
+  data/      vocabulary, WAV decode (the native threaded loader), manifests,
+             bucketed batches, the RAM and mmap wave caches, datamodule
              (with the SSL pseudo-label pool)
-  models/    the four QuartzNet encoders + CTC head (nn.Modules, eval and
-             train), the SSL feature mapping, the dual-stream model
-  optim/     NovoGrad (also with a runtime lr), cosine warmup restarts,
-             ReduceLROnPlateau, gradient clipping
+  models/    the four QuartzNet encoders + CTC head or LSTM head
+             (nn.Modules, eval and train), the SSL feature mapping, the
+             dual-stream model, activations, parameter and FLOP counts
+  optim/     NovoGrad (also with a runtime lr), cosine warmup restarts and
+             the LR-policy zoo, ReduceLROnPlateau, gradient clipping
   metrics/   WER / CER
   decoding/  greedy CTC collapse on the device, LM-free prefix beam search
              as batched tensor ops, the native LM beam search with hot words
@@ -29,7 +32,8 @@ Layering (bottom → top):
   utils/     device selection, config (own YAML reader), logging, the
              flax <-> torch weight and optimizer-state bridge
   native.py  the repository's C++ decoder, Levenshtein distance and WAV
-             parser (native/ctc_decoder), built by g++ at first use
+             parser and loader (native/ctc_decoder), built by g++ at first
+             use
   inference/ AsrTranslator (long audio, manifest evaluation), streaming,
              HTTP server
   train.py   the training CLI (python -m lightning_asr_torch.train)

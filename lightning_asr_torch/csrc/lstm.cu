@@ -33,6 +33,13 @@
 // copies timed, after h's shared store was the fastest (PERF.md).  The loop
 // is unrolled by the ring.  The pad frames are filled after the walk, so no row's first step
 // waits for them.
+//
+// Instantiated at H = 40 (the context BiLSTM) and H = 128 (the LSTM head,
+// models/quartznet.py lstm_head).  At H = 128 a block is 512 threads, so a
+// thread may hold at most 128 registers and its 128 weights do not all fit:
+// ptxas spills the rest to local memory, which each step reads back through
+// L1 (chip_smoke.py prints the registers and spills).  Keeping W_hh on chip
+// at that width needs W_hh split across the blocks of a cluster.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -157,6 +164,8 @@ extern "C" int lasr_lstm_fwd(const float* xproj, const int* lengths,
   switch (H) {
     case 40:
       return (int)launch_fwd<40>(copy_width, grid, stream, xproj, lengths, w_hh, out, c_out, T, D);
+    case 128:
+      return (int)launch_fwd<128>(copy_width, grid, stream, xproj, lengths, w_hh, out, c_out, T, D);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -167,8 +176,9 @@ extern "C" int lasr_lstm_fwd(const float* xproj, const int* lengths,
 // ops/lstm_kernels.py::forward_smem_bytes.
 extern "C" int lasr_lstm_fwd_smem(int H, int device) {
   cudaFuncAttributes attr;
-  if (H != 40 || cudaSetDevice(device) != cudaSuccess ||
-      cudaFuncGetAttributes(&attr, lstm_fwd_kernel<40, 4>) != cudaSuccess)
+  if ((H != 40 && H != 128) || cudaSetDevice(device) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, H == 40 ? lstm_fwd_kernel<40, 4> : lstm_fwd_kernel<128, 4>) !=
+          cudaSuccess)
     return -1;
   return (int)attr.sharedSizeBytes;
 }

@@ -53,6 +53,8 @@
 // factor F into d_xproj and A and f into the scratch cfac (T, 2B, 2H)
 // (lstm_util.cuh store_factors).  It writes exact zeros into d_xproj at
 // the invalid steps, so the walk never zeroes.
+// Its shape is K3's (lstm_util.cuh GatesShape<H>: at H = 128 W_hh is
+// staged 16 rows at a time).
 //
 // lstm_stacked_bwd_walk_kernel, one block per stacked row, 4H threads.  It
 // is K3's walk with one difference: step s's F, A, f, h_prev and grad_h
@@ -68,6 +70,10 @@
 // order, one barrier a step.  Invalid steps are never stepped: the carries
 // pass through them untouched.  dW_hh leaves as per-row partials (2B, 4H,
 // H), which the wrapper sums over each direction's B rows in a fixed order.
+//
+// Both are instantiated at H = 40 and H = 128 (the LSTM head); at H = 128
+// K7's weights and K8's W_hh columns and dW_hh partials spill from the
+// registers to local memory, as K2's and K3's do (lstm.cu, lstm_bwd.cu).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -78,8 +84,6 @@
 namespace {
 
 constexpr int RING = lasr::LSTM_RING;   // slots of the walk's ring (ops/lstm_kernels.py BACKWARD_RING)
-constexpr int CH = lasr::LSTM_CH;       // steps of a gates block
-constexpr int FT = lasr::LSTM_FT;       // steps of a gates thread
 constexpr unsigned FULL = lasr::LSTM_FULL;
 constexpr int LIST_ROWS = 4;            // rows of a steps block, one warp each
 constexpr int LIST_CHUNKS = 8;          // chunks of 32 steps whose flags a warp loads at once
@@ -225,7 +229,7 @@ lstm_stacked_fwd_kernel(const int* __restrict__ steps,     // (2B, T): valid ste
 }
 
 template <int H>
-__global__ void __launch_bounds__(H * CH / FT)
+__global__ void __launch_bounds__(lasr::GatesShape<H>::NT)
 lstm_stacked_bwd_gates_kernel(const float* __restrict__ xproj,   // (T, 2B, 4H)
                               const float* __restrict__ valid,   // (T, 2B)
                               const float* __restrict__ w_hh_f,  // (4H, H)
@@ -235,10 +239,11 @@ lstm_stacked_bwd_gates_kernel(const float* __restrict__ xproj,   // (T, 2B, 4H)
                               float* __restrict__ d_xproj,       // (T, 2B, 4H): F, 0 if invalid
                               float* __restrict__ cfac,          // (T, 2B, 2H): A, f
                               int T, int B) {
+  using S = lasr::GatesShape<H>;
+  constexpr int CH = S::CH, FT = S::FT, JC = S::JC, NT = S::NT;
   constexpr int G = 4 * H;
-  constexpr int NT = H * CH / FT;                   // threads
   constexpr int WP = G + 1, HP = CH + 1;            // pitches: the fills' stores miss no bank
-  __shared__ float ws[H * WP];                      // ws[j][g] = W_hh[g][j]
+  __shared__ float ws[JC * WP];                     // ws[j][g] = W_hh[g][j0 + j]
   __shared__ float hs[H * HP];                      // hs[j][f] = h_prev of step t_lo + f
   const int row = blockIdx.y;
   const int B2 = 2 * B;
@@ -265,10 +270,14 @@ lstm_stacked_bwd_gates_kernel(const float* __restrict__ xproj,   // (T, 2B, 4H)
     return;
   }
 
-  // W_hh and h_prev, transposed, by cp.async (all in flight at once)
+  // W_hh's rows j0 .. j0 + JC - 1 and h_prev, transposed, by cp.async (all
+  // in flight at once)
   const float* w = row < B ? w_hh_f : w_hh_b;
-  for (int i = threadIdx.x; i < G * H; i += NT)
-    lasr::cp_async4_zfill(&ws[i % H * WP + i / H], w + i, true);
+  auto stage_w = [&](int j0) {
+    for (int i = threadIdx.x; i < G * JC; i += NT)
+      lasr::cp_async4_zfill(&ws[i % JC * WP + i / JC], w + (size_t)(i / JC) * H + j0 + i % JC, true);
+  };
+  stage_w(0);
   for (int i = threadIdx.x; i < CH * H; i += NT) {
     const int f = i / H;
     const bool in = f < n;
@@ -285,12 +294,24 @@ lstm_stacked_bwd_gates_kernel(const float* __restrict__ xproj,   // (T, 2B, 4H)
     for (int q = 0; q < 4; ++q) x[i][q] = xproj[o * G + q * H + k];
     cp[i] = c_prev[o * H + k];
   }
-  lasr::cp_async_wait<0>();
-  __syncthreads();
-  if (f0 >= n) return;
-
+  // one pass over W_hh where it fits (JC == H), else JC rows a pass; the
+  // threads past the block's steps sum zeros, for the barriers
+  float a[FT][4][4] = {};
+  for (int j0 = 0; j0 < H; j0 += JC) {
+    if (j0 > 0) {
+      __syncthreads();                              // every thread is done with the last rows
+      stage_w(j0);
+      lasr::cp_async_commit();
+    }
+    lasr::cp_async_wait<0>();
+    __syncthreads();
+    if constexpr (JC == H) {
+      if (f0 >= n) return;
+    }
+    lasr::gate_dots_part<H, JC, FT, WP, HP>(ws, hs + j0 * HP, k, f0, a);
+  }
   float dot[FT][4];
-  lasr::gate_dots<H, FT, WP, HP>(ws, hs, k, f0, dot);
+  lasr::gate_dots<FT>(a, dot);
 #pragma unroll
   for (int i = 0; i < FT; ++i) {
     if (f0 + i >= n) break;
@@ -488,7 +509,8 @@ cudaError_t launch_bwd(int V, int T, int B, cudaStream_t stream, const float* xp
   const int B2 = 2 * B;
   lstm_stacked_steps_kernel<<<(B2 + LIST_ROWS - 1) / LIST_ROWS, 32 * LIST_ROWS, 0, stream>>>(
       valid, steps, counts, T, B2);
-  lstm_stacked_bwd_gates_kernel<H><<<dim3((T + CH - 1) / CH, B2), H * CH / FT, 0, stream>>>(
+  using S = lasr::GatesShape<H>;
+  lstm_stacked_bwd_gates_kernel<H><<<dim3((T + S::CH - 1) / S::CH, B2), S::NT, 0, stream>>>(
       xproj, valid, w_hh_f, w_hh_b, h_prev, c_prev, d_xproj, cfac, T, B);
   if (V == 4) {
     lstm_stacked_bwd_walk_kernel<H, 4><<<B2, 4 * H, 0, stream>>>(
@@ -520,6 +542,9 @@ extern "C" int lasr_lstm_stacked_fwd(const float* xproj, const float* valid,
     case 40:
       return (int)launch_fwd<40>(copy_width, T, B, stream, xproj, valid, w_hh_f, w_hh_b, h_out,
                                  hprev_out, cprev_out, steps, counts);
+    case 128:
+      return (int)launch_fwd<128>(copy_width, T, B, stream, xproj, valid, w_hh_f, w_hh_b, h_out,
+                                  hprev_out, cprev_out, steps, counts);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -537,6 +562,9 @@ extern "C" int lasr_lstm_stacked_bwd(const float* xproj, const float* valid,
     case 40:
       return (int)launch_bwd<40>(copy_width, T, B, stream, xproj, valid, w_hh_f, w_hh_b, h_prev,
                                  c_prev, grad_h, d_xproj, dw_part, cfac, steps, counts);
+    case 128:
+      return (int)launch_bwd<128>(copy_width, T, B, stream, xproj, valid, w_hh_f, w_hh_b, h_prev,
+                                  c_prev, grad_h, d_xproj, dw_part, cfac, steps, counts);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -555,9 +583,13 @@ int static_smem(Kernel kernel, int device) {
 }
 
 extern "C" int lasr_lstm_stacked_fwd_smem(int H, int device) {
-  return H == 40 ? static_smem(lstm_stacked_fwd_kernel<40, 4>, device) : -1;
+  return H == 40    ? static_smem(lstm_stacked_fwd_kernel<40, 4>, device)
+         : H == 128 ? static_smem(lstm_stacked_fwd_kernel<128, 4>, device)
+                    : -1;
 }
 
 extern "C" int lasr_lstm_stacked_bwd_smem(int H, int device) {
-  return H == 40 ? static_smem(lstm_stacked_bwd_walk_kernel<40, 4>, device) : -1;
+  return H == 40    ? static_smem(lstm_stacked_bwd_walk_kernel<40, 4>, device)
+         : H == 128 ? static_smem(lstm_stacked_bwd_walk_kernel<128, 4>, device)
+                    : -1;
 }

@@ -24,6 +24,10 @@
 // o: tanh(c) o (1 - o)) into d_xproj, which the walk overwrites with the
 // gate gradients, and A = o (1 - tanh(c)^2) and f into the scratch `cfac`
 // (B, T, D, 2H).
+// Its shape is lstm_util.cuh GatesShape<H>: at H = 40 all of W_hh sits in
+// shared memory at once; at H = 128 (the LSTM head) W_hh is 256 KB, so a
+// block of 16 frames stages 16 of its rows at a time, in order, and the
+// chains run on across the passes (the same sums, the same bits as K2's).
 //
 // lstm_bwd_kernel, the walk.  One block per (row b, direction d) walks the
 // row's valid frames in the reverse of the forward walk (direction 0
@@ -47,6 +51,10 @@
 // and their d_xproj is written as exact zeros.  dW_hh leaves as per-(row,
 // direction) partials (B, D, 4H, H), which the wrapper sums over B in a
 // fixed order.
+//
+// At H = 128 the walk's W_hh columns (128 registers) and dW_hh partials
+// (128) exceed a 512-thread block's 128 registers a thread: ptxas spills
+// them to local memory (chip_smoke.py prints the spills).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -58,14 +66,12 @@
 namespace {
 
 constexpr int RING = lasr::LSTM_RING;   // slots of the ring (ops/lstm_kernels.py BACKWARD_RING)
-constexpr int CH = lasr::LSTM_CH;       // frames of a gates block
-constexpr int FT = lasr::LSTM_FT;       // frames of a gates thread
 constexpr unsigned FULL = lasr::LSTM_FULL;
 using lasr::cell_backward;
 using lasr::dh_prev;
 
 template <int H>
-__global__ void __launch_bounds__(H * CH / FT)
+__global__ void __launch_bounds__(lasr::GatesShape<H>::NT)
 lstm_bwd_gates_kernel(const float* __restrict__ xproj,   // (B, T, D, 4H)
                       const int* __restrict__ lengths,   // (B,)
                       const float* __restrict__ w_hh,    // (D, 4H, H)
@@ -74,10 +80,11 @@ lstm_bwd_gates_kernel(const float* __restrict__ xproj,   // (B, T, D, 4H)
                       float* __restrict__ fac,           // (B, T, D, 4H): F
                       float* __restrict__ cfac,          // (B, T, D, 2H): A, f
                       int T, int D) {
+  using S = lasr::GatesShape<H>;
+  constexpr int CH = S::CH, FT = S::FT, JC = S::JC, NT = S::NT;
   constexpr int G = 4 * H;
-  constexpr int NT = H * CH / FT;                   // threads
   constexpr int WP = G + 1, HP = CH + 1;            // pitches: the fills' stores miss no bank
-  __shared__ float ws[H * WP];                      // ws[j][g] = W_hh[g][j]
+  __shared__ float ws[JC * WP];                     // ws[j][g] = W_hh[g][j0 + j]
   __shared__ float hs[H * HP];                      // hs[j][f] = h_prev of frame t_lo + f
   const int b = blockIdx.y;
   const int d = blockIdx.z;
@@ -89,11 +96,14 @@ lstm_bwd_gates_kernel(const float* __restrict__ xproj,   // (B, T, D, 4H)
   const int n = min(CH, len - t_lo);
   const int dir = d ? 1 : -1;                       // the forward walk's previous frame: t + dir
 
-  // W_hh and h_prev, transposed, by cp.async (all in flight at once; zeros
-  // where there is no previous frame)
+  // W_hh's rows j0 .. j0 + JC - 1 and h_prev, transposed, by cp.async (all
+  // in flight at once; zeros where there is no previous frame)
   const float* w = w_hh + (size_t)d * G * H;
-  for (int i = threadIdx.x; i < G * H; i += NT)
-    lasr::cp_async4_zfill(&ws[i % H * WP + i / H], w + i, true);
+  auto stage_w = [&](int j0) {
+    for (int i = threadIdx.x; i < G * JC; i += NT)
+      lasr::cp_async4_zfill(&ws[i % JC * WP + i / JC], w + (size_t)(i / JC) * H + j0 + i % JC, true);
+  };
+  stage_w(0);
   for (int i = threadIdx.x; i < CH * H; i += NT) {
     const int f = i / H, tp = t_lo + f + dir;
     const bool valid = f < n && tp >= 0 && tp < len;
@@ -111,12 +121,24 @@ lstm_bwd_gates_kernel(const float* __restrict__ xproj,   // (B, T, D, 4H)
       cp[i] = tp < 0 || tp >= len ? 0.f : c[(((size_t)b * T + tp) * D + d) * H + k];
     }
   }
-  lasr::cp_async_wait<0>();
-  __syncthreads();
-  if (f0 >= n) return;
-
+  // one pass over W_hh where it fits (JC == H), else JC rows a pass; the
+  // threads past the block's frames sum zeros, for the barriers
+  float a[FT][4][4] = {};
+  for (int j0 = 0; j0 < H; j0 += JC) {
+    if (j0 > 0) {
+      __syncthreads();                              // every thread is done with the last rows
+      stage_w(j0);
+      lasr::cp_async_commit();
+    }
+    lasr::cp_async_wait<0>();
+    __syncthreads();
+    if constexpr (JC == H) {
+      if (f0 >= n) return;
+    }
+    lasr::gate_dots_part<H, JC, FT, WP, HP>(ws, hs + j0 * HP, k, f0, a);
+  }
   float dot[FT][4];
-  lasr::gate_dots<H, FT, WP, HP>(ws, hs, k, f0, dot);
+  lasr::gate_dots<FT>(a, dot);
 #pragma unroll
   for (int i = 0; i < FT; ++i) {
     if (f0 + i >= n) break;
@@ -280,7 +302,8 @@ cudaError_t launch(int V, int B, int T, int D, cudaStream_t stream, const float*
                    const int* lengths, const float* w_hh, const float* h, const float* c,
                    const float* grad_h, float* d_xproj, float* dw_part, float* cfac) {
   if (V != 4 && V != 1) return cudaErrorInvalidValue;
-  lstm_bwd_gates_kernel<H><<<dim3((T + CH - 1) / CH, B, D), H * CH / FT, 0, stream>>>(
+  using S = lasr::GatesShape<H>;
+  lstm_bwd_gates_kernel<H><<<dim3((T + S::CH - 1) / S::CH, B, D), S::NT, 0, stream>>>(
       xproj, lengths, w_hh, h, c, d_xproj, cfac, T, D);
   const dim3 grid(B, D);
   if (V == 4) {
@@ -310,6 +333,9 @@ extern "C" int lasr_lstm_bwd(const float* xproj, const int* lengths, const float
     case 40:
       return (int)launch<40>(copy_width, B, T, D, stream, xproj, lengths, w_hh, h, c, grad_h,
                              d_xproj, dw_part, cfac);
+    case 128:
+      return (int)launch<128>(copy_width, B, T, D, stream, xproj, lengths, w_hh, h, c, grad_h,
+                              d_xproj, dw_part, cfac);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -324,6 +350,9 @@ extern "C" int lasr_lstm_bwd_smem(int H, int device) {
   switch (H) {
     case 40:
       if (cudaFuncGetAttributes(&attr, lstm_bwd_kernel<40, 4>) != cudaSuccess) return -1;
+      return (int)attr.sharedSizeBytes;
+    case 128:
+      if (cudaFuncGetAttributes(&attr, lstm_bwd_kernel<128, 4>) != cudaSuccess) return -1;
       return (int)attr.sharedSizeBytes;
     default:
       return -1;

@@ -12,9 +12,23 @@
 namespace lasr {
 
 constexpr int LSTM_RING = 8;        // slots of a walk's ring (ops/lstm_kernels.py BACKWARD_RING)
-constexpr int LSTM_CH = 32;         // steps of a gates block
-constexpr int LSTM_FT = 4;          // steps of a gates thread
 constexpr unsigned LSTM_FULL = 0xffffffffu;
+
+// The gates pass of K3 and K8 at hidden size H: CH steps a block, FT steps
+// a thread (NT = H CH / FT threads), and JC rows of W_hh^T staged in shared
+// memory at a time.  At H = 40 the whole of W_hh fits (JC = H, one pass);
+// at H = 128 it is 256 KB, so 16 rows at a time, CH = 16: 41.5 KB of
+// static shared memory and 512 threads of at most 128 registers.
+template <int H>
+struct GatesShape;
+template <>
+struct GatesShape<40> {
+  static constexpr int CH = 32, FT = 4, JC = 40, NT = 40 * CH / FT;
+};
+template <>
+struct GatesShape<128> {
+  static constexpr int CH = 16, FT = 4, JC = 16, NT = 128 * CH / FT;
+};
 
 __device__ __forceinline__ float gate_act(float pre, bool tanh_gate) {
   return tanh_gate ? tanhf(pre) : 1.f / (1.f + expf(-pre));
@@ -53,17 +67,21 @@ __device__ __forceinline__ float cell_forward(float x, const float (&w)[H], cons
 }
 
 // A gates thread's part: the dots W_hh[qH + k, :] h_prev of unit k's four
-// gates q at steps f0 .. f0 + FT - 1 of its block, from W_hh (ws[j * WP +
-// g] = W_hh[g][j]) and h_prev (hs[j * HP + f]) in shared memory, each in
-// dot_h's order, so that x + dot is bit-equal to the forward's
-// pre-activation; each product of a weight and an h value it reads is used
-// FT or 4 times.
-template <int H, int FT, int WP, int HP>
-__device__ __forceinline__ void gate_dots(const float* ws, const float* hs, int k, int f0,
-                                          float (&dot)[FT][4]) {
-  float a[FT][4][4] = {};
+// gates q at steps f0 .. f0 + FT - 1 of its block, from W_hh^T and h_prev
+// in shared memory, each in dot_h's order, so that x + dot is bit-equal to
+// the forward's pre-activation; each product of a weight and an h value it
+// reads is used FT or 4 times.
+//
+// gate_dots_part takes JC consecutive rows j0 + j of W_hh^T (ws[j * WP +
+// g] = W_hh[g][j0 + j]) and of h_prev (hs[j * HP + f]) into the four chains
+// a[i][q][(j0 + j) % 4] (JC % 4 == 0, j0 a multiple of JC), so that passes
+// over all of H in order sum in dot_h's order; gate_dots sums the chains.
+template <int H, int JC, int FT, int WP, int HP>
+__device__ __forceinline__ void gate_dots_part(const float* ws, const float* hs, int k, int f0,
+                                               float (&a)[FT][4][4]) {
+  static_assert(JC % 4 == 0, "a pass keeps the chains' j mod 4");
 #pragma unroll
-  for (int j = 0; j < H; ++j) {
+  for (int j = 0; j < JC; ++j) {
     float wv[4], hv[FT];
 #pragma unroll
     for (int q = 0; q < 4; ++q) wv[q] = ws[j * WP + q * H + k];
@@ -74,6 +92,10 @@ __device__ __forceinline__ void gate_dots(const float* ws, const float* hs, int 
 #pragma unroll
       for (int q = 0; q < 4; ++q) a[i][q][j % 4] = fmaf(wv[q], hv[i], a[i][q][j % 4]);
   }
+}
+
+template <int FT>
+__device__ __forceinline__ void gate_dots(const float (&a)[FT][4][4], float (&dot)[FT][4]) {
 #pragma unroll
   for (int i = 0; i < FT; ++i)
 #pragma unroll

@@ -3,15 +3,22 @@
 filters (train 16.7 s, dev 40 s) and train-time shuffle and crop.
 
 ``cache='ram'`` keeps every decoded waveform (int16) for the life of the
-module, so later epochs slice crops from RAM.  The SSL path's pseudo-label
+module, so later epochs slice crops from RAM.  ``cache='mmap'`` keeps them
+in the persistent packed cache (``wave_cache.MmapWaveCache``) at
+``cache_dir``, by default ``<train manifest dir>/_lasr_wave_cache``: a
+fresh process (a restart, a second job on the corpus) decodes nothing, and
+the corpus may outgrow RAM.  The port runs one process a card, where the
+JAX package runs one a host, and the cache admits one writer: in a
+data-parallel group of more than one rank each rank opens
+``<cache_dir>/rank<r>``; a world of 1 opens ``cache_dir`` itself, so a
+cache the JAX package built opens unchanged.  The SSL path's pseudo-label
 pool: ``pseudo_manifest`` lists unlabeled utterances (``unlabeled_entries``,
 cut at ``pseudo_max_duration``), ``pseudo_train_dataloader`` iterates them
 in order, and ``inject_pseudo_datasets`` sets the pseudo-labeled entries
 that train batches draw from beside the train set.  In a data-parallel
 process group every loader gives this rank's rows of the global batches
 (``_shard_info``; train batches laid out for ``micro_batches``, which the
-trainer sets from ``accumulate_grad_batches``).  Not ported:
-``cache='mmap'`` (the persistent packed cache).
+trainer sets from ``accumulate_grad_batches``).
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from .audio import duration_seconds
 from .manifest import ManifestEntry, read_manifests
 from .pipeline import BucketBatcher
 from .vocab import Vocabulary
+from .wave_cache import MmapWaveCache
 
 
 def _as_list(manifest) -> list:
@@ -56,11 +64,8 @@ class AsrDataModule:
         cache_dir=None,
         wire: str = "int16",
     ):
-        if cache == "mmap":
-            raise NotImplementedError("cache='mmap' (the persistent packed cache) is not ported yet")
-        if cache not in (None, "ram"):
-            raise ValueError(f"cache must be None or 'ram', got {cache!r}")
-        del cache_dir                        # only the mmap cache reads it
+        if cache not in (None, "ram", "mmap"):
+            raise ValueError(f"cache must be None, 'ram' or 'mmap', got {cache!r}")
         self.vocab = Vocabulary.from_config(labels)
         self.train_manifest = _as_list(train_manifest)
         self.dev_manifest = _as_list(dev_manifest)
@@ -80,7 +85,16 @@ class AsrDataModule:
         self.pseudo_max_duration = pseudo_max_duration
         self.unlabeled_entries: List[ManifestEntry] = []
         self.pseudo_entries: List[ManifestEntry] = []
-        self._wave_cache = {} if cache == "ram" else None
+        if cache == "mmap":
+            if cache_dir is None:
+                base = Path(self.train_manifest[0]).parent if self.train_manifest else Path(".")
+                cache_dir = base / "_lasr_wave_cache"
+            rank, world = self._shard_info()
+            self.cache_dir = Path(cache_dir) / f"rank{rank}" if world > 1 else Path(cache_dir)
+            self._wave_cache = MmapWaveCache(self.cache_dir)
+        else:
+            self.cache_dir = None
+            self._wave_cache = {} if cache == "ram" else None
         self.micro_batches = 1
         self._setup_done = False
 

@@ -14,7 +14,7 @@ padding to a multiple of 32 and wire encoding.
   * the wire to the device is int16 PCM (exact for 16-bit WAVs), 8-bit
     mu-law (G.711 companding, lossy, code 128 = silence) or float32;
   * ``cache='ram'`` decodes every file once, as int16, and slices crops
-    from RAM on later epochs;
+    from RAM on later epochs (``cache='mmap'``: from the packed file);
   * ``prefetch`` runs the assembly, and whatever the caller adds to it (the
     trainer's host-to-device copies), in a background thread;
   * data parallelism (``shard_rank`` / ``shard_count`` / ``pad_to``): every
@@ -26,9 +26,14 @@ padding to a multiple of 32 and wire encoding.
     ``micro_batches``) with rows of ``wave_lens`` 160 and ``target_lens`` 0;
     ``Batch.global_size`` and ``Batch.valid_size`` say which rows are data.
 
-Audio is decoded by the port's own ``data/audio.py::read_audio``.  Not
-ported: the JAX package's native threaded WAV loader and the memory-mapped
-cache (``wave_cache.py``).
+Audio is decoded by the native threaded WAV loader
+(``native.load_wav_batch``, C++ outside the interpreter lock, so decoding
+overlaps the device under ``prefetch``) as the JAX package decodes it: int16
+for the int16 and mu-law wires, float32 for the float32 wire.  Where the
+library is missing or refuses a file, the port's ``data/audio.py::
+read_audio`` decodes the chunk (``BucketBatcher.audio_reads`` counts its
+files).  ``wave_cache`` may be the RAM dict or ``wave_cache.MmapWaveCache``
+(``cache='mmap'``).
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from .. import native
 from ..parallel.mesh import local_rows
 from .audio import read_audio
 from .manifest import ManifestEntry
@@ -104,8 +110,13 @@ def mulaw_encode(waves_i16: np.ndarray) -> np.ndarray:
     return _mulaw_lut()[waves_i16.astype(np.int32) + 32768]
 
 
+_READS_LOCK = threading.Lock()
+
+
 class BucketBatcher:
     """Iterable over static-shape batches from a manifest entry list."""
+
+    audio_reads = 0                  # files decoded by read_audio, in every batcher
 
     def __init__(
         self,
@@ -237,10 +248,29 @@ class BucketBatcher:
                      global_size=global_size, valid_size=valid)
 
     def _decode_chunk(self, bucket: int, chunk, paths):
-        """Decode and crop the chunk's audio (float32, or int16 from the
-        RAM cache)."""
+        """Decode and crop the chunk's audio: by the native threaded loader
+        (int16 for the int16 and mu-law wires, float32 for the float32
+        wire), or where it is missing or refuses a file, by ``read_audio``
+        (float32).  From the RAM or mmap cache when there is one."""
         if self.wave_cache is not None:
             return self._decode_chunk_cached(bucket, chunk, paths)
+        offsets = np.asarray([off for _, off, _ in chunk], np.int32)
+        req_lens = np.asarray([ln for _, _, ln in chunk], np.int32)
+        try:
+            waves, lens, prevs, srs = native.load_wav_batch(
+                paths, offsets, bucket, dtype="float32" if self.wire_dtype == "float32" else "int16")
+            if (lens < 0).any():
+                raise RuntimeError(f"native decode failed for {paths[int(np.argmax(lens < 0))]}")
+            self._check_rates(paths, srs)
+            wave_lens = np.minimum(lens, req_lens).astype(np.int32)
+            # zero past the crop with a zero of the waves' own type: a float
+            # zero would promote int16 waves to float64, which _assemble
+            # then rescales as if they were in [-1, 1)
+            t_idx = np.arange(bucket)[None, :]
+            waves = np.where(t_idx < wave_lens[:, None], waves, np.zeros((), waves.dtype))
+            return waves, wave_lens, prevs
+        except (ImportError, OSError, RuntimeError):
+            pass
         B = len(chunk)
         waves = np.zeros((B, bucket), np.float32)
         wave_lens = np.zeros(B, np.int32)
@@ -255,17 +285,47 @@ class BucketBatcher:
             prev_samples[i] = wave[off - 1] if off > 0 else 0.0
         return waves, wave_lens, prev_samples
 
+    def _check_rates(self, paths, srs: np.ndarray) -> None:
+        bad = srs != self.sample_rate
+        if bad.any():
+            i = int(np.argmax(bad))
+            raise ValueError(f"{paths[i]}: sample rate {int(srs[i])} != {self.sample_rate} "
+                             "(run the prep scripts to resample)")
+
     def _read(self, path: str) -> np.ndarray:
         samples, sr = read_audio(path, mono=True)
         if sr != self.sample_rate:
             raise ValueError(f"{path}: sample rate {sr} != {self.sample_rate} "
                              "(run the prep scripts to resample)")
+        with _READS_LOCK:
+            BucketBatcher.audio_reads += 1
         return samples[0]
 
     def _decode_chunk_cached(self, bucket: int, chunk, paths):
-        for p in paths:
-            if p not in self.wave_cache:
-                self.wave_cache[p] = _to_int16(self._read(p))
+        """The cache path: each file is decoded once, whole, as int16 (by the
+        native loader into a buffer a little longer than its manifest
+        duration; a buffer that comes back full may hide a longer file, so
+        that file is decoded again at its true length), and every epoch
+        slices its crops from the cache."""
+        missing = [i for i, p in enumerate(paths) if p not in self.wave_cache]
+        if missing:
+            m_paths = [paths[i] for i in missing]
+            full = [int(round(self.entries[chunk[i][0]].duration * self.sample_rate))
+                    for i in missing]
+            max_n = _round_up(max(full) + 16, 16)
+            try:
+                waves, lens, _, srs = native.load_wav_batch(
+                    m_paths, np.zeros(len(m_paths), np.int32), max_n, dtype="int16")
+                if (lens < 0).any():
+                    raise RuntimeError(f"native decode failed for "
+                                       f"{m_paths[int(np.argmax(lens < 0))]}")
+                self._check_rates(m_paths, srs)
+                for j, p in enumerate(m_paths):
+                    self.wave_cache[p] = (_to_int16(self._read(p)) if lens[j] >= max_n
+                                          else waves[j, : lens[j]].copy())
+            except (ImportError, OSError, RuntimeError):
+                for p in m_paths:
+                    self.wave_cache[p] = _to_int16(self._read(p))
         B = len(chunk)
         waves = np.zeros((B, bucket), np.int16)
         wave_lens = np.zeros(B, np.int32)
@@ -307,3 +367,11 @@ def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
                 raise err[0]
             return
         yield item
+
+
+def mulaw_decode_host(codes: np.ndarray) -> np.ndarray:
+    """Host reference of the device's mu-law expansion: float32, the
+    formula ``ops/frontend.py::expand_wire`` applies to uint8 waves."""
+    y = (codes.astype(np.float32) - np.float32(128.0)) * np.float32(1.0 / 127.0)
+    return np.sign(y) * (np.exp(np.abs(y) * np.float32(np.log(256.0)))
+                         - np.float32(1.0)) * np.float32(1.0 / 255.0)

@@ -17,12 +17,16 @@
 ``AsrModel`` adds the 1x1-conv decoder to (vocab+1) classes and
 log-softmax, both in float32; with ``feature_in`` (the SSL path) a float32
 ``Dense`` ``feature_mapping`` (feature_in -> in_c, with bias) runs before
-the encoder.  ``module.train()`` selects batch statistics
-and dropout; a dropout rate above 0 needs a ``torch.Generator`` passed to
-``forward``.
+the encoder.  With ``lstm_head`` (the reference's legacy ``MyModel`` head)
+the decoder is replaced by ``head_rnn``, a BiLSTM(1024 -> 2 x 128) over
+the true lengths (kernels K2 / K3, or K7 / K8 with ``fuse_directions``,
+at H = 128), ``head_bn``, a BatchNorm over its 256 channels, and
+``head_fc``, a ``Dense`` 256 -> (vocab+1) with bias, all in float32.
+``module.train()`` selects batch statistics and dropout; a dropout rate
+above 0 needs a ``torch.Generator`` passed to ``forward``.
 
 Module names follow the flax parameter tree, so ``utils/jax_params.py``
-maps one onto the other key by key.  The LSTM head is not ported yet.
+maps one onto the other key by key.
 """
 
 from __future__ import annotations
@@ -164,20 +168,33 @@ class AsrModel(nn.Module):
     def __init__(self, num_classes: int, encoder_name: str = "quartznet12_context",
                  in_c: int = 64, drop_rate: float = 0.0, mask: bool = False,
                  dtype: Optional[torch.dtype] = None, conv_kernel: Optional[str] = None,
-                 fuse_directions: bool = False, feature_in: Optional[int] = None):
+                 fuse_directions: bool = False, feature_in: Optional[int] = None,
+                 lstm_head: bool = False, lstm_head_hidden: int = 128):
         super().__init__()
         self.dtype = dtype                                          # conv compute type
         self.feature_mapping = None if feature_in is None else Dense(feature_in, in_c, bias=True)
         self.encoder = make_encoder(encoder_name, in_c, mask, drop_rate, dtype, conv_kernel,
                                     fuse_directions)
-        self.decoder = Conv(1024, num_classes, 1, bias=True)       # float32 head
+        self.lstm_head = lstm_head
+        if lstm_head:                                               # float32 head
+            self.head_rnn = BatchLSTM(1024, lstm_head_hidden, fuse_directions)
+            self.head_bn = MaskedBatchNorm(2 * lstm_head_hidden)
+            self.head_fc = Dense(2 * lstm_head_hidden, num_classes, bias=True)
+        else:
+            self.decoder = Conv(1024, num_classes, 1, bias=True)   # float32 head
 
     def forward(self, x: torch.Tensor, percents: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.feature_mapping is not None:
             x = self.feature_mapping(x)
-        return ctc_head(self.decoder, self.encoder(x.transpose(1, 2), percents, generator),
-                        percents)
+        x = self.encoder(x.transpose(1, 2), percents, generator)
+        if not self.lstm_head:
+            return ctc_head(self.decoder, x, percents)
+        x = x.float().transpose(1, 2)                               # (B, T', 1024)
+        x = self.head_rnn(x, _lengths_from_percents(x.shape[1], percents))
+        x = self.head_fc(self.head_bn(x.transpose(1, 2)).transpose(1, 2))
+        log_probs = F.log_softmax(x, dim=-1)
+        return log_probs, _lengths_from_percents(log_probs.shape[1], percents)
 
 
 def make_encoder(encoder_name: str, in_c: int, mask: bool, drop_rate: float,
@@ -202,7 +219,8 @@ def ctc_head(decoder: Conv, x: torch.Tensor, percents: torch.Tensor):
 def build_model(num_classes: int, encoder: str = "quartznet12_context", in_c: int = 64,
                 drop_rate: float = 0.0, mask: bool = False, feature_in: Optional[int] = None,
                 dtype: Optional[torch.dtype] = None, conv_kernel: Optional[str] = None,
-                fuse_directions: bool = False, lstm_head: bool = False) -> AsrModel:
+                fuse_directions: bool = False, lstm_head: bool = False,
+                lstm_head_hidden: int = 128) -> AsrModel:
     """``build_model`` of the JAX package.  ``conv_kernel`` (None,
     ``"sepconv"``, ``"dw_wgrad"``) stands for the JAX package's
     ``LASR_SEPCONV_PALLAS`` and ``LASR_DW_WGRAD_PALLAS`` switches
@@ -210,15 +228,14 @@ def build_model(num_classes: int, encoder: str = "quartznet12_context", in_c: in
     ``fuse_directions`` for ``LASR_LSTM_FUSED_BIDIR`` (the BiLSTM through K7
     / K8; the repeat-5 encoders have none); neither changes the parameters.
     ``feature_in`` maps SSL features (wav2vec2's 512) to ``in_c`` first.
-    ``lstm_head`` (a BiLSTM of hidden size 128, which the port's LSTM
-    kernels do not take) is not ported."""
+    ``lstm_head`` replaces the 1x1-conv decoder by the BiLSTM head of
+    hidden size ``lstm_head_hidden`` (the LSTM kernels are built for 40 and
+    128); as in the JAX package no CLI or config reaches it."""
     if encoder not in MODEL_REGISTRY:
         raise ValueError(f"unknown encoder {encoder!r}; choose from {sorted(MODEL_REGISTRY)}")
-    if lstm_head:
-        raise NotImplementedError("the LSTM head (lstm_head, hidden 128) is not ported yet")
     return AsrModel(num_classes, encoder, in_c=in_c, drop_rate=drop_rate, mask=mask, dtype=dtype,
                     conv_kernel=conv_kernel, fuse_directions=fuse_directions,
-                    feature_in=feature_in)
+                    feature_in=feature_in, lstm_head=lstm_head, lstm_head_hidden=lstm_head_hidden)
 
 
 def reset_parameters(model: nn.Module, generator: torch.Generator) -> None:

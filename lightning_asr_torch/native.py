@@ -2,8 +2,9 @@
 ctypes (the port's counterpart of ``lightning_asr_tpu/native/__init__.py``).
 
 ``native/ctc_decoder/ctc_beam_search.cpp`` holds the CTC prefix beam search
-with its ARPA n-gram scorer and hot words, a Levenshtein distance and a
-threaded WAV parser.  At first use it is compiled by the host's ``g++``
+with its ARPA n-gram scorer and hot words, a Levenshtein distance, and a
+threaded WAV parser for request bodies and for files (the data pipeline's
+loader, ``load_wav_batch``).  At first use it is compiled by the host's ``g++``
 (``-O3 -std=c++17 -shared -fPIC -pthread``) into
 ``build/torch_native/liblasr_native-<hash>.so`` under the repository root;
 the hash covers the source and the flags, so an edited source is rebuilt
@@ -37,6 +38,7 @@ _LIB: Optional[ctypes.CDLL] = None
 
 _i32p = ctypes.POINTER(ctypes.c_int)
 _f32p = ctypes.POINTER(ctypes.c_float)
+_i16p = ctypes.POINTER(ctypes.c_int16)
 # (name, restype, argtypes) of every entry point the port calls
 _SIGNATURES = (
     ("lasr_lm_load", ctypes.c_void_p, [ctypes.c_char_p]),
@@ -54,6 +56,12 @@ _SIGNATURES = (
     ("lasr_parse_wav_batch_mem", None,
      [ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_long), ctypes.c_int, _f32p,
       ctypes.c_int, ctypes.c_int, _i32p, _i32p]),
+    ("lasr_load_wav_batch", None,
+     [ctypes.POINTER(ctypes.c_char_p), _i32p, ctypes.c_int, _f32p, ctypes.c_int, ctypes.c_int,
+      _i32p, _f32p, _i32p]),
+    ("lasr_load_wav_batch_i16", None,
+     [ctypes.POINTER(ctypes.c_char_p), _i32p, ctypes.c_int, _i16p, ctypes.c_int, ctypes.c_int,
+      _i32p, _f32p, _i32p]),
 )
 
 
@@ -137,3 +145,43 @@ def parse_wav_batch_mem(buffers: Sequence[bytes], max_samples: int, num_threads:
         out.ctypes.data_as(_f32p), max_samples, num_threads,
         lens.ctypes.data_as(_i32p), srs.ctypes.data_as(_i32p))
     return out, lens, srs
+
+
+def load_wav_batch(paths: Sequence[str], offsets=None, max_samples: int = 0,
+                   num_threads: int = 4, dtype: str = "float32"):
+    """Decode WAV files into a padded ``(B, max_samples)`` array over the
+    library's thread pool, without the interpreter lock: row i holds file
+    i's mono samples from ``offsets[i]`` (0 without offsets), at most
+    ``max_samples`` of them, zeros after.
+
+    ``dtype="int16"`` keeps the PCM16 samples (a mono PCM16 file is a plain
+    copy; others are mixed, scaled by 32768 and rounded), ``"float32"``
+    scales them by 1/32768.  Returns ``(waves, lens, prev_samples,
+    sample_rates)``: the samples each row got (-1 where the file could not
+    be read or parsed), the float sample before each offset (0 at offset 0)
+    and each file's rate.  Each call adds B to ``load_wav_batch.rows``."""
+    if dtype not in ("int16", "float32"):
+        raise ValueError(f"dtype must be 'int16' or 'float32', got {dtype!r}")
+    lib = get_lib()
+    B = len(paths)
+    lens = np.zeros(B, np.int32)
+    prevs = np.zeros(B, np.float32)
+    srs = np.zeros(B, np.int32)
+    offs = np.ascontiguousarray(np.zeros(B) if offsets is None else offsets, dtype=np.int32)
+    c_paths = (ctypes.c_char_p * B)(*[str(p).encode() for p in paths])
+    tail = (max_samples, num_threads, lens.ctypes.data_as(_i32p), prevs.ctypes.data_as(_f32p),
+            srs.ctypes.data_as(_i32p))
+    if dtype == "int16":
+        out = np.zeros((B, max_samples), np.int16)
+        lib.lasr_load_wav_batch_i16(c_paths, offs.ctypes.data_as(_i32p), B,
+                                    out.ctypes.data_as(_i16p), *tail)
+    else:
+        out = np.zeros((B, max_samples), np.float32)
+        lib.lasr_load_wav_batch(c_paths, offs.ctypes.data_as(_i32p), B,
+                                out.ctypes.data_as(_f32p), *tail)
+    with _LOCK:
+        load_wav_batch.rows += B
+    return out, lens, prevs, srs
+
+
+load_wav_batch.rows = 0                      # files decoded, over every call

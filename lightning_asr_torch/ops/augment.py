@@ -1,5 +1,11 @@
 """Training-time augmentation (port of ``lightning_asr_tpu/ops/augment.py``:
-``wave_crop``, ``spec_augment`` and ``cutout``).
+``sub_sequence_crop``, ``wave_crop``, ``spec_augment``, ``cutout`` and
+``sample_aug``).
+
+  * ``sub_sequence_crop``: the reference's crop window on the host, from a
+    ``np.random.Generator`` (the same draws as the JAX package's, so the
+    same window): ``target = int(len · U(w, 1))``, ``offset = int(U(0, len -
+    target))``; returns (offset, max(target - offset, 1)).
 
   * ``wave_crop``: the reference's random waveform crop (``sub_secquence``)
     on the device, for ``device_cache`` training, whose cached batches hold
@@ -14,6 +20,8 @@
     from ``U(0, extent - width)``.  Masked cells are set to 0 dB before
     normalization, like the reference.
   * ``cutout``: ``rect_masks`` random rectangles per sample.
+  * ``sample_aug``: random dropout of mel cells: with p = U(0, prob), a
+    cell is kept where ``round(U · 0.5 / (1 - p)) < 0.5``.
 
 Random draws come from a ``torch.Generator`` (in a data-parallel step,
 this rank's rows of the global batch's draw: ``parallel/mesh.py::draw``),
@@ -33,10 +41,21 @@ from __future__ import annotations
 
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..parallel.mesh import draw
 from .frontend import expand_wire
+
+
+def sub_sequence_crop(length: int, rng: np.random.Generator,
+                      weight: float = 0.98) -> Tuple[int, int]:
+    """The reference's crop window of a ``length``-sample wave: (offset,
+    new_length), the slice ``wave[offset: offset + new_length]`` (the
+    reference slices ``x[location:target_length]``)."""
+    target_length = int(length * rng.uniform(weight, 1.0))
+    location = int(rng.uniform(0, length - target_length))
+    return location, max(target_length - location, 1)
 
 
 def _band_mask(size: int, start: torch.Tensor, width: torch.Tensor) -> torch.Tensor:
@@ -137,3 +156,23 @@ def cutout(feats: torch.Tensor, generator: Optional[torch.Generator] = None,
         tmask = _band_mask(T, x_t, w_t)[:, :, None]
         out = out * (~(fmask & tmask)).to(out.dtype)
     return out
+
+
+def sample_aug(feats: torch.Tensor, generator: Optional[torch.Generator] = None,
+               prob: float = 0.4, uniforms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+               ) -> torch.Tensor:
+    """Random dropout of mel cells.  ``uniforms`` = (u_p (), u (feats'
+    shape)) in [0, 1): the JAX package's draws, p = u_p · prob; without them
+    both come from ``generator``."""
+    if uniforms is None:
+        if generator is None:
+            raise ValueError("sample_aug needs a torch.Generator or explicit uniforms")
+        u_p = torch.rand((), generator=generator, device=feats.device)   # one p for the batch
+        u = draw(tuple(feats.shape), generator, feats.device)
+    else:
+        u_p, u = (torch.as_tensor(a, dtype=torch.float32, device=feats.device) for a in uniforms)
+        if tuple(u.shape) != tuple(feats.shape) or u_p.dim() != 0:
+            raise ValueError(f"uniforms must be a scalar and {tuple(feats.shape)}")
+    p = u_p * prob
+    mask = torch.round(u * (0.5 / (1.0 - p)))
+    return feats * (mask < 0.5).to(feats.dtype)

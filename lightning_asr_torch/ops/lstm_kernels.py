@@ -65,7 +65,7 @@ import threading
 import torch
 
 _LOCK = threading.Lock()
-_KERNEL_HIDDEN = (40,)      # hidden sizes instantiated in csrc/lstm.cu
+_KERNEL_HIDDEN = (40, 128)  # hidden sizes instantiated in csrc/lstm*.cu (context BiLSTM, LSTM head)
 BACKWARD_RING = 8           # K2's, K3's, K7's and K8's ring slots (csrc/lstm_util.cuh LSTM_RING)
 
 
@@ -204,10 +204,12 @@ def lstm_recurrence(xproj: torch.Tensor, lengths: torch.Tensor, w_hh: torch.Tens
             raise RuntimeError(f"LSTM kernel launch failed: CUDA error {err}")
         with _LOCK:
             lstm_recurrence.launches += 1
+            lstm_recurrence.launches_at[H] = lstm_recurrence.launches_at.get(H, 0) + 1
     return (out, cell) if with_cell else out
 
 
 lstm_recurrence.launches = 0
+lstm_recurrence.launches_at = {}   # launches by hidden size
 
 
 def lstm_backward_plain(xproj: torch.Tensor, lengths: torch.Tensor, w_hh: torch.Tensor,
@@ -284,12 +286,14 @@ def lstm_backward(xproj: torch.Tensor, lengths: torch.Tensor, w_hh: torch.Tensor
             raise RuntimeError(f"LSTM backward kernel launch failed: CUDA error {err}")
         with _LOCK:
             lstm_backward.launches += 1
+            lstm_backward.launches_at[H] = lstm_backward.launches_at.get(H, 0) + 1
     else:
         dw_part.zero_()
     return d_xproj, dw_part.sum(dim=0)
 
 
 lstm_backward.launches = 0
+lstm_backward.launches_at = {}   # launches by hidden size
 
 
 def _smem_on_card(source: str, entry: str, H: int, device: torch.device) -> int:
@@ -473,10 +477,12 @@ def lstm_recurrence_stacked(xproj: torch.Tensor, valid: torch.Tensor,
             raise RuntimeError(f"stacked LSTM kernel launch failed: CUDA error {err}")
         with _LOCK:
             lstm_recurrence_stacked.launches += 1
+            lstm_recurrence_stacked.launches_at[H] = lstm_recurrence_stacked.launches_at.get(H, 0) + 1
     return tuple(outs)
 
 
 lstm_recurrence_stacked.launches = 0
+lstm_recurrence_stacked.launches_at = {}   # launches by hidden size
 
 
 def lstm_backward_stacked_plain(xproj: torch.Tensor, valid: torch.Tensor, w_hh_f: torch.Tensor,
@@ -550,6 +556,7 @@ def lstm_backward_stacked(xproj: torch.Tensor, valid: torch.Tensor, w_hh_f: torc
             raise RuntimeError(f"stacked LSTM backward kernel launch failed: CUDA error {err}")
         with _LOCK:
             lstm_backward_stacked.launches += 1
+            lstm_backward_stacked.launches_at[H] = lstm_backward_stacked.launches_at.get(H, 0) + 1
     else:
         dw_part.zero_()
     dw = dw_part.view(2, B, G, H).sum(dim=1)
@@ -557,6 +564,7 @@ def lstm_backward_stacked(xproj: torch.Tensor, valid: torch.Tensor, w_hh_f: torc
 
 
 lstm_backward_stacked.launches = 0
+lstm_backward_stacked.launches_at = {}   # launches by hidden size
 
 
 def stacked_forward_smem_on_card(H: int, device: torch.device) -> int:

@@ -9,8 +9,14 @@ cycle boundaries are precomputed on the host, the cycle index is a
 ``searchsorted``.
 
 ``ReduceLROnPlateau`` is the host-side controller of the plateau recipe
-(the trainer writes its lr into ``novograd_with_runtime_lr``'s state).  The
-NVIDIA LR-policy zoo is not ported yet.
+(the trainer writes its lr into ``novograd_with_runtime_lr``'s state).
+
+The NVIDIA LR-policy zoo (the reference's ``scheduler/lr_policy.py``) is a
+set of schedule factories, ``LR_POLICIES``, picked by name with
+``get_lr_policy``: each is a linear warmup ``initial_lr·(step + 1) /
+(warmup_steps + 1)`` below ``warmup_steps``, then its own body, and past
+``total_steps`` a constant (0, or ``min_lr`` for the hold policies), all in
+float32 as the JAX package computes them.
 """
 
 from __future__ import annotations
@@ -129,3 +135,110 @@ class ReduceLROnPlateau:
     def load_state_dict(self, state: dict) -> None:
         for k, v in state.items():
             setattr(self, k, v)
+
+
+def _with_warmup(body, initial_lr, warmup_steps, total_steps, after_total) -> Schedule:
+    def schedule(step) -> torch.Tensor:
+        step = torch.as_tensor(step).to(torch.float32)
+        warm = initial_lr * (step + 1.0) / (warmup_steps + 1.0)
+        out = torch.where(step < warmup_steps, warm, torch.as_tensor(body(step), dtype=torch.float32))
+        if total_steps is not None:
+            out = torch.where(step > total_steps, torch.full_like(out, after_total), out)
+        return out
+    return schedule
+
+
+def warmup_policy(initial_lr, warmup_steps=0, total_steps=None, warmup_ratio=None) -> Schedule:
+    if warmup_ratio is not None:
+        warmup_steps = int(warmup_ratio * total_steps)
+    return _with_warmup(lambda s: torch.full_like(s, initial_lr), initial_lr, warmup_steps,
+                        total_steps, 0.0)
+
+
+def warmup_hold_policy(initial_lr, warmup_steps=0, hold_steps=0, total_steps=None,
+                       min_lr=0.0) -> Schedule:
+    return _with_warmup(lambda s: torch.full_like(s, initial_lr), initial_lr, warmup_steps,
+                        total_steps, min_lr)
+
+
+def square_annealing(initial_lr, total_steps, warmup_steps=0, min_lr=1e-5) -> Schedule:
+    def body(step):
+        span = total_steps - warmup_steps
+        mult = ((span - (step - warmup_steps)) / span) ** 2
+        return torch.clamp(initial_lr * mult, min=min_lr)
+    return _with_warmup(body, initial_lr, warmup_steps, total_steps, 0.0)
+
+
+def squareroot_annealing(initial_lr, total_steps, warmup_steps=0, min_lr=0.0) -> Schedule:
+    def body(step):
+        mult = torch.sqrt(torch.clamp((total_steps - step) / total_steps, min=0.0))
+        return torch.clamp(initial_lr * mult, min=min_lr)
+    return _with_warmup(body, initial_lr, warmup_steps, total_steps, 0.0)
+
+
+def cosine_annealing(initial_lr, total_steps, warmup_steps=0, min_lr=0.0) -> Schedule:
+    if initial_lr < min_lr:
+        raise ValueError("initial lr below minimum lr")
+
+    def body(step):
+        span = total_steps - warmup_steps
+        mult = 0.5 * (1.0 + torch.cos(math.pi * (step - warmup_steps) / span))
+        return (initial_lr - min_lr) * mult + min_lr
+    return _with_warmup(body, initial_lr, warmup_steps, total_steps, 0.0)
+
+
+def warmup_annealing(initial_lr, total_steps, warmup_steps=0) -> Schedule:
+    def body(step):
+        progress = step / total_steps
+        warmup_ratio = warmup_steps / total_steps
+        return initial_lr * torch.clamp((progress - 1.0) / (warmup_ratio - 1.0), min=0.0)
+    return _with_warmup(body, initial_lr, warmup_steps, total_steps, 0.0)
+
+
+def inverse_squareroot_annealing(initial_lr, total_steps, warmup_steps=0) -> Schedule:
+    def body(step):
+        return initial_lr / torch.sqrt((step + 1.0) / (warmup_steps + 1.0))
+    return _with_warmup(body, initial_lr, warmup_steps, total_steps, 0.0)
+
+
+def polynomial_decay_annealing(initial_lr, total_steps, warmup_steps=0, min_lr=0.0,
+                               power=1.0) -> Schedule:
+    def body(step):
+        s = torch.clamp(step - warmup_steps, max=total_steps - warmup_steps)
+        p = s / (total_steps - warmup_steps)
+        return (initial_lr - min_lr) * torch.pow(1.0 - p, power) + min_lr
+    return _with_warmup(body, initial_lr, warmup_steps, total_steps, 0.0)
+
+
+def polynomial_hold_decay_annealing(initial_lr, total_steps, warmup_steps=0, hold_steps=0,
+                                    min_lr=0.0, power=1.0) -> Schedule:
+    hold_end = warmup_steps + hold_steps
+
+    def body(step):
+        span = total_steps - max(warmup_steps, hold_end)
+        p = torch.clamp(step - hold_end, 0.0, span) / span
+        decay = (initial_lr - min_lr) * torch.pow(1.0 - p, power) + min_lr
+        return torch.where(step < hold_end, torch.full_like(decay, initial_lr), decay)
+    return _with_warmup(body, initial_lr, warmup_steps, total_steps, min_lr)
+
+
+LR_POLICIES = {
+    "WarmupPolicy": warmup_policy,
+    "WarmupHoldPolicy": warmup_hold_policy,
+    "SquareAnnealing": square_annealing,
+    "SquareRootAnnealing": squareroot_annealing,
+    "CosineAnnealing": cosine_annealing,
+    "WarmupAnnealing": warmup_annealing,
+    "InverseSquareRootAnnealing": inverse_squareroot_annealing,
+    "PolynomialDecayAnnealing": polynomial_decay_annealing,
+    "PolynomialHoldDecayAnnealing": polynomial_hold_decay_annealing,
+    "CosineAnnealingWarmupRestarts": cosine_annealing_warmup_restarts,
+}
+
+
+def get_lr_policy(name: str, **kwargs) -> Schedule:
+    """The schedule of policy ``name`` (a key of ``LR_POLICIES``) built
+    from ``kwargs``."""
+    if name not in LR_POLICIES:
+        raise ValueError(f"{name} is not a supported lr policy. Supported: {sorted(LR_POLICIES)}")
+    return LR_POLICIES[name](**kwargs)

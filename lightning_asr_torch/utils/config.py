@@ -165,3 +165,16 @@ def load_config(path: Union[str, Path], overrides: Optional[Iterable[str]] = Non
     if resolve:
         _resolve_interpolations(cfg)
     return cfg
+
+
+def config_from_dict(d: Mapping[str, Any]) -> Config:
+    return Config(d)
+
+
+def config_hash(cfg: Config) -> str:
+    """The first 12 hex digits of the sha256 of the config's JSON, keys
+    sorted (the JAX package's run identity)."""
+    import hashlib
+
+    text = json.dumps(cfg.to_dict(), sort_keys=True, default=str)
+    return hashlib.sha256(text.encode()).hexdigest()[:12]

@@ -12,7 +12,8 @@ documents).
                                             <-> ``weight``/``bias``
     (a 1-D ``weight`` is a norm's scale: conv and Dense weights are 2-D or 3-D)
   * ``context_rnn`` ``w_ih_f``/``w_hh_f``/``b_ih_f``/``b_hh_f`` (and ``_b``) keep
-    their names and shapes.
+    their names and shapes; so do the LSTM head's ``head_rnn`` tensors, whose
+    ``head_bn`` is a BatchNorm and ``head_fc`` a Dense as above.
 
 Keys are the flax paths joined with dots (``encoder.block1.sep_last.bn``),
 which are the port's module names.  Trees are nested dicts of numpy arrays

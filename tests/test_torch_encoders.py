@@ -309,8 +309,9 @@ def test_weight_and_optimizer_bridges_round_trip(encoder):
 def test_registry_and_refusals():
     """All four encoders are ported and built; ``feature_in`` (the SSL
     path) builds a mapping 512 -> in_c before the encoder; ``lstm_head``
-    (hidden 128, which the LSTM kernels refuse) raises
-    ``NotImplementedError``; an unknown name raises ``ValueError``."""
+    builds the BiLSTM head (hidden 128; its parity is in
+    ``test_torch_lstm_head.py``) in place of the decoder; an unknown name
+    raises ``ValueError``."""
     assert PORTED_ENCODERS == MODEL_REGISTRY == (
         "quartznet12_context", "quartznet12_context_se", "quartznet15x5", "quartznet10x5")
     for encoder in MODEL_REGISTRY:
@@ -321,8 +322,12 @@ def test_registry_and_refusals():
     with torch.no_grad():
         assert ssl.feature_mapping(torch.ones(2, 7, 512)).shape == (2, 7, 64)
         assert ssl(torch.ones(2, 8, 512), torch.ones(2))[0].shape == (2, 4, NUM_CLASSES)
-    with pytest.raises(NotImplementedError, match="lstm_head"):
-        build_model(NUM_CLASSES, "quartznet12_context", lstm_head=True)
+    head = build_model(NUM_CLASSES, "quartznet12_context", lstm_head=True).eval()
+    assert not hasattr(head, "decoder") and head.head_rnn.hidden == 128
+    assert tuple(head.head_fc.weight.shape) == (NUM_CLASSES, 256)
+    with torch.no_grad():
+        lp, lens = head(torch.ones(2, 8, 64), torch.ones(2))
+    assert lp.shape == (2, 4, NUM_CLASSES) and lens.tolist() == [4, 4]
     with pytest.raises(ValueError, match="unknown encoder"):
         build_model(NUM_CLASSES, "quartznet5x5")
 

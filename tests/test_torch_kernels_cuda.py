@@ -684,3 +684,70 @@ def test_conv_kernels_reject_what_they_cannot_run(dev):
         depthwise_wgrad(x.bfloat16(), x.bfloat16(), 129)
     with pytest.raises(ValueError):
         depthwise_wgrad(x[:, :, ::2], x[:, :, ::2], 5)
+
+
+@pytest.mark.parametrize("hidden", [32, 64, 96, 136])
+def test_lstm_kernels_refuse_other_hidden_sizes(dev, hidden):
+    """The LSTM kernels are built for H = 40 (the context BiLSTM) and 128
+    (the LSTM head) only: a CUDA tensor at another H raises before any
+    launch, and no plain version runs in its place."""
+    xproj = torch.zeros((2, 8, 2, 4 * hidden), device=dev)
+    lens = torch.full((2,), 8, dtype=torch.int32, device=dev)
+    w_hh = torch.zeros((2, 4 * hidden, hidden), device=dev)
+    counts = (lstm_recurrence.launches, lstm_backward.launches, lstm_recurrence_stacked.launches,
+              lstm_backward_stacked.launches)
+    with pytest.raises(ValueError, match="hidden sizes"):
+        lstm_recurrence(xproj, lens, w_hh)
+    with pytest.raises(ValueError, match="hidden sizes"):
+        lstm_backward(xproj, lens, w_hh, torch.zeros((2, 8, 2 * hidden), device=dev),
+                      torch.zeros((2, 8, 2, hidden), device=dev),
+                      torch.zeros((2, 8, 2 * hidden), device=dev))
+    xp = torch.zeros((8, 4, 4 * hidden), device=dev)
+    valid = torch.ones((8, 4), device=dev)
+    w = torch.zeros((4 * hidden, hidden), device=dev)
+    with pytest.raises(ValueError, match="hidden sizes"):
+        lstm_recurrence_stacked(xp, valid, w, w)
+    with pytest.raises(ValueError, match="hidden sizes"):
+        lstm_backward_stacked(xp, valid, w, w, *(torch.zeros((8, 4, hidden), device=dev),) * 3)
+    assert counts == (lstm_recurrence.launches, lstm_backward.launches,
+                      lstm_recurrence_stacked.launches, lstm_backward_stacked.launches)
+
+
+@pytest.mark.parametrize("T,lengths", [(836, (836, 500, 17, 1, 0)), (40, (40, 9, 8, 7)),
+                                       (5, (5, 1))])
+def test_lstm_kernels_at_h128_against_plain(dev, T, lengths):
+    """K2, K3, K7 and K8 at the LSTM head's H = 128 (their gates pass
+    staging W_hh 16 rows at a time, their walks with spilled registers) on
+    ragged rows against their plain versions, K7's h equal to K2's bit for
+    bit, and their shared memory as stated."""
+    H, B = 128, len(lengths)
+    g = torch.Generator().manual_seed(T)
+    s = 1.0 / np.sqrt(H)
+    xproj = torch.randn((B, T, 2, 4 * H), generator=g).to(dev)
+    w_hh = ((torch.rand((2, 4 * H, H), generator=g) * 2 - 1) * s).to(dev)
+    grad_h = torch.randn((B, T, 2 * H), generator=g).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    h, c = lstm_recurrence(xproj, lens, w_hh, with_cell=True)
+    want_h, want_c = lstm_recurrence_plain(xproj, lens, w_hh, with_cell=True)
+    assert (h - want_h).abs().max().item() <= 1e-4 and (c - want_c).abs().max().item() <= 1e-3
+    d_x, dw = lstm_backward(xproj, lens, w_hh, h, c, grad_h)
+    want_dx, want_dw = lstm_backward_plain(xproj, lens, w_hh, h, c, grad_h)
+    assert (d_x - want_dx).abs().max().item() <= 1e-4
+    assert (dw - want_dw).abs().max().item() <= 1e-4 * want_dw.abs().max().item()
+    xp = stack_directions(xproj).contiguous()
+    valid = stacked_valid(T, lens)
+    gs = stack_directions(grad_h.reshape(B, T, 2, H)).contiguous()
+    h7, hp, cp = lstm_recurrence_stacked(xp, valid, w_hh[0].contiguous(), w_hh[1].contiguous())
+    assert torch.equal(unstack_directions(h7).reshape(B, T, 2 * H), h)
+    for got, want in zip((h7, hp, cp), lstm_recurrence_stacked_plain(xp, valid, w_hh[0], w_hh[1])):
+        assert (got - want).abs().max().item() <= 1e-3
+    dx8, dwf, dwb = lstm_backward_stacked(xp, valid, w_hh[0].contiguous(), w_hh[1].contiguous(),
+                                          hp, cp, gs)
+    wdx, wf, wb = lstm_backward_stacked_plain(xp, valid, w_hh[0], w_hh[1], hp, cp, gs)
+    assert (dx8 - wdx).abs().max().item() <= 1e-4
+    for got, want in ((dwf, wf), (dwb, wb)):
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    assert forward_smem_on_card(H, dev) == forward_smem_bytes(H)
+    assert backward_smem_on_card(H, dev) == backward_smem_bytes(H)
+    assert stacked_forward_smem_on_card(H, dev) == stacked_forward_smem_bytes(H)
+    assert stacked_backward_smem_on_card(H, dev) == stacked_backward_smem_bytes(H)

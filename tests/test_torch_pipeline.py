@@ -228,7 +228,11 @@ def test_unported_options_raise(corpus):
     # that pad_to does not divide is refused, as in the JAX batcher
     with pytest.raises(ValueError, match="pad_to"):
         BucketBatcher(read_manifests(corpus), Vocabulary(LABELS), 4, shard_count=2)
-    with pytest.raises(NotImplementedError):
-        AsrDataModule(train_manifest=str(corpus), labels=LABELS, cache="mmap")
+    # cache='mmap' is ported (tests/test_torch_wave_cache.py): it opens its
+    # default directory beside the train manifest; an unknown cache raises
+    dm = AsrDataModule(train_manifest=str(corpus), labels=LABELS, cache="mmap")
+    assert dm.cache_dir == Path(corpus).parent / "_lasr_wave_cache" and dm.cache_dir.is_dir()
+    with pytest.raises(ValueError, match="cache"):
+        AsrDataModule(train_manifest=str(corpus), labels=LABELS, cache="disk")
     with pytest.raises(ValueError):
         BucketBatcher(read_manifests(corpus), Vocabulary(LABELS), 4, wire_dtype="int8")

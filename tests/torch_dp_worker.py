@@ -16,6 +16,9 @@ only torch and the port.  Tasks:
   * ``fit``: ``Trainer.fit`` of the small model for one epoch on a corpus:
     the logged train losses, the val metrics, the batch WERs of a second
     validation, the number of checkpoints this rank wrote.
+  * ``mmap``: an ``AsrDataModule`` with ``cache='mmap'`` in the group: its
+    cache directory, the files it cached after a train epoch and the val
+    loader, and the rank's val batches (waves, lengths, paths).
 
 ``SmallAsr`` is the tests' model: ``AsrModel``'s interface at narrow widths
 (a SepConv stem 64->32 k11 stride 2, a repeat-2 block 32->32 k7, the BiLSTM
@@ -181,14 +184,25 @@ def task_fit(rank, world, inp):
             "params": {k: v for k, v in state.params.items()}}
 
 
+def task_mmap(rank, world, inp):
+    from lightning_asr_torch.data.datamodule import AsrDataModule
+
+    dm = AsrDataModule(**inp["datamodule"])
+    list(dm.train_dataloader(0))
+    val = list(dm.val_dataloader())
+    cache = dm._wave_cache
+    return {"cache_dir": str(dm.cache_dir), "entries": len(cache), "paths": sorted(cache._index),
+            "val": [(b.waves, b.wave_lens) for b in val], "val_paths": [b.paths for b in val]}
+
+
 def main():
     task, rank, world, port, inp, out = sys.argv[1:7]
     torch.set_num_threads(1)
     env = {"RANK": rank, "WORLD_SIZE": world, "LOCAL_RANK": rank, "MASTER_ADDR": "127.0.0.1",
            "MASTER_PORT": port}
     distributed.init(env, "cpu", TIMEOUT_S)
-    result = {"task_bn": task_bn, "task_step": task_step,
-              "task_fit": task_fit}[f"task_{task}"](int(rank), int(world),
+    result = {"task_bn": task_bn, "task_step": task_step, "task_fit": task_fit,
+              "task_mmap": task_mmap}[f"task_{task}"](int(rank), int(world),
                                                      torch.load(inp, weights_only=False))
     distributed.shutdown()
     torch.save(result, out)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, decoding, training, trainer, SSL,
-data-parallel, LSTM-head and mmap-cache paths on one NVIDIA GPU and check
-them.
+data-parallel, tensor-parallel, LSTM-head and mmap-cache paths on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -167,7 +167,29 @@ Phases, in order; any failed check exits non-zero before the last line:
      the card loading ``last``; the step ms of one process and of each rank
      sharing the card and the gloo all-reduce of the flat gradient, beside
      the card's name and power limit;
- 19. lstm_head_and_data: the LSTM head and the data surface.  First
+ 19. tensor_parallel: K9/K10 at the local widths of a model group of 2
+     (gathered Cin, this rank's Cout: (256, 128, 33), (336, 256, 51), (512,
+     256, 87)) and K11 at this rank's C (32, 128, 168, 256) against their
+     plain versions under phase 6's limits, twice for the same bits; then
+     ranks in worker processes as in phase 18: a model group of 2 ranks
+     sharing the card over gloo (dp1 x tp2) splits the default model's
+     trunk and takes 4 of phase 14's recipe steps on its batch: losses and
+     gathered parameters bit for bit across the ranks, losses within
+     DP_BF16_LOSS_RTOL of one process (per-tensor NovoGrad), the gathered
+     parameters within TP_BF16_UPDATE_REL of it (the one process's own move
+     under a one-LSB change beside), K1-K6 once a step; one step with the
+     gathers timed; one float32 step of each conv route (F.conv1d,
+     dw_wgrad, sepconv) against one process under DP_TOL, the context
+     BiLSTM's gradient on a line of its own; 4 ranks (dp2 x tp2) take 2
+     steps on 8 rows of up to 4 s against one process; ``python -m
+     lightning_asr_torch.train train.tp=2 train.n_devices=2`` (its
+     ``main``) as 2 ranks on phase 16's corpus for one epoch and a
+     validation: the same metrics on both ranks, ``last`` written once with
+     whole tensors, resumed by one process (fused NovoGrad) for an epoch,
+     and AsrTranslator on the card loading it; each rank's step ms, the
+     gathers' count, bytes and ms a step, beside the card's name and power
+     limit (ranks sharing one card through the host, not tp across cards);
+ 20. lstm_head_and_data: the LSTM head and the data surface.  First
      (``lstm_h128``) K2, K3, K7 and K8 at the head's H=128 at the training
      shape (B=32, T'=836, ragged rows, input width 1024) against their
      plain versions, twice for the same bits, K7's h equal to K2's, their
@@ -186,17 +208,18 @@ Phases, in order; any failed check exits non-zero before the last line:
      none by ``read_audio``), again in a fresh process (no append: the
      bin's size and the index unchanged) and with ``data.cache=ram``, the
      three runs' metrics equal; the H=40 digests of phase 4 are repeated;
- 20. a {"kernels": [...]} line: per kernel K1-K11 its launches on the main
+ 21. a {"kernels": [...]} line: per kernel K1-K11 its launches on the main
      paths (the serving bursts of every encoder, the decoding phase's
      forwards, the training steps of the nine configurations and of the
      head's two, the trainer's runs, the mmap and RAM CLI runs, the SSL
-     phase's steps, runs and served forwards, and the data-parallel ranks'
-     steps and CLI runs), its error against the plain version, its time,
+     phase's steps, runs and served forwards, the data-parallel ranks'
+     steps and CLI runs, and the tensor-parallel ranks' steps and CLI runs,
+     also alone as ``tp_launches``), its error against the plain version, its time,
      the plain version's, the library yardstick's, and the least time the
      card could take (K1 and K2 at the serving shape, K3-K8 at the training
      shape, K9-K11 at the widest layer); K2, K3, K7 and K8 also under
      ``h128`` at H=128 (launches on the head's paths);
- 21. {"ok": true, "device": {...}} as the last line.
+ 22. {"ok": true, "device": {...}} as the last line.
 
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -270,7 +293,7 @@ from lightning_asr_torch.ops.sepconv_kernels import (sepconv_backward, sepconv_b
                                                      sepconv_forward, sepconv_forward_plain)
 from lightning_asr_torch.optim import cosine_annealing_warmup_restarts, novograd
 from lightning_asr_torch.optim.novograd import GradientTransformation
-from lightning_asr_torch.parallel import distributed
+from lightning_asr_torch.parallel import distributed, tp
 from lightning_asr_torch.parallel.mesh import local_rows
 from lightning_asr_torch.predict import main as predict_main
 from lightning_asr_torch.ssl_codec.retrain import SSLRetrainAsrModel
@@ -3230,6 +3253,167 @@ def _dp_zero() -> None:
         fn.launches = 0
 
 
+# --- tensor parallelism: model groups of ranks sharing the card ---
+
+# the model group of the tp runs; the recipe's bf16 steps of the dp1 x tp2
+# run; the dp2 x tp2 run's rows, bucket and steps
+TP_SIZE, TP_STEPS = 2, 4
+TP_DP2_ROWS, TP_DP2_SECONDS, TP_DP2_STEPS = 8, 4.0, 2
+# the recipe's parameters after TP_STEPS bf16 steps, model group against one
+# process on the same batch and draws: the relative difference of the whole
+# update.  The sums run in another order through bf16 (the model group
+# adds two bf16 partial input gradients where one process rounds once) and
+# 16 train-mode BatchNorms, carried through the steps: on an H100 the gap
+# read 0.29 where the one process's own move under a one-LSB change of one
+# sample (TP_BUMP, printed beside) read 0.12, and on the CPU at 4 rows 0.48
+# against 0.54.  So this is a gross-error gate (a gradient lost or counted
+# twice moves the whole update by order 1); the float32 steps below hold
+# each tensor's update to DP_TOL
+TP_BF16_UPDATE_REL, TP_BUMP = 0.5, (0, 1000)
+# K9/K10 at (gathered Cin, this rank's Cout, k) and K11 at (this rank's C, k)
+# in the tp2 step of the default model: the 256-, 336- and 512-channel
+# blocks, and the stem's 64 channels split
+TP_SEPCONV_SHAPES = ((256, 128, 33), (336, 256, 51), (512, 256, 87))
+TP_K11_SHAPES = ((32, 33), (128, 33), (168, 51), (256, 87))
+TP_COUNTERS = DP_COUNTERS + (sepconv_forward, sepconv_backward, depthwise_wgrad)
+
+
+def _tp_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in TP_COUNTERS}
+
+
+def _tp_zero() -> None:
+    for fn in TP_COUNTERS:
+        fn.launches = 0
+
+
+def _tp_recipe(dev, recipe: bool = True, conv_kernel=None, split: bool = False):
+    """(step, state, shard) of ``_dp_recipe``'s seeded full-width model with
+    the per-tensor NovoGrad (the tp variant), ``conv_kernel`` routing its
+    separable convs; with ``split`` the step and state of this rank of the
+    process group's layout (this rank's blocks)."""
+    model = build_model(len(LABELS) + 1, DEFAULT_ENCODER, mask=True,
+                        dtype=torch.bfloat16 if recipe else None, conv_kernel=conv_kernel)
+    reset_parameters(model, torch.Generator().manual_seed(5))
+    model.to(dev)
+    schedule = cosine_annealing_warmup_restarts(first_cycle_steps=1000, cycle_mult=2, max_lr=1e-2,
+                                                min_lr=1e-4, warmup_steps=5, gamma=0.5)
+    opt = novograd(schedule, betas=(0.8, 0.5), weight_decay=1e-3, fused=False)
+    if not recipe:
+        opt = _capture(opt)
+    frontend = MelFrontendConfig(precision="default") if recipe else \
+        MelFrontendConfig(dither=0.0, precision="default")
+    step = make_train_step(model, opt, BLANK, frontend, augment=recipe, freq_mask=27,
+                           time_mask=0.07, data_parallel=split)
+    shard = tp.model_shard(model) if split else None
+    return step, tp.shard_state(create_train_state(model, opt), shard), shard
+
+
+def _tp_float32(dev, conv_kernel=None, split: bool = False) -> tuple:
+    """One float32 step of ``_tp_recipe`` (no dither, augmentation or
+    dropout) on phase ``training``'s batch (this data index's rows): (old
+    params, new params, gradients, metrics), whole, on the CPU."""
+    step, state, shard = _tp_recipe(dev, recipe=False, conv_kernel=conv_kernel, split=split)
+    batch = _dp_batch(dev, distributed.data_index(), distributed.data_size()) if split \
+        else _dp_batch(dev)
+    new, metrics = step(state, batch)
+    old, new = tp.gather_state((state.params, new), shard)
+    cpu = lambda tree: {k: v.cpu() for k, v in tree.items()}  # noqa: E731
+    return (cpu(old), cpu(new.params), cpu(new.opt_state[0]),
+            {k: metrics[k].cpu() for k in ("loss", "grad_norm", "finite")})
+
+
+def _update_rel(old: dict, got: dict, want: dict):
+    """(the relative difference of the whole update, the tensor whose own
+    update differs most, that difference)."""
+    diff = {k: (got[k] - want[k]).norm().item() ** 2 for k in old}
+    size = {k: (want[k] - old[k]).norm().item() ** 2 for k in old}
+    rel = {k: (diff[k] / max(size[k], 1e-60)) ** 0.5 for k in old}
+    worst = max(rel, key=rel.get)
+    return (sum(diff.values()) / sum(size.values())) ** 0.5, worst, rel[worst]
+
+
+def _tp_worker(task: str, spec: dict, env: dict) -> dict:
+    """A rank of phase ``tensor_parallel``: ``tp_steps`` (dp1 x tp2) or
+    ``tp_dp2`` (dp2 x tp2).  Rank 0 also runs the one-process steps it is
+    held against, after this rank's counts are read (its model-group
+    partner waits at its next collective)."""
+    out = {}
+    rank = distributed.init(env, "cuda", DP_TIMEOUT_S, tp=TP_SIZE)
+    dev = rank.device
+    cpu = lambda tree: {k: v.detach().cpu() for k, v in tree.items()}  # noqa: E731
+    if task == "tp_steps":
+        step, state, shard = _tp_recipe(dev, split=True)
+        batch = _dp_batch(dev, distributed.data_index(), distributed.data_size())
+        init = tp.gather_state(state.params, shard)
+        _tp_zero()
+        losses, ms, state = _dp_steps(dev, step, state, batch, TP_STEPS)
+        out.update(backend=rank.backend, device=str(dev), losses=losses, step_ms=ms,
+                   launches=_tp_counts(),
+                   local_shapes={k: list(state.params[k].shape)
+                                 for k in sorted(shard.specs) if k.endswith("conv.weight")})
+        # one more step with the gathers timed (each behind a synchronise)
+        tp.reset_stats()
+        tp.TIMING = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch, torch.Generator(device=dev).manual_seed(1))
+        torch.cuda.synchronize()
+        tp.TIMING = False
+        out.update(timed_step_ms=1e3 * (time.perf_counter() - t0), gathers=dict(tp.STATS))
+        whole = tp.gather_state(state.params, shard)
+        out["digest"] = digest(*whole.values())
+        _tp_zero()
+        out["float32"] = _tp_float32(dev, split=True)
+        out["dw_wgrad"] = _tp_float32(dev, "dw_wgrad", split=True)
+        out["sepconv"] = _tp_float32(dev, "sepconv", split=True)
+        out["parity_launches"] = _tp_counts()
+        if rank.rank == 0:                      # the one process they are held against
+            with tp.model_parallel(None):
+                one_step, one_state, _ = _tp_recipe(dev)
+                one_losses, one_ms, one_state = _dp_steps(dev, one_step, one_state, _dp_batch(dev),
+                                                          TP_STEPS)
+                out.update(one_losses=one_losses, one_step_ms=one_ms)
+                out["update_rel"] = _update_rel(cpu(init), cpu(whole), cpu(one_state.params))
+                bumped = _dp_batch(dev)
+                bumped["waves"][TP_BUMP] += 1
+                bump_step, bump_state, _ = _tp_recipe(dev)
+                _, _, bump_state = _dp_steps(dev, bump_step, bump_state, bumped, TP_STEPS)
+                out["chaos_floor"] = _update_rel(cpu(init), cpu(bump_state.params),
+                                                 cpu(one_state.params))
+                parity = {}
+                for name, kernel in (("float32", None), ("dw_wgrad", "dw_wgrad"),
+                                     ("sepconv", "sepconv")):
+                    one = _tp_float32(dev, kernel)
+                    errs, worst = _step_errors(out[name], one)
+                    rel = lambda a, b: (a - b).norm().item() / max(b.norm().item(), 1e-30)  # noqa: E731
+                    parity[name] = {**errs, "worst_grad_tensor": worst,
+                                    "context_rnn_grad_rel": {k: rel(out[name][2][k], one[2][k])
+                                                             for k in one[2] if "context_rnn" in k}}
+                out["parity"] = parity
+        for name in ("float32", "dw_wgrad", "sepconv"):
+            out[name] = digest(*out[name][1].values())     # the ranks' updates, compared
+    elif task == "tp_dp2":
+        batch_np, _ = train_batch(np.random.default_rng(9), TP_DP2_ROWS, TP_DP2_SECONDS,
+                                  TP_DP2_SECONDS)
+        rows = local_rows(TP_DP2_ROWS, distributed.data_index(), distributed.data_size())
+        step, state, _ = _tp_recipe(dev, split=True)
+        _tp_zero()
+        losses, ms, _ = _dp_steps(dev, step, state,
+                                  {k: torch.from_numpy(v[rows]).to(dev) for k, v in batch_np.items()},
+                                  TP_DP2_STEPS)
+        out.update(backend=rank.backend, losses=losses, step_ms=ms, launches=_tp_counts(),
+                   data_index=distributed.data_index(), model_index=distributed.model_index())
+        if rank.rank == 0:
+            with tp.model_parallel(None):
+                one_step, one_state, _ = _tp_recipe(dev)
+                out["one_losses"], _, _ = _dp_steps(
+                    dev, one_step, one_state,
+                    {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}, TP_DP2_STEPS)
+    distributed.shutdown()
+    return out
+
+
 def dp_worker(task: str, spec_path: str) -> int:
     """One rank of phase ``data_parallel`` (``chip_smoke.py --dp-worker TASK
     SPEC``, the launcher's variables in the environment): writes its results
@@ -3277,6 +3461,8 @@ def dp_worker(task: str, spec_path: str) -> int:
                    launches=_dp_counts(), digest=_dp_digest(state),
                    plain_digest=_dp_digest(plain_state))
         distributed.shutdown()
+    elif task in ("tp_steps", "tp_dp2"):
+        out = _tp_worker(task, spec, env)
     elif task == "cli":           # python -m lightning_asr_torch.train under a launcher
         from lightning_asr_torch.training import checkpoint
         from lightning_asr_torch.training.trainer import Trainer
@@ -3285,11 +3471,12 @@ def dp_worker(task: str, spec_path: str) -> int:
         save, validate = checkpoint.save_checkpoint, Trainer.validate
         checkpoint.save_checkpoint = lambda *a, **k: (writes.append(str(a[0])), save(*a, **k))[1]
         Trainer.validate = lambda self, state: (vals.append(validate(self, state)), vals[-1])[1]
-        _dp_zero()
+        _tp_zero()
         result = _run_train(spec["args"])
         tr = result["trainer"]
-        out.update(launches=_dp_counts(), writes=writes, val=vals, test=result["test"],
-                   data_parallel=tr.data_parallel,
+        out.update(launches=_tp_counts(), writes=writes, val=vals, test=result["test"],
+                   data_parallel=tr.data_parallel, split=tr.model_shard is not None,
+                   optimizer=type(result["state"].opt_state).__name__,
                    losses=[loss for e in tr.epoch_stats for loss in e["losses"]],
                    epochs=[{k: e[k] for k in ("wall_sec", "audio_sec", "audio_sec_per_sec")}
                            for e in tr.epoch_stats],
@@ -3325,7 +3512,7 @@ def _dp_launch(task: str, world: int, tmp: Path, **spec) -> list:
                 p.kill()
                 p.wait()
     for r, (p, log) in enumerate(zip(procs, logs)):
-        check(p.returncode == 0, f"data_parallel: {task} rank {r} exited {p.returncode}:\n{log[-3000:]}")
+        check(p.returncode == 0, f"{task} rank {r} exited {p.returncode}:\n{log[-3000:]}")
     return [torch.load(tmp / f"{task}_{r}.pt", weights_only=False) for r in range(world)]
 
 
@@ -3397,7 +3584,8 @@ def phase_data_parallel(dev, card: str) -> dict:
     for c in cli:
         t, e = c["train_steps"], c["eval_batches"]
         want = {"mel_from_extended": t + e, "lstm_recurrence": t + e, "lstm_backward": t,
-                "ctc_alpha": t + e, "ctc_beta": t, "extend_preemph": t + e}
+                "ctc_alpha": t + e, "ctc_beta": t, "extend_preemph": t + e,
+                "sepconv_forward": 0, "sepconv_backward": 0, "depthwise_wgrad": 0}
         check(c["launches"] == want, f"data_parallel: CLI launches {c['launches']}, want {want}")
     median = lambda ms: statistics.median(ms[1:])  # noqa: E731
     res = {"phase": "data_parallel", "card": card, "world": DP_WORLD, "backend": r0["backend"],
@@ -3421,6 +3609,200 @@ def phase_data_parallel(dev, card: str) -> dict:
     for out in (*ranks, nccl, *cli):
         for name, n in out["launches"].items():
             launches[name] = launches.get(name, 0) + n
+    return launches
+
+
+def _tp_local_kernels(dev) -> dict:
+    """K9/K10 at TP_SEPCONV_SHAPES and K11 at TP_K11_SHAPES (B=32, T'=836,
+    bf16) against their plain versions under phase K9/K10/K11's limits, each
+    run twice for the same bits; K9's and K10's ms at those shapes."""
+    B, T = TRAIN_BATCH, T_TRAIN
+    rel = lambda a, b: (a - b).abs().max().item() / b.abs().max().item()  # noqa: E731
+    out = {"sepconv": [], "depthwise": []}
+    for i, (cin, cout, k) in enumerate(TP_SEPCONV_SHAPES):
+        g = torch.Generator(device=dev).manual_seed(40 + i)
+        x = torch.randn((B, cin, T), generator=g, device=dev).bfloat16()
+        dy = torch.randn((B, cout, T), generator=g, device=dev).bfloat16()
+        wd = (torch.rand((cin, 1, k), generator=g, device=dev) * 2 - 1) / k ** 0.5
+        wp = (torch.rand((cout, cin, 1), generator=g, device=dev) * 2 - 1) / cin ** 0.5
+        y, (dx, gwd, gwp) = sepconv_forward(x, wd, wp), sepconv_backward(x, wd, wp, dy)
+        want_dx, want_gwd, want_gwp = sepconv_backward_plain(x, wd, wp, dy)
+        y_err, y_ulps, y_ok = _bf16_err(y, sepconv_forward_plain(x, wd, wp))
+        dx_err, dx_ulps, dx_ok = _bf16_err(dx, want_dx)
+        errs = {"shape": [B, cin, cout, T, k], "K9_y_max_abs": y_err, "K9_y_max_ulps": y_ulps,
+                "K10_dx_max_abs": dx_err, "K10_dx_max_ulps": dx_ulps,
+                "K10_wd_grad_rel": rel(gwd, want_gwd), "K10_wp_grad_rel": rel(gwp, want_gwp)}
+        check(y_ok and dx_ok, f"tensor_parallel: K9/K10 at {errs['shape']} beyond one bf16 ulp: {errs}")
+        check(errs["K10_wd_grad_rel"] <= SEPCONV_TOL_GRAD and errs["K10_wp_grad_rel"] <= SEPCONV_TOL_GRAD,
+              f"tensor_parallel: K10 weight gradients at {errs['shape']}: {errs}")
+        check(torch.equal(sepconv_forward(x, wd, wp), y)
+              and all(torch.equal(a, b) for a, b in zip(sepconv_backward(x, wd, wp, dy), (dx, gwd, gwp))),
+              f"tensor_parallel: K9/K10 at {errs['shape']} not deterministic")
+        errs.update(K9_ms=cuda_ms(lambda: sepconv_forward(x, wd, wp), 5),
+                    K10_ms=cuda_ms(lambda: sepconv_backward(x, wd, wp, dy), 5))
+        out["sepconv"].append(errs)
+    for i, (c, k) in enumerate(TP_K11_SHAPES):
+        g = torch.Generator(device=dev).manual_seed(50 + i)
+        x = torch.randn((B, c, T), generator=g, device=dev).bfloat16()
+        dy = torch.randn((B, c, T), generator=g, device=dev).bfloat16()
+        gk = depthwise_wgrad(x, dy, k)
+        err = rel(gk, depthwise_wgrad_plain(x, dy, k))
+        check(err <= K11_TOL, f"tensor_parallel: K11 at C={c}, k={k}: {err}")
+        check(torch.equal(depthwise_wgrad(x, dy, k), gk), f"tensor_parallel: K11 at C={c} not deterministic")
+        out["depthwise"].append({"shape": [B, c, T, k], "K11_rel": err})
+    return out
+
+
+def phase_tensor_parallel(dev, card: str) -> dict:
+    """Tensor parallelism on the one card: K9-K11 at the local widths of a
+    model group of 2; 2 ranks over gloo splitting the default model's trunk
+    (dp1 x tp2) take 4 of the recipe's bf16 steps on phase ``training``'s
+    batch against one process, then a float32 step of each conv route; 4
+    ranks (dp2 x tp2) take 2 steps on 8 rows; the training CLI with
+    ``train.tp=2 train.n_devices=2`` for an epoch, resumed by one process
+    (fused NovoGrad) and served by AsrTranslator.  Returns the tp runs'
+    launches by wrapper."""
+    local = _tp_local_kernels(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ranks = _dp_launch("tp_steps", TP_SIZE, tmp)
+        dp2 = _dp_launch("tp_dp2", 2 * TP_SIZE, tmp)
+        train = tone_corpus(tmp, TRAINER_UTTS, 0, "train")
+        dev_m = tone_corpus(tmp, TRAINER_DEV_UTTS, 1, "dev")
+        common = [f"data.train_manifest={train}", f"data.val_manifest={dev_m}",
+                  f"data.test_manifest={dev_m}", "data.bucket_seconds=[3.0]",
+                  "train.train_batch_size=32", "train.dev_batch_size=32", "train.warmup_steps=1",
+                  "train.log_every_n_steps=1", "model.compute_dtype=bf16",
+                  f"train.dist_timeout_s={DP_TIMEOUT_S}"]
+        run = tmp / "run"
+        cli = _dp_launch("cli", TP_SIZE, tmp, args=common + [
+            "train.total_epoch=1", f"log.run.dir={run}", f"train.tp={TP_SIZE}",
+            f"train.n_devices={TP_SIZE}"])
+        last = run / "checkpoints" / "last"
+        sd, meta = load_checkpoint(last)
+        whole = build_model(len(LABELS) + 1, DEFAULT_ENCODER, mask=True).state_dict()
+        shapes_whole = {k: tuple(v.shape) for k, v in sd.items()} == \
+            {k: tuple(v.shape) for k, v in whole.items()}
+        resumed = _run_train(common + ["train.total_epoch=2", "train.n_devices=1",
+                                       f"train.checkpoint={last}", f"log.run.dir={tmp / 'resumed'}"])
+        translator = AsrTranslator(last, device="cuda")
+        text = translator.translate(json.loads(train.read_text().splitlines()[0])["audio_filepath"])
+        loaded = digest(*(v for k, v in translator.model.state_dict().items()))
+        saved = digest(*(sd[k].to(dev) for k in translator.model.state_dict()))
+        del translator
+
+    r0, r1 = ranks
+    failed = []         # every check runs, the phase line prints, then failures exit
+
+    def expect(cond: bool, what: str) -> None:
+        if not cond:
+            failed.append(what)
+
+    expect(r0["backend"] == r1["backend"] == "gloo", f"tensor_parallel: backends {r0['backend']}, {r1['backend']}")
+    expect(r0["losses"] == r1["losses"] and r0["digest"] == r1["digest"],
+           f"tensor_parallel: the model group's ranks differ: {r0['losses']} / {r1['losses']}")
+    expect(all(np.isfinite(r0["losses"])), f"tensor_parallel: losses {r0['losses']}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], r0["one_losses"]))
+    expect(loss_rel <= DP_BF16_LOSS_RTOL,
+           f"tensor_parallel: tp2 against one process: {r0['losses']} / {r0['one_losses']}")
+    update_rel, update_worst, worst_rel = r0["update_rel"]
+    floor = r0["chaos_floor"][0]
+    expect(update_rel <= TP_BF16_UPDATE_REL,
+           f"tensor_parallel: the gathered parameters against one process: {r0['update_rel']}, "
+           f"the one process's own one-LSB move {r0['chaos_floor']}")
+    per_step = {fn.__name__: TP_STEPS if fn in DP_COUNTERS else 0 for fn in TP_COUNTERS}
+    expect(r0["launches"] == r1["launches"] == per_step,
+           f"tensor_parallel: launches {r0['launches']} / {r1['launches']}, want {per_step}")
+    routed = ROUTED_CONVS[DEFAULT_ENCODER]
+    want = {fn.__name__: 3 for fn in DP_COUNTERS}
+    want.update(sepconv_forward=routed, sepconv_backward=routed, depthwise_wgrad=routed)
+    expect(r0["parity_launches"] == r1["parity_launches"] == want,
+           f"tensor_parallel: float32 steps' launches {r0['parity_launches']}, want {want}")
+    for name, errs in r0["parity"].items():
+        expect(r0[name] == r1[name], f"tensor_parallel: {name}: the ranks' updates differ")
+        for key, lim in DP_TOL.items():
+            expect(errs[key] <= lim, f"tensor_parallel: {name}: {key} {errs[key]} > {lim}")
+        worst_lstm = max(errs["context_rnn_grad_rel"].values())
+        expect(worst_lstm <= DP_TOL["grad_rel"],
+               f"tensor_parallel: {name}: the context BiLSTM's gradient {errs['context_rnn_grad_rel']}")
+    d0 = dp2[0]
+    expect(all(d["losses"] == d0["losses"] for d in dp2) and all(np.isfinite(d0["losses"])),
+           f"tensor_parallel: dp2 x tp2 ranks' losses {[d['losses'] for d in dp2]}")
+    expect([(d["data_index"], d["model_index"]) for d in dp2] == [(0, 0), (0, 1), (1, 0), (1, 1)],
+           "tensor_parallel: dp2 x tp2 layout")
+    dp2_rel = max(abs(a - b) / abs(b) for a, b in zip(d0["losses"], d0["one_losses"]))
+    expect(dp2_rel <= DP_BF16_LOSS_RTOL,
+           f"tensor_parallel: dp2 x tp2 against one process: {d0['losses']} / {d0['one_losses']}")
+    dp2_steps = {fn.__name__: TP_DP2_STEPS if fn in DP_COUNTERS else 0 for fn in TP_COUNTERS}
+    expect(all(d["launches"] == dp2_steps for d in dp2), f"tensor_parallel: dp2 launches {d0['launches']}")
+    c0, c1 = cli
+    expect(c0["split"] and c1["split"] and c0["optimizer"] == "NovogradState",
+           f"tensor_parallel: the CLI ran split {c0['split']} with {c0['optimizer']}")
+    expect(c0["val"] == c1["val"] and len(c0["val"]) == 1 and np.isfinite(c0["val"][0]["val_loss"]),
+           f"tensor_parallel: CLI val metrics {c0['val']} / {c1['val']}")
+    expect(c0["test"] == c1["test"] and c0["losses"] == c1["losses"],
+           "tensor_parallel: the CLI's ranks differ")
+    expect([len(c["writes"]) for c in cli] == [1, 0] and shapes_whole and meta["epoch"] == 0,
+           f"tensor_parallel: checkpoints written {[c['writes'] for c in cli]}, whole {shapes_whole}")
+    for c in cli:
+        t, e = c["train_steps"], c["eval_batches"]
+        want = {"mel_from_extended": t + e, "lstm_recurrence": t + e, "lstm_backward": t,
+                "ctc_alpha": t + e, "ctc_beta": t, "extend_preemph": t + e,
+                "sepconv_forward": 0, "sepconv_backward": 0, "depthwise_wgrad": 0}
+        expect(c["launches"] == want, f"tensor_parallel: CLI launches {c['launches']}, want {want}")
+    tr = resumed["trainer"]
+    resumed_losses = [x for e in tr.epoch_stats for x in e["losses"]]
+    expect(len(tr.epoch_stats) == 1 and tr.epoch_stats[0]["epoch"] == 1
+           and int(resumed["state"].step) == 2 * c0["train_steps"] and all(np.isfinite(resumed_losses))
+           and type(resumed["state"].opt_state).__name__ == "FusedNovogradState",
+           f"tensor_parallel: one process resuming the tp checkpoint: {tr.epoch_stats}")
+    expect(loaded == saved and isinstance(text, str) and set(text) <= set(LABELS),
+           f"tensor_parallel: the translator on the tp checkpoint gave {text!r}")
+    median = lambda ms: statistics.median(ms[1:])  # noqa: E731
+    steps = TP_STEPS
+    res = {"phase": "tensor_parallel", "card": card, "layout": {"dp": 1, "tp": TP_SIZE},
+           "backend": r0["backend"], "rows": TRAIN_BATCH, "steps": steps,
+           "local_widths": local, "local_shapes": r0["local_shapes"],
+           "losses": r0["losses"], "one_process_losses": r0["one_losses"],
+           "loss_rel_vs_one_process": loss_rel, "loss_rtol": DP_BF16_LOSS_RTOL,
+           "update_rel_vs_one_process": {"whole": update_rel, "worst_tensor": update_worst,
+                                         "worst_tensor_rel": worst_rel},
+           "chaos_floor": {"one_lsb_move": floor, "worst_tensor": r0["chaos_floor"][1],
+                           "worst_tensor_rel": r0["chaos_floor"][2]},
+           "update_rel_limit": TP_BF16_UPDATE_REL,
+           "launches_per_rank": r0["launches"], "parity_launches_per_rank": r0["parity_launches"],
+           "parity": {n: {k: v for k, v in e.items() if k != "context_rnn_grad_rel"}
+                      for n, e in r0["parity"].items()}, "limits": DP_TOL,
+           "dp2_tp2": {"ranks": 2 * TP_SIZE, "rows": TP_DP2_ROWS, "bucket_s": TP_DP2_SECONDS,
+                       "losses": d0["losses"], "one_process_losses": d0["one_losses"],
+                       "loss_rel_vs_one_process": dp2_rel,
+                       "step_ms_per_rank": [median(d["step_ms"]) for d in dp2]},
+           "cli": {"ranks": TP_SIZE, "val": c0["val"][0], "test": c0["test"],
+                   "train_steps": c0["train_steps"], "eval_batches": c0["eval_batches"],
+                   "epochs": c0["epochs"], "checkpoint_writes": [len(c["writes"]) for c in cli],
+                   "resumed_by_one_process": {"losses": resumed_losses,
+                                              "step": int(resumed["state"].step)},
+                   "translated_chars": len(text)},
+           "times": {"note": "ranks sharing one card through the host (gloo); not tp across cards",
+                     "step_ms_one_process": median(r0["one_step_ms"]),
+                     "step_ms_per_rank": [median(r["step_ms"]) for r in ranks],
+                     "gathers_a_step": r0["gathers"]["gathers"],
+                     "gather_bytes_a_step": r0["gathers"]["bytes"],
+                     "gather_ms_a_step_per_rank": [r["gathers"]["ms"] for r in ranks],
+                     "timed_step_ms_per_rank": [r["timed_step_ms"] for r in ranks]}}
+    print(json.dumps(res), flush=True)
+    print(json.dumps({"phase": "tensor_parallel_context_rnn", "card": card,
+                      "grad_rel_vs_one_process": {n: e["context_rnn_grad_rel"]
+                                                  for n, e in r0["parity"].items()},
+                      "limit": DP_TOL["grad_rel"]}), flush=True)
+    check(not failed, "; ".join(failed))
+    launches = {}
+    for out in (*ranks, *dp2, *cli):
+        for name, n in out["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    for out in ranks:
+        for name, n in out["parity_launches"].items():
+            launches[name] += n
     return launches
 
 
@@ -3482,6 +3864,7 @@ def main() -> int:
     trainer = phase_trainer(dev)
     ssl = phase_ssl(dev)
     dp = phase_data_parallel(dev, card)
+    tpl = phase_tensor_parallel(dev, card)
     h128, head_launches = phase_lstm_head_and_data(dev, info["ptxas"], k2["digests"])
     # launches on the main paths: the serving bursts of every encoder, the
     # decoding phase's forwards, the training steps of every configuration,
@@ -3507,6 +3890,13 @@ def main() -> int:
     k10["launches"] = train["sepconv_backward"]
     k11["launches"] = train["depthwise_wgrad"]
     rows = (k1, k2, k3, k4, k5, k6, k7, k8, k9, k10, k11)
+    # the tensor-parallel ranks' steps and CLI runs (K7, K8 are not on that path)
+    for row, name in ((k1, "mel_from_extended"), (k2, "lstm_recurrence"), (k3, "lstm_backward"),
+                      (k4, "ctc_alpha"), (k5, "ctc_beta"), (k6, "extend_preemph"),
+                      (k7, None), (k8, None), (k9, "sepconv_forward"), (k10, "sepconv_backward"),
+                      (k11, "depthwise_wgrad")):
+        row["tp_launches"] = tpl[name] if name else 0
+        row["launches"] += row["tp_launches"]
     check(all(r["launches"] > 0 for r in rows), "a kernel of the main paths was never launched")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
@@ -3516,8 +3906,8 @@ def main() -> int:
         row["h128"] = {k: h128[key][k] for k in keys if k in h128[key]}
     print(json.dumps({"phase": "profiler", "missing_share": PROFILER_MISSING_SHARE,
                       "calls": PROFILER_LOG}), flush=True)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys + ("h128",) if k in r} for r in rows]}),
-          flush=True)
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + ("tp_launches", "h128") if k in r}
+                                  for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -18,7 +18,10 @@ in order, and ``inject_pseudo_datasets`` sets the pseudo-labeled entries
 that train batches draw from beside the train set.  In a data-parallel
 process group every loader gives this rank's rows of the global batches
 (``_shard_info``; train batches laid out for ``micro_batches``, which the
-trainer sets from ``accumulate_grad_batches``).
+trainer sets from ``accumulate_grad_batches``); with model groups (tensor
+parallelism) the rows split over the data group, and the ranks of a model
+group assemble the same rows (each rank still writes its own ``mmap``
+cache directory).
 """
 
 from __future__ import annotations
@@ -26,8 +29,7 @@ from __future__ import annotations
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple, Union
 
-import torch.distributed as dist
-
+from ..parallel import distributed
 from .audio import duration_seconds
 from .manifest import ManifestEntry, read_manifests
 from .pipeline import BucketBatcher
@@ -89,7 +91,7 @@ class AsrDataModule:
             if cache_dir is None:
                 base = Path(self.train_manifest[0]).parent if self.train_manifest else Path(".")
                 cache_dir = base / "_lasr_wave_cache"
-            rank, world = self._shard_info()
+            rank, world = distributed.rank(), distributed.world()
             self.cache_dir = Path(cache_dir) / f"rank{rank}" if world > 1 else Path(cache_dir)
             self._wave_cache = MmapWaveCache(self.cache_dir)
         else:
@@ -113,12 +115,10 @@ class AsrDataModule:
 
     @staticmethod
     def _shard_info() -> Tuple[int, int]:
-        """(rank, world) of the data-parallel process group, (0, 1) without
+        """(data index, data size) of the process group, (0, 1) without
         one: each rank assembles its rows of every global batch (the
         reference's DDP sampler, PL's ``DistributedSampler``)."""
-        if dist.is_available() and dist.is_initialized():
-            return dist.get_rank(), dist.get_world_size()
-        return 0, 1
+        return distributed.data_index(), distributed.data_size()
 
     def _batcher(self, entries, bs: int, train: bool) -> BucketBatcher:
         kwargs = {} if self.bucket_seconds is None else {"bucket_seconds": self.bucket_seconds}

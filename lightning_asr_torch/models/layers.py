@@ -44,6 +44,16 @@ the model's public functions keep the JAX package's (B, T, C).
     to the compute type before it, as JAX does.  The parameters are the same
     in every case.  ``SepConvSE`` has no route: the JAX package's always
     runs ``nn.Conv``.
+  * inside ``parallel/tp.py::model_parallel`` (tensor parallelism) a module
+    runs on this rank's channel block of the trunk (that module's
+    docstring): the depthwise conv on its input block (``groups`` follows
+    the block's width), the pointwise and residual convs on the gathered
+    input for this rank's output rows, BatchNorm on its block with the
+    statistics of the data group's rows, SE's Dense layers on the gathered
+    squeeze, dropout on this rank's block of the draw for every channel.
+    With ``conv_kernel="sepconv"`` K9/K10 take the gathered input and
+    depthwise weight with this rank's pointwise rows.  Outside the scope
+    every module runs as described above, bit for bit.
 
 Parameters are created as zeros (BatchNorm scale and variance as ones);
 weights come from a checkpoint or from ``reset_parameters(generator)``,
@@ -62,21 +72,28 @@ from torch import nn
 from ..ops.depthwise_kernels import depthwise_conv
 from ..ops.lstm import LSTMWeights, lstm
 from ..ops.sepconv_kernels import sepconv
+from ..parallel import tp
 from ..parallel.distributed import all_reduce_sum
 from ..parallel.mesh import current_shard, draw
 
 CONV_KERNELS = (None, "sepconv", "dw_wgrad")
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            channels: Optional[int] = None) -> torch.Tensor:
     """flax ``nn.Dropout`` in train mode: keep with probability 1 - rate and
-    scale the kept values by 1 / (1 - rate); the identity at rate 0."""
+    scale the kept values by 1 / (1 - rate); the identity at rate 0.  On a
+    trunk activation of ``channels`` channels split over a model group the
+    draw is made for every channel and this rank keeps its block."""
     if rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in train mode needs a torch.Generator")
     keep = 1.0 - rate
-    u = draw(x.shape, generator, x.device)
+    if channels is None:
+        u = draw(x.shape, generator, x.device)
+    else:
+        u = tp.own_block(draw((x.shape[0], channels, *x.shape[2:]), generator, x.device))
     return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -109,6 +126,7 @@ class Conv(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(out_ch, in_ch // groups, k))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
+        self.in_ch, self.out_ch = in_ch, out_ch
         self.stride, self.padding, self.groups, self.dtype = stride, padding, groups, dtype
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -120,8 +138,11 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or x.dtype
         bias = None if self.bias is None else self.bias.to(dt)
+        # a depthwise conv on a channel block (tensor parallelism) has as
+        # many groups as the block has channels
+        groups = self.groups if self.groups == 1 else x.shape[1] // self.weight.shape[1]
         return F.conv1d(x.to(dt), self.weight.to(dt), bias, self.stride,
-                        self.padding, 1, self.groups)
+                        self.padding, 1, groups)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -155,8 +176,9 @@ class MaskedBatchNorm(nn.Module):
                 mean = torch.mean(xf, dim=(0, 2))
                 var = torch.mean((xf - mean[:, None]) ** 2, dim=(0, 2))  # biased, for normalizing
             else:                                   # the global batch's (module docstring)
-                mean = all_reduce_sum(torch.mean(xf, dim=(0, 2))) / shard.world
-                var = all_reduce_sum(torch.mean((xf - mean[:, None]) ** 2, dim=(0, 2))) / shard.world
+                mean = all_reduce_sum(torch.mean(xf, dim=(0, 2)), "data") / shard.world
+                var = all_reduce_sum(torch.mean((xf - mean[:, None]) ** 2, dim=(0, 2)),
+                                     "data") / shard.world
                 n *= shard.world
             with torch.no_grad():
                 unbiased = var * (n / max(n - 1, 1))
@@ -179,6 +201,7 @@ class SepConv(nn.Module):
         if conv_kernel not in CONV_KERNELS:
             raise ValueError(f"conv_kernel must be one of {CONV_KERNELS}, got {conv_kernel!r}")
         self.last, self.mask, self.drop_rate = last, mask, drop_rate
+        self.in_ch, self.out_ch = in_ch, out_ch
         self.conv_kernel = conv_kernel if stride == 1 and k % 2 == 1 else None
         self.depthwise_conv = Conv(in_ch, in_ch, k, stride=stride, padding=k // 2,
                                    groups=in_ch, dtype=dtype)
@@ -188,20 +211,22 @@ class SepConv(nn.Module):
     def forward(self, x: torch.Tensor, percents: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.depthwise_conv.dtype or x.dtype
-        if self.conv_kernel == "sepconv":
-            x = sepconv(x.to(dt).contiguous(), self.depthwise_conv.weight,
-                        self.pointwise_conv.weight)
+        cin, cout = self.in_ch, self.out_ch
+        if self.conv_kernel == "sepconv":       # whole input and depthwise weight, own rows
+            xs = tp.column_input(tp.full(x.to(dt), cin), cout)
+            wd = tp.column_input(tp.full(self.depthwise_conv.weight, cin, dim=0), cout)
+            x = sepconv(xs.contiguous(), wd, self.pointwise_conv.weight)
         elif self.conv_kernel == "dw_wgrad":
-            x = self.pointwise_conv(depthwise_conv(x.to(dt).contiguous(),
-                                                   self.depthwise_conv.weight.to(dt)))
+            x = depthwise_conv(x.to(dt).contiguous(), self.depthwise_conv.weight.to(dt))
+            x = self.pointwise_conv(tp.column_input(tp.full(x, cin), cout))
         else:
-            x = self.pointwise_conv(self.depthwise_conv(x))
+            x = self.pointwise_conv(tp.column_input(tp.full(self.depthwise_conv(x), cin), cout))
         if self.mask:
             x = mask_by_percents(x, percents)
         x = self.excite(self.bn(x))
         if not self.last:
             x = F.relu(x)
-        return dropout(x, self.drop_rate, generator) if self.training else x
+        return dropout(x, self.drop_rate, generator, cout) if self.training else x
 
     def excite(self, x: torch.Tensor) -> torch.Tensor:
         """The stage between BN and ReLU: none here, squeeze-excite in
@@ -243,12 +268,14 @@ class SELayer(nn.Module):
 
     def __init__(self, channels: int, reduction: int = 8):
         super().__init__()
+        self.channels = channels
         self.fc1 = Dense(channels, channels // reduction)
         self.fc2 = Dense(channels // reduction, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         squeezed = x.float().mean(dim=2).to(x.dtype)     # jnp.mean: float32 sum, input type
-        y = torch.sigmoid(self.fc2(F.relu(self.fc1(squeezed))))
+        squeezed = tp.full(squeezed, self.channels)       # the Dense layers read every channel
+        y = tp.own(torch.sigmoid(self.fc2(F.relu(self.fc1(squeezed)))))
         return x * y[:, :, None]
 
 
@@ -284,6 +311,7 @@ class QuartNetBlock(nn.Module):
                  mask: bool = True, drop_rate: float = 0.0, dtype: Optional[torch.dtype] = None,
                  conv_kernel: Optional[str] = None, use_se: bool = False):
         super().__init__()
+        self.in_ch, self.out_ch = in_ch, out_ch
         self.seps = [f"sep{i}" for i in range(repeat - 1)] + ["sep_last"]
         common = dict(mask=mask, drop_rate=drop_rate, dtype=dtype, conv_kernel=conv_kernel)
         for i in range(repeat - 1):
@@ -294,7 +322,7 @@ class QuartNetBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, percents: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        start = x
+        start = tp.column_input(tp.full(x, self.in_ch), self.out_ch)
         for name in self.seps:
             x = getattr(self, name)(x, percents, generator)
         return F.relu(x + self.reside_bn(self.reside_conv(start)))
@@ -308,7 +336,7 @@ class BatchLSTM(nn.Module):
 
     def __init__(self, in_ch: int, hidden: int, fuse_directions: bool = False):
         super().__init__()
-        self.hidden = hidden
+        self.in_ch, self.hidden = in_ch, hidden
         self.fuse_directions = fuse_directions
         for tag in ("f", "b"):
             self.register_parameter(f"w_ih_{tag}", nn.Parameter(torch.zeros(4 * hidden, in_ch)))

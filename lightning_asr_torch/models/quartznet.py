@@ -27,6 +27,16 @@ above 0 needs a ``torch.Generator`` passed to ``forward``.
 
 Module names follow the flax parameter tree, so ``utils/jax_params.py``
 maps one onto the other key by key.
+
+Inside ``parallel/tp.py::model_parallel`` (tensor parallelism) the encoders
+take the whole input and return this rank's channel block of the trunk
+where it splits: a SepConv stem reads its block of the input (a free
+slice), the 15x5's plain stem the whole input for its own output rows; the
+context BiLSTM reads the gathered trunk, and the 336-channel concat is cut
+to this rank's block (at tp = 4 one block straddles the trunk and the
+BiLSTM's channels, as GSPMD lays out a split-by-whole concat); the epilog
+conv writes this rank's rows of its 1024 outputs, which the decoder (or the
+LSTM head) reads gathered.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import tp
 from .layers import (BatchLSTM, Conv, Dense, MaskedBatchNorm, QuartNetBlock, SepConv,
                      _lengths_from_percents, dropout, sep_conv)
 
@@ -49,6 +60,15 @@ _CONTEXT_BLOCKS = ([("block3", None, 512, 51), ("block32", 512, 512, 51), ("bloc
 _PLAN_15X5 = [(256, 256, 33), (256, 256, 39), (256, 512, 51), (512, 512, 63), (512, 512, 75)]
 _PLAN_10X5 = ([(256, 256, 33)] * 2 + [(256, 256, 39)] * 2 + [(256, 512, 51), (512, 512, 51)]
               + [(512, 512, 63)] * 2 + [(512, 512, 75)] * 2)
+
+
+ENCODER_OUT = 1024                    # channels of every encoder's output
+
+
+def epilog_input(conv: Conv, x: torch.Tensor) -> torch.Tensor:
+    """The input of a 1x1 epilog conv: the trunk gathered, for this rank's
+    output rows (``parallel/tp.py``; ``x`` itself outside it)."""
+    return tp.column_input(tp.full(x, conv.in_ch), conv.out_ch)
 
 
 class QuartNet12Context(nn.Module):
@@ -77,17 +97,18 @@ class QuartNet12Context(nn.Module):
 
     def forward(self, x: torch.Tensor, percents: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = self.first_cnn(x, percents, generator)
+        x = self.first_cnn(tp.own(x), percents, generator)
         for name in self.trunk:
             x = getattr(self, name)(x, percents, generator)
         # context branch: BiLSTM over true lengths in float32, on (B, T, C)
+        x = tp.full(x, self.context_rnn.in_ch)
         lengths = _lengths_from_percents(x.shape[-1], percents)
         c = self.context_rnn(x.transpose(1, 2).float(), lengths)
-        x = torch.cat([x, c.to(x.dtype).transpose(1, 2)], dim=1)   # (B, 336, T)
+        x = tp.own(torch.cat([x, c.to(x.dtype).transpose(1, 2)], dim=1))   # (B, 336, T)
         for name in self.head:
             x = getattr(self, name)(x, percents, generator)
-        x = F.relu(self.last_bn(self.last_conv(x)))
-        return dropout(x, self.drop_rate, generator) if self.training else x
+        x = F.relu(self.last_bn(self.last_conv(epilog_input(self.last_conv, x))))
+        return dropout(x, self.drop_rate, generator, self.last_conv.out_ch) if self.training else x
 
 
 class _Repeat5(nn.Module):
@@ -111,7 +132,7 @@ class _Repeat5(nn.Module):
         self.last_bn = MaskedBatchNorm(1024)
 
     def stem(self, x: torch.Tensor, percents: torch.Tensor, generator) -> torch.Tensor:
-        return self.first_cnn(x, percents, generator)
+        return self.first_cnn(tp.own(x), percents, generator)
 
     def forward(self, x: torch.Tensor, percents: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -119,7 +140,7 @@ class _Repeat5(nn.Module):
         for name in self.blocks:
             x = getattr(self, name)(x, percents, generator)
         x = self.last_cnn(x, percents, generator)
-        return F.relu(self.last_bn(self.last_conv(x)))
+        return F.relu(self.last_bn(self.last_conv(epilog_input(self.last_conv, x))))
 
 
 class QuartNet15x5(_Repeat5):
@@ -134,7 +155,7 @@ class QuartNet15x5(_Repeat5):
         self.first_bn = MaskedBatchNorm(256)
 
     def stem(self, x: torch.Tensor, percents: torch.Tensor, generator) -> torch.Tensor:
-        return F.relu(self.first_bn(self.first_cnn(x)))
+        return F.relu(self.first_bn(self.first_cnn(tp.column_input(x, self.first_cnn.out_ch))))
 
 
 class QuartNet105(_Repeat5):
@@ -187,7 +208,7 @@ class AsrModel(nn.Module):
                 generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.feature_mapping is not None:
             x = self.feature_mapping(x)
-        x = self.encoder(x.transpose(1, 2), percents, generator)
+        x = tp.full(self.encoder(x.transpose(1, 2), percents, generator), ENCODER_OUT)
         if not self.lstm_head:
             return ctc_head(self.decoder, x, percents)
         x = x.float().transpose(1, 2)                               # (B, T', 1024)

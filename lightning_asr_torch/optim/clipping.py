@@ -20,7 +20,8 @@ def clip_by_value(grads: Tensors, max_delta: float) -> Tensors:
 
 def clip_by_global_norm(grads: Tensors, max_norm: float) -> Tensors:
     """Each t -> t where the global norm is below max_norm, else
-    (t / norm) · max_norm (optax's order of operations)."""
+    (t / norm) · max_norm (optax's order of operations).  Under tensor
+    parallelism the norm is the whole tree's (``global_norm``)."""
     g_norm = global_norm(grads)
     trigger = g_norm < max_norm
     return {k: g.where(trigger, (g / g_norm.to(g.dtype)) * max_norm) for k, g in grads.items()}

@@ -34,6 +34,14 @@ summation order.
 ``novograd_with_runtime_lr`` keeps the learning rate in the state, for the
 ReduceLROnPlateau recipe; ``migrate_novograd_opt_state`` converts a saved
 state between the fused and per-tensor variants on restore.
+
+Under tensor parallelism (inside ``parallel/tp.py::model_parallel``) the
+per-tensor variant updates this rank's blocks of the split leaves: their
+squared gradient norm and LUC's two norms are summed over the model group,
+so the scalar moments are the whole tensors', as GSPMD computes them in the
+JAX package, and ``global_norm`` reads the whole tree.  The fused variant
+refuses to run there, as the JAX ``train.py`` refuses it: its flat buffer
+has no channel structure to split.
 """
 
 from __future__ import annotations
@@ -42,6 +50,8 @@ import math
 from typing import Callable, Dict, NamedTuple, Union
 
 import torch
+
+from ..parallel import tp
 
 Tensors = Dict[str, torch.Tensor]
 _CHUNK = 2048
@@ -72,7 +82,10 @@ def apply_updates(params: Tensors, updates: Tensors) -> Tensors:
 
 
 def global_norm(tree: Tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in float32."""
+    """sqrt of the sum of squares of every element, in float32 (of the whole
+    tensors under tensor parallelism)."""
+    if tp.current() is not None:
+        return torch.sqrt(tp.global_sum_of_squares(tree))
     return torch.sqrt(sum(torch.sum(t.to(torch.float32) ** 2) for t in tree.values()))
 
 
@@ -158,7 +171,7 @@ def novograd(
         new_m, new_v, new_vm, updates = {}, {}, {}, {}
         for k, p in params.items():
             g = grads[k].to(torch.float32)
-            norm = torch.sum(g * g)
+            norm = tp.model_sum(k, torch.sum(g * g))
             v = state.exp_avg_sq[k]
             v_new = torch.where(v == 0.0, norm, beta2 * v + (1.0 - beta2) * norm)
             vm_new = torch.maximum(state.max_exp_avg_sq[k], v_new) if amsgrad \
@@ -170,9 +183,8 @@ def novograd(
                 g = g * (1.0 - beta1)
             m = beta1 * state.exp_avg[k] + g
             if luc:
-                data_norm = torch.linalg.vector_norm(p.to(torch.float32))
-                factor = torch.minimum(luc_trust * data_norm / (torch.linalg.vector_norm(m) + luc_eps),
-                                       lr)
+                data_norm = tp.norm(k, p.to(torch.float32))
+                factor = torch.minimum(luc_trust * data_norm / (tp.norm(k, m) + luc_eps), lr)
                 updates[k] = (-factor * m).to(p.dtype)
             else:
                 updates[k] = (-lr * m).to(p.dtype)
@@ -193,7 +205,13 @@ def _novograd_fused(learning_rate, beta1, beta2, eps, weight_decay, grad_averagi
             layouts[key] = FlatLayout(params)
         return layouts[key]
 
+    def refuse_split():
+        if tp.current() is not None:
+            raise ValueError("the fused NovoGrad runs on whole tensors; under tensor "
+                             "parallelism (train.tp > 1) use novograd(..., fused=False)")
+
     def init_fn(params: Tensors) -> FusedNovogradState:
+        refuse_split()
         layout = layout_of(params)
         dev = layout.seg.device
         zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)  # noqa: E731
@@ -205,6 +223,7 @@ def _novograd_fused(learning_rate, beta1, beta2, eps, weight_decay, grad_averagi
             p_flat=layout.flatten(params))
 
     def update_fn(grads: Tensors, state: FusedNovogradState, params: Tensors):
+        refuse_split()
         layout = layout_of(params)
         seg = layout.seg
         lr = _lr_at(learning_rate, state.count)

@@ -1,4 +1,4 @@
-"""Data parallelism: the process group (``distributed``) and the row layout
-of a global batch over its ranks (``mesh``).  Tensor parallelism
-(``lightning_asr_tpu/parallel/tp.py``) is not ported: ``train.tp > 1``
-raises."""
+"""Process parallelism: the process group with its data and model groups
+(``distributed``), the row layout of a global batch over a data group
+(``mesh``), and tensor parallelism, the conv trunk's channels split over a
+model group (``tp``)."""

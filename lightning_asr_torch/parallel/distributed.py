@@ -25,6 +25,16 @@ axis.  Here each process is a rank of a global batch (``parallel/mesh.py``):
     that hangs fails the run.  ``all_reduce_sum`` carries a gradient (its
     backward is the same all-reduce); ``torch.distributed.nn``'s is
     deprecated.
+  * with tensor parallelism (``init(..., tp=T)``, ``parallel/tp.py``) the
+    W ranks form a (W / T) x T layout, row-major as the JAX package's
+    ``make_mesh(shape=(dp, tp), axis_names=("data", "model"))``: rank r has
+    data index r // T and model index r % T.  The T ranks of one data index
+    (a *model group*) hold the same rows and split the conv trunk's
+    channels; the W / T ranks of one model index (a *data group*) hold the
+    same slice of the model and split the rows.  Every rank creates every
+    group, in the same order.  Each collective names its group: ``"world"``
+    (the default), ``"data"`` or ``"model"``; a subgroup of one rank is no
+    collective at all.
 
 With no group every helper is the one-process computation: rank 0 of 1, a
 barrier and a broadcast do nothing.
@@ -41,7 +51,7 @@ import sys
 from dataclasses import dataclass
 from datetime import timedelta
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -49,6 +59,7 @@ import torch.distributed as dist
 logger = logging.getLogger(__name__)
 
 LAUNCH_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+GROUPS = ("world", "data", "model")
 DEFAULT_TIMEOUT_S = 1800.0
 _PACKAGE_ROOT = Path(__file__).resolve().parents[2]
 
@@ -59,6 +70,9 @@ class Rank:
     world: int
     backend: str
     device: torch.device
+    tp: int = 1                     # ranks of a model group
+    data_group: Any = None          # this rank's data group (None: the world)
+    model_group: Any = None         # this rank's model group (None: tp == 1)
 
 
 _RANK: Optional[Rank] = None
@@ -96,13 +110,16 @@ def backend_for(device_type: str, local_world: int, cards: int) -> str:
 
 
 def init(env: Dict[str, str], device_type: str = "cuda",
-         timeout_s: float = DEFAULT_TIMEOUT_S) -> Rank:
+         timeout_s: float = DEFAULT_TIMEOUT_S, tp: int = 1) -> Rank:
     """Join the process group that ``env`` (``launcher_env``) describes and
-    pin this rank to its card; returns the rank."""
+    pin this rank to its card; with ``tp`` > 1 form the data and model
+    groups of the (world / tp) x tp layout.  Returns the rank."""
     global _RANK
     if _RANK is not None:
         raise RuntimeError(f"this process is already rank {_RANK.rank} of {_RANK.world}")
     rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
+    if tp < 1 or world % tp:
+        raise ValueError(f"a world of {world} ranks does not split into model groups of tp={tp}")
     local_rank, local_world = int(env["LOCAL_RANK"]), int(env.get("LOCAL_WORLD_SIZE", world))
     cards = 0
     device = torch.device("cpu")
@@ -121,9 +138,23 @@ def init(env: Dict[str, str], device_type: str = "cuda",
                 local_world, device, backend,
                 "a card each" if backend == "nccl" else
                 ("ranks share a card" if device_type == "cuda" else "the CPU"))
+    timeout = timedelta(seconds=timeout_s)
     dist.init_process_group(backend, init_method=f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
-                            world_size=world, rank=rank, timeout=timedelta(seconds=timeout_s))
-    _RANK = Rank(rank, world, backend, device)
+                            world_size=world, rank=rank, timeout=timeout)
+    data_group = model_group = None
+    if tp > 1:
+        dp = world // tp
+        for m in range(tp):                          # every rank creates every group
+            group = dist.new_group([d * tp + m for d in range(dp)], timeout=timeout)
+            if m == rank % tp:
+                data_group = group
+        for d in range(dp):
+            group = dist.new_group([d * tp + m for m in range(tp)], timeout=timeout)
+            if d == rank // tp:
+                model_group = group
+        logger.info("rank %d: data index %d of %d, model index %d of %d", rank, rank // tp, dp,
+                    rank % tp, tp)
+    _RANK = Rank(rank, world, backend, device, tp, data_group, model_group)
     return _RANK
 
 
@@ -157,10 +188,48 @@ def is_primary() -> bool:
     return rank() == 0
 
 
-def all_reduce_(tensor: torch.Tensor) -> torch.Tensor:
-    """Sum ``tensor`` over the ranks, in place."""
-    if _RANK is not None:
-        dist.all_reduce(tensor)
+def model_size() -> int:
+    """Ranks of this rank's model group (tp)."""
+    return 1 if _RANK is None else _RANK.tp
+
+
+def model_index() -> int:
+    return rank() % model_size()
+
+
+def data_size() -> int:
+    """Ranks of this rank's data group (dp = world / tp)."""
+    return world() // model_size()
+
+
+def data_index() -> int:
+    return rank() // model_size()
+
+
+def group_size(group: str) -> int:
+    return {"world": world, "data": data_size, "model": model_size}[group]()
+
+
+def _handle(group: str):
+    """(the process group for ``group``, None for the default group; whether
+    a collective runs: always on the default group, as without model
+    groups, and on a subgroup of more than one rank)."""
+    if group not in GROUPS:
+        raise ValueError(f"group must be one of {GROUPS}, got {group!r}")
+    if _RANK is None:
+        return None, False
+    if group == "world" or (group == "data" and _RANK.tp == 1):
+        return None, True
+    if group_size(group) == 1:
+        return None, False
+    return (_RANK.data_group if group == "data" else _RANK.model_group), True
+
+
+def all_reduce_(tensor: torch.Tensor, group: str = "world") -> torch.Tensor:
+    """Sum ``tensor`` over the ranks of ``group``, in place."""
+    handle, many = _handle(group)
+    if many:
+        dist.all_reduce(tensor, group=handle)
     return tensor
 
 
@@ -178,21 +247,18 @@ class _AllReduceSum(torch.autograd.Function):
     the gradients of y (every rank's loss reads y)."""
 
     @staticmethod
-    def forward(ctx, x):
-        y = x.contiguous().clone()
-        dist.all_reduce(y)
-        return y
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_(x.contiguous().clone(), group)
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.contiguous().clone()
-        dist.all_reduce(grad)
-        return grad
+        return all_reduce_(grad.contiguous().clone(), ctx.group), None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """Σ_ranks x, differentiable."""
-    return _AllReduceSum.apply(x)
+def all_reduce_sum(x: torch.Tensor, group: str = "world") -> torch.Tensor:
+    """Σ over the ranks of ``group`` of x, differentiable."""
+    return _AllReduceSum.apply(x, group)
 
 
 def _tensors(tree) -> List[torch.Tensor]:
@@ -207,10 +273,12 @@ def _tensors(tree) -> List[torch.Tensor]:
     return []
 
 
-def broadcast_(tree, src: int = 0):
+def broadcast_(tree, src: int = 0, group: str = "world"):
     """Every tensor of ``tree`` (tensors in dicts, tuples, dataclasses) set to
-    rank ``src``'s, in place: one broadcast of a flat buffer a dtype."""
-    if _RANK is None:
+    the one of global rank ``src`` (a member of ``group``), in place: one
+    broadcast of a flat buffer a dtype."""
+    handle, many = _handle(group)
+    if not many:
         return tree
     unique = {id(t): t for t in _tensors(tree)}
     by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
@@ -218,7 +286,7 @@ def broadcast_(tree, src: int = 0):
         by_dtype.setdefault(t.dtype, []).append(t)
     for dtype, ts in by_dtype.items():
         flat = torch.cat([t.detach().reshape(-1).to(_RANK.device) for t in ts])
-        dist.broadcast(flat, src)
+        dist.broadcast(flat, src, group=handle)
         offset = 0
         with torch.no_grad():
             for t in ts:

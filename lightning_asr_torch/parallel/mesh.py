@@ -25,6 +25,14 @@ working on.  Inside ``row_shard(shard)``:
 
 Outside it (``row_shard(None)``, the default) both are the one-process
 computation, bit for bit.
+
+With tensor parallelism (``parallel/distributed.py``'s (W / T) x T layout)
+the rows split over the data group: W is the data size and r the data
+index, and the T ranks of a model group hold the same rows, draw the same
+numbers and take the same statistics.  A draw over channels (dropout's)
+is made for every channel too and each rank keeps its block
+(``models/layers.py::dropout``), so a row and channel get the numbers that
+one process gives them, whatever W and T.
 """
 
 from __future__ import annotations
@@ -53,7 +61,7 @@ def local_rows(total: int, rank: int, world: int, micro_batches: int = 1) -> np.
 class RowShard:
     rows: torch.Tensor      # (R,) int64: the global row of each local row
     total: int              # rows of the global batch
-    world: int              # ranks that share it
+    world: int              # ranks that split it (the data group's)
 
 
 _CURRENT: Optional[RowShard] = None

@@ -20,8 +20,18 @@ the count of gloo processes.  More processes than cards share the cards
 over gloo (``parallel/distributed.py``, the backend rule).
 ``train.num_nodes`` > 1 needs a launcher on every node, and
 ``train.dist_timeout_s`` (default 1800) ends a run whose collective hangs.
-Rank 0 alone prints, logs and writes checkpoints.  ``train.tp`` > 1
-(tensor parallelism) is not ported and raises.
+Rank 0 alone prints, logs and writes checkpoints.
+
+Tensor parallelism (``train.tp`` = T > 1, ``parallel/tp.py``): the
+processes form a (N / T) x T layout, N = ``train.n_devices`` (or the
+launcher's world), which must divide by T; the T ranks of a model group
+split the conv trunk's channels and hold the same rows, the N / T model
+groups split the rows.  The optimizer is the per-tensor NovoGrad there, as
+in the JAX package's ``train.py``; checkpoints hold whole tensors, so a
+data-parallel run (or one process) resumes from a tensor-parallel
+checkpoint and the other way round.  On one card, ``python -m
+lightning_asr_torch.train train.tp=2 train.n_devices=2`` runs 2 ranks
+sharing it over gloo.
 
 The JAX package picks its opt-in kernels by environment; here they are read
 once, in this entry point, and become ``build_model`` arguments:
@@ -88,9 +98,7 @@ def main(argv=None) -> dict:
         ap.error(f"unrecognized arguments: {' '.join(bad)}")
     cfg = load_config(args.config, rest)
     train_cfg = cfg.train
-    if int(train_cfg.get("tp", 1) or 1) > 1:
-        raise NotImplementedError("tensor parallelism (train.tp > 1) is not ported yet; "
-                                  "train over data-parallel processes with train.tp=1")
+    tp = int(train_cfg.get("tp", 1) or 1)
     device_type = torch.device(args.device or "cuda").type
     env = distributed.launcher_env()
     procs = []
@@ -103,6 +111,9 @@ def main(argv=None) -> dict:
         if device_type == "cuda":
             resolve_device(args.device)          # raises without a card
         n = _local_processes(device_type, train_cfg.get("n_devices"))
+        if n % tp:
+            raise ValueError(f"train.n_devices={n} does not divide by train.tp={tp}: the "
+                             "processes form (n_devices / tp) model groups of tp ranks")
         if n > 1:
             env, procs = distributed.spawn_local_ranks("lightning_asr_torch.train", argv, n)
     if env is not None:
@@ -111,7 +122,8 @@ def main(argv=None) -> dict:
                              "card; pass cuda or cpu")
         try:
             distributed.init(env, device_type,
-                             float(train_cfg.get("dist_timeout_s", distributed.DEFAULT_TIMEOUT_S)))
+                             float(train_cfg.get("dist_timeout_s", distributed.DEFAULT_TIMEOUT_S)),
+                             tp=tp)
         except BaseException:
             distributed.join_ranks(procs, failed=True)
             raise
@@ -170,6 +182,8 @@ def _train(cfg, device: torch.device) -> dict:
     log.info("steps per epoch: %d", steps_per_epoch)
     betas = tuple(train_cfg.get("novograd_betas", (0.8, 0.5)))
     wd = float(train_cfg.get("weight_decay", 1e-3))
+    # the fused flat buffer has no channel structure to split (JAX train.py)
+    fused = distributed.model_size() == 1
     plateau = schedule = None
     if train_cfg.get("scheduler", "cosine_warmup_restarts") == "cosine_warmup_restarts":
         schedule = cosine_annealing_warmup_restarts(
@@ -178,10 +192,10 @@ def _train(cfg, device: torch.device) -> dict:
             min_lr=float(train_cfg.get("min_lr", 1e-4)),
             warmup_steps=train_cfg.get("warmup_steps", 1000),
             gamma=train_cfg.get("lr_gamma", 0.5))
-        optimizer = novograd(schedule, betas=betas, weight_decay=wd, fused=True)
+        optimizer = novograd(schedule, betas=betas, weight_decay=wd, fused=fused)
     else:                                        # the reduce_on_plateau recipe
         plateau = ReduceLROnPlateau(init_lr=lr)
-        optimizer = novograd_with_runtime_lr(lr, betas=betas, weight_decay=wd, fused=True)
+        optimizer = novograd_with_runtime_lr(lr, betas=betas, weight_decay=wd, fused=fused)
     optimizer = with_gradient_clipping(optimizer, float(train_cfg.get("gradient_clip_val", 0) or 0),
                                        train_cfg.get("gradient_clip_algorithm", "value"))
 

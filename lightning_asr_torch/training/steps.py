@@ -37,6 +37,19 @@ world, comes before clipping, the NaN guard and NovoGrad, so that every
 rank takes the same decision and the same update.  With one rank it gives
 the bits of the step without it.
 
+In a tensor-parallel layout (``parallel/distributed.py``, ``parallel/tp.py``)
+the same flag makes the step one rank's share of a dp x tp step: the state
+holds this rank's blocks of the split leaves (``tp.shard_state``), the
+batch the rows of its data group, and the model runs inside
+``tp.model_parallel``; a split leaf's gradient (this rank's block) is
+averaged over the data group, and a whole leaf's, with the loss, over
+every rank: the ranks of a model group compute it alike, but on the card
+not always to the same bits (cuDNN's weight gradients), and a whole leaf
+must stay the same on all of them.  The gradient norm, the per-tensor
+NovoGrad's norms and clipping read the whole tensors' (the split leaves'
+squares summed over the model group).  The eval step runs the same split
+forward; its outputs are whole on every rank.
+
 ``crop=True`` applies the reference's random wave crop on the device
 (``ops/augment.py::wave_crop``, the ``device_cache`` mode of the trainer,
 whose cached batches hold uncropped waves); its two draws a row come first
@@ -63,7 +76,7 @@ from ..ops.augment import cutout, spec_augment, wave_crop
 from ..ops.ctc_kernels import ctc_loss
 from ..ops.frontend import MelFrontendConfig, log_mel_spectrogram, normalize_features
 from ..optim.novograd import GradientTransformation, apply_updates, global_norm
-from ..parallel import distributed
+from ..parallel import distributed, tp
 from ..parallel.mesh import RowShard, local_rows, row_shard
 from ..utils.device import resolve_device
 
@@ -169,8 +182,8 @@ def _loss_and_grads(model: torch.nn.Module, blank_id: int, params: Tensors, stat
 
 def _rank_shards(rows: int, device, accum_steps: int):
     """This rank's ``RowShard`` of a step's batch of ``rows`` local rows, and
-    of each of its ``accum_steps`` micro-batches."""
-    rank, world = distributed.rank(), distributed.world()
+    of each of its ``accum_steps`` micro-batches (over the data group)."""
+    rank, world = distributed.data_index(), distributed.data_size()
     total = rows * world
     whole = RowShard(torch.as_tensor(local_rows(total, rank, world, accum_steps), device=device),
                      total, world)
@@ -180,16 +193,28 @@ def _rank_shards(rows: int, device, accum_steps: int):
     return whole, micro
 
 
+def _mean_over(group: str, tensors: list) -> list:
+    """``tensors`` averaged over the ranks of ``group``: one all-reduce of
+    one flat buffer."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    flat = distributed.all_reduce_(flat, group) / distributed.group_size(group)
+    return list(torch.split(flat, [t.numel() for t in tensors]))
+
+
 def _mean_over_ranks(loss: torch.Tensor, grads: Tensors):
-    """(loss, gradients) averaged over the ranks: one all-reduce of one flat
-    buffer."""
-    flat = torch.cat([g.reshape(-1) for g in grads.values()] + [loss.reshape(1)])
-    flat = distributed.all_reduce_(flat) / distributed.world()
-    out, offset = {}, 0
-    for k, g in grads.items():
-        out[k] = flat[offset: offset + g.numel()].view(g.shape)
-        offset += g.numel()
-    return flat[-1], out
+    """(loss, gradients) averaged over the ranks (the module docstring): one
+    flat all-reduce over the data group, and with model groups one more
+    over the world for the whole leaves and the loss."""
+    shard = tp.current()
+    split = [] if shard is None else [k for k in grads if k in shard.specs]
+    whole = [k for k in grads if k not in split]
+    means = _mean_over("data" if shard is None else "world",
+                       [grads[k] for k in whole] + [loss])
+    if split:
+        means[len(whole):len(whole)] = _mean_over("data", [grads[k] for k in split])
+    out = dict(zip(whole + split, means))
+    return means[len(whole) + len(split)].reshape(()), {k: out[k].view(grads[k].shape)
+                                                        for k in grads}
 
 
 def _eval_outputs(model: torch.nn.Module, state: AsrTrainState, inputs: tuple, batch: dict,
@@ -238,7 +263,8 @@ def make_train_step(
     updates once.  The batch size must divide by ``accum_steps``.
     ``data_parallel`` (the module docstring) needs a process group
     (``parallel/distributed.py``); with it, micro-batch i is this rank's
-    i-th slice of rows, its share of global micro-batch i.
+    i-th slice of rows, its share of global micro-batch i, and in a layout
+    of model groups the state is this rank's blocks (``tp.shard_state``).
 
     On a CUDA model this turns TF32 off for float32 matmuls and convolutions
     (``resolve_device``): the CTC gradient's one-hot scatter to classes and
@@ -248,6 +274,7 @@ def make_train_step(
         raise ValueError("crop=True crops waveforms; a from_features batch holds features")
     resolve_device(next(model.parameters()).device)
     augment = "specaugment" if augment is True else (augment or None)
+    shard = tp.model_shard(model) if data_parallel else None
 
     def grad_fn(params, stats, feats, percents, targets, target_lens, generator):
         return _loss_and_grads(model, blank_id, params, stats, (feats, percents), targets,
@@ -255,6 +282,10 @@ def make_train_step(
 
     def train_step(state: AsrTrainState, batch: dict,
                    generator: Optional[torch.Generator] = None):
+        with tp.model_parallel(shard):
+            return _train_step(state, batch, generator)
+
+    def _train_step(state: AsrTrainState, batch: dict, generator: Optional[torch.Generator]):
         model.train()
         B = batch["waves"].shape[0]
         if B % accum_steps:
@@ -297,16 +328,21 @@ def make_train_step(
 
 def make_eval_step(model: torch.nn.Module, blank_id: int,
                    frontend: MelFrontendConfig = MelFrontendConfig(),
-                   from_features: bool = False, normalize: bool = True) -> Callable:
+                   from_features: bool = False, normalize: bool = True,
+                   data_parallel: bool = False) -> Callable:
     """``eval_step(state, batch) -> {losses, log_probs, preds, pred_lens}``:
     the forward in eval mode (running statistics, no dropout, no dither or
     augmentation) and per-sample CTC losses.  Pins float32 precision on a
-    CUDA model as ``make_train_step`` does."""
+    CUDA model as ``make_train_step`` does.  ``data_parallel`` in a layout
+    of model groups: the state is this rank's blocks, and the forward runs
+    split (the outputs are whole)."""
     resolve_device(next(model.parameters()).device)
+    shard = tp.model_shard(model) if data_parallel else None
 
     def eval_step(state: AsrTrainState, batch: dict) -> dict:
-        return _eval_outputs(model, state, _features(batch, frontend, from_features, normalize,
-                                                     None), batch, blank_id)
+        with tp.model_parallel(shard):
+            return _eval_outputs(model, state, _features(batch, frontend, from_features,
+                                                         normalize, None), batch, blank_id)
 
     return eval_step
 

@@ -32,8 +32,18 @@ checkpoints (the caller gives the other ranks no loggers).  The JAX
 trainer's ahead-of-time compile and coordination barrier before a new
 shape's first step (``training/trainer.py:402-450`` there) work around
 XLA's compile deadline for a collective's first exchange; an eager step has
-no compile to wait for, so nothing here stands for them.  Not ported:
-tensor parallelism.
+no compile to wait for, so nothing here stands for them.
+
+In a layout of model groups (tensor parallelism, ``parallel/tp.py``) the
+state that rank 0 broadcasts is whole, and each rank then keeps its blocks
+of the split leaves (``tp.shard_state``); the steps run split; the eval
+sums still run over every rank (the ranks of a model group hold the same
+rows, so each sum and each count holds them T times, and the ratios are
+the data group's, the same on every rank); the model group that holds
+rank 0 gathers the state before rank 0 writes a checkpoint, so a
+checkpoint holds whole tensors, as a data-parallel one does; a restore
+reads whole tensors (migrating a fused NovoGrad state to the per-tensor
+one) and slices them.
 """
 
 from __future__ import annotations
@@ -54,7 +64,7 @@ from ..decoding.greedy import greedy_decode_to_strings
 from ..metrics.wer import WER
 from ..ops.frontend import MelFrontendConfig
 from ..optim.novograd import InjectHyperparamsState
-from ..parallel import distributed
+from ..parallel import distributed, tp
 from .checkpoint import CheckpointManager
 from .loggers import BaseLogger, MultiLogger
 from .profiler import SimpleProfiler
@@ -161,6 +171,7 @@ class Trainer:
         self._epoch_cache: Optional[list] = None       # [(Batch, device batch)]
         self.data_parallel = distributed.current() is not None
         self.primary = distributed.is_primary()
+        self.model_shard = tp.model_shard(model)       # None without model groups
         # train batches hold this rank's share of each micro-batch
         datamodule.micro_batches = int(accumulate_grad_batches)
         crop_in_step = device_cache and getattr(datamodule, "crop", False) and not from_features
@@ -173,11 +184,13 @@ class Trainer:
             crop_weight=getattr(datamodule, "crop_weight", 0.98),
             accum_steps=int(accumulate_grad_batches), data_parallel=self.data_parallel)
         self._eval_step = make_eval_step(model, self.vocab.blank_id, frontend,
-                                         from_features=from_features, normalize=normalize)
+                                         from_features=from_features, normalize=normalize,
+                                         data_parallel=self.data_parallel)
 
     # ------------------------------------------------------------------
     def init_state(self) -> AsrTrainState:
-        """The state from the module's weights, rank 0's on every rank."""
+        """The whole state from the module's weights, rank 0's on every
+        rank."""
         distributed.broadcast_(dict(itertools.chain(self.model.named_parameters(),
                                                     self.model.named_buffers())))
         return create_train_state(self.model, self.optimizer)
@@ -189,6 +202,11 @@ class Trainer:
         cuda = self.device.type == "cuda"
         return {k: (torch.from_numpy(v).pin_memory() if cuda else torch.from_numpy(v))
                 .to(self.device, non_blocking=cuda) for k, v in arrays.items()}
+
+    def full_state(self, state: AsrTrainState) -> AsrTrainState:
+        """The whole tensors of this rank's ``state``: a collective over the
+        model group (the state itself without model groups)."""
+        return tp.gather_state(state, self.model_shard)
 
     def _seeded(self, step: int) -> torch.Generator:
         """The step's generator, a function of (seed, step) alone."""
@@ -203,6 +221,7 @@ class Trainer:
             state, meta = self.checkpoints.restore(state, resume)
         if resume or initial_state is not None:
             distributed.broadcast_(state)
+        state = tp.shard_state(state, self.model_shard)
         if resume:
             start_epoch = int(meta.get("epoch", -1)) + 1
             if self.plateau is not None:
@@ -220,7 +239,7 @@ class Trainer:
             self.on_resume(state, start_epoch)
 
         self.loggers.log_hyperparams(self.hparams)
-        logger.info("model parameters: %.2fM", sum(p.numel() for p in state.params.values()) / 1e6)
+        logger.info("model parameters: %.2fM", sum(p.numel() for p in self.model.parameters()) / 1e6)
         for cb in self.callbacks:
             cb.on_fit_start(self, state)
         for epoch in range(start_epoch, self.total_epochs):
@@ -239,8 +258,10 @@ class Trainer:
                     state = self._set_lr(state, new_lr)
                     self.loggers.log_metrics({"lr": new_lr}, self.global_step)
                 with self.profiler.profile("checkpoint"):
+                    # the model group of rank 0 gathers; rank 0 writes
+                    whole = self.full_state(state) if distributed.data_index() == 0 else state
                     self.checkpoints.save(
-                        state, epoch, val_metrics, self.hparams,
+                        whole, epoch, val_metrics, self.hparams,
                         trainer_meta=({"plateau": self.plateau.state_dict()}
                                       if self.plateau is not None else None))
                 for cb in self.callbacks:
@@ -381,6 +402,8 @@ class Trainer:
             # the reference's torchmetrics dist_reduce_fx="sum"): sums of
             # errors, words, losses and batch WERs and their counts over the
             # ranks, in float64, then the same three ratios on every rank
+            # (the ranks of a model group hold the same rows: each sum counts
+            # them all, and so does each count)
             tot = distributed.all_reduce_(torch.tensor(
                 [metric.scores, metric.words, float(np.sum(losses)), float(len(losses)),
                  float(np.sum(batch_wers)), float(len(batch_wers))],

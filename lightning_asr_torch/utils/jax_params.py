@@ -19,10 +19,14 @@ Keys are the flax paths joined with dots (``encoder.block1.sep_last.bn``),
 which are the port's module names.  Trees are nested dicts of numpy arrays
 (``jax.device_get`` of the flax variables, or an orbax restore).
 
-``opt_state_from_jax`` / ``opt_state_to_jax`` carry a fused NovoGrad state
-across, bit for bit: the JAX buffers order tensors as JAX flattens the flax
-tree (keys sorted) and keep conv kernels as (k, in, out); the port's follow
-its parameter dict and (out, in, k) / (out, in).
+``opt_state_from_jax`` / ``opt_state_to_jax`` carry a NovoGrad state
+across, bit for bit, in either variant.  Fused: the JAX buffers order
+tensors as JAX flattens the flax tree (keys sorted) and keep conv kernels
+as (k, in, out); the port's follow its parameter dict and (out, in, k) /
+(out, in).  Per-tensor (the variant a tensor-parallel run trains with):
+the momentum is a tree like the params, mapped leaf by leaf and transposed
+as the kernels are; the scalar moments keep their values under the port's
+names.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from ..optim.novograd import _CHUNK, FlatLayout, FusedNovogradState
+from ..optim.novograd import _CHUNK, FlatLayout, FusedNovogradState, NovogradState
 
 _BN_PARAMS = {"scale": "weight", "bias": "bias"}
 _BN_STATS = {"mean": "running_mean", "var": "running_var"}
@@ -129,17 +133,39 @@ def _chunks(n: int) -> int:
     return -(-n // _CHUNK)
 
 
+def _per_tensor_from_jax(field, batch_stats: dict,
+                         port_params: Dict[str, torch.Tensor]) -> NovogradState:
+    bn_modules = {p[:-1] for p, _ in _sorted_leaves(batch_stats)}
+    dev = next(iter(port_params.values())).device
+    trees = {}
+    for k in ("exp_avg", "exp_avg_sq", "max_exp_avg_sq"):
+        trees[k] = {}
+        for path, leaf in _sorted_leaves(dict(field(k))):
+            value = np.transpose(leaf) if path[-1] == "kernel" else leaf
+            trees[k][_port_name(path, bn_modules)] = torch.from_numpy(np.array(value))
+    if set(trees["exp_avg"]) != set(port_params):
+        raise ValueError("the flax params and the port's parameters name other tensors")
+    return NovogradState(
+        torch.tensor(int(np.asarray(field("count"))), dtype=torch.int32).to(dev),
+        *({n: trees[k][n].to(dev) for n in port_params}
+          for k in ("exp_avg", "exp_avg_sq", "max_exp_avg_sq")))
+
+
 def opt_state_from_jax(opt_state, params: dict, batch_stats: dict,
-                       port_params: Dict[str, torch.Tensor]) -> FusedNovogradState:
-    """The JAX package's fused NovoGrad state (numpy; a NamedTuple or dict
-    with ``count``, ``exp_avg``, ``exp_avg_sq``, ``max_exp_avg_sq``,
-    ``p_flat``) for the flax ``params`` / ``batch_stats``, as the port's
-    ``FusedNovogradState`` over ``port_params`` (the port's parameter dict,
-    whose order and shapes set the port's layout).  Exact: both layouts pad
-    each tensor to whole 2048-element chunks; only the tensor order and the
-    conv and Dense kernels' element order differ."""
+                       port_params: Dict[str, torch.Tensor]):
+    """The JAX package's NovoGrad state (numpy; a NamedTuple or dict with
+    ``count``, ``exp_avg``, ``exp_avg_sq``, ``max_exp_avg_sq`` and, when
+    fused, ``p_flat``) for the flax ``params`` / ``batch_stats``, as the
+    port's ``FusedNovogradState`` or ``NovogradState`` over ``port_params``
+    (the port's parameter dict, whose order and shapes set the port's
+    layout).  Exact: both fused layouts pad each tensor to whole
+    2048-element chunks; only the tensor order and the conv and Dense
+    kernels' element order differ.  A per-tensor state's momentum is a
+    tree (a dict), a fused one's a buffer."""
     field = (lambda k: opt_state[k]) if isinstance(opt_state, dict) else (
         lambda k: getattr(opt_state, k))
+    if isinstance(field("exp_avg"), dict) or hasattr(field("exp_avg"), "items"):
+        return _per_tensor_from_jax(field, batch_stats, port_params)
     leaves = _sorted_leaves(params)
     bn_modules = {p[:-1] for p, _ in _sorted_leaves(batch_stats)}
     per_leaf = {k: {} for k in ("exp_avg", "p_flat", "exp_avg_sq", "max_exp_avg_sq")}
@@ -166,11 +192,28 @@ def opt_state_from_jax(opt_state, params: dict, batch_stats: dict,
         vec(per_leaf["max_exp_avg_sq"]), layout.flatten(per_leaf["p_flat"]).to(dev))
 
 
-def opt_state_to_jax(state: FusedNovogradState, port_params: Dict[str, torch.Tensor],
+def _per_tensor_to_jax(state: NovogradState, port_batch_stats: Dict[str, torch.Tensor]) -> dict:
+    stats = {k: v.detach().cpu() for k, v in port_batch_stats.items()}
+    momentum = to_jax({**{n: t.detach().cpu() for n, t in state.exp_avg.items()}, **stats})[0]
+    bn_modules = {tuple(k.rsplit(".", 1)[0].split(".")) for k in stats if k.endswith(".running_mean")}
+    out = {"count": np.asarray(state.count.cpu().numpy(), np.int32), "exp_avg": momentum}
+    for k in ("exp_avg_sq", "max_exp_avg_sq"):
+        scalars = getattr(state, k)
+        tree: dict = {}
+        for path, _ in _sorted_leaves(momentum):      # the momentum's paths, the port's names
+            _set(tree, path, scalars[_port_name(path, bn_modules)].detach().cpu().numpy())
+        out[k] = tree
+    return out
+
+
+def opt_state_to_jax(state, port_params: Dict[str, torch.Tensor],
                      port_batch_stats: Dict[str, torch.Tensor]) -> dict:
     """The inverse of ``opt_state_from_jax``: a dict of numpy fields in the
-    JAX package's fused layout for the flax tree that ``to_jax`` makes of
+    JAX package's layout (fused, or per-tensor trees for a
+    ``NovogradState``) for the flax tree that ``to_jax`` makes of
     ``port_params`` and ``port_batch_stats``."""
+    if isinstance(state, NovogradState):
+        return _per_tensor_to_jax(state, port_batch_stats)
     layout = FlatLayout(port_params)
     momentum = {n: t.detach().cpu() for n, t in layout.unflatten(state.exp_avg).items()}
     masters = {n: t.detach().cpu() for n, t in layout.unflatten(state.p_flat).items()}

@@ -17,10 +17,12 @@ output holds what ``lightning_asr_torch/training/checkpoint.py`` documents:
     ``compute_dtype`` filled in where it lacks them, so ``AsrTranslator``
     loads it with no config;
   * ``train_state.pt``: ``step``, ``nan_count`` and the optimizer state,
-    when the JAX state holds a fused NovoGrad state (alone or inside the
-    runtime-lr wrapper): converted bit for bit by ``opt_state_from_jax``,
-    so the port's ``CheckpointManager.restore`` resumes from it.  Without
-    one only the weights are written.
+    when the JAX state holds a NovoGrad state, fused or per-tensor (the
+    variant a tensor-parallel run trains with), alone or inside the
+    runtime-lr wrapper: converted bit for bit by ``opt_state_from_jax``,
+    so the port's ``CheckpointManager.restore`` resumes from it (and
+    migrates it to the other variant where the run asks for that).
+    Without one only the weights are written.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from lightning_asr_torch.optim.novograd import InjectHyperparamsState  # noqa: E
 from lightning_asr_torch.training.checkpoint import save_checkpoint  # noqa: E402
 from lightning_asr_torch.utils.jax_params import from_jax, opt_state_from_jax  # noqa: E402
 
-_FUSED = {"count", "exp_avg", "exp_avg_sq", "max_exp_avg_sq", "p_flat"}
+_PER_TENSOR = {"count", "exp_avg", "exp_avg_sq", "max_exp_avg_sq"}
 _INJECT = {"count", "hyperparams", "inner_state"}
 
 
@@ -55,12 +57,12 @@ def _fields(node):
 
 
 def find_opt_state(node):
-    """(the fused NovoGrad state, the runtime-lr wrapper around it or None)
-    in a restored optimizer state: the state itself, the wrapper, or a
-    chain (a list, tuple or dict of states) holding one; (None, None) when
-    there is none."""
+    """(the NovoGrad state, fused or per-tensor, the runtime-lr wrapper
+    around it or None) in a restored optimizer state: the state itself, the
+    wrapper, or a chain (a list, tuple or dict of states) holding one;
+    (None, None) when there is none."""
     fields = _fields(node)
-    if fields is not None and _FUSED <= set(fields):
+    if fields is not None and _PER_TENSOR <= set(fields):   # a fused one adds p_flat
         return fields, None
     if fields is not None and _INJECT <= set(fields):
         inner, _ = find_opt_state(fields["inner_state"])
@@ -92,12 +94,12 @@ def convert(jax_ckpt, out) -> Path:
     model.load_state_dict(state_dict, strict=True)           # every key, every shape
 
     train_state = None
-    fused, wrapper = find_opt_state(raw.get("opt_state"))
-    if fused is not None:
+    found, wrapper = find_opt_state(raw.get("opt_state"))
+    if found is not None:
         # the port's flat layout follows the model's parameter order, as
         # create_train_state gives it
         port_params = {k: p.detach() for k, p in model.named_parameters()}
-        opt_state = opt_state_from_jax(fused, params, stats, port_params)
+        opt_state = opt_state_from_jax(found, params, stats, port_params)
         if wrapper is not None:
             hyper = {k: torch.tensor(np.asarray(v), dtype=torch.float32)
                      for k, v in _fields(wrapper["hyperparams"]).items()}

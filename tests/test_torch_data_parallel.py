@@ -450,9 +450,11 @@ def test_cli_starts_two_gloo_ranks(corpus, tmp_path, monkeypatch):
 
 
 def test_cli_refuses_tp_and_nodes_without_a_launcher(corpus, tmp_path):
+    """``train.tp`` that does not divide ``train.n_devices`` raises, naming
+    both, before any rank starts; ``train.num_nodes`` > 1 needs a launcher."""
     args = _cli_args(corpus, tmp_path / "run") + ["--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        main(args + ["train.tp=2"])
+    with pytest.raises(ValueError, match=r"n_devices=2 .*train\.tp=3"):
+        main(args + ["train.tp=3", "train.n_devices=2"])
     with pytest.raises(RuntimeError, match="torchrun"):
         main(args + ["train.num_nodes=2"])
     assert distributed.current() is None

@@ -20,9 +20,29 @@ only torch and the port.  Tasks:
     cache directory, the files it cached after a train epoch and the val
     loader, and the rank's val batches (waves, lengths, paths).
 
+Tensor parallelism (``test_torch_tensor_parallel.py``; the input's ``tp``
+sets the model groups of the layout):
+
+  * ``tp_ops``: ``gather_channels``, ``copy_to_model_group`` and
+    ``split_channels`` on the rank's block of a tensor: the gathered and
+    split tensors, and the gradients of a loss that reads the gathered
+    tensor through a column-parallel conv and a replicated branch;
+  * ``tp_steps``: for each configuration of the input, ``steps`` train
+    steps of ``SmallAsr`` with the per-tensor NovoGrad on the rank's rows
+    and blocks, then an eval step: the losses, the gathered state, the
+    eval log-probs, the local shapes of the split parameters;
+  * ``tp_norms``: the per-tensor NovoGrad's update (with and without LUC),
+    ``global_norm`` and ``clip_by_global_norm`` on the rank's blocks of a
+    tree, gathered;
+  * ``tp_fit``: ``Trainer.fit`` of ``SmallAsr`` with the per-tensor NovoGrad
+    (optionally resumed): the gathered state it returns, the val metrics,
+    its checkpoint writes, and a one-process forward before and after the
+    fit with no layout left behind.
+
 ``SmallAsr`` is the tests' model: ``AsrModel``'s interface at narrow widths
 (a SepConv stem 64->32 k11 stride 2, a repeat-2 block 32->32 k7, the BiLSTM
-32->2x8 concatenated, a block 48->64 k5, the float32 1x1 decoder).
+32->2x8 concatenated, a block 48->64 k5, the float32 1x1 decoder).  Inside
+``tp.model_parallel`` it runs split as the full-width encoders do.
 """
 
 import sys
@@ -34,39 +54,40 @@ from lightning_asr_torch.models.layers import (BatchLSTM, Conv, MaskedBatchNorm,
                                                SepConv, _lengths_from_percents)
 from lightning_asr_torch.models.quartznet import ctc_head
 from lightning_asr_torch.optim.novograd import GradientTransformation
-from lightning_asr_torch.parallel import distributed
+from lightning_asr_torch.parallel import distributed, tp
 from lightning_asr_torch.parallel.mesh import RowShard, local_rows, row_shard
 
 TIMEOUT_S = 120.0
 
 
 class SmallEncoder(nn.Module):
-    def __init__(self, dtype=None, drop_rate: float = 0.0):
+    def __init__(self, dtype=None, drop_rate: float = 0.0, conv_kernel=None):
         super().__init__()
-        common = dict(mask=True, drop_rate=drop_rate, dtype=dtype)
+        common = dict(mask=True, drop_rate=drop_rate, dtype=dtype, conv_kernel=conv_kernel)
         self.first_cnn = SepConv(64, 32, 11, stride=2, **common)
         self.block1 = QuartNetBlock(repeat=2, in_ch=32, out_ch=32, k=7, **common)
         self.context_rnn = BatchLSTM(32, 8)
         self.block2 = QuartNetBlock(repeat=1, in_ch=48, out_ch=64, k=5, **common)
 
     def forward(self, x, percents, generator=None):
-        x = self.block1(self.first_cnn(x, percents, generator), percents, generator)
+        x = self.block1(self.first_cnn(tp.own(x), percents, generator), percents, generator)
+        x = tp.full(x, 32)
         lengths = _lengths_from_percents(x.shape[-1], percents)
         c = self.context_rnn(x.transpose(1, 2).float(), lengths)
-        x = torch.cat([x, c.to(x.dtype).transpose(1, 2)], dim=1)
+        x = tp.own(torch.cat([x, c.to(x.dtype).transpose(1, 2)], dim=1))
         return self.block2(x, percents, generator)
 
 
 class SmallAsr(nn.Module):
-    def __init__(self, num_classes: int, dtype=None, drop_rate: float = 0.0):
+    def __init__(self, num_classes: int, dtype=None, drop_rate: float = 0.0, conv_kernel=None):
         super().__init__()
         self.dtype = dtype
-        self.encoder = SmallEncoder(dtype, drop_rate)
+        self.encoder = SmallEncoder(dtype, drop_rate, conv_kernel)
         self.decoder = Conv(64, num_classes, 1, bias=True)
 
     def forward(self, x, percents, generator=None):
-        return ctc_head(self.decoder, self.encoder(x.transpose(1, 2), percents, generator),
-                        percents)
+        return ctc_head(self.decoder, tp.full(self.encoder(x.transpose(1, 2), percents, generator),
+                                              64), percents)
 
 
 def capture(inner: GradientTransformation) -> GradientTransformation:
@@ -195,15 +216,148 @@ def task_mmap(rank, world, inp):
             "val": [(b.waves, b.wave_lens) for b in val], "val_paths": [b.paths for b in val]}
 
 
+def task_tp_ops(rank, world, inp):
+    import torch.nn.functional as F
+
+    shard = tp.ModelShard(distributed.model_index(), distributed.model_size(), {})
+    x, w, c_rep, c_col = inp["x"], inp["w"], inp["c_rep"], inp["c_col"]
+    n, m = x.shape[1] // shard.size, w.shape[0] // shard.size
+    xl = x[:, shard.index * n:(shard.index + 1) * n].clone().requires_grad_(True)
+    wl = w[shard.index * m:(shard.index + 1) * m].clone().requires_grad_(True)
+    with tp.model_parallel(shard):
+        y = tp.gather_channels(xl)
+        out = tp.gather_channels(F.conv1d(tp.copy_to_model_group(y), wl))   # column parallel
+        loss = (out * c_col).sum() + (y * c_rep).sum()                      # + a replicated branch
+        loss.backward()
+        xs = x.clone().requires_grad_(True)
+        split = tp.split_channels(xs)
+        (split * c_rep[:, shard.index * n:(shard.index + 1) * n]).sum().backward()
+    return {"gathered": y.detach(), "loss": loss.detach(), "x_grad": xl.grad, "w_grad": wl.grad,
+            "split": split.detach(), "split_grad": xs.grad, "index": shard.index}
+
+
+def _tp_optimizer(inp):
+    from lightning_asr_torch.optim import cosine_annealing_warmup_restarts, novograd
+
+    return capture(novograd(cosine_annealing_warmup_restarts(**inp["schedule"]), betas=(0.8, 0.5),
+                            weight_decay=1e-3, fused=False))
+
+
+def task_tp_steps(rank, world, inp):
+    from lightning_asr_torch.ops.frontend import MelFrontendConfig
+    from lightning_asr_torch.training.steps import (create_train_state, make_eval_step,
+                                                    make_train_step)
+
+    results = []
+    batch = rank_rows(inp["batch"], distributed.data_index(), distributed.data_size())
+    for cfg in inp["configs"]:
+        model = SmallAsr(inp["num_classes"], drop_rate=cfg.get("drop_rate", 0.0),
+                         conv_kernel=cfg.get("conv_kernel"))
+        model.load_state_dict(inp["state_dict"])
+        opt = _tp_optimizer(inp)
+        frontend = MelFrontendConfig(**inp["frontend"])
+        step = make_train_step(model, opt, inp["num_classes"] - 1, frontend,
+                               augment=cfg.get("augment"), data_parallel=True)
+        evaluate = make_eval_step(model, inp["num_classes"] - 1, frontend, data_parallel=True)
+        shard = tp.model_shard(model)
+        state = tp.shard_state(create_train_state(model, opt), shard)
+        local = {k: tuple(state.params[k].shape) for k in shard.specs if k in state.params}
+        losses, norms = [], []
+        for i in range(inp["steps"]):
+            state, metrics = step(state, batch, torch.Generator().manual_seed(100 + i))
+            losses.append(metrics["loss"])
+            norms.append(metrics["grad_norm"])
+        log_probs = evaluate(state, batch)["log_probs"]
+        assert tp.current() is None
+        results.append({"losses": torch.stack(losses), "grad_norms": torch.stack(norms),
+                        "state": tp.gather_state(state, shard), "log_probs": log_probs,
+                        "preds": metrics["preds"], "pred_lens": metrics["pred_lens"],
+                        "local_shapes": local, "specs": dict(shard.specs)})
+    return {"configs": results, "rows": torch.as_tensor(local_rows(
+        inp["batch"]["waves"].shape[0], distributed.data_index(), distributed.data_size()))}
+
+
+def task_tp_norms(rank, world, inp):
+    from lightning_asr_torch.optim import novograd
+    from lightning_asr_torch.optim.clipping import clip_by_global_norm
+    from lightning_asr_torch.optim.novograd import global_norm
+
+    shard = tp.ModelShard(distributed.model_index(), distributed.model_size(),
+                          tp.specs({k: v.shape for k, v in inp["params"].items()},
+                                   distributed.model_size()))
+    params, grads = tp.shard_state(inp["params"], shard), tp.shard_state(inp["grads"], shard)
+    out = {}
+    with tp.model_parallel(shard):
+        for luc in (False, True):
+            opt = novograd(1e-2, betas=(0.8, 0.5), weight_decay=1e-3, fused=False, luc=luc)
+            state = opt.init(params)
+            for _ in range(2):
+                updates, state = opt.update(grads, state, params)
+            out[f"luc{int(luc)}"] = (updates, state)
+        out["global_norm"] = global_norm(grads)
+        out["clipped"] = clip_by_global_norm(grads, inp["max_norm"])
+        try:
+            novograd(1e-2, fused=True).update(grads, None, params)
+            out["fused_refused"] = False
+        except ValueError:
+            out["fused_refused"] = True
+    return tp.gather_state(out, shard)
+
+
+def task_tp_fit(rank, world, inp):
+    from lightning_asr_torch.data.datamodule import AsrDataModule
+    from lightning_asr_torch.optim import cosine_annealing_warmup_restarts, novograd
+    from lightning_asr_torch.training import checkpoint
+    from lightning_asr_torch.training.callbacks import Callback
+    from lightning_asr_torch.training.trainer import Trainer
+
+    writes = []
+    save = checkpoint.save_checkpoint
+    checkpoint.save_checkpoint = lambda *a, **k: (writes.append(str(a[0])), save(*a, **k))[1]
+    model = SmallAsr(inp["num_classes"])
+    model.load_state_dict(inp["state_dict"])
+    probe = inp["probe"]
+    model.eval()
+    with torch.no_grad():
+        before = model(probe["feats"], probe["percents"])[0]
+    sched = cosine_annealing_warmup_restarts(**inp["schedule"])
+    trainer = Trainer(model, novograd(sched, betas=(0.8, 0.5), weight_decay=1e-3, fused=False),
+                      AsrDataModule(**inp["datamodule"]), total_epochs=inp["epochs"],
+                      run_dir=inp["run_dir"], log_every_n_steps=1,
+                      train_wer_every_n_steps=10**6, lr_schedule=sched,
+                      hparams={"labels": inp["datamodule"]["labels"]}, seed=4)
+    restored = []
+
+    class Restored(Callback):
+        def on_fit_start(self, trainer, state):
+            restored.append(trainer.full_state(state))
+
+    trainer.callbacks.append(Restored())
+    state = trainer.fit(resume=inp.get("resume"))
+    val = trainer.validate(state)
+    whole = trainer.full_state(state)
+    leaked = tp.current() is not None
+    model.eval()
+    with torch.no_grad():
+        after = model(probe["feats"], probe["percents"])[0]
+    return {"state": whole, "restored": restored[0], "val": val, "writes": writes,
+            "leaked": leaked, "before": before,
+            "after": after, "losses": [x for e in trainer.epoch_stats for x in e["losses"]],
+            "local_shapes": {k: tuple(state.params[k].shape) for k in trainer.model_shard.specs
+                             if k in state.params}}
+
+
 def main():
     task, rank, world, port, inp, out = sys.argv[1:7]
     torch.set_num_threads(1)
+    inp = torch.load(inp, weights_only=False)
     env = {"RANK": rank, "WORLD_SIZE": world, "LOCAL_RANK": rank, "MASTER_ADDR": "127.0.0.1",
            "MASTER_PORT": port}
-    distributed.init(env, "cpu", TIMEOUT_S)
+    distributed.init(env, "cpu", TIMEOUT_S, tp=inp.get("tp", 1) if isinstance(inp, dict) else 1)
     result = {"task_bn": task_bn, "task_step": task_step, "task_fit": task_fit,
-              "task_mmap": task_mmap}[f"task_{task}"](int(rank), int(world),
-                                                     torch.load(inp, weights_only=False))
+              "task_mmap": task_mmap, "task_tp_ops": task_tp_ops, "task_tp_steps": task_tp_steps,
+              "task_tp_norms": task_tp_norms,
+              "task_tp_fit": task_tp_fit}[f"task_{task}"](int(rank), int(world), inp)
     distributed.shutdown()
     torch.save(result, out)
 

@@ -5,7 +5,7 @@
 utterances of 2 s to ``--seconds`` padded to one bucket, the default
 full-width bf16 model and recipe:
 
-    python3 tools/torch_dp_scaling.py [--ranks 1 2 4] [--rows 32] [--utts 1024]
+    python3 tools/torch_dp_scaling.py [--ranks 1 2 4] [--rows 32] [--utts 1024] [--tp 2]
     python3 tools/torch_dp_scaling.py --device cpu --ranks 1 4 --rows 2 \\
         --utts 32 --dev-utts 8 --seconds 2 --epochs 2     # gloo on the CPU
 
@@ -16,6 +16,12 @@ full-width bf16 model and recipe:
     ``--epochs`` epochs, validated after the last: each epoch's wall,
     steps and global rows a second, and the last epoch's weak-scaling
     efficiency against one process.
+
+With ``--tp T`` every run of N > 1 ranks (N a multiple of T) is
+tensor-parallel (``train.tp=T``: N / T model groups of T ranks, which
+split the conv trunk's channels and hold the same rows): ``--rows`` rows a
+model group, so a global batch of N / T x rows, and the efficiency counts
+a model group as one data rank.
 
 Prints one JSON line a run, then a summary line with each card's name and
 power limit.  Imports no JAX.
@@ -70,6 +76,11 @@ def corpus(root: Path, n: int, seconds: float, seed: int, name: str) -> Path:
     return manifest
 
 
+def split(args, n: int) -> int:
+    """The model group's size of a run over ``n`` ranks."""
+    return args.tp if n > 1 and n % args.tp == 0 else 1
+
+
 def run(args, root: Path, train: Path, dev: Path, n: int, batch: int, epochs: int,
         limit=None) -> dict:
     """One training run over ``n`` ranks with a global batch of ``batch``
@@ -81,7 +92,7 @@ def run(args, root: Path, train: Path, dev: Path, n: int, batch: int, epochs: in
             f"train.train_batch_size={batch}", f"train.dev_batch_size={batch}",
             f"train.total_epoch={epochs}", f"train.check_val_every_n_epoch={epochs}",
             "train.warmup_steps=1", "train.log_every_n_steps=1", f"log.run.dir={run_dir}",
-            "--device", args.device]
+            f"train.tp={split(args, n)}", "--device", args.device]
     if limit is not None:
         argv.append(f"train.limit_train_batches={limit}")
     with contextlib.redirect_stdout(io.StringIO()):
@@ -98,6 +109,7 @@ def main() -> int:
     ap.add_argument("--dev-utts", type=int, default=64)
     ap.add_argument("--seconds", type=float, default=16.7)
     ap.add_argument("--epochs", type=int, default=3)
+    ap.add_argument("--tp", type=int, default=1, help="ranks of a model group (train.tp)")
     args = ap.parse_args()
     cards = []
     if args.device == "cuda":
@@ -118,30 +130,36 @@ def main() -> int:
         train = corpus(root, args.utts, args.seconds, 0, "train")
         dev = corpus(root, args.dev_utts, args.seconds, 1, "dev")
         top = max(args.ranks)
+        rows = top // split(args, top) * args.rows          # the parity runs' global batch
         parity = {}
         for n in sorted({1, top}):
-            tr = run(args, root, train, dev, n, top * args.rows, 1, PARITY_STEPS)
+            tr = run(args, root, train, dev, n, rows, 1, PARITY_STEPS)
             parity[n] = tr.epoch_stats[0]["losses"]
         rel = max(abs(a - b) / abs(b) for a, b in zip(parity[top], parity[1]))
         ok &= len(parity[top]) == PARITY_STEPS and rel <= LOSS_RTOL
-        print(json.dumps({"phase": "parity", "ranks": top, "global_rows": top * args.rows,
-                          "losses": parity[top], "one_process_losses": parity[1],
-                          "loss_rel": rel, "loss_rtol": LOSS_RTOL}), flush=True)
-        rates = {}
+        print(json.dumps({"phase": "parity", "ranks": top, "tp": split(args, top),
+                          "global_rows": rows, "losses": parity[top],
+                          "one_process_losses": parity[1], "loss_rel": rel,
+                          "loss_rtol": LOSS_RTOL}), flush=True)
+        rates, groups = {}, {}
         for n in args.ranks:
-            tr = run(args, root, train, dev, n, n * args.rows, args.epochs)
+            groups[n] = n // split(args, n)
+            batch = groups[n] * args.rows
+            tr = run(args, root, train, dev, n, batch, args.epochs)
             epochs = [{"epoch": e["epoch"], "steps": e["batches"], "wall_s": e["wall_sec"],
-                       "global_rows_per_s": e["batches"] * n * args.rows / e["wall_sec"],
+                       "global_rows_per_s": e["batches"] * batch / e["wall_sec"],
                        "loss_mean": e["loss_mean"]} for e in tr.epoch_stats]
             rates[n] = epochs[-1]["global_rows_per_s"]
             ok &= all(np.isfinite(e["loss_mean"]) for e in epochs)
-            print(json.dumps({"phase": "scaling", "ranks": n, "rows_per_rank": args.rows,
+            print(json.dumps({"phase": "scaling", "ranks": n, "tp": split(args, n),
+                              "rows_per_model_group": args.rows,
                               "backend": distributed.backend_for(args.device, n, len(cards)),
                               "epochs": epochs}), flush=True)
     base = rates.get(1)
-    print(json.dumps({"cards": cards, "device": args.device, "ok": bool(ok),
+    print(json.dumps({"cards": cards, "device": args.device, "ok": bool(ok), "tp": args.tp,
                       "global_rows_per_s": rates,
-                      "weak_scaling_efficiency": {n: r / (n * base) for n, r in rates.items()}
+                      "weak_scaling_efficiency": {n: r / (groups[n] * base)
+                                                  for n, r in rates.items()}
                       if base else None}), flush=True)
     return 0 if ok else 1
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, decoding, training, trainer, SSL,
-data-parallel, tensor-parallel, LSTM-head and mmap-cache paths on one
-NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, decoding, training, trainer, SSL (also
+over data-parallel ranks), data-parallel, tensor-parallel, LSTM-head and
+mmap-cache paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -150,7 +150,22 @@ Phases, in order; any failed check exits non-zero before the last line:
      tone-language corpus with seeded feature pickles, each one's launches
      against its steps and evaluation batches; and the train_ssl checkpoint
      served: the translator's feature forward on the card against the CPU
-     (bf16 and float32) on precomputed features;
+     (bf16 and float32) on precomputed features; then (``ssl_data_parallel``)
+     the same paths over 2 ranks sharing the card over gloo, in worker
+     processes as in phase 18: 4 bf16 feature steps with cutout at 16 rows
+     a rank (losses and parameters bit for bit across the ranks, losses
+     within DP_BF16_LOSS_RTOL of one process, K2-K5 once a step on each),
+     one float32 step of each mode (feature, dual, retrain) against one
+     process under DP_TOL with K6 once in the dual step and bit for bit
+     against its plain version on the rank's raw rows; ``python -m
+     lightning_asr_torch.train_ssl`` (its ``main``) as 2 ranks for 2 epochs
+     with a pseudo pass after each (the same metrics on both ranks, the
+     gathered pool equal to a one-process pass's from the same ``last``,
+     ``pseudo_total`` counting the pool once, ``last`` written once and
+     loaded by AsrTranslator) and ``train_ssl_double`` as 2 ranks for an
+     epoch, each rank's launches against its steps and evaluation batches;
+     the step ms of one process and of each rank and the gloo all-reduce,
+     beside the card's name and power limit;
  18. data_parallel: ranks in worker processes of this script
      (``chip_smoke.py --dp-worker TASK SPEC``, started with a launcher's
      variables): 2 ranks sharing the card over gloo take 4 steps of phase
@@ -212,9 +227,10 @@ Phases, in order; any failed check exits non-zero before the last line:
      paths (the serving bursts of every encoder, the decoding phase's
      forwards, the training steps of the nine configurations and of the
      head's two, the trainer's runs, the mmap and RAM CLI runs, the SSL
-     phase's steps, runs and served forwards, the data-parallel ranks'
-     steps and CLI runs, and the tensor-parallel ranks' steps and CLI runs,
-     also alone as ``tp_launches``), its error against the plain version, its time,
+     phase's steps, runs and served forwards and its ranks' steps and CLI
+     runs, the data-parallel ranks' steps and CLI runs, and the
+     tensor-parallel ranks' steps and CLI runs, also alone as
+     ``tp_launches``), its error against the plain version, its time,
      the plain version's, the library yardstick's, and the least time the
      card could take (K1 and K2 at the serving shape, K3-K8 at the training
      shape, K9-K11 at the widest layer); K2, K3, K7 and K8 also under
@@ -297,6 +313,7 @@ from lightning_asr_torch.parallel import distributed, tp
 from lightning_asr_torch.parallel.mesh import local_rows
 from lightning_asr_torch.predict import main as predict_main
 from lightning_asr_torch.ssl_codec.retrain import SSLRetrainAsrModel
+from lightning_asr_torch.ssl_codec.ssl_datamodule import SSLDataModule
 from lightning_asr_torch.ssl_codec.wav2vec import output_lengths as ssl_output_lengths
 from lightning_asr_torch.train import main as train_main
 from lightning_asr_torch.train_ssl import main as ssl_train_main
@@ -304,6 +321,7 @@ from lightning_asr_torch.train_ssl_double import main as ssl_double_main
 from lightning_asr_torch.training import steps as ssl_steps
 from lightning_asr_torch.training.checkpoint import (TRAIN_STATE_FILE, load_checkpoint,
                                                      save_checkpoint)
+from lightning_asr_torch.training.ssl_trainer import SSLTrainer
 from lightning_asr_torch.training.steps import (create_train_state, make_dual_train_step,
                                                 make_raw_ssl_train_step, make_train_step)
 
@@ -3153,14 +3171,16 @@ def _serve_ssl(dev, ckpt: Path, root: Path):
     return {"rows": 8, "frames": frames.tolist(), **out}, launches
 
 
-def phase_ssl(dev) -> dict:
+def phase_ssl(dev, card: str) -> dict:
     """The SSL paths: the feature, dual and retrain steps, then the entry
-    points and the served checkpoint; returns their launches of K1-K6."""
+    points and the served checkpoint, then the same over data-parallel
+    ranks; returns their launches of K1-K6."""
     results = [phase_ssl_feature(dev)]
     dual, k6_dual = phase_ssl_dual(dev)
     results += [dual, phase_ssl_retrain(dev)]
     entry = phase_ssl_entry_points(dev)
-    launches = {k: sum(r["launches"][k] for r in results) + entry["launches"][k]
+    ranks = phase_ssl_data_parallel(dev, card)
+    launches = {k: sum(r["launches"][k] for r in results) + entry["launches"][k] + ranks[k]
                 for k in _ssl_counts()}
     print(json.dumps({"phase": "ssl", "launches": launches, "K6_dual_config_max_abs_err":
                       k6_dual["max_abs_err"]}), flush=True)
@@ -3463,6 +3483,8 @@ def dp_worker(task: str, spec_path: str) -> int:
         distributed.shutdown()
     elif task in ("tp_steps", "tp_dp2"):
         out = _tp_worker(task, spec, env)
+    elif task in ("ssl_steps", "ssl_cli"):
+        out = _ssl_dp_worker(task, spec, env)
     elif task == "cli":           # python -m lightning_asr_torch.train under a launcher
         from lightning_asr_torch.training import checkpoint
         from lightning_asr_torch.training.trainer import Trainer
@@ -3609,6 +3631,287 @@ def phase_data_parallel(dev, card: str) -> dict:
     for out in (*ranks, nccl, *cli):
         for name, n in out["launches"].items():
             launches[name] = launches.get(name, 0) + n
+    return launches
+
+
+# --- SSL over data-parallel ranks (phase ssl): ranks sharing the card ---
+
+# the feature model's bf16 steps on the SSL batch, 16 rows a rank; the
+# entry points' epochs over the ranks (train_ssl: a pseudo pass after each)
+SSL_DP_STEPS, SSL_DP_CLI_EPOCHS = 4, 2
+# the SSL models of phase ssl (their seeds) and their batches (the
+# generators' seeds, rows, waves): the feature and dual batches of 32 rows
+# of 2-16.7 s, the retrain mode's int16 waves
+SSL_DP_MODES = {"feature": (11, 11, TRAIN_BATCH, None), "dual": (12, 13, TRAIN_BATCH, "raw"),
+                "retrain": (13, 15, SSL_RETRAIN_BATCH, "int16")}
+
+
+def _ssl_dp_step(dev, mode: str, recipe: bool, data_parallel: bool = False):
+    """(step, state) of phase ssl's seeded ``mode`` model and its trainer's
+    step with its augmentation (cutout; the dual step's dither, SpecAugment
+    and cutout; the retrain model's cutout): ``recipe`` the feature model
+    in bf16 with the SSL schedule, else float32 behind ``_capture``."""
+    seed = SSL_DP_MODES[mode][0]
+    if mode == "feature":
+        model = build_model(len(LABELS) + 1, mask=True, feature_in=SSL_FEATURE_DIM,
+                            dtype=torch.bfloat16 if recipe else None)
+    elif mode == "dual":
+        model = DualStreamAsrModel(len(LABELS) + 1, mask=True)
+    else:
+        model = SSLRetrainAsrModel(len(LABELS) + 1, mask=True, feat_extract_norm="layer",
+                                   conv_bias=True)
+    _seeded(model, seed).to(dev)
+    opt = _ssl_optimizer() if recipe else _capture(novograd(1e-2, betas=(0.8, 0.5),
+                                                            weight_decay=1e-3, fused=True))
+    if mode == "feature":
+        step = make_train_step(model, opt, BLANK, augment="cutout", from_features=True,
+                               normalize=False, data_parallel=data_parallel)
+    elif mode == "dual":
+        step = make_dual_train_step(model, opt, BLANK, DUAL_MEL_CONFIG, data_parallel=data_parallel)
+    else:
+        step = make_raw_ssl_train_step(model, opt, BLANK, data_parallel=data_parallel)
+    return step, create_train_state(model, opt)
+
+
+def _ssl_dp_batch(dev, mode: str, rank: int = 0, world: int = 1) -> dict:
+    """This rank's rows of phase ssl's ``mode`` batch on ``dev``."""
+    _, seed, rows, waves = SSL_DP_MODES[mode]
+    batch_np, _ = ssl_batch(np.random.default_rng(seed), rows, TRAIN_BUCKET_S, waves)
+    mine = local_rows(rows, rank, world)
+    return {k: torch.from_numpy(v[mine]).to(dev) for k, v in batch_np.items()}
+
+
+def _ssl_dp_float32(dev, mode: str, rank: int = 0, world: int = 1) -> tuple:
+    """One float32 step of ``mode`` (``_step_errors``' operands) on this
+    rank's rows, data-parallel when ``world`` > 1, with its launches of
+    K1-K6."""
+    step, state = _ssl_dp_step(dev, mode, recipe=False, data_parallel=world > 1)
+    batch = _ssl_dp_batch(dev, mode, rank, world)
+    _ssl_zero()
+    new, metrics = step(state, batch, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    launches = _ssl_counts()
+    cpu = lambda tree: {k: v.cpu() for k, v in tree.items()}  # noqa: E731
+    return (cpu(state.params), cpu(new.params), cpu(new.opt_state[0]),
+            {k: metrics[k].cpu() for k in ("loss", "grad_norm", "finite")}), launches, batch
+
+
+def _ssl_dp_worker(task: str, spec: dict, env: dict) -> dict:
+    """A rank of phase ssl's data-parallel part: ``ssl_steps`` (the feature
+    model's bf16 steps, the gloo all-reduce timed, a float32 step of each
+    mode, K6 at the dual rows against its plain version) or ``ssl_cli``
+    (an SSL entry point's ``main`` under the launcher's variables)."""
+    out = {}
+    if task == "ssl_steps":
+        rank = distributed.init(env, "cuda", DP_TIMEOUT_S)
+        dev = rank.device
+        step, state = _ssl_dp_step(dev, "feature", recipe=True, data_parallel=True)
+        _ssl_zero()
+        losses, ms, state = _dp_steps(dev, step, state, _ssl_dp_batch(dev, "feature", rank.rank,
+                                                                      rank.world), SSL_DP_STEPS)
+        out.update(backend=rank.backend, losses=losses, step_ms=ms, launches=_ssl_counts(),
+                   digest=_dp_digest(state))
+        flat = torch.zeros(sum(v.numel() for v in state.params.values()) + 1, device=dev)
+        distributed.all_reduce_(flat)
+        distributed.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_ALLREDUCE_ITERS):
+            distributed.all_reduce_(flat)
+        torch.cuda.synchronize()
+        out.update(allreduce_ms=1e3 * (time.perf_counter() - t0) / DP_ALLREDUCE_ITERS,
+                   allreduce_floats=flat.numel())
+        del step, state
+        parity_launches = {}
+        for mode in SSL_DP_MODES:
+            res, launches, batch = _ssl_dp_float32(dev, mode, rank.rank, rank.world)
+            out[mode], out[f"{mode}_update"] = res, digest(*res[1].values())
+            parity_launches[mode] = launches
+            if mode == "dual":            # K6 at the dual config on this rank's raw rows
+                raw, lens = batch["raw_waves"].contiguous(), batch["raw_wave_lens"]
+                S_ext = raw.shape[1] + DUAL_MEL_CONFIG.n_fft
+                got = extend_preemph(raw, lens, None, DUAL_MEL_CONFIG, S_ext)
+                want = extend_preemph_plain(raw, lens, None, DUAL_MEL_CONFIG, S_ext)
+                out["k6_dual_max_abs_err"] = (got - want).abs().max().item()
+                out["k6_dual_bit_equal"] = torch.equal(got, want)
+            del batch
+            torch.cuda.empty_cache()
+        out["parity_launches"] = parity_launches
+        distributed.shutdown()
+    else:                         # an SSL entry point under a launcher
+        from lightning_asr_torch.training import checkpoint
+        from lightning_asr_torch.training.trainer import Trainer
+
+        writes, vals, passes = [], [], []
+        save, validate, pseudo_pass = checkpoint.save_checkpoint, Trainer.validate, SSLTrainer._pseudo_pass
+        checkpoint.save_checkpoint = lambda *a, **k: (writes.append(str(a[0])), save(*a, **k))[1]
+        Trainer.validate = lambda self, state: (vals.append(validate(self, state)), vals[-1])[1]
+        SSLTrainer._pseudo_pass = lambda self, state: (passes.append(
+            len(self.dm.pseudo_train_dataloader())), pseudo_pass(self, state))[1]
+        _ssl_zero()
+        result, launches = _run_entry({"train_ssl": ssl_train_main,
+                                       "train_ssl_double": ssl_double_main}[spec["entry"]],
+                                      spec["args"])
+        tr = result["trainer"]
+        out.update(launches=launches, writes=writes, val=vals, test=result["test"],
+                   data_parallel=tr.data_parallel, pseudo_batches=sum(passes),
+                   pseudo=[(e.audio_filepath, e.text) for e in tr.dm.pseudo_entries],
+                   batches=[e["batches"] for e in tr.epoch_stats],
+                   epoch_wall_s=[e["wall_sec"] for e in tr.epoch_stats],
+                   train_steps=sum(e["batches"] for e in tr.epoch_stats),
+                   eval_batches=tr.profiler.counts["val_step"] + tr.profiler.counts["test_step"],
+                   digest=digest(*result["state"].params.values()))
+    return out
+
+
+def phase_ssl_data_parallel(dev, card: str) -> dict:
+    """The SSL paths over 2 ranks sharing the card (gloo), as the JAX SSL
+    entry points train over a data mesh: the feature model's bf16 steps on
+    the SSL batch (16 rows a rank) against one process; one float32 step
+    of each mode (feature, dual, retrain) against one process (DP_TOL), K6
+    bit for bit on the dual rows; ``train_ssl`` (its ``main``) as 2 ranks
+    on the entry points' corpus with a pseudo pass after each epoch: the
+    same metrics on both ranks, the gathered pool equal to a one-process
+    pass's from the same ``last`` (at the ranks' batch of rows, so that the
+    card's convs see the same shapes), ``last`` written once and loaded by
+    AsrTranslator; ``train_ssl_double`` as 2 ranks for an epoch.  Returns
+    the ranks' launches of K1-K6."""
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ranks = _dp_launch("ssl_steps", DP_WORLD, tmp)
+        step, state = _ssl_dp_step(dev, "feature", recipe=True)
+        one_losses, one_ms, _ = _dp_steps(dev, step, state, _ssl_dp_batch(dev, "feature"),
+                                          SSL_DP_STEPS)
+        del step, state
+        one = {}
+        for mode in SSL_DP_MODES:
+            one[mode] = _ssl_dp_float32(dev, mode)[0]
+            torch.cuda.empty_cache()
+        m = ssl_corpus(tmp)
+        common = [f"data.train_manifest={m['train']}", f"data.val_manifest={m['dev']}",
+                  f"data.test_manifest={m['dev']}", f"ssl.feature_folder={tmp / 'feats'}",
+                  "data.bucket_seconds=[4.0]", f"train.train_batch_size={SSL_CLI_BATCH}",
+                  f"train.dev_batch_size={SSL_CLI_BATCH}", "train.warmup_steps=1",
+                  "train.log_every_n_steps=1", f"train.dist_timeout_s={DP_TIMEOUT_S}"]
+        run = tmp / "ssl"
+        # lr 1e-6 keeps the seeded model's decodes non-empty (phase
+        # ssl_entry_points), so that every pass injects
+        cli = _dp_launch("ssl_cli", DP_WORLD, tmp, entry="train_ssl", args=common + [
+            f"log.run.dir={run}", f"train.total_epoch={SSL_DP_CLI_EPOCHS}",
+            "train.learning_rate=1e-6", "train.min_lr=1e-7", f"data.pseudo_manifest={m['pool']}",
+            "ssl.pseudo_start_epoch=0", "ssl.pseudo_every_n_epochs=1",
+            "ssl.pseudo_confidence_threshold=1e9"])
+        double = _dp_launch("ssl_cli", DP_WORLD, tmp, entry="train_ssl_double", args=common + [
+            f"log.run.dir={tmp / 'double'}", "train.total_epoch=1"])
+        rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+        # one process's pass from the same last, over the ranks' batch of rows
+        last = run / "checkpoints" / "last"
+        state_dict, meta = load_checkpoint(last)
+        model = build_model(len(LABELS) + 1, mask=True, feature_in=SSL_FEATURE_DIM,
+                            dtype=torch.bfloat16)
+        model.load_state_dict(state_dict)
+        dm = SSLDataModule(train_manifest=str(m["train"]), labels=LABELS,
+                           dev_bs=SSL_CLI_BATCH // DP_WORLD, ssl_folder=str(tmp / "feats"),
+                           pseudo_manifest=str(m["pool"]), bucket_seconds=(4.0,))
+        trainer = SSLTrainer(model.to(dev), novograd(1e-3), dm, run_dir=tmp / "one",
+                             pseudo_confidence_threshold=1e9)
+        trainer._pseudo_pass(trainer.init_state())
+        one_pool = [(e.audio_filepath, e.text) for e in dm.pseudo_entries]
+        del trainer, model
+        translator = AsrTranslator(last, device="cuda")
+        loaded = digest(*(v for k, v in translator.model.state_dict().items()
+                          if not k.endswith(("running_mean", "running_var"))))
+        saved = digest(*(state_dict[k].to(dev) for k, v in translator.model.state_dict().items()
+                         if not k.endswith(("running_mean", "running_var"))))
+        del translator
+
+    failed = []           # every check runs, the phase line prints, then failures exit
+
+    def expect(cond: bool, what: str) -> None:
+        if not cond:
+            failed.append(what)
+
+    r0, r1 = ranks
+    expect(r0["backend"] == r1["backend"] == "gloo", f"ssl ranks: backends {r0['backend']}, {r1['backend']}")
+    expect(r0["losses"] == r1["losses"] and r0["digest"] == r1["digest"],
+           f"ssl ranks: the ranks differ: losses {r0['losses']} / {r1['losses']}")
+    expect(all(np.isfinite(r0["losses"])), f"ssl ranks: losses {r0['losses']}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], one_losses))
+    expect(loss_rel <= DP_BF16_LOSS_RTOL,
+           f"ssl ranks: 2 ranks against one: losses {r0['losses']} / {one_losses}")
+    per_step = {"mel_from_extended": 0, "extend_preemph": 0, "lstm_recurrence": SSL_DP_STEPS,
+                "lstm_backward": SSL_DP_STEPS, "ctc_alpha": SSL_DP_STEPS, "ctc_beta": SSL_DP_STEPS}
+    expect(r0["launches"] == r1["launches"] == per_step,
+           f"ssl ranks: launches {r0['launches']} / {r1['launches']}, want {per_step}")
+    parity = {}
+    for mode in SSL_DP_MODES:
+        expect(r0[f"{mode}_update"] == r1[f"{mode}_update"], f"ssl ranks: {mode}: the ranks' updates differ")
+        errs, worst = _step_errors(r0[mode], one[mode])
+        for key, lim in DP_TOL.items():
+            expect(errs[key] <= lim, f"ssl ranks: {mode}: {key} {errs[key]} > {lim} ({worst})")
+        want = {**{k: 0 for k in per_step}, "lstm_recurrence": 1, "lstm_backward": 1,
+                "ctc_alpha": 1, "ctc_beta": 1, "extend_preemph": int(mode == "dual")}
+        for r in ranks:
+            expect(r["parity_launches"][mode] == want,
+                   f"ssl ranks: {mode} float32 launches {r['parity_launches'][mode]}, want {want}")
+        parity[mode] = {**errs, "worst_grad_tensor": worst}
+    expect(r0["k6_dual_bit_equal"] and r1["k6_dual_bit_equal"],
+           f"ssl ranks: K6 at the dual rows: {r0['k6_dual_max_abs_err']}, {r1['k6_dual_max_abs_err']}")
+    for name, (c0, c1) in (("train_ssl", cli), ("train_ssl_double", double)):
+        expect(c0["data_parallel"] and c1["data_parallel"], f"ssl ranks: {name} ran one process")
+        expect(c0["val"] == c1["val"] and len(c0["val"]) == len(c0["batches"])
+               and all(np.isfinite(v["val_loss"]) for v in c0["val"]),
+               f"ssl ranks: {name} val metrics {c0['val']} / {c1['val']}")
+        expect(c0["test"] == c1["test"] and c0["digest"] == c1["digest"]
+               and c0["batches"] == c1["batches"], f"ssl ranks: {name}: the ranks differ")
+        expect([len(c["writes"]) for c in (c0, c1)] == [len(c0["batches"]), 0],
+               f"ssl ranks: {name}: checkpoints written {[c['writes'] for c in (c0, c1)]}")
+        for c in (c0, c1):
+            t, e = c["train_steps"], c["eval_batches"] + c["pseudo_batches"]
+            want = {"mel_from_extended": 0, "extend_preemph": (t + e) * (name == "train_ssl_double"),
+                    "lstm_recurrence": t + e, "lstm_backward": t, "ctc_alpha": t + e, "ctc_beta": t}
+            expect(c["launches"] == want, f"ssl ranks: {name} launches {c['launches']}, want {want}")
+    c0, c1 = cli
+    pseudo = [r for r in rows if "pseudo_total" in r]
+    expect([r["pseudo_total"] for r in pseudo] == [SSL_CLI_UTTS[2]] * SSL_DP_CLI_EPOCHS
+           and pseudo[-1]["pseudo_kept"] == len(c0["pseudo"]) > 0,
+           f"ssl ranks: train_ssl pseudo passes {pseudo}")
+    expect(c0["pseudo"] == c1["pseudo"] == one_pool,
+           f"ssl ranks: the gathered pool ({len(c0['pseudo'])}) is not one process's from last "
+           f"({len(one_pool)})")
+    expect(loaded == saved == c0["digest"],
+           "ssl ranks: the translator's weights are not rank 0's last")
+    median = lambda ms: statistics.median(ms[1:])  # noqa: E731
+    res = {"phase": "ssl_data_parallel", "card": card, "world": DP_WORLD, "backend": r0["backend"],
+           "rows_per_rank": TRAIN_BATCH // DP_WORLD, "steps": SSL_DP_STEPS,
+           "losses": r0["losses"], "one_process_losses": one_losses,
+           "loss_rel_vs_one_process": loss_rel, "loss_rtol": DP_BF16_LOSS_RTOL,
+           "launches_per_rank": r0["launches"], "parity": parity, "limits": DP_TOL,
+           "k6_dual_max_abs_err": [r0["k6_dual_max_abs_err"], r1["k6_dual_max_abs_err"]],
+           "train_ssl": {"ranks": DP_WORLD, "val": c0["val"], "test": c0["test"],
+                         "batches_per_epoch": c0["batches"], "epoch_wall_s": c0["epoch_wall_s"],
+                         "pseudo": pseudo, "pool_equals_one_process": c0["pseudo"] == one_pool,
+                         "checkpoint_writes": [len(c["writes"]) for c in cli],
+                         "launches_per_rank": c0["launches"]},
+           "train_ssl_double": {"val": double[0]["val"], "test": double[0]["test"],
+                                "epoch_wall_s": double[0]["epoch_wall_s"],
+                                "launches_per_rank": double[0]["launches"]},
+           "times": {"note": "ranks sharing one card through the host (gloo)",
+                     "step_ms_one_process": median(one_ms),
+                     "step_ms_two_ranks_sharing_the_card": [median(r["step_ms"]) for r in ranks],
+                     "gloo_flat_gradient_allreduce_ms": [r["allreduce_ms"] for r in ranks],
+                     "allreduce_floats": r0["allreduce_floats"]}}
+    print(json.dumps(res), flush=True)
+    check(not failed, "; ".join(failed))
+    launches = {k: 0 for k in _ssl_counts()}
+    for out in (*ranks, *cli, *double):
+        for name, n in out["launches"].items():
+            launches[name] += n
+    for out in ranks:
+        for counts in out["parity_launches"].values():
+            for name, n in counts.items():
+                launches[name] += n
     return launches
 
 
@@ -3862,7 +4165,7 @@ def main() -> int:
     for conv_kernel, fused in ((None, False), ("sepconv", False), ("dw_wgrad", False), (None, True)):
         phase_train_parity(dev, conv_kernel, fused)
     trainer = phase_trainer(dev)
-    ssl = phase_ssl(dev)
+    ssl = phase_ssl(dev, card)
     dp = phase_data_parallel(dev, card)
     tpl = phase_tensor_parallel(dev, card)
     h128, head_launches = phase_lstm_head_and_data(dev, info["ptxas"], k2["digests"])

@@ -7,7 +7,11 @@ A dynamic batcher collects concurrent requests for up to ``max_wait_ms`` or
 ``max_batch`` and transcribes them as one device batch.  Its assembler
 thread decodes each batch's request bodies in one pass of the native WAV
 parser (``native.parse_wav_batch_mem``: a C++ thread pool, without the
-interpreter lock).  Serving uses the stdlib ``http.server`` only.
+interpreter lock).  Serving uses the stdlib ``http.server``, or the
+reference's Flask app (``create_flask_app``, one request at a time): ``serve``
+picks Flask by itself, as the JAX package's does, when ``flask`` imports,
+batching is off and no warmup is asked (``--flask`` forces it).  Nothing
+here installs Flask.
 
 Run on the GPU with ``python -m lightning_asr_torch.inference.server --model <dir>``.
 """
@@ -239,15 +243,44 @@ def make_stdlib_server(translator, host: str = "127.0.0.1", port: int = 0,
     return Server((host, port), Handler)
 
 
+def create_flask_app(translator: AsrTranslator):
+    """The reference's Flask app: ``POST /`` reads the form file ``audio``
+    and returns ``translator.translate`` of it."""
+    from flask import Flask, request
+
+    app = Flask(__name__)
+
+    @app.route("/", methods=["POST"])
+    def transcribe():
+        data = io.BytesIO()
+        request.files["audio"].save(data)
+        data.seek(0)
+        return translator.translate(data)
+
+    return app
+
+
 def serve(model_path: str, host: str = "0.0.0.0", port: int = 5000, device=None, batching="auto",
           max_batch: int = 8, max_wait_ms: float = 20.0,
           warmup_seconds: Optional[Sequence[float]] = None, max_queue: int = 64,
-          conv_kernel: Optional[str] = None):
+          conv_kernel: Optional[str] = None, use_flask: Optional[bool] = None):
     """Load the checkpoint (on ``cuda`` unless ``device`` says otherwise;
     ``conv_kernel`` as ``AsrTranslator`` takes it) and serve until
-    interrupted."""
+    interrupted.  ``use_flask`` None: the Flask app when ``flask`` imports,
+    batching is off and no warmup is asked, else the stdlib server; True
+    forces the Flask app."""
     batching = resolve_batching(batching)
     translator = AsrTranslator(model_path, device=device, conv_kernel=conv_kernel)
+    if use_flask is None and not batching and not warmup_seconds:
+        try:
+            import flask  # noqa: F401
+
+            use_flask = True
+        except ImportError:
+            use_flask = False
+    if use_flask:
+        create_flask_app(translator).run(host=host, port=port)
+        return
     server = make_stdlib_server(translator, host, port, batching=batching, max_batch=max_batch,
                                 max_wait_ms=max_wait_ms, warmup_seconds=warmup_seconds,
                                 max_queue=max_queue)
@@ -278,12 +311,15 @@ def _main() -> None:
     ap.add_argument("--conv-kernel", choices=["sepconv", "dw_wgrad"], default=None,
                     help="run the blocks' separable convs through the fused kernels "
                          "(default: the F.conv1d pair)")
+    ap.add_argument("--flask", action="store_true", default=None,
+                    help="force the Flask app (default: it when flask imports and no "
+                         "batching or warmup is asked)")
     args = ap.parse_args()
     logging.basicConfig(level=logging.INFO)
     serve(args.model, host=args.host, port=args.port, device=args.device,
           batching=args.batching, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
           warmup_seconds=args.warmup_seconds, max_queue=args.max_queue,
-          conv_kernel=args.conv_kernel)
+          conv_kernel=args.conv_kernel, use_flask=args.flask)
 
 
 if __name__ == "__main__":

@@ -24,7 +24,13 @@ axis.  Here each process is a rank of a global batch (``parallel/mesh.py``):
     tensors and on gloo on the CPU.  The group has a timeout: a collective
     that hangs fails the run.  ``all_reduce_sum`` carries a gradient (its
     backward is the same all-reduce); ``torch.distributed.nn``'s is
-    deprecated.
+    deprecated.  ``all_gather_object`` gathers picklable objects (the SSL
+    pseudo-label pool) the same way: each rank's bytes summed into a
+    zero-filled buffer.
+  * ``launch`` is the entry points' start (``train``, ``train_ssl``,
+    ``train_ssl_double``): a launcher's ranks join their group, a run
+    started alone starts its own local ranks, and a rank that fails ends
+    the others.
   * with tensor parallelism (``init(..., tp=T)``, ``parallel/tp.py``) the
     W ranks form a (W / T) x T layout, row-major as the JAX package's
     ``make_mesh(shape=(dp, tp), axis_names=("data", "model"))``: rank r has
@@ -45,16 +51,19 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import pickle
 import socket
 import subprocess
 import sys
 from dataclasses import dataclass
 from datetime import timedelta
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
+
+from ..utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -210,6 +219,11 @@ def group_size(group: str) -> int:
     return {"world": world, "data": data_size, "model": model_size}[group]()
 
 
+def group_index(group: str) -> int:
+    """This rank's place in ``group`` (its members in rank order)."""
+    return {"world": rank, "data": data_index, "model": model_index}[group]()
+
+
 def _handle(group: str):
     """(the process group for ``group``, None for the default group; whether
     a collective runs: always on the default group, as without model
@@ -308,6 +322,32 @@ def broadcast_str(text: str, src: int = 0) -> str:
     return bytes(data.cpu().tolist()).decode()
 
 
+def all_gather_object(obj, group: str = "data") -> list:
+    """Every member's ``obj`` of ``group``, in the group's rank order
+    (``[obj]`` without a group): pickled, each rank's bytes written into a
+    zero-filled buffer at its offset, the buffer summed over the group as
+    bytes (the sizes first), so it runs on NCCL and on gloo, under the
+    group's timeout."""
+    handle, many = _handle(group)
+    if not many:
+        return [obj]
+    data = pickle.dumps(obj)
+    index, dev = group_index(group), _RANK.device
+    sizes = torch.zeros(group_size(group), dtype=torch.int64, device=dev)
+    sizes[index] = len(data)
+    dist.all_reduce(sizes, group=handle)
+    sizes = sizes.tolist()
+    buf = torch.zeros(sum(sizes), dtype=torch.uint8, device=dev)
+    start = sum(sizes[:index])
+    buf[start: start + len(data)] = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+    dist.all_reduce(buf, group=handle)
+    raw, out, offset = buf.cpu().numpy().tobytes(), [], 0
+    for size in sizes:
+        out.append(pickle.loads(raw[offset: offset + size]))
+        offset += size
+    return out
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -339,3 +379,68 @@ def join_ranks(procs, failed: bool = False) -> None:
     bad = {r + 1: c for r, c in enumerate(codes) if c}
     if bad and not failed:
         raise RuntimeError(f"ranks exited with an error: {bad}")
+
+
+def local_processes(device_type: str, n_devices) -> int:
+    """Processes a run started alone takes: ``n_devices``, or with null one
+    a visible card (one on the CPU)."""
+    if n_devices is not None:
+        return int(n_devices)
+    return torch.cuda.device_count() if device_type == "cuda" else 1
+
+
+def launch(module: str, argv: List[str], train_cfg, device: Optional[str],
+           body: Callable[[torch.device], Any], tp: int = 1, one_host: bool = False):
+    """Run ``body(device)`` as this process's rank of a run of ``python -m
+    module *argv`` and return its result.  Under a launcher the rank joins
+    the group of its environment; started alone, the run takes
+    ``train.n_devices`` local processes (``local_processes``) and starts
+    ranks 1..N-1 itself, this process being rank 0; with one process there
+    is no group.  With ranks ``device`` must be cpu or cuda (each rank takes
+    its own card).  ``tp`` forms the model groups; ``one_host`` refuses
+    ``train.num_nodes`` > 1 and a launcher's world beyond this host.
+    ``train.dist_timeout_s`` is the group's timeout.  A rank that fails ends
+    the ranks it started; the group is left before returning."""
+    device_type = torch.device(device or "cuda").type
+    num_nodes = int(train_cfg.get("num_nodes", 1) or 1)
+    env = launcher_env()
+    if one_host and (num_nodes > 1 or (env is not None
+                                       and env["LOCAL_WORLD_SIZE"] != env["WORLD_SIZE"])):
+        raise RuntimeError(f"{module} trains on one host, as the JAX package's entry point "
+                           f"does: train.num_nodes={num_nodes}"
+                           + ("" if env is None else f", a launcher's world of "
+                              f"{env['WORLD_SIZE']} with {env['LOCAL_WORLD_SIZE']} here"))
+    n = 1
+    if env is None:
+        if num_nodes > 1:
+            raise RuntimeError(f"train.num_nodes={num_nodes} needs a launcher on every node: "
+                               f"torchrun --nnodes={num_nodes} --nproc_per_node=<cards a node> "
+                               f"--rdzv-endpoint=<host:port> -m {module} ...")
+        n = local_processes(device_type, train_cfg.get("n_devices"))
+        if n % tp:
+            raise ValueError(f"train.n_devices={n} does not divide by train.tp={tp}: the "
+                             "processes form (n_devices / tp) model groups of tp ranks")
+    if (env is not None or n > 1) and device not in (None, "cpu", "cuda"):
+        raise ValueError(f"--device {device}: each data-parallel rank takes its own card; "
+                         "pass cuda or cpu")
+    if env is None and device_type == "cuda":
+        resolve_device(device)                   # raises without a card
+    procs = []
+    if n > 1:
+        env, procs = spawn_local_ranks(module, argv, n)
+    if env is not None:
+        try:
+            init(env, device_type, float(train_cfg.get("dist_timeout_s", DEFAULT_TIMEOUT_S)),
+                 tp=tp)
+        except BaseException:
+            join_ranks(procs, failed=True)
+            raise
+    try:
+        out = body(resolve_device(device if env is None else device_type))
+    except BaseException:
+        shutdown(wait=False)
+        join_ranks(procs, failed=True)
+        raise
+    shutdown()
+    join_ranks(procs)
+    return out

@@ -11,7 +11,15 @@ batches of wav2vec2 features, and the pseudo-label pool of
     the steps take them with ``from_features=True``;
   * given the same entries, seed and epoch, ``SSLBucketBatcher`` gives the
     JAX package's batches bit for bit: the same numpy shuffles and bucket
-    plan.
+    plan;
+  * data parallelism (``shard_rank`` / ``shard_count`` / ``pad_to``, as
+    ``data/pipeline.py::BucketBatcher`` takes them): every rank follows the
+    same global plan, takes the target padding from the global chunk and
+    assembles only its rows (``parallel/mesh.py::local_rows``), reading
+    only their pickles (or extracting only their features).  The global
+    batch is padded to a multiple of ``pad_to`` with the rows the JAX
+    trainer adds for its mesh (its ``training/trainer.py::_device_batch``):
+    zero features, ``wave_lens`` 160, zero targets, ``target_lens`` 0.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from ..data.datamodule import AsrDataModule
 from ..data.manifest import ManifestEntry
 from ..data.pipeline import Batch, _round_up
 from ..data.vocab import Vocabulary
+from ..parallel.mesh import local_rows
 from .extractor import DEFAULT_MODEL, Wav2Vec2Extractor, load_feature_pkl
 
 WAV2VEC_FPS = 50  # 20 ms stride
@@ -31,7 +40,9 @@ SSL_BUCKET_SECONDS = (4.0, 8.0, 12.0, 16.7, 20.0, 30.0, 40.0)
 
 
 class SSLBucketBatcher:
-    """Static-shape batches of wav2vec2 features."""
+    """Static-shape batches of wav2vec2 features; ``shard_rank`` of
+    ``shard_count`` ranks assembles its rows of every global batch (the
+    module docstring), ``pad_to`` a multiple of ``shard_count``."""
 
     def __init__(
         self,
@@ -45,7 +56,12 @@ class SSLBucketBatcher:
         drop_last: Optional[bool] = None,
         seed: int = 0,
         feature_dim: int = 512,
+        shard_rank: int = 0,
+        shard_count: int = 1,
+        pad_to: int = 1,
     ):
+        if shard_count > 1 and pad_to % shard_count != 0:
+            raise ValueError(f"pad_to={pad_to} must be a multiple of shard_count={shard_count}")
         if ssl_folder is None and extractor is None:
             raise ValueError("need ssl_folder (offline) or extractor (on-the-fly)")
         self.entries = list(entries)
@@ -59,6 +75,8 @@ class SSLBucketBatcher:
         self.seed = seed
         self.feature_dim = feature_dim
         self.epoch = 0
+        self.shard_rank, self.shard_count = shard_rank, shard_count
+        self.pad_to = max(pad_to, 1)
         self._encoded = [np.asarray(vocab.encode(e.text), np.int32) if e.text
                          else np.zeros((0,), np.int32) for e in self.entries]
 
@@ -107,11 +125,19 @@ class SSLBucketBatcher:
             yield self._assemble(bucket, chunk)
 
     def _assemble(self, bucket: int, chunk: list) -> Batch:
-        B = len(chunk)
+        # L from the global chunk, so that every rank has the same shapes
         max_tgt = max((len(self._encoded[i]) for i in chunk), default=1)
         L = max(_round_up(max_tgt, 32), 32)
+        global_size = valid = None
+        B = len(chunk)
+        if self.shard_count > 1:
+            global_size = _round_up(len(chunk), self.pad_to)
+            rows = local_rows(global_size, self.shard_rank, self.shard_count)
+            valid = int((rows < len(chunk)).sum())       # ascending: the pad rows come last
+            chunk = [chunk[g] for g in rows[:valid]]
+            B = len(rows)
         feats = np.zeros((B, bucket, self.feature_dim), np.float32)
-        feat_lens = np.zeros(B, np.int32)
+        feat_lens = np.full(B, 160, np.int32)            # pad rows: the JAX trainer's 160
         targets = np.zeros((B, L), np.int32)
         target_lens = np.zeros(B, np.int32)
         paths, texts = [], []
@@ -126,7 +152,8 @@ class SSLBucketBatcher:
             target_lens[i] = len(t)
             paths.append(entry.audio_filepath)
             texts.append(entry.text)
-        return Batch(feats, feat_lens, np.zeros(B, np.float32), targets, target_lens, paths, texts)
+        return Batch(feats, feat_lens, np.zeros(B, np.float32), targets, target_lens, paths, texts,
+                     global_size=global_size, valid_size=valid)
 
 
 class SSLDataModule(AsrDataModule):
@@ -146,6 +173,9 @@ class SSLDataModule(AsrDataModule):
 
     def _batcher(self, entries, bs: int, train: bool):
         kwargs = {} if self.bucket_seconds is None else {"bucket_seconds": self.bucket_seconds}
+        rank, world = self._shard_info()
+        if world > 1:
+            kwargs.update(shard_rank=rank, shard_count=world, pad_to=world)
         return self.batcher_class(entries, self.vocab, bs, ssl_folder=self.ssl_folder,
                                   extractor=self.extractor, train=train, seed=self.seed,
                                   **kwargs)

@@ -60,7 +60,6 @@ from .parallel import distributed
 from .training.loggers import init_loggers
 from .training.trainer import Trainer
 from .utils.config import load_config
-from .utils.device import resolve_device
 from .utils.logging import get_logger, seed_everything, setup_run_dir
 
 DEFAULT_CONFIG = Path(__file__).resolve().parents[1] / "conf" / "conf.yaml"
@@ -77,14 +76,6 @@ def kernel_switches(environ=os.environ) -> dict:
     return {"fuse_directions": on("LASR_LSTM_FUSED_BIDIR"), "conv_kernel": conv_kernel}
 
 
-def _local_processes(device_type: str, n_devices) -> int:
-    """Processes a run started alone takes: ``n_devices``, or with null one
-    a visible card (one on the CPU)."""
-    if n_devices is not None:
-        return int(n_devices)
-    return torch.cuda.device_count() if device_type == "cuda" else 1
-
-
 def main(argv=None) -> dict:
     """Train as configured; returns {"trainer", "state", "test"} (rank 0's
     where this process started the other ranks)."""
@@ -97,45 +88,9 @@ def main(argv=None) -> dict:
     if bad:
         ap.error(f"unrecognized arguments: {' '.join(bad)}")
     cfg = load_config(args.config, rest)
-    train_cfg = cfg.train
-    tp = int(train_cfg.get("tp", 1) or 1)
-    device_type = torch.device(args.device or "cuda").type
-    env = distributed.launcher_env()
-    procs = []
-    if env is None:
-        num_nodes = int(train_cfg.get("num_nodes", 1) or 1)
-        if num_nodes > 1:
-            raise RuntimeError(f"train.num_nodes={num_nodes} needs a launcher on every node: "
-                               f"torchrun --nnodes={num_nodes} --nproc_per_node=<cards a node> "
-                               "--rdzv-endpoint=<host:port> -m lightning_asr_torch.train ...")
-        if device_type == "cuda":
-            resolve_device(args.device)          # raises without a card
-        n = _local_processes(device_type, train_cfg.get("n_devices"))
-        if n % tp:
-            raise ValueError(f"train.n_devices={n} does not divide by train.tp={tp}: the "
-                             "processes form (n_devices / tp) model groups of tp ranks")
-        if n > 1:
-            env, procs = distributed.spawn_local_ranks("lightning_asr_torch.train", argv, n)
-    if env is not None:
-        if args.device not in (None, "cpu", "cuda"):
-            raise ValueError(f"--device {args.device}: each data-parallel rank takes its own "
-                             "card; pass cuda or cpu")
-        try:
-            distributed.init(env, device_type,
-                             float(train_cfg.get("dist_timeout_s", distributed.DEFAULT_TIMEOUT_S)),
-                             tp=tp)
-        except BaseException:
-            distributed.join_ranks(procs, failed=True)
-            raise
-    try:
-        out = _train(cfg, resolve_device(args.device if env is None else device_type))
-    except BaseException:
-        distributed.shutdown(wait=False)
-        distributed.join_ranks(procs, failed=True)
-        raise
-    distributed.shutdown()
-    distributed.join_ranks(procs)
-    return out
+    return distributed.launch("lightning_asr_torch.train", argv, cfg.train, args.device,
+                              lambda device: _train(cfg, device),
+                              tp=int(cfg.train.get("tp", 1) or 1))
 
 
 def _train(cfg, device: torch.device) -> dict:

@@ -15,6 +15,21 @@ local HuggingFace checkpoint file).  It runs on the card unless
 ``--device cpu`` asks for the CPU, and raises without one; the kernel
 switches are read as ``python -m lightning_asr_torch.train`` reads them.
 The resolved config is printed as JSON.
+
+Data parallelism, as the JAX entry point trains over a ``data`` mesh of
+``train.n_devices`` devices of one host: one process a card, started as
+``python -m lightning_asr_torch.train`` starts them
+(``parallel/distributed.py::launch``): ``train.n_devices`` local ranks (null:
+one a visible card; on the CPU the count of gloo processes, 1 by default),
+or the ranks of a launcher on this host (``torchrun --nproc_per_node=N -m
+lightning_asr_torch.train_ssl ...``).  ``train.num_nodes`` > 1 is refused:
+the JAX entry point runs in one process on one host.  Every rank assembles
+its rows of each global batch, the steps take the global BatchNorm
+statistics and draws and average the gradients, and the pseudo-label pool
+is decoded by all the ranks and gathered (``SSLTrainer``).  Rank 0 alone
+prints, logs and writes checkpoints; the retrain warm start reaches every
+rank as rank 0's state.  There is no ``train.tp``: the JAX SSL entry points
+read none.
 """
 
 from __future__ import annotations
@@ -24,12 +39,14 @@ import dataclasses
 import logging
 import sys
 from pathlib import Path
+from typing import Callable
 
 import torch
 
 from .data.datamodule import AsrDataModule
 from .models.quartznet import build_model, reset_parameters
 from .optim import cosine_annealing_warmup_restarts, novograd
+from .parallel import distributed
 from .ssl_codec.extractor import DEFAULT_MODEL
 from .ssl_codec.retrain import SSLRetrainAsrModel, load_hf_encoder_into_params
 from .ssl_codec.ssl_datamodule import SSLDataModule
@@ -38,28 +55,38 @@ from .training.loggers import init_loggers
 from .training.retrain_trainer import SSLRetrainTrainer
 from .training.ssl_trainer import SSLTrainer
 from .utils.config import load_config
-from .utils.device import resolve_device
 from .utils.logging import get_logger, seed_everything, setup_run_dir
 
 DEFAULT_CONFIG = Path(__file__).resolve().parents[1] / "conf" / "ssl-conf.yaml"
+LOG_NAME = "lightning_asr_torch.train_ssl"
 
 
-def parse(argv, description: str):
-    """(config, device) from ``--device``, ``--config`` and key=value
-    overrides; prints the resolved config."""
+def launch(module: str, argv, description: str, body: Callable) -> dict:
+    """Parse ``--device``, ``--config`` and key=value overrides and run
+    ``body(config, device)`` as every rank of the run of ``module`` on this
+    host (``distributed.launch``); rank 0 prints the resolved config, the
+    other ranks log only what is wrong."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     ap = argparse.ArgumentParser(description=description)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--config", default=str(DEFAULT_CONFIG))
-    args, rest = ap.parse_known_args(sys.argv[1:] if argv is None else list(argv))
+    args, rest = ap.parse_known_args(argv)
     bad = [a for a in rest if "=" not in a]
     if bad:
         ap.error(f"unrecognized arguments: {' '.join(bad)}")
-    logging.getLogger("lightning_asr_torch").setLevel(logging.INFO)
     cfg = load_config(args.config, rest)
-    print(cfg.to_json(), flush=True)
-    device = resolve_device(args.device)
-    seed_everything(int(cfg.get("train.seed", 0)))
-    return cfg, device
+
+    def run(device):
+        primary = distributed.is_primary()
+        get_logger(LOG_NAME)
+        for name in ("lightning_asr_torch", LOG_NAME):
+            logging.getLogger(name).setLevel(logging.INFO if primary else logging.WARNING)
+        if primary:
+            print(cfg.to_json(), flush=True)
+        seed_everything(int(cfg.get("train.seed", 0)))
+        return body(cfg, device)
+
+    return distributed.launch(module, argv, cfg.train, args.device, run, one_host=True)
 
 
 def data_kwargs(cfg) -> dict:
@@ -90,7 +117,8 @@ def feature_kwargs(cfg, device) -> dict:
 
 def trainer_kwargs(cfg, model, device, dm, run_default: str, hparams: dict) -> dict:
     """The model's seeded weights on ``device``, the schedule, fused
-    NovoGrad and the trainer arguments every SSL entry point shares."""
+    NovoGrad and the trainer arguments every SSL entry point shares: rank
+    0's run directory on every rank, loggers on rank 0 alone."""
     train_cfg, ssl_cfg = cfg.train, cfg.ssl
     seed = int(cfg.get("train.seed", 0))
     reset_parameters(model, torch.Generator().manual_seed(seed))
@@ -105,11 +133,14 @@ def trainer_kwargs(cfg, model, device, dm, run_default: str, hparams: dict) -> d
         gamma=train_cfg.get("lr_gamma", 0.1))
     optimizer = novograd(schedule, betas=tuple(train_cfg.get("novograd_betas", (0.8, 0.5))),
                          weight_decay=float(train_cfg.get("weight_decay", 1e-3)), fused=True)
-    run_dir = setup_run_dir(cfg, default=run_default)
+    primary = distributed.is_primary()
+    run_dir = Path(distributed.broadcast_str(
+        str(setup_run_dir(cfg, default=run_default)) if primary else ""))
     return dict(model=model, optimizer=optimizer, datamodule=dm, total_epochs=total_epoch,
                 check_val_every_n_epoch=train_cfg.get("check_val_every_n_epoch", 1),
                 log_every_n_steps=train_cfg.get("log_every_n_steps", 10), run_dir=run_dir,
-                loggers=init_loggers(cfg.get("loggers"), run_dir), lr_schedule=schedule,
+                loggers=init_loggers(cfg.get("loggers"), run_dir) if primary else None,
+                lr_schedule=schedule,
                 seed=seed, pseudo_start_epoch=ssl_cfg.get("pseudo_start_epoch", 300),
                 pseudo_every_n_epochs=ssl_cfg.get("pseudo_every_n_epochs", 7),
                 pseudo_confidence_threshold=ssl_cfg.get("pseudo_confidence_threshold", 0.01),
@@ -125,8 +156,12 @@ def fit_and_test(trainer, resume=None, initial_state=None) -> dict:
 
 
 def main(argv=None) -> dict:
-    """Train as configured; returns {"trainer", "state", "test"}."""
-    cfg, device = parse(argv, __doc__.splitlines()[0])
+    """Train as configured; returns {"trainer", "state", "test"} (rank 0's
+    where this process started the other ranks)."""
+    return launch("lightning_asr_torch.train_ssl", argv, __doc__.splitlines()[0], _main)
+
+
+def _main(cfg, device) -> dict:
     if cfg.ssl.get("retrain"):
         return _main_retrain(cfg, device)
     model_cfg = cfg.model
@@ -174,7 +209,7 @@ def _main_retrain(cfg, device) -> dict:
         # build it from the warm-started ones
         initial_state = dataclasses.replace(state, params=params,
                                             opt_state=trainer.optimizer.init(params))
-        get_logger("lightning_asr_torch.train_ssl").info(
+        get_logger(LOG_NAME).info(
             "warm-started the wav2vec2 encoder from %s", init_ckpt)
     return fit_and_test(trainer, cfg.train.get("checkpoint"), initial_state)
 

@@ -10,7 +10,8 @@ computed on the device from the raw waves, concatenated into the encoder
 It runs on the card unless ``--device cpu`` asks for the CPU, and raises
 without one; the kernel switches are read as ``python -m
 lightning_asr_torch.train`` reads them.  The resolved config is printed as
-JSON.
+JSON.  ``train.n_devices`` (or a launcher on this host) trains over
+data-parallel ranks as ``train_ssl`` does.
 """
 
 from __future__ import annotations
@@ -18,13 +19,17 @@ from __future__ import annotations
 from .models.dual_stream import DualStreamAsrModel
 from .ssl_codec.dual_datamodule import DualSSLDataModule
 from .train import kernel_switches
-from .train_ssl import data_kwargs, feature_kwargs, fit_and_test, parse, trainer_kwargs
+from .train_ssl import data_kwargs, feature_kwargs, fit_and_test, launch, trainer_kwargs
 from .training.dual_trainer import DualSSLTrainer
 
 
 def main(argv=None) -> dict:
-    """Train as configured; returns {"trainer", "state", "test"}."""
-    cfg, device = parse(argv, __doc__.splitlines()[0])
+    """Train as configured; returns {"trainer", "state", "test"} (rank 0's
+    where this process started the other ranks)."""
+    return launch("lightning_asr_torch.train_ssl_double", argv, __doc__.splitlines()[0], _main)
+
+
+def _main(cfg, device) -> dict:
     model_cfg = cfg.model
     dm = DualSSLDataModule(**data_kwargs(cfg), **feature_kwargs(cfg, device))
     model = DualStreamAsrModel(

@@ -14,5 +14,5 @@ class DualSSLTrainer(SSLTrainer):
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self._train_step = make_dual_train_step(self.model, self.optimizer, self.vocab.blank_id,
-                                                DUAL_MEL_CONFIG)
+                                                DUAL_MEL_CONFIG, data_parallel=self.data_parallel)
         self._eval_step = make_dual_eval_step(self.model, self.vocab.blank_id, DUAL_MEL_CONFIG)

@@ -13,5 +13,6 @@ class SSLRetrainTrainer(SSLTrainer):
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self._train_step = make_raw_ssl_train_step(self.model, self.optimizer,
-                                                   self.vocab.blank_id)
+                                                   self.vocab.blank_id,
+                                                   data_parallel=self.data_parallel)
         self._eval_step = make_raw_ssl_eval_step(self.model, self.vocab.blank_id)

@@ -10,12 +10,22 @@
     greedily, each utterance scored (``confidence_scores``), those at or
     under the threshold with a non-empty text injected as training data;
     the next epoch's loader draws from them.
+
+In a data-parallel process group each rank decodes its rows of each pool
+batch, and the kept (path, text) pairs are gathered batch by batch in rank
+order, which is the global row order (``parallel/mesh.py``): every rank
+holds one process's pool in one process's order (the pool loader's bucket
+plan), whose order the next epoch's shuffle reads.  Every rank injects the
+same list (checked by a digest), and the pool counts each utterance once.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import logging
 
+from ..parallel import distributed
 from ..ssl_codec.confidence import confidence_scores
 from .trainer import Trainer
 
@@ -29,6 +39,10 @@ class SSLTrainer(Trainer):
         kwargs.setdefault("from_features", True)
         kwargs.setdefault("augment", "cutout")
         kwargs.setdefault("normalize", False)
+        if distributed.data_size() > 1 and kwargs.get("accumulate_grad_batches", 1) > 1:
+            # the SSL batchers lay out a rank's rows for one micro-batch
+            raise ValueError("accumulate_grad_batches > 1 is not supported in SSL training "
+                             "over several ranks")
         super().__init__(*args, **kwargs)
         self.pseudo_start_epoch = pseudo_start_epoch
         self.pseudo_every_n_epochs = pseudo_every_n_epochs
@@ -59,18 +73,26 @@ class SSLTrainer(Trainer):
     def _pseudo_pass(self, state) -> None:
         kept, total = [], 0
         for batch, dev_batch in self._device_iter(self.dm.pseudo_train_dataloader()):
-            out = self._eval_step(state, dev_batch)
             n = batch.size
-            texts = self._decode(out, n)
-            conf = confidence_scores(out["log_probs"][:n].cpu().numpy(),
-                                     out["pred_lens"][:n].cpu().numpy(), self.vocab.blank_id,
-                                     self.pseudo_confidence_measure)
-            for path, text, c in zip(batch.paths, texts, conf):
-                total += 1
-                if c <= self.pseudo_confidence_threshold and text.strip():
-                    kept.append((path, text))
-        logger.info("pseudo-labeling: kept %d / %d (%.1f%%)", len(kept), total,
-                    100.0 * len(kept) / max(total, 1))
+            mine = []
+            if n:                          # else a rank's share of the tail: pad rows only
+                out = self._eval_step(state, dev_batch)
+                texts = self._decode(out, n)
+                conf = confidence_scores(out["log_probs"][:n].cpu().numpy(),
+                                         out["pred_lens"][:n].cpu().numpy(),
+                                         self.vocab.blank_id, self.pseudo_confidence_measure)
+                mine = [(path, text) for path, text, c in zip(batch.paths, texts, conf)
+                        if c <= self.pseudo_confidence_threshold and text.strip()]
+            for rows, pairs in distributed.all_gather_object((n, mine)):   # [(n, mine)] alone
+                total += rows
+                kept.extend(pairs)
+        if distributed.data_size() > 1:
+            digest = hashlib.sha256(json.dumps(kept).encode()).hexdigest()
+            if len(set(distributed.all_gather_object(digest))) != 1:
+                raise RuntimeError("the ranks' pseudo-label pools differ")
+        if distributed.is_primary():
+            logger.info("pseudo-labeling: kept %d / %d (%.1f%%)", len(kept), total,
+                        100.0 * len(kept) / max(total, 1))
         self.loggers.log_metrics({"pseudo_kept": len(kept), "pseudo_total": total},
                                  self.global_step)
         if kept:

@@ -61,7 +61,8 @@ from the raw waves in ``batch``'s ``raw_waves``; SpecAugment and
 normalization on the mel stream, cutout on the features) and
 ``make_raw_ssl_train_step`` / ``make_raw_ssl_eval_step`` (raw waves into
 ``SSLRetrainAsrModel``, which holds the trainable wav2vec2 encoder and its
-cutout).
+cutout); their train steps take ``data_parallel`` as ``make_train_step``
+does (no model groups: the SSL entry points split rows only).
 """
 
 from __future__ import annotations
@@ -217,6 +218,21 @@ def _mean_over_ranks(loss: torch.Tensor, grads: Tensors):
                                                         for k in grads}
 
 
+def _rows_loss_and_grads(data_parallel: bool, batch: dict, fn: Callable):
+    """``fn()``'s (loss, grads, stats, log_probs, out_lens) for a step of one
+    batch (no micro-batches).  With ``data_parallel`` ``fn`` runs inside
+    ``row_shard`` of the rank's rows (global draws and BatchNorm
+    statistics), and the loss and gradients are then averaged over the
+    ranks."""
+    whole = _rank_shards(batch["waves"].shape[0], batch["waves"].device, 1)[0] \
+        if data_parallel else None
+    with row_shard(whole):
+        loss, grads, *rest = fn()
+    if data_parallel:
+        loss, grads = _mean_over_ranks(loss, grads)
+    return (loss, grads, *rest)
+
+
 def _eval_outputs(model: torch.nn.Module, state: AsrTrainState, inputs: tuple, batch: dict,
                   blank_id: int) -> dict:
     """The model in eval mode on ``inputs``: per-sample CTC losses,
@@ -370,21 +386,28 @@ def _dual_inputs(batch: dict, mel_frontend: MelFrontendConfig,
 
 def make_dual_train_step(model: torch.nn.Module, optimizer: GradientTransformation,
                          blank_id: int, mel_frontend: MelFrontendConfig, freq_mask=27,
-                         time_mask=0.07) -> Callable:
+                         time_mask=0.07, data_parallel: bool = False) -> Callable:
     """``train_step(state, batch, generator)`` of ``DualStreamAsrModel``:
     ``batch`` holds the features (``waves``, ``wave_lens``), ``raw_waves``
     (B, S) float32, ``raw_wave_lens``, ``targets`` and ``target_lens``.  Pins
-    float32 precision on a CUDA model as ``make_train_step`` does."""
+    float32 precision on a CUDA model as ``make_train_step`` does.
+    ``data_parallel`` as in ``make_train_step``: the mel stream's dither and
+    SpecAugment, the cutout and dropout draw the global rows, BatchNorm
+    takes the global statistics, and the loss and gradients are averaged
+    over the ranks before the update."""
     resolve_device(next(model.parameters()).device)
 
     def train_step(state: AsrTrainState, batch: dict,
                    generator: Optional[torch.Generator] = None):
         model.train()
-        inputs = _dual_inputs(batch, mel_frontend, generator, True, freq_mask, time_mask)
-        loss, grads, new_stats, log_probs, out_lens = _loss_and_grads(
-            model, blank_id, state.params, state.batch_stats, inputs, batch["targets"],
-            batch["target_lens"], generator)
-        return _guarded_update(state, optimizer, loss, grads, new_stats, log_probs, out_lens)
+
+        def loss_and_grads():
+            inputs = _dual_inputs(batch, mel_frontend, generator, True, freq_mask, time_mask)
+            return _loss_and_grads(model, blank_id, state.params, state.batch_stats, inputs,
+                                   batch["targets"], batch["target_lens"], generator)
+
+        return _guarded_update(state, optimizer,
+                               *_rows_loss_and_grads(data_parallel, batch, loss_and_grads))
 
     return train_step
 
@@ -401,20 +424,24 @@ def make_dual_eval_step(model: torch.nn.Module, blank_id: int,
 
 
 def make_raw_ssl_train_step(model: torch.nn.Module, optimizer: GradientTransformation,
-                            blank_id: int) -> Callable:
+                            blank_id: int, data_parallel: bool = False) -> Callable:
     """``train_step(state, batch, generator)`` of ``SSLRetrainAsrModel``: the
     raw ``waves`` and ``wave_lens`` go to the model, which draws its cutout
-    and dropout from ``generator``."""
+    and dropout from ``generator``.  ``data_parallel`` as in
+    ``make_dual_train_step``."""
     resolve_device(next(model.parameters()).device)
 
     def train_step(state: AsrTrainState, batch: dict,
                    generator: Optional[torch.Generator] = None):
         model.train()
-        loss, grads, new_stats, log_probs, out_lens = _loss_and_grads(
-            model, blank_id, state.params, state.batch_stats,
-            (batch["waves"], batch["wave_lens"]), batch["targets"], batch["target_lens"],
-            generator)
-        return _guarded_update(state, optimizer, loss, grads, new_stats, log_probs, out_lens)
+
+        def loss_and_grads():
+            return _loss_and_grads(model, blank_id, state.params, state.batch_stats,
+                                   (batch["waves"], batch["wave_lens"]), batch["targets"],
+                                   batch["target_lens"], generator)
+
+        return _guarded_update(state, optimizer,
+                               *_rows_loss_and_grads(data_parallel, batch, loss_and_grads))
 
     return train_step
 

@@ -252,9 +252,16 @@ def test_masked_batchnorm_global_statistics(tmp_path):
 # --- the train step ---
 
 class JaxSmallEncoder(fnn.Module):
+    """``torch_dp_worker.SmallEncoder`` in flax; it takes the fields the JAX
+    models pass an encoder of ``quartznet._ENCODERS`` (no dropout)."""
+
+    in_c: int = 64
+    drop_rate: float = 0.0
+    mask: bool = True
+
     @fnn.compact
     def __call__(self, x, percents, train):
-        x = jl.SepConv(64, 32, k=11, stride=2, mask=True, drop_rate=0.0, name="first_cnn")(
+        x = jl.SepConv(self.in_c, 32, k=11, stride=2, mask=True, drop_rate=0.0, name="first_cnn")(
             x, percents, train)
         x = jl.QuartNetBlock(repeat=2, in_ch=32, out_ch=32, k=7, mask=True, name="block1")(
             x, percents, train)

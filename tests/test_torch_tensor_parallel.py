@@ -22,7 +22,9 @@ Tolerances:
     ``RECIPE_TOL`` (the "default" frontend tier's bf16 rounding flips);
   * the collectives' forwards, the state round trips and the NovoGrad
     bridge: bit for bit; their gradients and the sharded optimizer and
-    norms against the whole tensors': 1e-6 relative (the order of sums).
+    norms against the whole tensors': 1e-6 relative (the order of sums);
+  * the recipe's bf16 steps split against whole (ROADMAP C18): the port's
+    gap no more than twice the JAX package's on the same rows and steps.
 """
 
 import json
@@ -38,9 +40,12 @@ from lightning_asr_tpu.models import build_model as jax_build_model
 from lightning_asr_tpu.ops.frontend import MelFrontendConfig as JaxMelConfig
 from lightning_asr_tpu.optim import cosine_annealing_warmup_restarts as jax_schedule
 from lightning_asr_tpu.optim import novograd as jax_novograd
+from lightning_asr_tpu.parallel import batch_sharding, make_mesh, shard_state
+from lightning_asr_tpu.parallel.tp import set_tp_mesh
 from lightning_asr_tpu.parallel.tp import tp_spec as jax_tp_spec
 from lightning_asr_tpu.training.checkpoint import CheckpointManager as JaxCheckpointManager
 from lightning_asr_tpu.training.steps import AsrTrainState as JaxState
+from lightning_asr_tpu.training.steps import create_train_state as jax_create_train_state
 from lightning_asr_tpu.training.steps import make_train_step as jax_make_train_step
 from lightning_asr_torch.data.datamodule import AsrDataModule
 from lightning_asr_torch.inference.predict import AsrTranslator
@@ -63,7 +68,7 @@ from test_torch_data_parallel import (BLANK, NUM_CLASSES, JaxSmallAsr, _cli_args
 from test_torch_model import NUM_CLASSES as FULL_CLASSES
 from test_torch_train_step import (FEATURE_TOL, FRONTEND, RECIPE_TOL, SCHEDULE, compare_step,
                                    jax_batch, jax_capture, make_batch, port_batch)
-from torch_dp_worker import SmallAsr, capture
+from torch_dp_worker import SmallAsr, bf16_recipe, capture
 
 assert corpus and small_weights                       # fixtures, used by name
 LOSS_RTOL, LOGP_RTOL, LOGP_ATOL, PARAM_ATOL = 2e-5, 1e-4, 1e-5, 5e-4
@@ -307,6 +312,93 @@ def test_split_layouts_match_one_process(small_weights, tmp_path, world, size):
     if size == 3:
         assert sorted(ranks[0]["specs"]) == ["encoder.block2.sep_last.depthwise_conv.weight"]
     _compare_one_process(ranks, size, *_one_process(small_weights[2], {}))
+
+
+# --- the recipe's bf16 steps, split against whole (ROADMAP C18) ---
+
+# 8 rows of 0.3 s (the fewest the 8-device test mesh takes, each shorter
+# than the padding), the recipe's 4 steps and schedule, the sample that the
+# one-LSB change moves
+C18_ROWS, C18_SECONDS, C18_STEPS, C18_BUMP = 8, 0.3, 4, (0, 1000)
+C18_SCHEDULE = dict(first_cycle_steps=1000, cycle_mult=2, max_lr=1e-2, min_lr=1e-4,
+                    warmup_steps=5, gamma=0.5)
+# the port's gap stays clearly below the 1.0 of a split step that moved
+# nothing (it read 0.44, JAX's 0.52)
+C18_NO_OP_MARGIN = 0.8
+
+
+def _update_rel(old, got, want) -> float:
+    """The relative difference of the whole update: |got - want| / |want -
+    old| over all the leaves (the card's smoke prints this measure)."""
+    num = sum(float(np.sum((np.float64(g) - np.float64(w)) ** 2)) for g, w in zip(got, want))
+    den = sum(float(np.sum((np.float64(w) - np.float64(o)) ** 2)) for w, o in zip(want, old))
+    return (num / den) ** 0.5
+
+
+def _jax_bf16_params(state0, step, batch, mesh, split: bool):
+    """``C18_STEPS`` jitted recipe steps on ``mesh`` (with the trunk's
+    activations pinned to its model axis when ``split``): the leaves."""
+    set_tp_mesh(mesh if split else None)
+    try:
+        sharded = {k: jax.device_put(v, batch_sharding(mesh)) for k, v in batch.items()}
+        state, fn = shard_state(state0, mesh), jax.jit(step)
+        for i in range(C18_STEPS):
+            state, _ = fn(state, sharded, jax.random.fold_in(jax.random.PRNGKey(1), i))
+        return [np.asarray(x, np.float32) for x in jax.tree_util.tree_leaves(
+            jax.device_get(state.params))]
+    finally:
+        set_tp_mesh(None)
+
+
+def test_bf16_split_gap_against_jax(tmp_path, capsys):
+    """C18: the recipe's 4 bf16 steps (per-tensor NovoGrad, dither,
+    SpecAugment) of the full-width model on 8 rows, split over a model
+    group of 2 against the whole model: the JAX package's dp4 x tp2 against
+    its dp8 on the test mesh, the port's dp1 x tp2 (gloo) against its one
+    process, the relative difference of the whole update printed beside
+    each package's own move under a one-LSB change of one sample.  The
+    bf16 sums in another order are carried through 16 train-mode
+    BatchNorms: both packages part about as far as a one-LSB change moves
+    them, so the port's gap may be at most twice the JAX package's."""
+    lens = tuple(int(n) for n in np.random.default_rng(0).integers(4000, 4700, C18_ROWS))
+    batch = make_batch(7, B=C18_ROWS, seconds=C18_SECONDS, lens=lens, tlens=(5,) * C18_ROWS)
+    bumped = {k: v.copy() for k, v in batch.items()}
+    bumped["waves"][C18_BUMP] += 1
+    jmodel = jax_build_model(FULL_CLASSES, "quartznet12_context", mask=True, dtype=jnp.bfloat16)
+    jopt = jax_novograd(jax_schedule(**C18_SCHEDULE), betas=(0.8, 0.5), weight_decay=1e-3,
+                        fused=False)
+    state0 = jax_create_train_state(jmodel, jopt, jax.random.PRNGKey(0), feature_shape=(1, 128, 64))
+    jstep = jax_make_train_step(jmodel, jopt, FULL_CLASSES - 1, JaxMelConfig(precision="default"),
+                                augment=True)
+    dp8 = make_mesh(8)
+    dp4_tp2 = make_mesh(8, axis_names=("data", "model"), shape=(4, 2))
+    j_old = [np.asarray(x, np.float32) for x in jax.tree_util.tree_leaves(state0.params)]
+    j_whole = _jax_bf16_params(state0, jstep, batch, dp8, False)
+    j_gap = _update_rel(j_old, _jax_bf16_params(state0, jstep, batch, dp4_tp2, True), j_whole)
+    j_lsb = _update_rel(j_old, _jax_bf16_params(state0, jstep, bumped, dp8, False), j_whole)
+
+    inp = {"num_classes": FULL_CLASSES, "schedule": C18_SCHEDULE, "steps": C18_STEPS,
+           "state_dict": from_jax(jax.device_get(state0.params),
+                                  jax.device_get(state0.batch_stats)),
+           "batch": port_batch(batch), "tp": 2}
+    ranks = run_ranks("tp_bf16", inp, tmp_path)
+    assert ranks[0]["losses"] == ranks[1]["losses"]
+    assert all(torch.equal(ranks[0]["params"][k], ranks[1]["params"][k]) for k in ranks[0]["params"])
+    _, whole = bf16_recipe(inp, port_batch(batch))
+    _, moved = bf16_recipe(inp, port_batch(bumped))
+    keys = list(whole)
+    leaves = lambda tree: [tree[k].float().numpy() for k in keys]  # noqa: E731
+    p_old = leaves(inp["state_dict"])
+    p_gap = _update_rel(p_old, leaves(ranks[0]["params"]), leaves(whole))
+    p_lsb = _update_rel(p_old, leaves(moved), leaves(whole))
+    with capsys.disabled():
+        print(json.dumps({"c18": {"rows": C18_ROWS, "seconds": C18_SECONDS, "steps": C18_STEPS,
+                                  "jax_dp4_tp2_vs_dp8": j_gap, "jax_one_lsb_move": j_lsb,
+                                  "port_dp1_tp2_vs_one_process": p_gap,
+                                  "port_one_lsb_move": p_lsb}}))
+    # a split step that left the parameters where they were reads exactly 1.0
+    assert np.isfinite(p_gap) and p_gap <= min(2 * j_gap, C18_NO_OP_MARGIN), \
+        (p_gap, j_gap, j_lsb, p_lsb)
 
 
 # --- the optimizer's norms ---

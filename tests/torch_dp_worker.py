@@ -37,14 +37,32 @@ sets the model groups of the layout):
   * ``tp_fit``: ``Trainer.fit`` of ``SmallAsr`` with the per-tensor NovoGrad
     (optionally resumed): the gathered state it returns, the val metrics,
     its checkpoint writes, and a one-process forward before and after the
-    fit with no layout left behind.
+    fit with no layout left behind;
+  * ``tp_bf16``: ``bf16_recipe``'s steps of the full-width bf16 model on the
+    rank's rows and blocks: the losses and the gathered parameters.
+
+SSL (``test_torch_ssl_data_parallel.py``):
+
+  * ``ssl``: one data-parallel train step of each SSL model of the input
+    (``ssl_step``) on the rank's rows (the state, the loss, the grad norm,
+    the captured gradients), then ``SSLTrainer._pseudo_pass`` of the narrow
+    feature model over the datamodule's pool (the injected entries and the
+    logged counts);
+  * ``cli``: an SSL entry point's ``main`` under the launcher's variables
+    (the rank joins its group there): each validation's metrics, the test
+    metrics, the checkpoint writes, the pseudo-labeled entries, the steps.
 
 ``SmallAsr`` is the tests' model: ``AsrModel``'s interface at narrow widths
 (a SepConv stem 64->32 k11 stride 2, a repeat-2 block 32->32 k7, the BiLSTM
 32->2x8 concatenated, a block 48->64 k5, the float32 1x1 decoder).  Inside
 ``tp.model_parallel`` it runs split as the full-width encoders do.
+``ssl_model`` gives the three SSL models with its encoder and decoder in
+place of the full-width ones.
 """
 
+import contextlib
+import importlib
+import os
 import sys
 
 import torch
@@ -61,10 +79,10 @@ TIMEOUT_S = 120.0
 
 
 class SmallEncoder(nn.Module):
-    def __init__(self, dtype=None, drop_rate: float = 0.0, conv_kernel=None):
+    def __init__(self, dtype=None, drop_rate: float = 0.0, conv_kernel=None, in_c: int = 64):
         super().__init__()
         common = dict(mask=True, drop_rate=drop_rate, dtype=dtype, conv_kernel=conv_kernel)
-        self.first_cnn = SepConv(64, 32, 11, stride=2, **common)
+        self.first_cnn = SepConv(in_c, 32, 11, stride=2, **common)
         self.block1 = QuartNetBlock(repeat=2, in_ch=32, out_ch=32, k=7, **common)
         self.context_rnn = BatchLSTM(32, 8)
         self.block2 = QuartNetBlock(repeat=1, in_ch=48, out_ch=64, k=5, **common)
@@ -347,17 +365,166 @@ def task_tp_fit(rank, world, inp):
                              if k in state.params}}
 
 
+def bf16_recipe(inp, steps_batch, data_parallel: bool = False):
+    """``steps`` of the training recipe (bf16, per-tensor NovoGrad, dither and
+    SpecAugment) of the full-width default model from ``inp["state_dict"]``
+    on ``steps_batch``, one generator for all of them: (losses, whole
+    parameters)."""
+    from lightning_asr_torch.models.quartznet import build_model
+    from lightning_asr_torch.ops.frontend import MelFrontendConfig
+    from lightning_asr_torch.optim import cosine_annealing_warmup_restarts, novograd
+    from lightning_asr_torch.training.steps import create_train_state, make_train_step
+
+    model = build_model(inp["num_classes"], mask=True, dtype=torch.bfloat16)
+    model.load_state_dict(inp["state_dict"])
+    opt = novograd(cosine_annealing_warmup_restarts(**inp["schedule"]), betas=(0.8, 0.5),
+                   weight_decay=1e-3, fused=False)
+    step = make_train_step(model, opt, inp["num_classes"] - 1,
+                           MelFrontendConfig(precision="default"), augment=True,
+                           data_parallel=data_parallel)
+    shard = tp.model_shard(model) if data_parallel else None
+    state = tp.shard_state(create_train_state(model, opt), shard)
+    gen = torch.Generator().manual_seed(0)
+    losses = []
+    for _ in range(inp["steps"]):
+        state, metrics = step(state, steps_batch, gen)
+        losses.append(float(metrics["loss"]))
+    return losses, tp.gather_state(state.params, shard)
+
+
+def task_tp_bf16(rank, world, inp):
+    batch = rank_rows(inp["batch"], distributed.data_index(), distributed.data_size())
+    losses, params = bf16_recipe(inp, batch, data_parallel=True)
+    return {"losses": losses, "params": params}
+
+
+def ssl_model(mode: str, num_classes: int, drop_rate: float = 0.0) -> nn.Module:
+    """The ``mode`` SSL model ("feature": ``AsrModel(feature_in=512)``;
+    "dual": ``DualStreamAsrModel``; "raw": ``SSLRetrainAsrModel``) with
+    ``SmallEncoder`` and a 64-channel decoder in place of the full-width
+    encoder and decoder."""
+    from lightning_asr_torch.models.dual_stream import DualStreamAsrModel
+    from lightning_asr_torch.models.quartznet import build_model
+    from lightning_asr_torch.ssl_codec.retrain import SSLRetrainAsrModel
+
+    model, in_c = {"feature": lambda: (build_model(num_classes, feature_in=512, mask=True), 64),
+                   "dual": lambda: (DualStreamAsrModel(num_classes, mask=True), 128),
+                   "raw": lambda: (SSLRetrainAsrModel(num_classes, mask=True), 64)}[mode]()
+    model.encoder = SmallEncoder(drop_rate=drop_rate, in_c=in_c)
+    model.decoder = Conv(64, num_classes, 1, bias=True)
+    return model
+
+
+def ssl_step(mode: str, inp: dict, batch: dict, data_parallel: bool = False,
+             plain: bool = False):
+    """One train step of the ``mode`` model from ``inp["state_dicts"][mode]``
+    with its trainer's augmentation (the feature step's cutout, the dual
+    step's dither, SpecAugment and cutout, the retrain model's cutout) and
+    ``inp["drop_rate"]``, the fused NovoGrad behind ``capture``: (state,
+    metrics).  ``plain`` turns every draw off (no dither, zero SpecAugment
+    widths, no cutout, no dropout), so that the JAX step can be held
+    against it."""
+    import dataclasses
+    from unittest import mock
+
+    from lightning_asr_torch.models.dual_stream import DUAL_MEL_CONFIG
+    from lightning_asr_torch.optim import cosine_annealing_warmup_restarts, novograd
+    from lightning_asr_torch.training import steps
+    from lightning_asr_torch.training.steps import (create_train_state, make_dual_train_step,
+                                                    make_raw_ssl_train_step, make_train_step)
+
+    model = ssl_model(mode, inp["num_classes"], 0.0 if plain else inp["drop_rate"])
+    model.load_state_dict(inp["state_dicts"][mode])
+    opt = capture(novograd(cosine_annealing_warmup_restarts(**inp["schedule"]), betas=(0.8, 0.5),
+                           weight_decay=1e-3, fused=True))
+    blank = inp["num_classes"] - 1
+    if mode == "feature":
+        step = make_train_step(model, opt, blank, augment=None if plain else "cutout",
+                               from_features=True, normalize=False, data_parallel=data_parallel)
+    elif mode == "dual":
+        mel, masks = DUAL_MEL_CONFIG, {}
+        if plain:
+            mel, masks = dataclasses.replace(mel, dither=0.0), dict(freq_mask=0, time_mask=0)
+        step = make_dual_train_step(model, opt, blank, mel, data_parallel=data_parallel,
+                                    **masks)
+    else:
+        model.augment_cutout = not plain
+        step = make_raw_ssl_train_step(model, opt, blank, data_parallel=data_parallel)
+    # the dual step's cutout has no switch, as in the JAX step
+    with mock.patch.object(steps, "cutout", lambda feats, *a, **k: feats) if plain \
+            else contextlib.nullcontext():
+        return step(create_train_state(model, opt), batch, torch.Generator().manual_seed(7))
+
+
+def task_ssl(rank, world, inp):
+    return {"steps": _ssl_steps(rank, world, inp["steps"]),
+            "plain_steps": _ssl_steps(rank, world, inp["steps"], plain=True),
+            "pool": _ssl_pool(rank, world, inp["pool"])}
+
+
+def _ssl_steps(rank, world, inp, plain: bool = False):
+    out = {}
+    for mode, batch in inp["batches"].items():
+        state, metrics = ssl_step(mode, inp, rank_rows(batch, rank, world), data_parallel=True,
+                                  plain=plain)
+        out[mode] = {"state": state, "loss": metrics["loss"], "grad_norm": metrics["grad_norm"],
+                     "preds": metrics["preds"], "pred_lens": metrics["pred_lens"]}
+    return out
+
+
+def _ssl_pool(rank, world, inp):
+    from lightning_asr_torch.optim import novograd
+    from lightning_asr_torch.ssl_codec.ssl_datamodule import SSLDataModule
+    from lightning_asr_torch.training.ssl_trainer import SSLTrainer
+
+    class Rows:
+        def __init__(self):
+            self.rows = []
+
+        def log_metrics(self, metrics, step):
+            self.rows.append(dict(metrics))
+
+    model = ssl_model("feature", inp["num_classes"])
+    model.load_state_dict(inp["state_dict"])
+    trainer = SSLTrainer(model, novograd(1e-3), SSLDataModule(**inp["datamodule"]),
+                         run_dir=inp["run_dir"], loggers=Rows() if rank == 0 else None,
+                         pseudo_confidence_threshold=inp["threshold"])
+    trainer._pseudo_pass(trainer.init_state())
+    return {"pool": [(e.audio_filepath, e.text, e.duration) for e in trainer.dm.pseudo_entries],
+            "logged": trainer.loggers.rows if rank == 0 else []}
+
+
+def task_cli(rank, world, inp):
+    from lightning_asr_torch.training import checkpoint
+    from lightning_asr_torch.training.trainer import Trainer
+
+    writes, vals = [], []
+    save, validate = checkpoint.save_checkpoint, Trainer.validate
+    checkpoint.save_checkpoint = lambda *a, **k: (writes.append(str(a[0])), save(*a, **k))[1]
+    Trainer.validate = lambda self, state: (vals.append(validate(self, state)), vals[-1])[1]
+    out = importlib.import_module(inp["module"]).main(inp["args"])
+    tr = out["trainer"]
+    return {"val": vals, "test": out["test"], "writes": writes, "step": int(out["state"].step),
+            "data_parallel": tr.data_parallel, "batches": [e["batches"] for e in tr.epoch_stats],
+            "pseudo": [(e.audio_filepath, e.text) for e in tr.dm.pseudo_entries],
+            "params": out["state"].params}
+
+
 def main():
     task, rank, world, port, inp, out = sys.argv[1:7]
     torch.set_num_threads(1)
     inp = torch.load(inp, weights_only=False)
     env = {"RANK": rank, "WORLD_SIZE": world, "LOCAL_RANK": rank, "MASTER_ADDR": "127.0.0.1",
            "MASTER_PORT": port}
-    distributed.init(env, "cpu", TIMEOUT_S, tp=inp.get("tp", 1) if isinstance(inp, dict) else 1)
+    if task == "cli":                    # the entry point joins the launcher's group
+        os.environ.update(env)
+    else:
+        distributed.init(env, "cpu", TIMEOUT_S, tp=inp.get("tp", 1) if isinstance(inp, dict) else 1)
     result = {"task_bn": task_bn, "task_step": task_step, "task_fit": task_fit,
               "task_mmap": task_mmap, "task_tp_ops": task_tp_ops, "task_tp_steps": task_tp_steps,
-              "task_tp_norms": task_tp_norms,
-              "task_tp_fit": task_tp_fit}[f"task_{task}"](int(rank), int(world), inp)
+              "task_tp_norms": task_tp_norms, "task_tp_fit": task_tp_fit,
+              "task_tp_bf16": task_tp_bf16, "task_ssl": task_ssl,
+              "task_cli": task_cli}[f"task_{task}"](int(rank), int(world), inp)
     distributed.shutdown()
     torch.save(result, out)
 

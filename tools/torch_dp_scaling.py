@@ -6,6 +6,7 @@ utterances of 2 s to ``--seconds`` padded to one bucket, the default
 full-width bf16 model and recipe:
 
     python3 tools/torch_dp_scaling.py [--ranks 1 2 4] [--rows 32] [--utts 1024] [--tp 2]
+    python3 tools/torch_dp_scaling.py --entry train_ssl [--ranks 1 2 4] ...
     python3 tools/torch_dp_scaling.py --device cpu --ranks 1 4 --rows 2 \\
         --utts 32 --dev-utts 8 --seconds 2 --epochs 2     # gloo on the CPU
 
@@ -16,6 +17,11 @@ full-width bf16 model and recipe:
     ``--epochs`` epochs, validated after the last: each epoch's wall,
     steps and global rows a second, and the last epoch's weak-scaling
     efficiency against one process.
+
+With ``--entry train_ssl`` the runs are ``python -m
+lightning_asr_torch.train_ssl`` (its ``main``, over ``conf/ssl-conf.yaml``):
+the feature model on seeded wav2vec2 feature pickles of each utterance's
+frame count (50 a second), with no pseudo pass.
 
 With ``--tp T`` every run of N > 1 ranks (N a multiple of T) is
 tensor-parallel (``train.tp=T``: N / T model groups of T ranks, which
@@ -33,6 +39,7 @@ import argparse
 import contextlib
 import io
 import json
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -47,6 +54,7 @@ from lightning_asr_torch.data.audio import write_wav  # noqa: E402
 from lightning_asr_torch.ops import kernel_build  # noqa: E402
 from lightning_asr_torch.parallel import distributed  # noqa: E402
 from lightning_asr_torch.train import main as train_main  # noqa: E402
+from lightning_asr_torch.train_ssl import main as ssl_main  # noqa: E402
 
 SR = 16000
 LABELS = " 'abcdefghijklmnopqrstuvwxyz"
@@ -59,17 +67,23 @@ PARITY_STEPS = 4
 LOSS_RTOL = 2e-2
 
 
-def corpus(root: Path, n: int, seconds: float, seed: int, name: str) -> Path:
+def corpus(root: Path, n: int, seconds: float, seed: int, name: str,
+           features: bool = False) -> Path:
     """``n`` WAVs of noise of 2 s to ``seconds`` with random texts of ~15
-    characters a second, and their JSONL manifest."""
+    characters a second, and their JSONL manifest; with ``features`` a
+    (1, frames, 512) wav2vec2 feature pickle of each in ``root/feats``."""
     rng = np.random.default_rng(seed)
     rows = []
+    (root / "feats").mkdir(exist_ok=True)
     for i in range(n):
         dur = float(rng.uniform(2.0, seconds))
         wave = (0.1 * rng.standard_normal(int(dur * SR))).astype(np.float32)
         text = "".join(rng.choice(list(LABELS[2:]), int(CHARS_PER_S * dur)))
         path = root / f"{name}_{i}.wav"
         write_wav(path, wave, SR)
+        if features:
+            with open(root / "feats" / f"{name}_{i}.pkl", "wb") as f:
+                pickle.dump(rng.standard_normal((1, int(dur * 50), 512)).astype(np.float32), f)
         rows.append({"audio_filepath": str(path), "duration": len(wave) / SR, "text": text})
     manifest = root / f"{name}.json"
     manifest.write_text("".join(json.dumps(r) + "\n" for r in rows))
@@ -92,11 +106,13 @@ def run(args, root: Path, train: Path, dev: Path, n: int, batch: int, epochs: in
             f"train.train_batch_size={batch}", f"train.dev_batch_size={batch}",
             f"train.total_epoch={epochs}", f"train.check_val_every_n_epoch={epochs}",
             "train.warmup_steps=1", "train.log_every_n_steps=1", f"log.run.dir={run_dir}",
-            f"train.tp={split(args, n)}", "--device", args.device]
+            "--device", args.device]
+    argv += ([f"ssl.feature_folder={root / 'feats'}"] if args.entry == "train_ssl"
+             else [f"train.tp={split(args, n)}"])
     if limit is not None:
         argv.append(f"train.limit_train_batches={limit}")
     with contextlib.redirect_stdout(io.StringIO()):
-        out = train_main(argv)
+        out = (ssl_main if args.entry == "train_ssl" else train_main)(argv)
     return out["trainer"]
 
 
@@ -110,7 +126,10 @@ def main() -> int:
     ap.add_argument("--seconds", type=float, default=16.7)
     ap.add_argument("--epochs", type=int, default=3)
     ap.add_argument("--tp", type=int, default=1, help="ranks of a model group (train.tp)")
+    ap.add_argument("--entry", choices=["train", "train_ssl"], default="train")
     args = ap.parse_args()
+    if args.entry == "train_ssl" and args.tp > 1:
+        ap.error("the SSL entry points split rows only: no --tp")
     cards = []
     if args.device == "cuda":
         if not torch.cuda.is_available():
@@ -127,8 +146,9 @@ def main() -> int:
     ok = True
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
-        train = corpus(root, args.utts, args.seconds, 0, "train")
-        dev = corpus(root, args.dev_utts, args.seconds, 1, "dev")
+        ssl = args.entry == "train_ssl"
+        train = corpus(root, args.utts, args.seconds, 0, "train", ssl)
+        dev = corpus(root, args.dev_utts, args.seconds, 1, "dev", ssl)
         top = max(args.ranks)
         rows = top // split(args, top) * args.rows          # the parity runs' global batch
         parity = {}
@@ -157,6 +177,7 @@ def main() -> int:
                               "epochs": epochs}), flush=True)
     base = rates.get(1)
     print(json.dumps({"cards": cards, "device": args.device, "ok": bool(ok), "tp": args.tp,
+                      "entry": args.entry,
                       "global_rows_per_s": rates,
                       "weak_scaling_efficiency": {n: r / (groups[n] * base)
                                                   for n, r in rates.items()}

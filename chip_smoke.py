@@ -209,9 +209,12 @@ Phases, in order; any failed check exits non-zero before the last line:
      shape (B=32, T'=836, ragged rows, input width 1024) against their
      plain versions, twice for the same bits, K7's h equal to K2's, their
      shared memory as stated, their times, bounds, cuDNN's packed BiLSTM at
-     hidden 128 and the registers and spills of the H=128 instantiations.
-     Then the head model (quartznet12_context with ``lstm_head=True``, bf16
-     convs, mask on, seeded by ``head_teeth``): an eval forward at the
+     hidden 128 and the registers and spills of the H=128 instantiations;
+     K3's device time split into its gates pass, pair walk and dW pass, the
+     clusters of the walk and of the dW pass the card holds at once, and 0
+     bytes of spill in K3's H=128 kernels.  Then the head model
+     (quartznet12_context with ``lstm_head=True``, bf16 convs, mask on,
+     seeded by ``head_teeth``): an eval forward at the
      serving shape (8 rows of 2-16 s, 1601 frames), also with
      ``fuse_directions``, against the CPU under the serving bounds;
      ``training_lstm_head`` and ``training_lstm_head_fused_bidir``, HEAD_STEPS
@@ -294,7 +297,8 @@ from lightning_asr_torch.ops.frontend_kernels import (extend_preemph, extend_pre
                                                       mel_from_extended, mel_from_extended_plain,
                                                       window_range)
 from lightning_asr_torch.ops.lstm import stack_directions, stacked_valid, unstack_directions
-from lightning_asr_torch.ops.lstm_kernels import (backward_smem_bytes, backward_smem_on_card,
+from lightning_asr_torch.ops.lstm_kernels import (backward_clusters_on_card, backward_smem_bytes,
+                                                  backward_smem_on_card,
                                                   forward_smem_bytes, forward_smem_on_card,
                                                   lstm_backward, lstm_backward_plain,
                                                   lstm_backward_stacked, lstm_backward_stacked_plain,
@@ -443,6 +447,10 @@ BLANK = len(LABELS)
 TRAIN_BUCKET_S = 16.7                 # conf.yaml train_max_duration, a bucket
 T_TRAIN = 836                         # its frames after the stride-2 stem
 HEAD_HIDDEN = 128                     # the LSTM head's hidden size (build_model lstm_head)
+# K3's kernels at H=128 (csrc/lstm_bwd.cu), as ptxas names them
+K3_H128_KERNELS = ("lstm_bwd_gates_kernel<128>", "lstm_bwd_pair_kernel<128,4>",
+                   "lstm_bwd_pair_kernel<128,1>", "lstm_bwd_dw_kernel<128,4>",
+                   "lstm_bwd_dw_kernel<128,1>")
 # the LSTM head phase: its bf16 steps, the train-mode passes that set its
 # BatchNorm statistics, and the mmap trainer's corpus and epochs
 HEAD_STEPS, HEAD_CALIBRATION_PASSES = 6, 10
@@ -1119,6 +1127,7 @@ def _category(name: str) -> str:
                      ("lstm_stacked_bwd_", "K8 lstm_stacked_bwd"),
                      ("log_mel_kernel", "K1 log_mel"), ("lstm_fwd_kernel", "K2 lstm"),
                      ("lstm_bwd_kernel", "K3 lstm_bwd"), ("lstm_bwd_gates_kernel", "K3 lstm_bwd"),
+                     ("lstm_bwd_pair_kernel", "K3 lstm_bwd"), ("lstm_bwd_dw_kernel", "K3 lstm_bwd"),
                      ("ctc_alpha_kernel", "K4 ctc_alpha"),
                      ("ctc_beta_kernel", "K5 ctc_beta"), ("extend_kernel", "K6 extend_preemph"),
                      ("sepconv_fwd", "K9 sepconv_fwd"), ("sepconv_dz", "K10 sepconv_bwd"),
@@ -1774,8 +1783,10 @@ def h128_kernels(dev, reports: dict) -> dict:
     encoder's output) against their plain versions, twice for the same
     bits, with their times, bounds and cuDNN's packed BiLSTM at hidden 128
     as the yardstick; their shared memory against the stated layouts, and
-    the registers and spills of the H=128 instantiations.  Returns
-    {"K2": row, ...} of the kernels line's keys (launches: this call's)."""
+    the registers and spills of the H=128 instantiations (K3's must spill
+    none); K3's device time by kernel (gates pass, pair walk, dW pass) and
+    the walk's and the dW pass's resident clusters.  Returns {"K2": row,
+    ...} of the kernels line's keys (launches: this call's)."""
     rng = np.random.default_rng(128)
     B, T, C, H, D = TRAIN_BATCH, T_TRAIN, 1024, HEAD_HIDDEN, 2
     x, (w_ih, w_hh, b_ih, b_hh), lens_np, lens, xproj = bilstm_inputs(dev, rng, B, T, C=C, H=H)
@@ -1881,10 +1892,24 @@ def h128_kernels(dev, reports: dict) -> dict:
                      "us_per_step": 1e3 * ms / int(lens_np.max())}
     ptxas = {k: v for name in ("lstm", "lstm_bwd", "lstm_bidir")
              for k, v in ptxas_kernels(reports.get(name, "")).items() if "<128" in k}
+    k3_ptxas = {k: v for k, v in ptxas.items() if k.startswith("lstm_bwd")}
+    if reports.get("lstm_bwd"):                     # built in this run: ptxas reported each kernel
+        check(set(k3_ptxas) == set(K3_H128_KERNELS)
+              and all(v.get("spill_bytes", -1) == 0 for v in k3_ptxas.values()),
+              f"K3's H=128 kernels must spill 0 bytes: {k3_ptxas}")
+    # K3's device time by kernel: the gates pass, the pair walk, the dW pass
+    _, _, split, passes = device_time(k3, 5)
+    k3_split = {("gates" if "gates_kernel" in k else "walk" if "pair_kernel" in k
+                 else "dw" if "dw_kernel" in k else k[:40]): v for k, v in split.items()}
+    clusters = {"walk": backward_clusters_on_card(dev), "dw": backward_clusters_on_card(dev, True),
+                "walk_needed": B * D}
+    check(min(clusters["walk"], clusters["dw"]) > 0, f"K3's H=128 clusters do not fit: {clusters}")
     print(json.dumps({"phase": "lstm_h128", "shape": [B, T, C, H, D], "tol": K2_TOL,
                       "tol_dx": K3_TOL_DX, "tol_dw_rel": K3_TOL_DW, **errs,
                       "cudnn_max_abs_diff": cudnn_diff, "valid_row_steps": steps,
                       "sequential_steps": int(lens_np.max()), "smem_bytes": smem,
+                      "K3_split_ms": k3_split, "K3_profiler_passes": passes,
+                      "K3_resident_clusters": clusters,
                       "ptxas": ptxas, "check_launches": launches, "kernels": rows}), flush=True)
     return rows
 

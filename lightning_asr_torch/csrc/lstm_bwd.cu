@@ -1,11 +1,11 @@
 // LSTM backward (BPTT) kernel (K3), both directions at once: a gates pass,
-// then the walk.
+// then the walk; at H = 128 (the LSTM head) a dW pass besides.
 //
 // Replaces lightning_asr_tpu/ops/lstm_pallas.py::_bwd_kernel (run once per
 // direction by _core_bwd).  The bound and the semantics are described in
 // lightning_asr_torch/ops/lstm_kernels.py, which checks every argument
 // before the launch and states this kernel's ring and shared memory
-// (BACKWARD_RING, backward_smem_bytes, backward_copy_width).
+// (BACKWARD_RING, backward_smem_bytes, backward_copy_width, DW_CHUNKS).
 //
 // What bounds it: latency.  A row's backward is `len` dependent steps; the
 // only serial work of a step is
@@ -29,13 +29,13 @@
 // block of 16 frames stages 16 of its rows at a time, in order, and the
 // chains run on across the passes (the same sums, the same bits as K2's).
 //
-// lstm_bwd_kernel, the walk.  One block per (row b, direction d) walks the
-// row's valid frames in the reverse of the forward walk (direction 0
-// t = len-1..0, direction 1 t = 0..len-1).  Each step's F, A, f, h_prev
-// and grad_h come by cp.async into a ring of RING slots in shared memory,
-// RING - 1 steps ahead, V floats a copy (V = 4 where every pointer is
-// 16-byte aligned, else 1).  4H threads; thread 4k + m owns gate m (order
-// i, f, g, o) of unit k:
+// lstm_bwd_kernel, the walk at H = 40.  One block per (row b, direction d)
+// walks the row's valid frames in the reverse of the forward walk
+// (direction 0 t = len-1..0, direction 1 t = 0..len-1).  Each step's F, A,
+// f, h_prev and grad_h come by cp.async into a ring of RING slots in shared
+// memory, RING - 1 steps ahead, V floats a copy (V = 4 where every pointer
+// is 16-byte aligned, else 1).  4H threads; thread 4k + m owns gate m
+// (order i, f, g, o) of unit k:
 //   dh = dh_up + carry_h, dc = carry_c + dh A, carry_c = dc f,
 //   dgates[m] = (m < 3 ? dc : dh) F[m];
 // dh_prev: lane l of unit pair (2p, 2p + 1) keeps rows (H/2) l .. of W_hh's
@@ -45,23 +45,57 @@
 // the unit's four gate gradients taken by shuffles, in walk order, in
 // registers.  One barrier a step publishes the gate gradients (two
 // buffers) and the next staged slot.  The loop is unrolled by RING so that
-// the slots and buffers are fixed addresses.
-//
-// Pad frames are never stepped: the carries pass through them untouched,
-// and their d_xproj is written as exact zeros.  dW_hh leaves as per-(row,
+// the slots and buffers are fixed addresses.  dW_hh leaves as per-(row,
 // direction) partials (B, D, 4H, H), which the wrapper sums over B in a
 // fixed order.
 //
-// At H = 128 the walk's W_hh columns (128 registers) and dW_hh partials
-// (128) exceed a 512-thread block's 128 registers a thread: ptxas spills
-// them to local memory (chip_smoke.py prints the spills).
+// At H = 128 that walk's W_hh columns (128 floats a thread) and dW_hh
+// partials (128) do not fit a 512-thread block's 128 registers a thread
+// (ptxas spilled 15.7 KB a thread, and the walk took 97.7% of K3).  So the
+// H = 128 design splits both:
+//
+// lstm_bwd_pair_kernel, the walk on a cluster of two CTAs a (row,
+// direction).  CTA r of the pair owns units 64r .. 64r + 63: their four
+// gates, 256 of the 512 gate rows.  Its 512 threads keep W_hh's columns of
+// its 64 units over all 512 rows in registers, 64 a thread: lane L of warp
+// w holds rows iH + 4L + e (i, e < 4) of the warp's units 4w .. 4w + 3.
+// Each step the CTA computes its 256 gate gradients with cell_backward's
+// expression (lanes j < 4 of a unit's eight own gate j, lanes 4..7 repeat
+// them), stores them into its own and its partner's shared memory
+// (distributed shared memory, two buffers), and one cluster barrier
+// (barrier.cluster.arrive.release / wait.acquire) publishes them.  Then
+// each lane sums its 64 products of the 512 gradients (16 chains of 4) and
+// five shuffle rounds sum the warp: dh_prev of unit (L >> 3) & 3 in lanes
+// L of its eight, in a fixed order.  The ring stages only what the CTA's
+// chain reads: F of its 256 gates, A, f and grad_h of its 64 units (448
+// floats a slot), RING - 1 steps ahead.  dW_hh is not on the walk:
+//
+// lstm_bwd_dw_kernel, dW_hh[d] = sum over the valid frames (b, t) of
+// dgates[b, t, d]^T h_prev[b, t, d] from the walk's d_xproj, on the CUDA
+// cores in float32.  The valid frames of all rows, in order (b, then t),
+// are cut into DW_CHUNKS equal chunks; a cluster of DW_CHUNKS CTAs takes
+// one 128 x 64 tile of the (4H, H) output, CTA c summing chunk c (16
+// frames a cp.async stage, 8 x 4 sums a thread), and the cluster sums the
+// chunks' partial tiles in chunk order through distributed shared memory:
+// no atomics, the same bits every run.
+//
+// What bounds the H = 128 walk on this card: a step's chain, the cluster
+// barrier's round trip between two SMs and the five shuffle rounds, and
+// its residency: B D clusters of two 512-thread CTAs need 2 B D SMs at one
+// CTA an SM (chip_smoke.py prints the resident clusters).
+//
+// Pad frames are never stepped: the carries pass through them untouched,
+// and their d_xproj is written as exact zeros.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
 #include "lstm_util.cuh"
 #include "mma_util.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -297,11 +331,316 @@ lstm_bwd_kernel(const int* __restrict__ lengths,   // (B,)
     for (int i = 0; i < J; ++i) drow[(size_t)q * H * H + 4 * i] = acc[q][i];
 }
 
+// The H = 128 design's shape (ops/lstm_kernels.py states it: backward_smem_bytes,
+// DW_CHUNKS): a walk CTA's units, threads and slot; the dW pass's frame
+// chunks (its cluster), tile, frames a stage and threads.
 template <int H>
-cudaError_t launch(int V, int B, int T, int D, cudaStream_t stream, const float* xproj,
-                   const int* lengths, const float* w_hh, const float* h, const float* c,
-                   const float* grad_h, float* d_xproj, float* dw_part, float* cfac) {
-  if (V != 4 && V != 1) return cudaErrorInvalidValue;
+struct PairShape {
+  static_assert(H == 128, "lane L of a warp reads gate rows iH + 4L .. 4L + 3: 32 lanes x 4 = H");
+  static constexpr int U = H / 2;                   // units a CTA of the pair owns
+  static constexpr int NT = 512;                    // threads of a walk CTA: 16 warps of 4 units
+  // a slot: F [0, 4U), A [4U, 5U), f [5U, 6U), grad_h [6U, 7U)
+  static constexpr int SLOT = 7 * U;
+  static constexpr int CHUNKS = 8;                  // frame chunks of the dW pass
+  static constexpr int TG = 128, TJ = 64, KB = 16;  // dW tile rows, columns; frames a stage
+  static constexpr int DW_NT = 256;
+};
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// cell_backward's expression (lstm_util.cuh) on a pair CTA's slot: gate m's
+// gradient of its unit kk, and the cell's carry
+template <int U>
+__device__ __forceinline__ float pair_cell(const float* slot, float carry_h, float& carry_c, int kk,
+                                           int m) {
+  const float dh = slot[6 * U + kk] + carry_h;
+  const float dc = carry_c + dh * slot[4 * U + kk];
+  carry_c = dc * slot[5 * U + kk];
+  return (m == 3 ? dh : dc) * slot[m * U + kk];
+}
+
+// dh_prev of unit (lane >> 3) & 3 of the warp's four from one step's 4H gate
+// gradients dg: lane L's products with rows iH + 4L + e of each unit's column
+// (wd[u][i][e]) in 16 chains over i, each unit's ((e0 + e1) + (e2 + e3));
+// then the warp's sum: rounds xor 16 and 8 halve the units a lane carries
+// (lanes with bit 4 keep units 2, 3; then bit 3 the odd one), rounds xor 4,
+// 2, 1 sum the eight lanes left, the same bits in each.
+template <int H>
+__device__ __forceinline__ float pair_dh_prev(const float* dg, const float (&wd)[4][4][4],
+                                              int lane) {
+  float c[4][4] = {};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 v = *reinterpret_cast<const float4*>(dg + i * H + 4 * lane);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      c[u][0] = fmaf(v.x, wd[u][i][0], c[u][0]);
+      c[u][1] = fmaf(v.y, wd[u][i][1], c[u][1]);
+      c[u][2] = fmaf(v.z, wd[u][i][2], c[u][2]);
+      c[u][3] = fmaf(v.w, wd[u][i][3], c[u][3]);
+    }
+  }
+  float p[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) p[u] = (c[u][0] + c[u][1]) + (c[u][2] + c[u][3]);
+  const bool hi = lane & 16, mid = lane & 8;
+  const float s0 = (hi ? p[2] : p[0]) + __shfl_xor_sync(FULL, hi ? p[0] : p[2], 16);
+  const float s1 = (hi ? p[3] : p[1]) + __shfl_xor_sync(FULL, hi ? p[1] : p[3], 16);
+  float v = (mid ? s1 : s0) + __shfl_xor_sync(FULL, mid ? s0 : s1, 8);
+  v += __shfl_xor_sync(FULL, v, 4);
+  v += __shfl_xor_sync(FULL, v, 2);
+  v += __shfl_xor_sync(FULL, v, 1);
+  return v;
+}
+
+// The walk at H = 128: grid (2B, D), a cluster of 2 CTAs a (row, direction),
+// CTA r = blockIdx.x & 1 of row b = blockIdx.x >> 1 stepping units rU .. rU + U - 1.
+template <int H, int V>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(PairShape<H>::NT, 1)
+lstm_bwd_pair_kernel(const int* __restrict__ lengths,   // (B,)
+                     const float* __restrict__ w_hh,    // (D, 4H, H)
+                     const float* __restrict__ grad_h,  // (B, T, D*H)
+                     const float* __restrict__ cfac,    // (B, T, D, 2H): A, f
+                     float* __restrict__ d_xproj,       // (B, T, D, 4H): F in, gradients out
+                     int T, int D) {
+  using S = PairShape<H>;
+  constexpr int U = S::U, NT = S::NT, SLOT = S::SLOT, G = 4 * H;
+  static_assert(SLOT / V <= NT && U % V == 0, "one copy a thread a step, none across two segments");
+  static_assert(RING >= 3, "steps s and s + 1 are read while step s + RING - 1 is staged");
+  __shared__ __align__(16) float ring[RING][SLOT];
+  __shared__ __align__(16) float dg_s[2][G];        // a step's 4H gate gradients, both halves
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int r = (int)cluster.block_rank();
+  float* dg_peer = cluster.map_shared_rank(&dg_s[0][0], r ^ 1);
+  const int b = blockIdx.x >> 1;
+  const int d = blockIdx.y;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int kk = 4 * w + ((lane >> 3) & 3);         // the unit (of the CTA's U) this lane steps
+  const int m = lane & 3;
+  const bool writer = !(lane & 4);                  // lanes 4..7 of a unit repeat lanes 0..3
+  const int g = m * H + r * U + kk;                 // the gate a writer publishes
+
+  float wd[4][4][4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        wd[u][i][e] = w_hh[((size_t)d * G + i * H + 4 * lane + e) * H + r * U + 4 * w + u];
+
+  const int len = max(0, min(lengths[b], T));
+  const size_t x_step = (size_t)D * G;
+  const size_t o_step = (size_t)D * H;
+  const int dir = d ? 1 : -1;                       // frames a step moves
+  const int t0 = d ? 0 : len - 1;                   // frame of step 0
+  float* frow = d_xproj + (size_t)b * T * x_step + (size_t)d * G;
+
+  // This thread's copy of a step: slot offset e in segment seg (F of gate
+  // seg < 4, A, f, grad_h), its source at step 0 and how far a step moves it
+  const int e = threadIdx.x * V;
+  const bool mine = e < SLOT;
+  const int seg = e / U, off = r * U + e % U;
+  const float* cur;
+  ptrdiff_t stride;
+  if (seg < 4) {
+    cur = frow + seg * H + off, stride = (ptrdiff_t)x_step;
+  } else if (seg < 6) {
+    cur = cfac + (size_t)b * T * 2 * o_step + (size_t)d * 2 * H + (seg - 4) * H + off,
+    stride = 2 * (ptrdiff_t)o_step;
+  } else {
+    cur = grad_h + (size_t)b * T * o_step + (size_t)d * H + off, stride = (ptrdiff_t)o_step;
+  }
+  cur += (ptrdiff_t)t0 * stride;
+  const ptrdiff_t step = dir * stride;
+  auto stage = [&](float* slot) {
+    if (!mine) return;
+    if constexpr (V == 4) {
+      lasr::cp_async16(slot + e, cur);
+    } else {
+      lasr::cp_async4_zfill(slot + e, cur, true);
+    }
+    cur += step;
+  };
+
+  for (int s = 0; s < RING - 1; ++s) {
+    if (s < len) stage(ring[s]);
+    lasr::cp_async_commit();
+  }
+  for (int i = threadIdx.x; i < (T - len) * 4 * U; i += NT) {
+    const int t = len + i / (4 * U), q = i / U % 4;
+    frow[(size_t)t * x_step + q * H + r * U + i % U] = 0.f;
+  }
+
+  // both CTAs of a pair take this branch: a row's length is theirs
+  if (len > 0) {
+    lasr::cp_async_wait<RING - 2>();                // step 0 has landed
+    cluster_sync();                                 // and the partner runs: its buffers take stores
+    float carry_c = 0.f;
+    float dgv = pair_cell<U>(ring[0], 0.f, carry_c, kk, m);
+    if (writer) dg_s[0][g] = dgv, dg_peer[g] = dgv;
+    float* dx = frow + (ptrdiff_t)t0 * (ptrdiff_t)x_step + g;
+    const ptrdiff_t dx_step = dir * (ptrdiff_t)x_step;
+
+    for (int s0 = 0; s0 < len; s0 += RING) {
+#pragma unroll
+      for (int u = 0; u < RING; ++u) {
+        const int s = s0 + u;
+        if (s >= len) break;
+        lasr::cp_async_wait<RING - 3>();            // step s + 1 has landed
+        cluster_sync();                             // dg of step s from both CTAs, slot u + 1
+
+        if (writer) *dx = dgv;                      // off the chain: step s's gradient out
+        dx += dx_step;
+
+        // the chain: dh_prev of step s, then step s + 1's gate gradients,
+        // into both CTAs' buffers (none past the row's last step: the
+        // partner may have left)
+        if (s + 1 < len) {
+          dgv = pair_cell<U>(ring[(u + 1) % RING], pair_dh_prev<H>(dg_s[u & 1], wd, lane), carry_c,
+                             kk, m);
+          if (writer) dg_s[(u + 1) & 1][g] = dgv, dg_peer[((u + 1) & 1) * G + g] = dgv;
+        }
+
+        // slot s - 1 is free: every thread has passed this step's barrier
+        if (s + RING - 1 < len) stage(ring[(u + RING - 1) % RING]);
+        lasr::cp_async_commit();
+      }
+    }
+  }
+}
+
+// dW_hh at H = 128: grid (CHUNKS, (4H / TG) (H / TJ), D), a cluster of
+// CHUNKS CTAs a (tile, direction).  h_prev of frame t is h at t + dir, zero
+// where that leaves the row's valid frames; pad frames are not summed (their
+// gradients are exact zeros).
+template <int H, int V>
+__global__ void __cluster_dims__(8, 1, 1) __launch_bounds__(PairShape<H>::DW_NT)
+lstm_bwd_dw_kernel(const int* __restrict__ lengths,   // (B,)
+                   const float* __restrict__ h,       // (B, T, D*H) forward output
+                   const float* __restrict__ dgates,  // (B, T, D, 4H): the walk's d_xproj
+                   float* __restrict__ dw,            // (D, 4H, H)
+                   int B, int T, int D) {
+  using S = PairShape<H>;
+  constexpr int CHUNKS = S::CHUNKS, TG = S::TG, TJ = S::TJ, KB = S::KB, NT = S::DW_NT, G = 4 * H;
+  constexpr int AS = KB * TG, BS = KB * TJ;         // floats of a stage's gradients and h_prev
+  static_assert(CHUNKS == 8, "the cluster's dimension above");
+  static_assert(NT == KB * 16 && TG == 128 && TJ == 64 && TG % CHUNKS == 0
+                    && TG / CHUNKS * 16 == NT,
+                "16 threads a staged frame, 8 x 4 sums a thread, 16 floats of a tile row a thread");
+  static_assert(2 * (AS + BS) <= TG * TJ, "the stages fit in the partial tile's buffer");
+  __shared__ __align__(16) float sm[TG * TJ];       // two stages, then the chunk's partial tile
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.block_rank();
+  const int g0 = blockIdx.y / (H / TJ) * TG, j0 = blockIdx.y % (H / TJ) * TJ;
+  const int d = blockIdx.z;
+  const int dir = d ? 1 : -1;
+  auto row_len = [&](int bb) { return max(0, min(lengths[bb], T)); };
+  long long n_all = 0;
+  for (int bb = 0; bb < B; ++bb) n_all += row_len(bb);
+  const long long lo = n_all * c / CHUNKS, hi = n_all * (c + 1) / CHUNKS;
+
+  // thread (f, q) copies frame lo + f + KB k at stage k: row bb, time tt
+  const int f = threadIdx.x >> 4, q = threadIdx.x & 15;
+  long long n = lo + f;
+  int bb = 0, len = B ? row_len(0) : 0;
+  long long tt = n;
+  auto seek = [&]() {                               // (bb, tt) of frame n: skip whole rows
+    while (bb < B && tt >= len) {
+      tt -= len;
+      if (++bb < B) len = row_len(bb);
+    }
+  };
+  seek();
+  auto stage = [&](float* As, float* Bs) {
+    const bool va = n < hi;
+    const int t = (int)tt, tp = t + dir;
+    const bool vb = va && tp >= 0 && tp < len;
+    const float* a = va ? dgates + (((size_t)bb * T + t) * D + d) * G + g0 : dgates;
+    const float* hb = vb ? h + ((size_t)bb * T + tp) * D * H + (size_t)d * H + j0 : h;
+#pragma unroll
+    for (int i = 0; i < 8 / V; ++i) {
+      const int o = (i * 16 + q) * V;
+      if constexpr (V == 4) {
+        lasr::cp_async16_zfill(As + f * TG + o, a + (va ? o : 0), va);
+      } else {
+        lasr::cp_async4_zfill(As + f * TG + o, a + (va ? o : 0), va);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4 / V; ++i) {
+      const int o = (i * 16 + q) * V;
+      if constexpr (V == 4) {
+        lasr::cp_async16_zfill(Bs + f * TJ + o, hb + (vb ? o : 0), vb);
+      } else {
+        lasr::cp_async4_zfill(Bs + f * TJ + o, hb + (vb ? o : 0), vb);
+      }
+    }
+    n += KB, tt += KB;
+    seek();
+  };
+
+  // thread (gi, ji): rows 4gi + {0..3} and TG/2 + 4gi + {0..3}, columns 4ji + {0..3}
+  const int gi = threadIdx.x >> 4, ji = threadIdx.x & 15;
+  float acc[8][4] = {};
+  const int blocks = (int)((hi - lo + KB - 1) / KB);
+  if (blocks > 0) stage(sm, sm + AS);
+  lasr::cp_async_commit();
+  for (int k0 = 0; k0 < blocks; ++k0) {
+    float* As = sm + (k0 & 1) * (AS + BS);
+    float* Bs = As + AS;
+    float* next = sm + ((k0 + 1) & 1) * (AS + BS);
+    if (k0 + 1 < blocks) stage(next, next + AS);
+    lasr::cp_async_commit();
+    lasr::cp_async_wait<1>();                       // stage k0 has landed
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < KB; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(As + k * TG + 4 * gi);
+      const float4 a1 = *reinterpret_cast<const float4*>(As + k * TG + TG / 2 + 4 * gi);
+      const float4 bv = *reinterpret_cast<const float4*>(Bs + k * TJ + 4 * ji);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bw[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
+    }
+    __syncthreads();                                // the next stage reuses these buffers
+  }
+  lasr::cp_async_wait<0>();
+  __syncthreads();
+
+  // the chunk's partial tile into shared memory; then CTA c sums rows
+  // c TG / CHUNKS .. of every CTA's tile in chunk order
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = (i < 4 ? 0 : TG / 2) + 4 * gi + i % 4;
+    *reinterpret_cast<float4*>(sm + row * TJ + 4 * ji) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+  cluster_sync();
+  const int row = c * (TG / CHUNKS) + (threadIdx.x >> 4), col = 4 * (threadIdx.x & 15);
+  float4 sum = *reinterpret_cast<const float4*>(cluster.map_shared_rank(sm, 0) + row * TJ + col);
+#pragma unroll
+  for (int cc = 1; cc < CHUNKS; ++cc) {
+    const float4 v =
+        *reinterpret_cast<const float4*>(cluster.map_shared_rank(sm, cc) + row * TJ + col);
+    sum.x += v.x, sum.y += v.y, sum.z += v.z, sum.w += v.w;
+  }
+  *reinterpret_cast<float4*>(dw + ((size_t)d * G + g0 + row) * H + j0 + col) = sum;
+  cluster_sync();                                   // no CTA leaves while its tile is read
+}
+
+cudaError_t launch40(int V, int B, int T, int D, cudaStream_t stream, const float* xproj,
+                     const int* lengths, const float* w_hh, const float* h, const float* c,
+                     const float* grad_h, float* d_xproj, float* dw_part, float* cfac) {
+  constexpr int H = 40;
   using S = lasr::GatesShape<H>;
   lstm_bwd_gates_kernel<H><<<dim3((T + S::CH - 1) / S::CH, B, D), S::NT, 0, stream>>>(
       xproj, lengths, w_hh, h, c, d_xproj, cfac, T, D);
@@ -316,26 +655,50 @@ cudaError_t launch(int V, int B, int T, int D, cudaStream_t stream, const float*
   return cudaGetLastError();
 }
 
+cudaError_t launch128(int V, int B, int T, int D, cudaStream_t stream, const float* xproj,
+                      const int* lengths, const float* w_hh, const float* h, const float* c,
+                      const float* grad_h, float* d_xproj, float* dw, float* cfac) {
+  constexpr int H = 128;
+  using S = PairShape<H>;
+  using GS = lasr::GatesShape<H>;
+  lstm_bwd_gates_kernel<H><<<dim3((T + GS::CH - 1) / GS::CH, B, D), GS::NT, 0, stream>>>(
+      xproj, lengths, w_hh, h, c, d_xproj, cfac, T, D);
+  const dim3 walk(2 * B, D), dw_grid(S::CHUNKS, 4 * H / S::TG * (H / S::TJ), D);
+  if (V == 4) {
+    lstm_bwd_pair_kernel<H, 4><<<walk, S::NT, 0, stream>>>(lengths, w_hh, grad_h, cfac, d_xproj, T,
+                                                           D);
+    lstm_bwd_dw_kernel<H, 4><<<dw_grid, S::DW_NT, 0, stream>>>(lengths, h, d_xproj, dw, B, T, D);
+  } else {
+    lstm_bwd_pair_kernel<H, 1><<<walk, S::NT, 0, stream>>>(lengths, w_hh, grad_h, cfac, d_xproj, T,
+                                                           D);
+    lstm_bwd_dw_kernel<H, 1><<<dw_grid, S::DW_NT, 0, stream>>>(lengths, h, d_xproj, dw, B, T, D);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Returns the cudaError_t of the launches (0 on success); cudaErrorInvalidValue
 // for a hidden size without an instantiation or a copy width other than 4
 // or 1 floats (4 needs h, grad_h, d_xproj and cfac 16-byte aligned).
-// `cfac` is scratch of (B, T, D, 2H) floats.  `device` is the ordinal the
-// tensors live on: this library links its own CUDA runtime.
+// `dw` is dW_hh's per-(row, direction) partials (B, D, 4H, H) at H = 40 and
+// dW_hh itself (D, 4H, H) at H = 128.  `cfac` is scratch of (B, T, D, 2H)
+// floats.  `device` is the ordinal the tensors live on: this library links
+// its own CUDA runtime.
 extern "C" int lasr_lstm_bwd(const float* xproj, const int* lengths, const float* w_hh,
                              const float* h, const float* c, const float* grad_h,
-                             float* d_xproj, float* dw_part, float* cfac, int B, int T, int D,
+                             float* d_xproj, float* dw, float* cfac, int B, int T, int D,
                              int H, int copy_width, int device, cudaStream_t stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (copy_width != 4 && copy_width != 1) return (int)cudaErrorInvalidValue;
   switch (H) {
     case 40:
-      return (int)launch<40>(copy_width, B, T, D, stream, xproj, lengths, w_hh, h, c, grad_h,
-                             d_xproj, dw_part, cfac);
+      return (int)launch40(copy_width, B, T, D, stream, xproj, lengths, w_hh, h, c, grad_h,
+                           d_xproj, dw, cfac);
     case 128:
-      return (int)launch<128>(copy_width, B, T, D, stream, xproj, lengths, w_hh, h, c, grad_h,
-                              d_xproj, dw_part, cfac);
+      return (int)launch128(copy_width, B, T, D, stream, xproj, lengths, w_hh, h, c, grad_h,
+                            d_xproj, dw, cfac);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -352,9 +715,24 @@ extern "C" int lasr_lstm_bwd_smem(int H, int device) {
       if (cudaFuncGetAttributes(&attr, lstm_bwd_kernel<40, 4>) != cudaSuccess) return -1;
       return (int)attr.sharedSizeBytes;
     case 128:
-      if (cudaFuncGetAttributes(&attr, lstm_bwd_kernel<128, 4>) != cudaSuccess) return -1;
+      if (cudaFuncGetAttributes(&attr, lstm_bwd_pair_kernel<128, 4>) != cudaSuccess) return -1;
       return (int)attr.sharedSizeBytes;
     default:
       return -1;
   }
+}
+
+// How many clusters of the H = 128 walk (which == 0) or dW pass (which == 1)
+// the card holds at once (cudaOccupancyMaxActiveClusters), -1 on an error.
+extern "C" int lasr_lstm_bwd_clusters(int which, int device) {
+  if (cudaSetDevice(device) != cudaSuccess) return -1;
+  using S = PairShape<128>;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(which == 0 ? S::NT : S::DW_NT);
+  cfg.gridDim = dim3(which == 0 ? 2 : S::CHUNKS);
+  const void* fn = which == 0 ? (const void*)lstm_bwd_pair_kernel<128, 4>
+                              : (const void*)lstm_bwd_dw_kernel<128, 4>;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, fn, &cfg) != cudaSuccess) return -1;
+  return n;
 }

@@ -1,7 +1,7 @@
 """LSTM recurrence kernels: the forward K2 and the backward (BPTT) K3, both
-directions at once (K2 one launch, K3 a gates pass and a walk); and the
-batch-stacked pair K7 / K8 of the ``fuse_directions`` layout (second half of
-this module).
+directions at once (K2 one launch, K3 a gates pass and a walk, and at the
+LSTM head's H = 128 a dW pass); and the batch-stacked pair K7 / K8 of the
+``fuse_directions`` layout (second half of this module).
 
 K2 replaces ``lightning_asr_tpu/ops/lstm_pallas.py::_fwd_kernel`` and K3
 ``::_bwd_kernel`` (each launched once per direction by ``_run_fwd`` /
@@ -55,6 +55,23 @@ dgates[g]·h_prev`` accumulates in a thread's 40 registers across the whole
 walk, and the per-(row, direction) partials are summed over the batch in a
 fixed order (deterministic).  The TPU kernels' 128-lane padding of H, their
 32-step time blocks and the 32-row batch tiling (a VMEM cap) do not carry over.
+
+K3 at H = 128 (the LSTM head, ``PAIR_HIDDEN``): one block's W_hh columns
+(128 floats a thread) and dW_hh partials (128) would not fit 512 threads'
+128 registers, so the walk is split over a cluster of two CTAs a (row,
+direction), each owning 64 units and their four gates, 64 W_hh values a
+thread in registers; each step a CTA publishes its 256 gate gradients into
+its own and its partner's shared memory and one cluster barrier a step
+orders them, and each CTA sums dh_prev of its 64 units from all 512 in a
+fixed order.  Its ring stages only what its chain reads (F of its 256
+gates, A, f and grad_h of its units: ``backward_smem_bytes(128)``).  dW_hh
+leaves the walk: a third kernel sums dgates^T h_prev over the valid frames
+on the CUDA cores in float32, the frames of all rows cut into
+``DW_CHUNKS`` equal chunks whose partial tiles a cluster sums in chunk
+order (no atomics, no (B, D, 4H, H) partials, no row sum).  What bounds it
+on the H100: each step's chain and the cluster barrier between two SMs, and
+residency (2·B·D CTAs of 512 threads, one an SM;
+``backward_clusters_on_card`` reads how many pairs the card holds at once).
 """
 
 from __future__ import annotations
@@ -67,6 +84,8 @@ import torch
 _LOCK = threading.Lock()
 _KERNEL_HIDDEN = (40, 128)  # hidden sizes instantiated in csrc/lstm*.cu (context BiLSTM, LSTM head)
 BACKWARD_RING = 8           # K2's, K3's, K7's and K8's ring slots (csrc/lstm_util.cuh LSTM_RING)
+PAIR_HIDDEN = 128           # K3's hidden size walked by a pair of CTAs (csrc/lstm_bwd.cu PairShape)
+DW_CHUNKS = 8               # frame chunks of K3's dW pass at PAIR_HIDDEN (PairShape::CHUNKS)
 
 
 def forward_smem_bytes(H: int) -> int:
@@ -76,13 +95,25 @@ def forward_smem_bytes(H: int) -> int:
     return 4 * (BACKWARD_RING * 4 * H + 2 * H)
 
 
-def backward_smem_bytes(H: int) -> int:
-    """The static shared memory of K3's walk, the one statement of its layout
-    (csrc/lstm_bwd.cu), which K8's walk shares: the ring, whose slots hold
-    one step each (the gate factors F [0, 4H), A [4H, 5H) and f [5H, 6H)
-    of its step, h_prev [6H, 7H), grad_h [7H, 8H)), then the gate gradients
-    of two steps."""
+def _walk_smem_bytes(H: int) -> int:
+    # a one-block walk: the ring, whose slots hold one step each (the gate
+    # factors F [0, 4H), A [4H, 5H) and f [5H, 6H) of its step, h_prev
+    # [6H, 7H), grad_h [7H, 8H)), then the gate gradients of two steps
     return 4 * (BACKWARD_RING * 8 * H + 2 * 4 * H)
+
+
+def backward_smem_bytes(H: int) -> int:
+    """The static shared memory of a CTA of K3's walk, the one statement of
+    its layout (csrc/lstm_bwd.cu).  At H = 40 one block a (row, direction),
+    the layout K8's walk shares: the ring, whose slots hold one step each
+    (the gate factors F [0, 4H), A [4H, 5H) and f [5H, 6H) of its step,
+    h_prev [6H, 7H), grad_h [7H, 8H)), then the gate gradients of two steps.
+    At ``PAIR_HIDDEN`` a CTA of the pair (units U = H/2): the ring of its
+    chain's inputs (F of its 4U gates [0, 4U), A [4U, 5U), f [5U, 6U),
+    grad_h [6U, 7U)), then all 4H gate gradients of two steps."""
+    if H == PAIR_HIDDEN:
+        return 4 * (BACKWARD_RING * 7 * (H // 2) + 2 * 4 * H)
+    return _walk_smem_bytes(H)
 
 
 def stacked_forward_smem_bytes(H: int) -> int:
@@ -94,8 +125,9 @@ def stacked_forward_smem_bytes(H: int) -> int:
 
 def stacked_backward_smem_bytes(H: int) -> int:
     """The static shared memory of K8's walk (csrc/lstm_bidir.cu): K3's
-    layout, then a ring of ``2 * BACKWARD_RING`` step-list entries (int32)."""
-    return backward_smem_bytes(H) + 4 * 2 * BACKWARD_RING
+    one-block layout (at every H), then a ring of ``2 * BACKWARD_RING``
+    step-list entries (int32)."""
+    return _walk_smem_bytes(H) + 4 * 2 * BACKWARD_RING
 
 
 def backward_copy_width(*tensors: torch.Tensor) -> int:
@@ -256,7 +288,8 @@ def lstm_backward(xproj: torch.Tensor, lengths: torch.Tensor, w_hh: torch.Tensor
     """K3: the forward's inputs, its h (B, T, D·H) and c (B, T, D, H), and
     the gradient of h -> (d_xproj (B, T, D, 4H), exactly 0 at pad frames;
     dW_hh (D, 4H, H)).  A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel or raises."""
+    launches the kernels (at ``PAIR_HIDDEN`` the pair walk and the dW pass)
+    or raises."""
     B, T, D, G, H = _check_recurrence_args(xproj, lengths, w_hh)
     for name, t, shape in (("h", h, (B, T, D * H)), ("c", c, (B, T, D, H)),
                            ("grad_h", grad_h, (B, T, D * H))):
@@ -274,12 +307,14 @@ def lstm_backward(xproj: torch.Tensor, lengths: torch.Tensor, w_hh: torch.Tensor
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     d_xproj = torch.empty_like(xproj)
-    dw_part = torch.empty((B, D, G, H), dtype=torch.float32, device=xproj.device)
+    # the walk's per-(row, direction) partials, or at PAIR_HIDDEN the dW pass's sum
+    dw = torch.empty((D, G, H) if H == PAIR_HIDDEN else (B, D, G, H), dtype=torch.float32,
+                     device=xproj.device)
     if B and T:
         cfac = torch.empty((B, T, D, 2 * H), dtype=torch.float32, device=xproj.device)
         stream = torch.cuda.current_stream(xproj.device).cuda_stream
         err = fn(xproj.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(), h.data_ptr(),
-                 c.data_ptr(), grad_h.data_ptr(), d_xproj.data_ptr(), dw_part.data_ptr(),
+                 c.data_ptr(), grad_h.data_ptr(), d_xproj.data_ptr(), dw.data_ptr(),
                  cfac.data_ptr(), B, T, D, H, backward_copy_width(h, grad_h, d_xproj, cfac),
                  xproj.device.index, stream)
         if err != 0:
@@ -288,8 +323,8 @@ def lstm_backward(xproj: torch.Tensor, lengths: torch.Tensor, w_hh: torch.Tensor
             lstm_backward.launches += 1
             lstm_backward.launches_at[H] = lstm_backward.launches_at.get(H, 0) + 1
     else:
-        dw_part.zero_()
-    return d_xproj, dw_part.sum(dim=0)
+        dw.zero_()
+    return d_xproj, dw if H == PAIR_HIDDEN else dw.sum(dim=0)
 
 
 lstm_backward.launches = 0
@@ -317,6 +352,18 @@ def backward_smem_on_card(H: int, device: torch.device) -> int:
     hidden size H (-1 without an instantiation): the card's check of
     ``backward_smem_bytes``."""
     return _smem_on_card("lstm_bwd", "lasr_lstm_bwd_smem", H, device)
+
+
+def backward_clusters_on_card(device: torch.device, dw_pass: bool = False) -> int:
+    """How many clusters of K3's H = 128 walk (pairs of CTAs), or of its dW
+    pass with ``dw_pass``, the card holds at once
+    (``cudaOccupancyMaxActiveClusters``; -1 on an error)."""
+    from .kernel_build import library
+
+    fn = library("lstm_bwd").lasr_lstm_bwd_clusters
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    return fn(int(dw_pass), device.index or 0)
 
 
 class _LSTMCore(torch.autograd.Function):

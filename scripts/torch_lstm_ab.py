@@ -4,7 +4,9 @@ h only, ``chip_smoke.phase_k2``'s lengths and inputs); then K8
 (``lstm_backward_stacked``, the wrapper with its row sum), and on the same
 inputs K3 (``lstm_backward``), K2 with its cell output and K7, at the
 training shape (B=32, T'=836, C=256, H=40) on ragged rows
-(``chip_smoke.train_rows``) and on rows that all fill T'.
+(``chip_smoke.train_rows``) and on rows that all fill T'; then K3 and K8
+at the LSTM head's H=128 on ``chip_smoke.h128_kernels``' inputs (B=32,
+T'=836, C=1024, ragged rows), K3's device time split by kernel.
 
 Each checkout runs in a process of its own, with the kernels built from its
 own sources and its own ``chip_smoke.py``'s row lengths.  Name them in the
@@ -18,7 +20,8 @@ L2; K2's ``cold_ms``, each call after a 64 MB write that evicts L2; µs per
 sequential step; K8's device time by kernel from torch.profiler; the
 registers and spills of the BiLSTM forward kernels from ptxas; and a
 digest of each kernel's outputs, so that runs of checkouts that share a
-kernel show whether its bits moved) and a summary line last.  Needs a
+kernel show whether its bits moved; K3's registers and spills at both
+hidden sizes) and a summary line last.  Needs a
 card; imports no JAX.
 """
 
@@ -56,7 +59,8 @@ def run_one(root: Path) -> dict:
     ptxas = {k: v for name in ("lstm", "lstm_bidir")
              for k, v in chip_smoke.ptxas_kernels(reports.get(name, "")).items() if "fwd" in k}
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    out = {"root": str(root), "card": torch.cuda.get_device_name(0), "ptxas": ptxas}
+    out = {"root": str(root), "card": torch.cuda.get_device_name(0), "ptxas": ptxas,
+           "K3_ptxas": chip_smoke.ptxas_kernels(reports.get("lstm_bwd", ""))}
 
     rng = np.random.default_rng(1)
     s = 1.0 / np.sqrt(H)
@@ -105,6 +109,31 @@ def run_one(root: Path) -> dict:
                                      for k, v in split.items()},
                      "digest": {"K8": digest(*k8()), "K3": digest(*k3()), "K2_h": digest(h2),
                                 "K2_c": digest(cell), "K7": digest(*h7)}}
+
+    rng = np.random.default_rng(128)
+    H128 = chip_smoke.HEAD_HIDDEN
+    _, (_, w_hh, _, _), lens_np, lens, xproj = chip_smoke.bilstm_inputs(dev, rng, B, T, C=1024,
+                                                                        H=H128)
+    grad_h = torch.from_numpy(rng.standard_normal((B, T, 2 * H128)).astype(np.float32)).to(dev)
+    h2, cell = lstm_recurrence(xproj, lens, w_hh, with_cell=True)
+    k3 = lambda: lstm_backward(xproj, lens, w_hh, h2, cell, grad_h)  # noqa: E731
+    xp = stack_directions(xproj).contiguous()
+    valid = stacked_valid(T, lens)
+    gs = stack_directions(grad_h.reshape(B, T, 2, H128)).contiguous()
+    w_f, w_b = w_hh[0].contiguous(), w_hh[1].contiguous()
+    h7 = lstm_recurrence_stacked(xp, valid, w_f, w_b)
+    k8 = lambda: lstm_backward_stacked(xp, valid, w_f, w_b, h7[1], h7[2], gs)  # noqa: E731
+    steps = int(lens_np.max())
+    ms = {"K3": chip_smoke.cuda_ms(k3, ITERS), "K8": chip_smoke.cuda_ms(k8, ITERS)}
+    try:
+        split = chip_smoke.device_time(k3, 5)[2]
+    except SystemExit as e:
+        split = {"none": str(e)}
+    out["h128"] = {"ms": ms, "sequential_steps": steps,
+                   "us_per_step": {k: 1e3 * v / steps for k, v in ms.items()},
+                   "K3_split_ms": {k.replace("(anonymous namespace)::", "")[:60]: v
+                                   for k, v in split.items()},
+                   "digest": {"K3": digest(*k3()), "K8": digest(*k8())}}
     return out
 
 

@@ -9,7 +9,9 @@ for K10's transposed packing and its bf16 kernels' shared memory; K11's
 shared memory (``ops/depthwise_kernels.py``) for every block conv, and the
 bf16 K11's addressing (``csrc/depthwise.cu``) replayed in numpy against the
 plain weight gradient; K2's, K3's, K7's and K8's shared memory and copy
-width (``ops/lstm_kernels.py``), K3's ring (``csrc/lstm_bwd.cu``), K8's
+width (``ops/lstm_kernels.py``), K3's ring (``csrc/lstm_bwd.cu``) and at
+H = 128 its layout, its pair walk and dW pass replayed against the plain
+backward and its wrapper's argument checks, K8's
 step lists, gates pass and ring and K7's walk (``csrc/lstm_bidir.cu``)
 replayed in numpy against the plain BiLSTM backwards and forward, and K2's
 walk (``csrc/lstm.cu``) against the plain forward; K5's ring and shared memory
@@ -32,9 +34,10 @@ from lightning_asr_torch.ops.depthwise_kernels import depthwise_wgrad_plain, wgr
 from lightning_asr_torch.ops import frontend_kernels as fk
 from lightning_asr_torch.ops.frontend import MelFrontendConfig, dft_filters, mel_filterbank
 from lightning_asr_torch.ops.kernel_build import SMEM_LIMIT
-from lightning_asr_torch.ops.lstm_kernels import (BACKWARD_RING, backward_copy_width,
+from lightning_asr_torch.ops.lstm_kernels import (BACKWARD_RING, DW_CHUNKS, PAIR_HIDDEN,
+                                                  backward_copy_width,
                                                   backward_smem_bytes, forward_smem_bytes,
-                                                  lstm_backward_plain,
+                                                  lstm_backward, lstm_backward_plain,
                                                   lstm_backward_stacked_plain, lstm_recurrence_plain,
                                                   lstm_recurrence_stacked_plain,
                                                   stacked_backward_smem_bytes,
@@ -322,14 +325,11 @@ def _dh_prev(dg, w, H):
     return ((P[0] + P[4]) + (P[1] + P[5])) + ((P[2] + P[6]) + (P[3] + P[7]))
 
 
-def _k3_replay(xproj, lengths, w_hh, h, c, grad_h, V):
-    """K3 of csrc/lstm_bwd.cu in float64, its layout and schedule replayed.
-    The gates pass: each valid frame's factors F into the d_xproj buffer, A
-    and f into cfac.  The walk: each step's inputs copied V floats at a time
-    from the flat buffers into the ring (``_Ring``); the gate gradients in
-    two buffers."""
+def _k3_gates(xproj, lengths, w_hh, h, c):
+    """K3's gates pass in float64: each valid frame's factors F into the
+    d_xproj buffer (NaN elsewhere), A and f into cfac."""
     B, T, D, G = xproj.shape
-    H, R = G // 4, BACKWARD_RING
+    H = G // 4
     buf = np.full((B, T, D, G), np.nan)                  # d_xproj: F in, gradients out
     cfac = np.full((B, T, D, 2 * H), np.nan)
     for b in range(B):
@@ -342,6 +342,18 @@ def _k3_replay(xproj, lengths, w_hh, h, c, grad_h, V):
                 cp = np.zeros(H) if first else c[b, tp, d].astype(np.float64)
                 buf[b, t, d], cfac[b, t, d] = _factors(xproj[b, t, d] + w_hh[d].astype(np.float64) @ hp,
                                                        cp, H)
+    return buf, cfac
+
+
+def _k3_replay(xproj, lengths, w_hh, h, c, grad_h, V):
+    """K3 of csrc/lstm_bwd.cu in float64, its layout and schedule replayed.
+    The gates pass: each valid frame's factors F into the d_xproj buffer, A
+    and f into cfac.  The walk: each step's inputs copied V floats at a time
+    from the flat buffers into the ring (``_Ring``); the gate gradients in
+    two buffers."""
+    B, T, D, G = xproj.shape
+    H, R = G // 4, BACKWARD_RING
+    buf, cfac = _k3_gates(xproj, lengths, w_hh, h, c)
     bf, cf, hf, gf = buf.reshape(-1), cfac.reshape(-1), h.astype(np.float64).ravel(), \
         grad_h.astype(np.float64).ravel()
     dw = np.zeros((B, D, G, H))
@@ -406,6 +418,207 @@ def test_k3_ring_replayed_gives_the_plain_gradient(D, T, lengths, V):
     hs, cs = lstm_recurrence_plain(torch.from_numpy(xproj), lens, torch.from_numpy(w_hh),
                                    with_cell=True)
     got_dx, got_dw = _k3_replay(xproj, lengths, w_hh, hs.numpy(), cs.numpy(), grad_h, V)
+    want_dx, want_dw = lstm_backward_plain(torch.from_numpy(xproj), lens, torch.from_numpy(w_hh),
+                                           hs, cs, torch.from_numpy(grad_h))
+    # float64 here, float32 there, through at most 33 steps
+    assert np.abs(got_dx - want_dx.double().numpy()).max() <= 1e-5
+    assert np.abs(got_dw - want_dw.double().numpy()).max() <= 1e-5 * max(1.0, want_dw.abs().max())
+    for b, n in enumerate(lengths):
+        assert np.all(got_dx[b, n:] == 0)
+
+
+def test_k3_h128_shared_memory_and_chunks():
+    """K3's layout at the LSTM head's H = 128: a CTA of the pair stages 448
+    floats a step (F of its 256 gates, A, f and grad_h of its 64 units) and
+    holds all 512 gate gradients of two steps; H = 40's one-block layout and
+    K8's (which keeps it at H = 128) are unchanged."""
+    H, U = PAIR_HIDDEN, PAIR_HIDDEN // 2
+    assert backward_smem_bytes(H) == 4 * (BACKWARD_RING * 7 * U + 2 * 4 * H) == 18432 \
+        <= STATIC_SMEM_LIMIT
+    assert backward_smem_bytes(40) == 11520
+    assert stacked_backward_smem_bytes(H) == 4 * (BACKWARD_RING * 8 * H + 2 * 4 * H) \
+        + 4 * 2 * BACKWARD_RING == 36928
+    # every staged segment is whole in V-float copies; 448 copies of one float fit 512 threads
+    assert U % 4 == 0 and 7 * U <= 512
+    # a dW chunk's partial tile (128 x 64 floats) holds the two copy stages (16 frames of 128 + 64)
+    assert 2 * 16 * (128 + 64) <= 128 * 64 and 128 % DW_CHUNKS == 0 and 128 // DW_CHUNKS * 16 == 256
+
+
+@pytest.mark.parametrize("bad", ["h_shape", "c_shape", "grad_h_dtype", "lengths_dtype", "w_hh_shape",
+                                 "h_strided"])
+def test_k3_h128_wrapper_refuses_what_the_kernels_cannot_take(bad):
+    """``lstm_backward``'s checks at H = 128 (the pair walk and the dW pass
+    read h, c and grad_h as contiguous float32 of the stated shapes): each
+    wrong argument raises before any launch, on the CPU as on the card."""
+    B, T, D, H = 2, 5, 2, PAIR_HIDDEN
+    args = {"xproj": torch.zeros((B, T, D, 4 * H)), "lengths": torch.full((B,), T, dtype=torch.int32),
+            "w_hh": torch.zeros((D, 4 * H, H)), "h": torch.zeros((B, T, D * H)),
+            "c": torch.zeros((B, T, D, H)), "grad_h": torch.zeros((B, T, D * H))}
+    args.update({"h_shape": {"h": torch.zeros((B, T, D * H + 4))},
+                 "c_shape": {"c": torch.zeros((B, T, D * H))},
+                 "grad_h_dtype": {"grad_h": torch.zeros((B, T, D * H), dtype=torch.float64)},
+                 "lengths_dtype": {"lengths": torch.full((B,), T, dtype=torch.int64)},
+                 "w_hh_shape": {"w_hh": torch.zeros((D, 4 * H, H + 4))},
+                 "h_strided": {"h": torch.zeros((B, T, 2 * D * H))[..., ::2]}}[bad])
+    before = lstm_backward.launches
+    with pytest.raises(ValueError):
+        lstm_backward(**args)
+    assert lstm_backward.launches == before
+
+
+def _pair_walk(buf, cfac, lengths, w_hh, grad_h, V):
+    """The H = 128 walk of csrc/lstm_bwd.cu (lstm_bwd_pair_kernel) in
+    float64: for each (row, direction) two CTAs r, each a ring of its 448
+    floats a step copied V at a time from the flat buffers (``_Ring``); lane
+    L of warp w holds W_hh[iH + 4L + e, rU + 4w + u]; the lanes' products
+    with the step's 512 gradients summed over the warp land on unit (L >> 3)
+    & 3; lane (kk, m) steps the cell and lanes L & 4 == 0 publish gate m of
+    unit kk into both CTAs' buffers.  Writes the gradients into ``buf``."""
+    B, T, D, G = buf.shape
+    H, R = G // 4, BACKWARD_RING
+    U = H // 2
+    bf, cf, gf = buf.reshape(-1).copy(), cfac.reshape(-1), grad_h.astype(np.float64).ravel()
+    lane = np.arange(32)
+    kk = 4 * np.arange(16)[:, None] + (lane >> 3) % 4               # (warp, lane)
+    m = np.broadcast_to(lane % 4, kk.shape)
+    writer = np.broadcast_to(lane % 8 < 4, kk.shape)
+    i, e, u = np.arange(4)[:, None, None], np.arange(4)[None, :, None], np.arange(4)[None, None, :]
+    for b in range(B):
+        n = max(0, min(int(lengths[b]), T))
+        buf[b, n:] = 0                                               # pad frames, both CTAs
+        for d in range(D):
+            w = w_hh[d].astype(np.float64)
+            # wd[r][warp, lane, i, e, u]
+            wd = [w[(i * H + 4 * lane[:, None, None, None] + e)[None],
+                    r * U + 4 * np.arange(16)[:, None, None, None, None] + u] for r in range(2)]
+            rings = [_Ring(7 * U), _Ring(7 * U)]
+
+            def copies(r, s):
+                t = s if d else n - 1 - s
+                out = []
+                for o in range(0, 7 * U, V):
+                    seg, off = o // U, r * U + o % U
+                    if seg < 4:
+                        src = ((b * T + t) * D + d) * G + seg * H + off
+                        out.append((o, bf[src:src + V]))
+                    elif seg < 6:
+                        src = ((b * T + t) * D + d) * 2 * H + (seg - 4) * H + off
+                        out.append((o, cf[src:src + V]))
+                    else:
+                        src = (b * T + t) * D * H + d * H + off
+                        out.append((o, gf[src:src + V]))
+                return out
+
+            def cell(slot, carry_h, carry_c):                        # every lane of the CTA
+                dh = slot[6 * U + kk] + carry_h
+                dc = carry_c + dh * slot[4 * U + kk]
+                return np.where(m == 3, dh, dc) * slot[m * U + kk], dc * slot[5 * U + kk]
+
+            def publish(dg, r, grads):                              # writers, into a CTA's buffer
+                dg[m[writer] * H + r * U + kk[writer]] = grads[writer]
+
+            for s in range(R - 1):
+                for r in range(2):
+                    rings[r].commit(*((s, copies(r, s)) if s < n else ()))
+            if n == 0:
+                continue
+            carry_c = [np.zeros(kk.shape), np.zeros(kk.shape)]
+            dg_s = [[np.full(G, np.nan), np.full(G, np.nan)] for _ in range(2)]   # [CTA][buffer]
+            grads = [None, None]
+            for r in range(2):
+                rings[r].wait(R - 2)
+                grads[r], carry_c[r] = cell(rings[r].read(0), 0.0, carry_c[r])
+                for dst in range(2):
+                    publish(dg_s[dst][0], r, grads[r])
+            for s in range(n):
+                for r in range(2):
+                    rings[r].wait(R - 3)
+                t = s if d else n - 1 - s
+                for r in range(2):
+                    buf[b, t, d, m[writer] * H + r * U + kk[writer]] = grads[r][writer]
+                if s + 1 < n:
+                    new = []
+                    for r in range(2):
+                        dg = dg_s[r][s & 1]
+                        assert not np.isnan(dg).any()                # both halves landed
+                        P = np.einsum("lie,wlieu->wlu", dg.reshape(4, 32, 4).transpose(1, 0, 2), wd[r])
+                        dh = np.take_along_axis(P.sum(axis=1), (lane >> 3)[None, :] % 4, axis=1)
+                        g_new, carry_c[r] = cell(rings[r].read(s + 1), dh, carry_c[r])
+                        new.append(g_new)
+                    for dst in range(2):
+                        dg_s[dst][(s + 1) & 1][:] = np.nan          # step s - 1's, read by nobody now
+                    for r in range(2):
+                        grads[r] = new[r]
+                        for dst in range(2):
+                            publish(dg_s[dst][(s + 1) & 1], r, grads[r])
+                for r in range(2):
+                    rings[r].commit(*((s + R - 1, copies(r, s + R - 1)) if s + R - 1 < n else ()))
+    return buf
+
+
+def _dw_pass(buf, lengths, h, V, KB=16):
+    """The H = 128 dW pass of csrc/lstm_bwd.cu (lstm_bwd_dw_kernel) in
+    float64: the valid frames of all rows in order (b, then t) cut into
+    ``DW_CHUNKS`` chunks [N c / C, N (c + 1) / C); thread f of a chunk's
+    copies walks frame lo + f + KB k (skipping whole rows), zeros past the
+    chunk and where h_prev leaves the row; the chunks' partials summed in
+    chunk order."""
+    B, T, D, G = buf.shape
+    H = G // 4
+    lens = [max(0, min(int(x), T)) for x in lengths]
+    N = sum(lens)
+    dw = np.zeros((D, G, H))
+    for d in range(D):
+        dirn = 1 if d else -1
+        parts = []
+        for c in range(DW_CHUNKS):
+            lo, hi = N * c // DW_CHUNKS, N * (c + 1) // DW_CHUNKS
+            part = np.zeros((G, H))
+            cursors = []
+            for f in range(KB):                                      # (n, bb, tt) of thread f
+                n, bb, tt = lo + f, 0, lo + f
+                while bb < B and tt >= lens[bb]:
+                    tt -= lens[bb]
+                    bb += 1
+                cursors.append([n, bb, tt])
+            for _ in range(-(-(hi - lo) // KB)):
+                for cur in cursors:
+                    n, bb, tt = cur
+                    va = n < hi
+                    vb = va and 0 <= tt + dirn < lens[bb]
+                    a = buf[bb, tt, d] if va else np.zeros(G)
+                    hp = h[bb, tt + dirn, d * H:(d + 1) * H].astype(np.float64) if vb else np.zeros(H)
+                    part += np.outer(a, hp)
+                    n, tt = n + KB, tt + KB
+                    while bb < B and tt >= lens[bb]:
+                        tt -= lens[bb]
+                        bb += 1
+                    cur[:] = [n, bb, tt]
+            parts.append(part)
+        dw[d] = parts[0]
+        for part in parts[1:]:
+            dw[d] = dw[d] + part
+    return dw
+
+
+@pytest.mark.parametrize("V", [4, 1])
+@pytest.mark.parametrize("D,T,lengths", [(2, 20, [20, 0, 1, 2, 3, 7]),   # below the ring, 0 and 1
+                                         (1, 20, [8, 9, 17, 20]),      # at it and off its multiples
+                                         (2, 33, [0, 33, 16, 0, 25])])  # empty rows between chunks
+def test_k3_h128_pair_walk_and_dw_pass_replayed_give_the_plain_gradient(D, T, lengths, V):
+    """K3 at the LSTM head's H = 128: the gates pass, the pair walk and the
+    dW pass replayed in numpy against the plain backward."""
+    rng = np.random.default_rng(T + len(lengths) + D + 128)
+    H, B = PAIR_HIDDEN, len(lengths)
+    xproj = rng.standard_normal((B, T, D, 4 * H)).astype(np.float32)
+    w_hh = (rng.uniform(-1, 1, (D, 4 * H, H)) / np.sqrt(H)).astype(np.float32)
+    grad_h = rng.standard_normal((B, T, D * H)).astype(np.float32)
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    hs, cs = lstm_recurrence_plain(torch.from_numpy(xproj), lens, torch.from_numpy(w_hh),
+                                   with_cell=True)
+    buf, cfac = _k3_gates(xproj, lengths, w_hh, hs.numpy(), cs.numpy())
+    got_dx = _pair_walk(buf, cfac, lengths, w_hh, grad_h, V)
+    got_dw = _dw_pass(got_dx, lengths, hs.numpy(), V)
     want_dx, want_dw = lstm_backward_plain(torch.from_numpy(xproj), lens, torch.from_numpy(w_hh),
                                            hs, cs, torch.from_numpy(grad_h))
     # float64 here, float32 there, through at most 33 steps

@@ -305,6 +305,7 @@ from lightning_asr_torch.ops.lstm_kernels import (backward_clusters_on_card, bac
                                                   lstm_recurrence, lstm_recurrence_plain,
                                                   lstm_recurrence_stacked,
                                                   lstm_recurrence_stacked_plain,
+                                                  stacked_backward_clusters_on_card,
                                                   stacked_backward_smem_bytes,
                                                   stacked_backward_smem_on_card,
                                                   stacked_forward_smem_bytes,
@@ -451,6 +452,12 @@ HEAD_HIDDEN = 128                     # the LSTM head's hidden size (build_model
 K3_H128_KERNELS = ("lstm_bwd_gates_kernel<128>", "lstm_bwd_pair_kernel<128,4>",
                    "lstm_bwd_pair_kernel<128,1>", "lstm_bwd_dw_kernel<128,4>",
                    "lstm_bwd_dw_kernel<128,1>")
+# K8's kernels at H=128 (csrc/lstm_bidir.cu; its step lists take no H)
+K8_H128_KERNELS = ("lstm_stacked_bwd_gates_kernel<128>", "lstm_stacked_bwd_pair_kernel<128,4>",
+                   "lstm_stacked_bwd_pair_kernel<128,1>", "lstm_stacked_bwd_dw_kernel<128,4>",
+                   "lstm_stacked_bwd_dw_kernel<128,1>")
+# K8's call at H=128 on a mask with holes: rows, steps, the share of valid steps
+HOLES_B, HOLES_T, HOLES_VALID = 4, 70, 0.7
 # the LSTM head phase: its bf16 steps, the train-mode passes that set its
 # BatchNorm statistics, and the mmap trainer's corpus and epochs
 HEAD_STEPS, HEAD_CALIBRATION_PASSES = 6, 10
@@ -1782,10 +1789,12 @@ def h128_kernels(dev, reports: dict) -> dict:
     training shape (B=32, T'=836, ragged rows, input width 1024: the 12x1
     encoder's output) against their plain versions, twice for the same
     bits, with their times, bounds and cuDNN's packed BiLSTM at hidden 128
-    as the yardstick; their shared memory against the stated layouts, and
-    the registers and spills of the H=128 instantiations (K3's must spill
-    none); K3's device time by kernel (gates pass, pair walk, dW pass) and
-    the walk's and the dW pass's resident clusters.  Returns {"K2": row,
+    as the yardstick; K8 against K3 on the same rows (equal bits expected)
+    and K8 on a mask with holes against its plain version; their shared
+    memory against the stated layouts, and the registers and spills of the
+    H=128 instantiations (K3's and K8's must spill none); K3's and K8's
+    device time by kernel (step lists, gates pass, pair walk, dW pass) and
+    their walks' and dW passes' resident clusters.  Returns {"K2": row,
     ...} of the kernels line's keys (launches: this call's)."""
     rng = np.random.default_rng(128)
     B, T, C, H, D = TRAIN_BATCH, T_TRAIN, 1024, HEAD_HIDDEN, 2
@@ -1829,7 +1838,10 @@ def h128_kernels(dev, reports: dict) -> dict:
             "K7_c_prev": (c_prev - want7[2]).abs().max().item(),
             "K7_h_vs_K2": (unstack_directions(h7).reshape(B, T, D * H) - h).abs().max().item(),
             "K8_dx": (d_x8 - want_dx8).abs().max().item(),
-            "K8_dw_rel": max(rel(dw_f, want_f), rel(dw_b, want_b))}
+            "K8_dw_rel": max(rel(dw_f, want_f), rel(dw_b, want_b)),
+            "K8_dx_vs_K3": (unstack_directions(d_x8) - d_x).abs().max().item(),
+            "K8_dw_vs_K3_rel": max(rel(dw_f, dw[0]), rel(dw_b, dw[1]))}
+    errs.update(_k8_holes(dev, w_f, w_b))
     check(all(bool((h[b, n:] == 0).all()) and bool((d_x[b, n:] == 0).all())
               for b, n in enumerate(lens_np)), "H=128 K2 h / K3 d_xproj at pad frames not exactly 0")
     check(bool((h7[valid == 0] == 0).all()) and bool((d_x8[valid == 0] == 0).all()),
@@ -1839,7 +1851,10 @@ def h128_kernels(dev, reports: dict) -> dict:
           f"H=128 K2/K7 against plain: {errs}")
     check(errs["K7_h_vs_K2"] == 0.0, f"H=128 K7's h is not K2's bit for bit: {errs}")
     check(errs["K3_dx"] <= K3_TOL_DX and errs["K3_dw_rel"] <= K3_TOL_DW and errs["K8_dx"] <= K3_TOL_DX
-          and errs["K8_dw_rel"] <= K3_TOL_DW, f"H=128 K3/K8 against plain: {errs}")
+          and errs["K8_dw_rel"] <= K3_TOL_DW and errs["K8_holes_dx"] <= K3_TOL_DX
+          and errs["K8_holes_dw_rel"] <= K3_TOL_DW, f"H=128 K3/K8 against plain: {errs}")
+    check(errs["K8_dx_vs_K3"] <= K3_TOL_DX and errs["K8_dw_vs_K3_rel"] <= K3_TOL_DW,
+          f"H=128 K8 against K3: {errs}")
     smem = {"K2": (forward_smem_on_card(H, dev), forward_smem_bytes(H)),
             "K3": (backward_smem_on_card(H, dev), backward_smem_bytes(H)),
             "K7": (stacked_forward_smem_on_card(H, dev), stacked_forward_smem_bytes(H)),
@@ -1892,26 +1907,59 @@ def h128_kernels(dev, reports: dict) -> dict:
                      "us_per_step": 1e3 * ms / int(lens_np.max())}
     ptxas = {k: v for name in ("lstm", "lstm_bwd", "lstm_bidir")
              for k, v in ptxas_kernels(reports.get(name, "")).items() if "<128" in k}
-    k3_ptxas = {k: v for k, v in ptxas.items() if k.startswith("lstm_bwd")}
-    if reports.get("lstm_bwd"):                     # built in this run: ptxas reported each kernel
-        check(set(k3_ptxas) == set(K3_H128_KERNELS)
-              and all(v.get("spill_bytes", -1) == 0 for v in k3_ptxas.values()),
-              f"K3's H=128 kernels must spill 0 bytes: {k3_ptxas}")
-    # K3's device time by kernel: the gates pass, the pair walk, the dW pass
-    _, _, split, passes = device_time(k3, 5)
-    k3_split = {("gates" if "gates_kernel" in k else "walk" if "pair_kernel" in k
-                 else "dw" if "dw_kernel" in k else k[:40]): v for k, v in split.items()}
-    clusters = {"walk": backward_clusters_on_card(dev), "dw": backward_clusters_on_card(dev, True),
-                "walk_needed": B * D}
-    check(min(clusters["walk"], clusters["dw"]) > 0, f"K3's H=128 clusters do not fit: {clusters}")
+    for key, source, names in (("K3", "lstm_bwd", K3_H128_KERNELS),
+                               ("K8", "lstm_bidir", K8_H128_KERNELS)):
+        got = {k: v for k, v in ptxas.items() if k.split("<")[0] in {n.split("<")[0] for n in names}}
+        if reports.get(source):                     # built in this run: ptxas reported each kernel
+            check(set(got) == set(names) and all(v.get("spill_bytes", -1) == 0 for v in got.values()),
+                  f"{key}'s H=128 kernels must spill 0 bytes: {got}")
+    # K3's and K8's device time by kernel: the step lists (K8), the gates
+    # pass, the pair walk, the dW pass
+    splits, passes = {}, {}
+    for key, fn in (("K3", k3), ("K8", k8)):
+        _, _, split, passes[key] = device_time(fn, 5)
+        splits[key] = {("steps" if "steps_kernel" in k else "gates" if "gates_kernel" in k
+                        else "walk" if "pair_kernel" in k else "dw" if "dw_kernel" in k
+                        else k[:40]): v for k, v in split.items()}
+    clusters = {"K3": {"walk": backward_clusters_on_card(dev), "dw": backward_clusters_on_card(dev, True),
+                       "walk_needed": B * D},
+                "K8": {"walk": stacked_backward_clusters_on_card(dev),
+                       "dw": stacked_backward_clusters_on_card(dev, True), "walk_needed": 2 * B}}
+    check(all(min(c["walk"], c["dw"]) > 0 for c in clusters.values()),
+          f"K3's or K8's H=128 clusters do not fit: {clusters}")
     print(json.dumps({"phase": "lstm_h128", "shape": [B, T, C, H, D], "tol": K2_TOL,
                       "tol_dx": K3_TOL_DX, "tol_dw_rel": K3_TOL_DW, **errs,
                       "cudnn_max_abs_diff": cudnn_diff, "valid_row_steps": steps,
                       "sequential_steps": int(lens_np.max()), "smem_bytes": smem,
-                      "K3_split_ms": k3_split, "K3_profiler_passes": passes,
-                      "K3_resident_clusters": clusters,
+                      "K3_split_ms": splits["K3"], "K8_split_ms": splits["K8"],
+                      "profiler_passes": passes, "resident_clusters": clusters,
                       "ptxas": ptxas, "check_launches": launches, "kernels": rows}), flush=True)
     return rows
+
+
+def _k8_holes(dev, w_f, w_b) -> dict:
+    """K8 at H=128 on a random mask with holes (HOLES_B rows, HOLES_T steps,
+    a share HOLES_VALID of them valid, every row's state carried through its
+    holes) against its plain version, twice for the same bits, with exact
+    zeros at the invalid steps."""
+    rng = np.random.default_rng(70)
+    G, H = w_f.shape
+    B2 = 2 * HOLES_B
+    xp = torch.from_numpy(rng.standard_normal((HOLES_T, B2, G)).astype(np.float32)).to(dev)
+    valid = torch.from_numpy((rng.uniform(size=(HOLES_T, B2)) < HOLES_VALID).astype(np.float32)).to(dev)
+    gs = torch.from_numpy(rng.standard_normal((HOLES_T, B2, H)).astype(np.float32)).to(dev)
+    _, h_prev, c_prev = lstm_recurrence_stacked(xp, valid, w_f, w_b)
+    got = lstm_backward_stacked(xp, valid, w_f, w_b, h_prev, c_prev, gs)
+    again = lstm_backward_stacked(xp, valid, w_f, w_b, h_prev, c_prev, gs)
+    want_dx, want_f, want_b = lstm_backward_stacked_plain(xp, valid, w_f, w_b, h_prev, c_prev, gs)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)), "H=128 K8 with holes: two runs differ")
+    check(all(bool(torch.isfinite(t).all()) for t in got) and bool((got[0][valid == 0] == 0).all()),
+          "H=128 K8 with holes: outputs not finite or d_xproj at invalid steps not exactly 0")
+    rel = lambda a, b: (a - b).abs().max().item() / b.abs().max().item()  # noqa: E731
+    return {"K8_holes_dx": (got[0] - want_dx).abs().max().item(),
+            "K8_holes_dw_rel": max(rel(got[1], want_f), rel(got[2], want_b)),
+            "K8_holes_valid_share": valid.mean().item()}
 
 
 def head_teeth(model, gen: torch.Generator, dev) -> None:

@@ -71,15 +71,42 @@
 // pass through them untouched.  dW_hh leaves as per-row partials (2B, 4H,
 // H), which the wrapper sums over each direction's B rows in a fixed order.
 //
-// Both are instantiated at H = 40 and H = 128 (the LSTM head); at H = 128
-// K7's weights and K8's W_hh columns and dW_hh partials spill from the
-// registers to local memory, as K2's and K3's do (lstm.cu, lstm_bwd.cu).
+// K7 is instantiated at H = 40 and H = 128 (the LSTM head); at H = 128
+// its weights spill from the registers to local memory, as K2's do
+// (lstm.cu).  That walk of K8 is instantiated at H = 40 only: at H = 128
+// its W_hh columns (128 floats a thread) and dW_hh partials (128) spilled
+// 16.6 KB a thread.  So at H = 128 K8 is K3's H = 128 design (lstm_bwd.cu,
+// lstm_pair.cuh) on the stacked rows, after the same step lists and gates
+// pass:
+//
+// lstm_stacked_bwd_pair_kernel, the walk on a cluster of two CTAs a
+// stacked row: K3's pair walk (CTA r owns units 64r .. 64r + 63, 64 W_hh
+// values a thread, each step's 256 gate gradients stored into both CTAs'
+// shared memory, one cluster barrier a step), its ring of 448 floats a
+// slot fed from the row's step list as the H = 40 walk feeds its ring (the
+// list entries in a ring of 2 RING ints, filled by the copies' own
+// groups); the cluster barrier is the point after which a ring slot and a
+// list slot are free.  It writes only the listed steps: the gates pass
+// left exact zeros at the others.
+//
+// lstm_stacked_bwd_dw_kernel, each direction's dW_hh = sum over its B rows
+// and their listed steps of d_xproj[t, row]^T h_prev[t, row] (K7's h_prev,
+// read at the same (t, row)): K3's dW pass (8 frame chunks, a cluster a
+// 128 x 64 tile, the chunks' partial tiles summed in chunk order), its
+// frames in K3's order: row, then original time ascending (a forward row's
+// list read from its end; a reverse row's list as it is, since stacked t
+// descending is original t ascending).  So on a contiguous mask K8's
+// d_xproj and dW_hh are K3's bit for bit.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "lstm_pair.cuh"
 #include "lstm_util.cuh"
 #include "mma_util.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -482,6 +509,182 @@ lstm_stacked_bwd_walk_kernel(const int* __restrict__ steps,     // (2B, T): vali
     for (int i = 0; i < J; ++i) drow[q * H * H + 4 * i] = acc[q][i];
 }
 
+// K8's walk at H = 128: grid 2 2B, a cluster of 2 CTAs a stacked row, CTA
+// r = blockIdx.x & 1 of row blockIdx.x >> 1 stepping units rU .. rU + U - 1.
+template <int H, int V>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(lasr::PairShape<H>::NT, 1)
+lstm_stacked_bwd_pair_kernel(const int* __restrict__ steps,     // (2B, T): valid steps, t descending
+                             const int* __restrict__ counts,    // (2B,)
+                             const float* __restrict__ w_hh_f,  // (4H, H)
+                             const float* __restrict__ w_hh_b,  // (4H, H)
+                             const float* __restrict__ grad_h,  // (T, 2B, H)
+                             const float* __restrict__ cfac,    // (T, 2B, 2H): A, f
+                             float* __restrict__ d_xproj,       // (T, 2B, 4H): F in, gradients out
+                             int T, int B) {
+  using S = lasr::PairShape<H>;
+  constexpr int U = S::U, NT = S::NT, SLOT = S::SLOT, G = 4 * H;
+  constexpr int LR = 2 * RING;                      // slots of the list ring
+  static_assert(SLOT / V <= NT && U % V == 0, "one copy a thread a step, none across two segments");
+  static_assert(RING >= 3, "steps s and s + 1 are read while step s + RING - 1 is staged");
+  __shared__ __align__(16) float ring[RING][SLOT];
+  __shared__ __align__(16) float dg_s[2][G];        // a step's 4H gate gradients, both halves
+  __shared__ int list_s[LR];                        // list entry e in slot e % LR
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int r = (int)cluster.block_rank();
+  float* dg_peer = cluster.map_shared_rank(&dg_s[0][0], r ^ 1);
+  const int row = blockIdx.x >> 1;
+  const unsigned B2 = 2 * B;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int kk = 4 * w + ((lane >> 3) & 3);         // the unit (of the CTA's U) this lane steps
+  const int m = lane & 3;
+  const bool writer = !(lane & 4);                  // lanes 4..7 of a unit repeat lanes 0..3
+  const int g = m * H + r * U + kk;                 // the gate a writer publishes
+
+  float wd[4][4][4];
+  lasr::pair_weights<H>(row < B ? w_hh_f : w_hh_b, r, w, lane, wd);
+
+  // both CTAs of a pair read the row's count, so they take the same
+  // branches; the list entries as in the H = 40 walk
+  const int n = counts[row];
+  const int* list = steps + (size_t)row * T;
+  if (threadIdx.x < LR - 1 && threadIdx.x < T) list_s[threadIdx.x] = list[threadIdx.x];
+
+  // This thread's copy of a step: slot offset e in segment seg (F of gate
+  // seg < 4, A, f, grad_h), its source at t = 0 and how far one step of t
+  // moves it (offsets fit 32 bits: the wrapper checks)
+  const int e = threadIdx.x * V;
+  const bool mine = e < SLOT;
+  const int seg = e / U, off = r * U + e % U;
+  const float* src;
+  unsigned stride;
+  if (seg < 4) {
+    src = d_xproj + row * G + seg * H + off, stride = B2 * G;
+  } else if (seg < 6) {
+    src = cfac + row * 2 * H + (seg - 4) * H + off, stride = B2 * 2 * H;
+  } else {
+    src = grad_h + row * H + off, stride = B2 * H;
+  }
+  auto stage = [&](float* slot, int t) {
+    if (!mine) return;
+    const float* p = src + (unsigned)t * stride;
+    if constexpr (V == 4) {
+      lasr::cp_async16(slot + e, p);
+    } else {
+      lasr::cp_async4_zfill(slot + e, p, true);
+    }
+  };
+  __syncthreads();                                  // the first list entries
+#pragma unroll
+  for (int s = 0; s < RING - 1; ++s) {
+    if (s < n) stage(ring[s], list_s[s]);
+    lasr::cp_async_commit();
+  }
+
+  if (n > 0) {
+    lasr::cp_async_wait<RING - 2>();                // step 0 has landed
+    lasr::cluster_sync();                           // and the partner runs: its buffers take stores
+    float carry_c = 0.f;
+    float dgv = lasr::pair_cell<U>(ring[0], 0.f, carry_c, kk, m);
+    if (writer) dg_s[0][g] = dgv, dg_peer[g] = dgv;
+    // iteration s writes step s's gradient at dx and stages step
+    // s + RING - 1 from t_st; both are read an iteration ahead
+    float* dx = d_xproj + ((unsigned)list_s[0] * B2 + row) * G + g;
+    int t_st = list_s[RING - 1];
+
+    for (int s0 = 0; s0 < n; s0 += RING) {
+#pragma unroll
+      for (int u = 0; u < RING; ++u) {
+        const int s = s0 + u;
+        if (s >= n) break;
+        lasr::cp_async_wait<RING - 3>();            // step s + 1 has landed
+        lasr::cluster_sync();                       // dg of step s from both CTAs, slot u + 1, entries
+        // the next iteration's entries (landed; past the list: unused)
+        const int t_dx_next = list_s[(s + 1) % LR];
+        const int t_st_next = list_s[(s + RING) % LR];
+
+        if (writer) *dx = dgv;                      // off the chain: step s's gradient out
+
+        // the chain: dh_prev of step s, then step s + 1's gate gradients,
+        // into both CTAs' buffers (none past the row's last step: the
+        // partner may have left)
+        if (s + 1 < n) {
+          dgv = lasr::pair_cell<U>(ring[(u + 1) % RING],
+                                   lasr::pair_dh_prev<H>(dg_s[u & 1], wd, lane), carry_c, kk, m);
+          if (writer) dg_s[(u + 1) & 1][g] = dgv, dg_peer[((u + 1) & 1) * G + g] = dgv;
+        }
+
+        // slot s - 1 is free: every thread of the CTA has passed this
+        // step's barrier; so is list slot (s - 1) % LR
+        if (s + RING - 1 < n) {
+          stage(ring[(u + RING - 1) % RING], t_st);
+          if (threadIdx.x == 0 && s + LR - 1 < T)
+            lasr::cp_async4_zfill(&list_s[(s + LR - 1) % LR], list + s + LR - 1, true);
+        }
+        lasr::cp_async_commit();
+        dx = d_xproj + ((unsigned)t_dx_next * B2 + row) * G + g;
+        t_st = t_st_next;
+      }
+    }
+  }
+}
+
+// K8's dW_hh at H = 128: grid (CHUNKS, (4H / TG) (H / TJ), 2), a cluster of
+// CHUNKS CTAs a (tile, direction d: stacked rows dB .. dB + B - 1).  Frame
+// i of a row is its i-th listed step in original time: a forward row's
+// list entry count - 1 - i, a reverse row's entry i.
+template <int H, int V>
+__global__ void __cluster_dims__(8, 1, 1) __launch_bounds__(lasr::PairShape<H>::DW_NT)
+lstm_stacked_bwd_dw_kernel(const int* __restrict__ steps,     // (2B, T): valid steps, t descending
+                           const int* __restrict__ counts,    // (2B,)
+                           const float* __restrict__ h_prev,  // (T, 2B, H)
+                           const float* __restrict__ dgates,  // (T, 2B, 4H): the walk's d_xproj
+                           float* __restrict__ dw,            // (2, 4H, H)
+                           int T, int B) {
+  using S = lasr::PairShape<H>;
+  constexpr int CHUNKS = S::CHUNKS, TG = S::TG, TJ = S::TJ, KB = S::KB, G = 4 * H;
+  static_assert(CHUNKS == 8, "the cluster's dimension above");
+  __shared__ __align__(16) float sm[TG * TJ];       // two stages, then the chunk's partial tile
+
+  const int c = (int)cg::this_cluster().block_rank();
+  const int g0 = blockIdx.y / (H / TJ) * TG, j0 = blockIdx.y % (H / TJ) * TJ;
+  const int d = blockIdx.z;
+  const unsigned B2 = 2 * B;
+  const int* cnt = counts + d * B;
+  long long n_all = 0;
+  for (int bb = 0; bb < B; ++bb) n_all += cnt[bb];
+  const long long lo = n_all * c / CHUNKS, hi = n_all * (c + 1) / CHUNKS;
+
+  // thread (f, q) copies frame lo + f + KB k at stage k: the direction's
+  // row bb, its frame tt; t, that frame's step, is loaded a stage ahead
+  const int f = threadIdx.x >> 4, q = threadIdx.x & 15;
+  long long n = lo + f;
+  int bb = 0, len = B ? cnt[0] : 0;
+  long long tt = n;
+  auto seek = [&]() {                               // (bb, tt) of frame n: skip whole rows
+    while (bb < B && tt >= len) {
+      tt -= len;
+      if (++bb < B) len = cnt[bb];
+    }
+  };
+  auto step_of = [&]() {
+    return n < hi ? steps[(size_t)(d * B + bb) * T + (d ? tt : len - 1 - tt)] : 0;
+  };
+  seek();
+  int t = step_of();
+  auto stage = [&](float* As, float* Bs) {
+    const bool va = n < hi;
+    const unsigned o = (unsigned)t * B2 + d * B + bb;
+    lasr::pair_dw_copies<H, V>(As + f * TG, Bs + f * TJ, q, va ? dgates + o * G + g0 : dgates,
+                               va ? h_prev + o * H + j0 : h_prev, va, va);
+    n += KB, tt += KB;
+    seek();
+    t = step_of();
+  };
+  lasr::pair_dw_tile<H>(sm, (int)((hi - lo + KB - 1) / KB), stage,
+                        dw + ((size_t)d * G + g0) * H + j0);
+}
+
 template <int H>
 cudaError_t launch_fwd(int V, int T, int B, cudaStream_t stream, const float* xproj,
                        const float* valid, const float* w_hh_f, const float* w_hh_b, float* h_out,
@@ -500,11 +703,14 @@ cudaError_t launch_fwd(int V, int T, int B, cudaStream_t stream, const float* xp
   return cudaGetLastError();
 }
 
+// K8: the step lists, the gates pass, then at H = 40 the one-block walk
+// (dw: per-row partials (2B, 4H, H)), at H = 128 the pair walk and the dW
+// pass (dw: dW_hh of each direction, (2, 4H, H))
 template <int H>
 cudaError_t launch_bwd(int V, int T, int B, cudaStream_t stream, const float* xproj,
                        const float* valid, const float* w_hh_f, const float* w_hh_b,
                        const float* h_prev, const float* c_prev, const float* grad_h,
-                       float* d_xproj, float* dw_part, float* cfac, int* steps, int* counts) {
+                       float* d_xproj, float* dw, float* cfac, int* steps, int* counts) {
   if (V != 4 && V != 1) return cudaErrorInvalidValue;
   const int B2 = 2 * B;
   lstm_stacked_steps_kernel<<<(B2 + LIST_ROWS - 1) / LIST_ROWS, 32 * LIST_ROWS, 0, stream>>>(
@@ -512,12 +718,26 @@ cudaError_t launch_bwd(int V, int T, int B, cudaStream_t stream, const float* xp
   using S = lasr::GatesShape<H>;
   lstm_stacked_bwd_gates_kernel<H><<<dim3((T + S::CH - 1) / S::CH, B2), S::NT, 0, stream>>>(
       xproj, valid, w_hh_f, w_hh_b, h_prev, c_prev, d_xproj, cfac, T, B);
-  if (V == 4) {
+  if constexpr (H == 128) {
+    using P = lasr::PairShape<H>;
+    const dim3 dw_grid(P::CHUNKS, 4 * H / P::TG * (H / P::TJ), 2);
+    if (V == 4) {
+      lstm_stacked_bwd_pair_kernel<H, 4><<<2 * B2, P::NT, 0, stream>>>(
+          steps, counts, w_hh_f, w_hh_b, grad_h, cfac, d_xproj, T, B);
+      lstm_stacked_bwd_dw_kernel<H, 4><<<dw_grid, P::DW_NT, 0, stream>>>(steps, counts, h_prev,
+                                                                          d_xproj, dw, T, B);
+    } else {
+      lstm_stacked_bwd_pair_kernel<H, 1><<<2 * B2, P::NT, 0, stream>>>(
+          steps, counts, w_hh_f, w_hh_b, grad_h, cfac, d_xproj, T, B);
+      lstm_stacked_bwd_dw_kernel<H, 1><<<dw_grid, P::DW_NT, 0, stream>>>(steps, counts, h_prev,
+                                                                          d_xproj, dw, T, B);
+    }
+  } else if (V == 4) {
     lstm_stacked_bwd_walk_kernel<H, 4><<<B2, 4 * H, 0, stream>>>(
-        steps, counts, w_hh_f, w_hh_b, h_prev, grad_h, cfac, d_xproj, dw_part, T, B);
+        steps, counts, w_hh_f, w_hh_b, h_prev, grad_h, cfac, d_xproj, dw, T, B);
   } else {
     lstm_stacked_bwd_walk_kernel<H, 1><<<B2, 4 * H, 0, stream>>>(
-        steps, counts, w_hh_f, w_hh_b, h_prev, grad_h, cfac, d_xproj, dw_part, T, B);
+        steps, counts, w_hh_f, w_hh_b, h_prev, grad_h, cfac, d_xproj, dw, T, B);
   }
   return cudaGetLastError();
 }
@@ -528,9 +748,11 @@ cudaError_t launch_bwd(int V, int T, int B, cudaStream_t stream, const float* xp
 // cudaErrorInvalidValue for a hidden size without an instantiation, or a
 // copy width other than 4 or 1 floats (K7: 4 needs xproj 16-byte aligned;
 // K8: h_prev, grad_h, d_xproj and cfac).  `steps` and `counts` are scratch
-// of (2B, T) and (2B,) ints, K8's `cfac` of (T, 2B, 2H) floats.  `device`
-// is the ordinal the tensors live on: this library links its own CUDA
-// runtime, whose current device is not the caller's.
+// of (2B, T) and (2B,) ints, K8's `cfac` of (T, 2B, 2H) floats.  K8's
+// `dw_part` is dW_hh's per-row partials (2B, 4H, H) at H = 40 and dW_hh of
+// each direction (2, 4H, H) at H = 128.  `device` is the ordinal the
+// tensors live on: this library links its own CUDA runtime, whose current
+// device is not the caller's.
 extern "C" int lasr_lstm_stacked_fwd(const float* xproj, const float* valid,
                                      const float* w_hh_f, const float* w_hh_b,
                                      float* h_out, float* hprev_out, float* cprev_out,
@@ -590,6 +812,21 @@ extern "C" int lasr_lstm_stacked_fwd_smem(int H, int device) {
 
 extern "C" int lasr_lstm_stacked_bwd_smem(int H, int device) {
   return H == 40    ? static_smem(lstm_stacked_bwd_walk_kernel<40, 4>, device)
-         : H == 128 ? static_smem(lstm_stacked_bwd_walk_kernel<128, 4>, device)
+         : H == 128 ? static_smem(lstm_stacked_bwd_pair_kernel<128, 4>, device)
                     : -1;
+}
+
+// How many clusters of K8's H = 128 walk (which == 0) or dW pass (which ==
+// 1) the card holds at once (cudaOccupancyMaxActiveClusters), -1 on an error.
+extern "C" int lasr_lstm_stacked_bwd_clusters(int which, int device) {
+  if (cudaSetDevice(device) != cudaSuccess) return -1;
+  using S = lasr::PairShape<128>;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(which == 0 ? S::NT : S::DW_NT);
+  cfg.gridDim = dim3(which == 0 ? 2 : S::CHUNKS);
+  const void* fn = which == 0 ? (const void*)lstm_stacked_bwd_pair_kernel<128, 4>
+                              : (const void*)lstm_stacked_bwd_dw_kernel<128, 4>;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, fn, &cfg) != cudaSuccess) return -1;
+  return n;
 }

@@ -52,7 +52,8 @@
 // At H = 128 that walk's W_hh columns (128 floats a thread) and dW_hh
 // partials (128) do not fit a 512-thread block's 128 registers a thread
 // (ptxas spilled 15.7 KB a thread, and the walk took 97.7% of K3).  So the
-// H = 128 design splits both:
+// H = 128 design splits both (its shape, the pair's step and the dW pass's
+// tile are in lstm_pair.cuh, which K8's H = 128 design shares):
 //
 // lstm_bwd_pair_kernel, the walk on a cluster of two CTAs a (row,
 // direction).  CTA r of the pair owns units 64r .. 64r + 63: their four
@@ -92,6 +93,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "lstm_pair.cuh"
 #include "lstm_util.cuh"
 #include "mma_util.cuh"
 
@@ -102,7 +104,11 @@ namespace {
 constexpr int RING = lasr::LSTM_RING;   // slots of the ring (ops/lstm_kernels.py BACKWARD_RING)
 constexpr unsigned FULL = lasr::LSTM_FULL;
 using lasr::cell_backward;
+using lasr::cluster_sync;
 using lasr::dh_prev;
+using lasr::pair_cell;
+using lasr::pair_dh_prev;
+using lasr::PairShape;
 
 template <int H>
 __global__ void __launch_bounds__(lasr::GatesShape<H>::NT)
@@ -331,71 +337,6 @@ lstm_bwd_kernel(const int* __restrict__ lengths,   // (B,)
     for (int i = 0; i < J; ++i) drow[(size_t)q * H * H + 4 * i] = acc[q][i];
 }
 
-// The H = 128 design's shape (ops/lstm_kernels.py states it: backward_smem_bytes,
-// DW_CHUNKS): a walk CTA's units, threads and slot; the dW pass's frame
-// chunks (its cluster), tile, frames a stage and threads.
-template <int H>
-struct PairShape {
-  static_assert(H == 128, "lane L of a warp reads gate rows iH + 4L .. 4L + 3: 32 lanes x 4 = H");
-  static constexpr int U = H / 2;                   // units a CTA of the pair owns
-  static constexpr int NT = 512;                    // threads of a walk CTA: 16 warps of 4 units
-  // a slot: F [0, 4U), A [4U, 5U), f [5U, 6U), grad_h [6U, 7U)
-  static constexpr int SLOT = 7 * U;
-  static constexpr int CHUNKS = 8;                  // frame chunks of the dW pass
-  static constexpr int TG = 128, TJ = 64, KB = 16;  // dW tile rows, columns; frames a stage
-  static constexpr int DW_NT = 256;
-};
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// cell_backward's expression (lstm_util.cuh) on a pair CTA's slot: gate m's
-// gradient of its unit kk, and the cell's carry
-template <int U>
-__device__ __forceinline__ float pair_cell(const float* slot, float carry_h, float& carry_c, int kk,
-                                           int m) {
-  const float dh = slot[6 * U + kk] + carry_h;
-  const float dc = carry_c + dh * slot[4 * U + kk];
-  carry_c = dc * slot[5 * U + kk];
-  return (m == 3 ? dh : dc) * slot[m * U + kk];
-}
-
-// dh_prev of unit (lane >> 3) & 3 of the warp's four from one step's 4H gate
-// gradients dg: lane L's products with rows iH + 4L + e of each unit's column
-// (wd[u][i][e]) in 16 chains over i, each unit's ((e0 + e1) + (e2 + e3));
-// then the warp's sum: rounds xor 16 and 8 halve the units a lane carries
-// (lanes with bit 4 keep units 2, 3; then bit 3 the odd one), rounds xor 4,
-// 2, 1 sum the eight lanes left, the same bits in each.
-template <int H>
-__device__ __forceinline__ float pair_dh_prev(const float* dg, const float (&wd)[4][4][4],
-                                              int lane) {
-  float c[4][4] = {};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 v = *reinterpret_cast<const float4*>(dg + i * H + 4 * lane);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      c[u][0] = fmaf(v.x, wd[u][i][0], c[u][0]);
-      c[u][1] = fmaf(v.y, wd[u][i][1], c[u][1]);
-      c[u][2] = fmaf(v.z, wd[u][i][2], c[u][2]);
-      c[u][3] = fmaf(v.w, wd[u][i][3], c[u][3]);
-    }
-  }
-  float p[4];
-#pragma unroll
-  for (int u = 0; u < 4; ++u) p[u] = (c[u][0] + c[u][1]) + (c[u][2] + c[u][3]);
-  const bool hi = lane & 16, mid = lane & 8;
-  const float s0 = (hi ? p[2] : p[0]) + __shfl_xor_sync(FULL, hi ? p[0] : p[2], 16);
-  const float s1 = (hi ? p[3] : p[1]) + __shfl_xor_sync(FULL, hi ? p[1] : p[3], 16);
-  float v = (mid ? s1 : s0) + __shfl_xor_sync(FULL, mid ? s0 : s1, 8);
-  v += __shfl_xor_sync(FULL, v, 4);
-  v += __shfl_xor_sync(FULL, v, 2);
-  v += __shfl_xor_sync(FULL, v, 1);
-  return v;
-}
-
 // The walk at H = 128: grid (2B, D), a cluster of 2 CTAs a (row, direction),
 // CTA r = blockIdx.x & 1 of row b = blockIdx.x >> 1 stepping units rU .. rU + U - 1.
 template <int H, int V>
@@ -425,13 +366,7 @@ lstm_bwd_pair_kernel(const int* __restrict__ lengths,   // (B,)
   const int g = m * H + r * U + kk;                 // the gate a writer publishes
 
   float wd[4][4][4];
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        wd[u][i][e] = w_hh[((size_t)d * G + i * H + 4 * lane + e) * H + r * U + 4 * w + u];
+  lasr::pair_weights<H>(w_hh + (size_t)d * G * H, r, w, lane, wd);
 
   const int len = max(0, min(lengths[b], T));
   const size_t x_step = (size_t)D * G;
@@ -526,17 +461,11 @@ lstm_bwd_dw_kernel(const int* __restrict__ lengths,   // (B,)
                    float* __restrict__ dw,            // (D, 4H, H)
                    int B, int T, int D) {
   using S = PairShape<H>;
-  constexpr int CHUNKS = S::CHUNKS, TG = S::TG, TJ = S::TJ, KB = S::KB, NT = S::DW_NT, G = 4 * H;
-  constexpr int AS = KB * TG, BS = KB * TJ;         // floats of a stage's gradients and h_prev
+  constexpr int CHUNKS = S::CHUNKS, TG = S::TG, TJ = S::TJ, KB = S::KB, G = 4 * H;
   static_assert(CHUNKS == 8, "the cluster's dimension above");
-  static_assert(NT == KB * 16 && TG == 128 && TJ == 64 && TG % CHUNKS == 0
-                    && TG / CHUNKS * 16 == NT,
-                "16 threads a staged frame, 8 x 4 sums a thread, 16 floats of a tile row a thread");
-  static_assert(2 * (AS + BS) <= TG * TJ, "the stages fit in the partial tile's buffer");
   __shared__ __align__(16) float sm[TG * TJ];       // two stages, then the chunk's partial tile
 
-  cg::cluster_group cluster = cg::this_cluster();
-  const int c = (int)cluster.block_rank();
+  const int c = (int)cg::this_cluster().block_rank();
   const int g0 = blockIdx.y / (H / TJ) * TG, j0 = blockIdx.y % (H / TJ) * TJ;
   const int d = blockIdx.z;
   const int dir = d ? 1 : -1;
@@ -563,78 +492,12 @@ lstm_bwd_dw_kernel(const int* __restrict__ lengths,   // (B,)
     const bool vb = va && tp >= 0 && tp < len;
     const float* a = va ? dgates + (((size_t)bb * T + t) * D + d) * G + g0 : dgates;
     const float* hb = vb ? h + ((size_t)bb * T + tp) * D * H + (size_t)d * H + j0 : h;
-#pragma unroll
-    for (int i = 0; i < 8 / V; ++i) {
-      const int o = (i * 16 + q) * V;
-      if constexpr (V == 4) {
-        lasr::cp_async16_zfill(As + f * TG + o, a + (va ? o : 0), va);
-      } else {
-        lasr::cp_async4_zfill(As + f * TG + o, a + (va ? o : 0), va);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4 / V; ++i) {
-      const int o = (i * 16 + q) * V;
-      if constexpr (V == 4) {
-        lasr::cp_async16_zfill(Bs + f * TJ + o, hb + (vb ? o : 0), vb);
-      } else {
-        lasr::cp_async4_zfill(Bs + f * TJ + o, hb + (vb ? o : 0), vb);
-      }
-    }
+    lasr::pair_dw_copies<H, V>(As + f * TG, Bs + f * TJ, q, a, hb, va, vb);
     n += KB, tt += KB;
     seek();
   };
-
-  // thread (gi, ji): rows 4gi + {0..3} and TG/2 + 4gi + {0..3}, columns 4ji + {0..3}
-  const int gi = threadIdx.x >> 4, ji = threadIdx.x & 15;
-  float acc[8][4] = {};
-  const int blocks = (int)((hi - lo + KB - 1) / KB);
-  if (blocks > 0) stage(sm, sm + AS);
-  lasr::cp_async_commit();
-  for (int k0 = 0; k0 < blocks; ++k0) {
-    float* As = sm + (k0 & 1) * (AS + BS);
-    float* Bs = As + AS;
-    float* next = sm + ((k0 + 1) & 1) * (AS + BS);
-    if (k0 + 1 < blocks) stage(next, next + AS);
-    lasr::cp_async_commit();
-    lasr::cp_async_wait<1>();                       // stage k0 has landed
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < KB; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(As + k * TG + 4 * gi);
-      const float4 a1 = *reinterpret_cast<const float4*>(As + k * TG + TG / 2 + 4 * gi);
-      const float4 bv = *reinterpret_cast<const float4*>(Bs + k * TJ + 4 * ji);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bw[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
-    }
-    __syncthreads();                                // the next stage reuses these buffers
-  }
-  lasr::cp_async_wait<0>();
-  __syncthreads();
-
-  // the chunk's partial tile into shared memory; then CTA c sums rows
-  // c TG / CHUNKS .. of every CTA's tile in chunk order
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = (i < 4 ? 0 : TG / 2) + 4 * gi + i % 4;
-    *reinterpret_cast<float4*>(sm + row * TJ + 4 * ji) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  }
-  cluster_sync();
-  const int row = c * (TG / CHUNKS) + (threadIdx.x >> 4), col = 4 * (threadIdx.x & 15);
-  float4 sum = *reinterpret_cast<const float4*>(cluster.map_shared_rank(sm, 0) + row * TJ + col);
-#pragma unroll
-  for (int cc = 1; cc < CHUNKS; ++cc) {
-    const float4 v =
-        *reinterpret_cast<const float4*>(cluster.map_shared_rank(sm, cc) + row * TJ + col);
-    sum.x += v.x, sum.y += v.y, sum.z += v.z, sum.w += v.w;
-  }
-  *reinterpret_cast<float4*>(dw + ((size_t)d * G + g0 + row) * H + j0 + col) = sum;
-  cluster_sync();                                   // no CTA leaves while its tile is read
+  lasr::pair_dw_tile<H>(sm, (int)((hi - lo + KB - 1) / KB), stage,
+                        dw + ((size_t)d * G + g0) * H + j0);
 }
 
 cudaError_t launch40(int V, int B, int T, int D, cudaStream_t stream, const float* xproj,

@@ -84,8 +84,8 @@ import torch
 _LOCK = threading.Lock()
 _KERNEL_HIDDEN = (40, 128)  # hidden sizes instantiated in csrc/lstm*.cu (context BiLSTM, LSTM head)
 BACKWARD_RING = 8           # K2's, K3's, K7's and K8's ring slots (csrc/lstm_util.cuh LSTM_RING)
-PAIR_HIDDEN = 128           # K3's hidden size walked by a pair of CTAs (csrc/lstm_bwd.cu PairShape)
-DW_CHUNKS = 8               # frame chunks of K3's dW pass at PAIR_HIDDEN (PairShape::CHUNKS)
+PAIR_HIDDEN = 128           # K3's and K8's hidden size walked by a pair of CTAs (csrc/lstm_pair.cuh)
+DW_CHUNKS = 8               # frame chunks of their dW pass at PAIR_HIDDEN (PairShape::CHUNKS)
 
 
 def forward_smem_bytes(H: int) -> int:
@@ -93,13 +93,6 @@ def forward_smem_bytes(H: int) -> int:
     ``BACKWARD_RING`` slots of one step's projection (4H floats), then h of
     two steps."""
     return 4 * (BACKWARD_RING * 4 * H + 2 * H)
-
-
-def _walk_smem_bytes(H: int) -> int:
-    # a one-block walk: the ring, whose slots hold one step each (the gate
-    # factors F [0, 4H), A [4H, 5H) and f [5H, 6H) of its step, h_prev
-    # [6H, 7H), grad_h [7H, 8H)), then the gate gradients of two steps
-    return 4 * (BACKWARD_RING * 8 * H + 2 * 4 * H)
 
 
 def backward_smem_bytes(H: int) -> int:
@@ -113,7 +106,7 @@ def backward_smem_bytes(H: int) -> int:
     grad_h [6U, 7U)), then all 4H gate gradients of two steps."""
     if H == PAIR_HIDDEN:
         return 4 * (BACKWARD_RING * 7 * (H // 2) + 2 * 4 * H)
-    return _walk_smem_bytes(H)
+    return 4 * (BACKWARD_RING * 8 * H + 2 * 4 * H)
 
 
 def stacked_forward_smem_bytes(H: int) -> int:
@@ -124,10 +117,11 @@ def stacked_forward_smem_bytes(H: int) -> int:
 
 
 def stacked_backward_smem_bytes(H: int) -> int:
-    """The static shared memory of K8's walk (csrc/lstm_bidir.cu): K3's
-    one-block layout (at every H), then a ring of ``2 * BACKWARD_RING``
-    step-list entries (int32)."""
-    return _walk_smem_bytes(H) + 4 * 2 * BACKWARD_RING
+    """The static shared memory of a CTA of K8's walk (csrc/lstm_bidir.cu):
+    K3's layout at the same H (``backward_smem_bytes``: at H = 40 the
+    one-block walk's, at ``PAIR_HIDDEN`` a pair CTA's), then a ring of
+    ``2 * BACKWARD_RING`` step-list entries (int32)."""
+    return backward_smem_bytes(H) + 4 * 2 * BACKWARD_RING
 
 
 def backward_copy_width(*tensors: torch.Tensor) -> int:
@@ -331,39 +325,36 @@ lstm_backward.launches = 0
 lstm_backward.launches_at = {}   # launches by hidden size
 
 
-def _smem_on_card(source: str, entry: str, H: int, device: torch.device) -> int:
+def _card_query(source: str, entry: str, arg: int, device: torch.device) -> int:
+    # a library's query entry int(int arg, int device): shared memory by
+    # hidden size, or resident clusters by kernel
     from .kernel_build import library
 
     fn = getattr(library(source), entry)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
-    return fn(H, device.index or 0)
+    return fn(arg, device.index or 0)
 
 
 def forward_smem_on_card(H: int, device: torch.device) -> int:
     """The static shared memory of K2's walk as the compiler laid it out for
     hidden size H (-1 without an instantiation): the card's check of
     ``forward_smem_bytes``."""
-    return _smem_on_card("lstm", "lasr_lstm_fwd_smem", H, device)
+    return _card_query("lstm", "lasr_lstm_fwd_smem", H, device)
 
 
 def backward_smem_on_card(H: int, device: torch.device) -> int:
     """The static shared memory of K3's walk as the compiler laid it out for
     hidden size H (-1 without an instantiation): the card's check of
     ``backward_smem_bytes``."""
-    return _smem_on_card("lstm_bwd", "lasr_lstm_bwd_smem", H, device)
+    return _card_query("lstm_bwd", "lasr_lstm_bwd_smem", H, device)
 
 
 def backward_clusters_on_card(device: torch.device, dw_pass: bool = False) -> int:
     """How many clusters of K3's H = 128 walk (pairs of CTAs), or of its dW
     pass with ``dw_pass``, the card holds at once
     (``cudaOccupancyMaxActiveClusters``; -1 on an error)."""
-    from .kernel_build import library
-
-    fn = library("lstm_bwd").lasr_lstm_bwd_clusters
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
-    return fn(int(dw_pass), device.index or 0)
+    return _card_query("lstm_bwd", "lasr_lstm_bwd_clusters", int(dw_pass), device)
 
 
 class _LSTMCore(torch.autograd.Function):
@@ -443,6 +434,19 @@ def lstm_core(xproj: torch.Tensor, lengths: torch.Tensor, w_hh: torch.Tensor) ->
 # ``backward_smem_bytes``, ``backward_copy_width``), its shared memory
 # ``stacked_backward_smem_bytes``.  The (2B, 4H, H) per-row partials are
 # summed over each direction's B rows in a fixed order (no float atomics).
+#
+# At ``PAIR_HIDDEN`` that walk's W_hh columns and dW_hh partials (256 floats
+# a thread) spilled 16.6 KB, so K8 takes K3's H = 128 design after the same
+# step lists and gates pass: the walk on a cluster of two CTAs a stacked
+# row (each owning 64 units, 64 W_hh values a thread, the gate gradients
+# through distributed shared memory, one cluster barrier a step), its ring
+# of K3's pair slots fed from the row's step list as above; then a dW pass,
+# each direction's dW_hh summed over its B rows and their listed steps in
+# float32, its frames in K3's order (row, then original time ascending), in
+# ``DW_CHUNKS`` chunks summed in chunk order, straight into (2, 4H, H): no
+# partials and no row sum.  On a contiguous mask its d_xproj and dW_hh are
+# K3's bit for bit.  ``stacked_backward_clusters_on_card`` reads how many of
+# the walk's pairs (2B needed) the card holds at once.
 
 
 def _check_stacked_args(xproj, valid, w_hh_f, w_hh_b):
@@ -569,7 +573,8 @@ def lstm_backward_stacked(xproj: torch.Tensor, valid: torch.Tensor, w_hh_f: torc
     """K8: K7's inputs, its h_prev and c_prev, and the gradient of h, each
     (T, 2B, H) -> (d_xproj (T, 2B, 4H), exactly 0 at invalid steps; dW_hh_f,
     dW_hh_b (4H, H)).  A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel or raises."""
+    launches the kernels (at ``PAIR_HIDDEN`` the pair walk and the dW pass)
+    or raises."""
     T, B, G, H = _check_stacked_args(xproj, valid, w_hh_f, w_hh_b)
     for name, t in (("h_prev", h_prev), ("c_prev", c_prev), ("grad_h", grad_h)):
         if tuple(t.shape) != (T, 2 * B, H) or t.dtype != torch.float32 or not t.is_contiguous():
@@ -589,7 +594,9 @@ def lstm_backward_stacked(xproj: torch.Tensor, valid: torch.Tensor, w_hh_f: torc
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     d_xproj = torch.empty_like(xproj)
-    dw_part = torch.empty((2 * B, G, H), dtype=torch.float32, device=xproj.device)
+    # the walk's per-row partials, or at PAIR_HIDDEN the dW pass's two sums
+    dw_part = torch.empty((2 if H == PAIR_HIDDEN else 2 * B, G, H), dtype=torch.float32,
+                          device=xproj.device)
     if B and T:
         cfac = torch.empty((T, 2 * B, 2 * H), dtype=torch.float32, device=xproj.device)
         steps = torch.empty((2 * B, T), dtype=torch.int32, device=xproj.device)
@@ -606,7 +613,7 @@ def lstm_backward_stacked(xproj: torch.Tensor, valid: torch.Tensor, w_hh_f: torc
             lstm_backward_stacked.launches_at[H] = lstm_backward_stacked.launches_at.get(H, 0) + 1
     else:
         dw_part.zero_()
-    dw = dw_part.view(2, B, G, H).sum(dim=1)
+    dw = dw_part if H == PAIR_HIDDEN else dw_part.view(2, B, G, H).sum(dim=1)
     return d_xproj, dw[0], dw[1]
 
 
@@ -618,14 +625,21 @@ def stacked_forward_smem_on_card(H: int, device: torch.device) -> int:
     """The static shared memory of K7's walk as the compiler laid it out for
     hidden size H (-1 without an instantiation): the card's check of
     ``stacked_forward_smem_bytes``."""
-    return _smem_on_card("lstm_bidir", "lasr_lstm_stacked_fwd_smem", H, device)
+    return _card_query("lstm_bidir", "lasr_lstm_stacked_fwd_smem", H, device)
 
 
 def stacked_backward_smem_on_card(H: int, device: torch.device) -> int:
     """The static shared memory of K8's walk as the compiler laid it out for
     hidden size H (-1 without an instantiation): the card's check of
     ``stacked_backward_smem_bytes``."""
-    return _smem_on_card("lstm_bidir", "lasr_lstm_stacked_bwd_smem", H, device)
+    return _card_query("lstm_bidir", "lasr_lstm_stacked_bwd_smem", H, device)
+
+
+def stacked_backward_clusters_on_card(device: torch.device, dw_pass: bool = False) -> int:
+    """How many clusters of K8's H = 128 walk (pairs of CTAs), or of its dW
+    pass with ``dw_pass``, the card holds at once
+    (``cudaOccupancyMaxActiveClusters``; -1 on an error)."""
+    return _card_query("lstm_bidir", "lasr_lstm_stacked_bwd_clusters", int(dw_pass), device)
 
 
 class _LSTMCoreStacked(torch.autograd.Function):

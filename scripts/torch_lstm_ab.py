@@ -4,9 +4,9 @@ h only, ``chip_smoke.phase_k2``'s lengths and inputs); then K8
 (``lstm_backward_stacked``, the wrapper with its row sum), and on the same
 inputs K3 (``lstm_backward``), K2 with its cell output and K7, at the
 training shape (B=32, T'=836, C=256, H=40) on ragged rows
-(``chip_smoke.train_rows``) and on rows that all fill T'; then K3 and K8
+(``chip_smoke.train_rows``) and on rows that all fill T'; then K2, K3, K7 and K8
 at the LSTM head's H=128 on ``chip_smoke.h128_kernels``' inputs (B=32,
-T'=836, C=1024, ragged rows), K3's device time split by kernel.
+T'=836, C=1024, ragged rows), K3's and K8's device time split by kernel.
 
 Each checkout runs in a process of its own, with the kernels built from its
 own sources and its own ``chip_smoke.py``'s row lengths.  Name them in the
@@ -20,8 +20,9 @@ L2; K2's ``cold_ms``, each call after a 64 MB write that evicts L2; µs per
 sequential step; K8's device time by kernel from torch.profiler; the
 registers and spills of the BiLSTM forward kernels from ptxas; and a
 digest of each kernel's outputs, so that runs of checkouts that share a
-kernel show whether its bits moved; K3's registers and spills at both
-hidden sizes) and a summary line last.  Needs a
+kernel show whether its bits moved; K3's and K8's registers and spills at
+both hidden sizes; at H=128 the resident clusters of K8's walk and dW
+pass, where the checkout has them) and a summary line last.  Needs a
 card; imports no JAX.
 """
 
@@ -47,7 +48,7 @@ def run_one(root: Path) -> dict:
 
     import chip_smoke
     import lightning_asr_torch
-    from lightning_asr_torch.ops import kernel_build
+    from lightning_asr_torch.ops import kernel_build, lstm_kernels
     from lightning_asr_torch.ops.lstm import stack_directions, stacked_valid
     from lightning_asr_torch.ops.lstm_kernels import (lstm_backward, lstm_backward_stacked,
                                                       lstm_recurrence, lstm_recurrence_stacked)
@@ -60,7 +61,9 @@ def run_one(root: Path) -> dict:
              for k, v in chip_smoke.ptxas_kernels(reports.get(name, "")).items() if "fwd" in k}
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     out = {"root": str(root), "card": torch.cuda.get_device_name(0), "ptxas": ptxas,
-           "K3_ptxas": chip_smoke.ptxas_kernels(reports.get("lstm_bwd", ""))}
+           "K3_ptxas": chip_smoke.ptxas_kernels(reports.get("lstm_bwd", "")),
+           "K8_ptxas": {k: v for k, v in chip_smoke.ptxas_kernels(reports.get("lstm_bidir", "")).items()
+                        if k.startswith("lstm_stacked_") and "fwd" not in k}}
 
     rng = np.random.default_rng(1)
     s = 1.0 / np.sqrt(H)
@@ -125,15 +128,22 @@ def run_one(root: Path) -> dict:
     k8 = lambda: lstm_backward_stacked(xp, valid, w_f, w_b, h7[1], h7[2], gs)  # noqa: E731
     steps = int(lens_np.max())
     ms = {"K3": chip_smoke.cuda_ms(k3, ITERS), "K8": chip_smoke.cuda_ms(k8, ITERS)}
-    try:
-        split = chip_smoke.device_time(k3, 5)[2]
-    except SystemExit as e:
-        split = {"none": str(e)}
+    splits = {}
+    for key, fn in (("K3", k3), ("K8", k8)):
+        try:
+            split = chip_smoke.device_time(fn, 5)[2]
+        except SystemExit as e:
+            split = {"none": str(e)}
+        splits[f"{key}_split_ms"] = {k.replace("(anonymous namespace)::", "")[:60]: v
+                                     for k, v in split.items()}
     out["h128"] = {"ms": ms, "sequential_steps": steps,
-                   "us_per_step": {k: 1e3 * v / steps for k, v in ms.items()},
-                   "K3_split_ms": {k.replace("(anonymous namespace)::", "")[:60]: v
-                                   for k, v in split.items()},
-                   "digest": {"K3": digest(*k3()), "K8": digest(*k8())}}
+                   "us_per_step": {k: 1e3 * v / steps for k, v in ms.items()}, **splits,
+                   "digest": {"K3": digest(*k3()), "K8": digest(*k8()), "K2_h": digest(h2),
+                              "K2_c": digest(cell), "K7": digest(*h7)}}
+    clusters = getattr(lstm_kernels, "stacked_backward_clusters_on_card", None)
+    if clusters is not None:                    # the checkout's K8 walks at H=128 on a pair
+        out["h128"]["K8_resident_clusters"] = {"walk": clusters(dev), "dw": clusters(dev, True),
+                                               "walk_needed": 2 * B}
     return out
 
 

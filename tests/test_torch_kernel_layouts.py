@@ -12,8 +12,10 @@ plain weight gradient; K2's, K3's, K7's and K8's shared memory and copy
 width (``ops/lstm_kernels.py``), K3's ring (``csrc/lstm_bwd.cu``) and at
 H = 128 its layout, its pair walk and dW pass replayed against the plain
 backward and its wrapper's argument checks, K8's
-step lists, gates pass and ring and K7's walk (``csrc/lstm_bidir.cu``)
-replayed in numpy against the plain BiLSTM backwards and forward, and K2's
+step lists, gates pass and ring, K8 at H = 128 (its layout, its pair walk
+fed from the step lists, its dW pass and that pass's frame order) and K7's
+walk (``csrc/lstm_bidir.cu``) replayed in numpy against the plain BiLSTM
+backwards and forward, and K2's
 walk (``csrc/lstm.cu``) against the plain forward; K5's ring and shared memory
 (``ops/ctc_kernels.py``) for every S it takes, and its walk
 (``csrc/ctc.cu``) replayed in numpy against the plain CTC beta; K4's
@@ -430,14 +432,14 @@ def test_k3_ring_replayed_gives_the_plain_gradient(D, T, lengths, V):
 def test_k3_h128_shared_memory_and_chunks():
     """K3's layout at the LSTM head's H = 128: a CTA of the pair stages 448
     floats a step (F of its 256 gates, A, f and grad_h of its 64 units) and
-    holds all 512 gate gradients of two steps; H = 40's one-block layout and
-    K8's (which keeps it at H = 128) are unchanged."""
+    holds all 512 gate gradients of two steps; H = 40's one-block layout is
+    unchanged, and K8's pair CTA at H = 128 is K3's with its list ring."""
     H, U = PAIR_HIDDEN, PAIR_HIDDEN // 2
     assert backward_smem_bytes(H) == 4 * (BACKWARD_RING * 7 * U + 2 * 4 * H) == 18432 \
         <= STATIC_SMEM_LIMIT
     assert backward_smem_bytes(40) == 11520
-    assert stacked_backward_smem_bytes(H) == 4 * (BACKWARD_RING * 8 * H + 2 * 4 * H) \
-        + 4 * 2 * BACKWARD_RING == 36928
+    assert stacked_backward_smem_bytes(H) == 4 * (BACKWARD_RING * 7 * U + 2 * 4 * H) \
+        + 4 * 2 * BACKWARD_RING == 18496
     # every staged segment is whole in V-float copies; 448 copies of one float fit 512 threads
     assert U % 4 == 0 and 7 * U <= 512
     # a dW chunk's partial tile (128 x 64 floats) holds the two copy stages (16 frames of 128 + 64)
@@ -556,48 +558,57 @@ def _pair_walk(buf, cfac, lengths, w_hh, grad_h, V):
     return buf
 
 
-def _dw_pass(buf, lengths, h, V, KB=16):
-    """The H = 128 dW pass of csrc/lstm_bwd.cu (lstm_bwd_dw_kernel) in
-    float64: the valid frames of all rows in order (b, then t) cut into
-    ``DW_CHUNKS`` chunks [N c / C, N (c + 1) / C); thread f of a chunk's
-    copies walks frame lo + f + KB k (skipping whole rows), zeros past the
-    chunk and where h_prev leaves the row; the chunks' partials summed in
-    chunk order."""
-    B, T, D, G = buf.shape
-    H = G // 4
-    lens = [max(0, min(int(x), T)) for x in lengths]
-    N = sum(lens)
-    dw = np.zeros((D, G, H))
-    for d in range(D):
-        dirn = 1 if d else -1
-        parts = []
-        for c in range(DW_CHUNKS):
-            lo, hi = N * c // DW_CHUNKS, N * (c + 1) // DW_CHUNKS
-            part = np.zeros((G, H))
-            cursors = []
-            for f in range(KB):                                      # (n, bb, tt) of thread f
-                n, bb, tt = lo + f, 0, lo + f
+def _dw_chunks(lens, frame, KB=16):
+    """The H = 128 dW pass's sum over one direction's frames in float64
+    (csrc/lstm_pair.cuh pair_dw_tile): the frames of all rows in order
+    (row bb, then frame tt < lens[bb]) cut into ``DW_CHUNKS`` chunks
+    [N c / C, N (c + 1) / C); thread f of a chunk's copies walks frame
+    lo + f + KB k (skipping whole rows), zeros past the chunk; ``frame(bb,
+    tt)`` gives the frame's gate gradients and h_prev; the chunks' partials
+    summed in chunk order."""
+    B, N = len(lens), sum(lens)
+    total = None
+    for c in range(DW_CHUNKS):
+        lo, hi = N * c // DW_CHUNKS, N * (c + 1) // DW_CHUNKS
+        part = 0.0
+        cursors = []
+        for f in range(KB):                                          # (n, bb, tt) of thread f
+            n, bb, tt = lo + f, 0, lo + f
+            while bb < B and tt >= lens[bb]:
+                tt -= lens[bb]
+                bb += 1
+            cursors.append([n, bb, tt])
+        for _ in range(-(-(hi - lo) // KB)):
+            for cur in cursors:
+                n, bb, tt = cur
+                if n < hi:
+                    part = part + np.outer(*frame(bb, tt))
+                n, tt = n + KB, tt + KB
                 while bb < B and tt >= lens[bb]:
                     tt -= lens[bb]
                     bb += 1
-                cursors.append([n, bb, tt])
-            for _ in range(-(-(hi - lo) // KB)):
-                for cur in cursors:
-                    n, bb, tt = cur
-                    va = n < hi
-                    vb = va and 0 <= tt + dirn < lens[bb]
-                    a = buf[bb, tt, d] if va else np.zeros(G)
-                    hp = h[bb, tt + dirn, d * H:(d + 1) * H].astype(np.float64) if vb else np.zeros(H)
-                    part += np.outer(a, hp)
-                    n, tt = n + KB, tt + KB
-                    while bb < B and tt >= lens[bb]:
-                        tt -= lens[bb]
-                        bb += 1
-                    cur[:] = [n, bb, tt]
-            parts.append(part)
-        dw[d] = parts[0]
-        for part in parts[1:]:
-            dw[d] = dw[d] + part
+                cur[:] = [n, bb, tt]
+        total = part if total is None else total + part
+    return total
+
+
+def _dw_pass(buf, lengths, h):
+    """The H = 128 dW pass of csrc/lstm_bwd.cu (lstm_bwd_dw_kernel) in
+    float64: ``_dw_chunks`` over each direction's valid frames, h_prev of
+    frame t the h at t + dir, zeros where that leaves the row."""
+    B, T, D, G = buf.shape
+    H = G // 4
+    lens = [max(0, min(int(x), T)) for x in lengths]
+    dw = np.zeros((D, G, H))
+    for d in range(D):
+        dirn = 1 if d else -1
+
+        def frame(bb, tt):
+            hp = h[bb, tt + dirn, d * H:(d + 1) * H].astype(np.float64) if 0 <= tt + dirn < lens[bb] \
+                else np.zeros(H)
+            return buf[bb, tt, d], hp
+
+        dw[d] = _dw_chunks(lens, frame)
     return dw
 
 
@@ -618,7 +629,7 @@ def test_k3_h128_pair_walk_and_dw_pass_replayed_give_the_plain_gradient(D, T, le
                                    with_cell=True)
     buf, cfac = _k3_gates(xproj, lengths, w_hh, hs.numpy(), cs.numpy())
     got_dx = _pair_walk(buf, cfac, lengths, w_hh, grad_h, V)
-    got_dw = _dw_pass(got_dx, lengths, hs.numpy(), V)
+    got_dw = _dw_pass(got_dx, lengths, hs.numpy())
     want_dx, want_dw = lstm_backward_plain(torch.from_numpy(xproj), lens, torch.from_numpy(w_hh),
                                            hs, cs, torch.from_numpy(grad_h))
     # float64 here, float32 there, through at most 33 steps
@@ -664,6 +675,24 @@ def _k8_steps(valid):
     return steps, counts
 
 
+def _k8_gates(xproj, valid, w_f, w_b, h_prev, c_prev):
+    """K8's gates pass in float64: each valid step's factors F into the
+    d_xproj buffer and A and f into cfac, exact zeros into d_xproj at the
+    invalid steps; cfac there stays NaN, so a walk that read it would show."""
+    T, B2, G = xproj.shape
+    B, H = B2 // 2, G // 4
+    buf = np.full((T, B2, G), np.nan)                    # d_xproj: F in, gradients out
+    cfac = np.full((T, B2, 2 * H), np.nan)
+    for t in range(T):
+        for row in range(B2):
+            if valid[t, row] > 0:
+                w = (w_f if row < B else w_b).astype(np.float64)
+                buf[t, row], cfac[t, row] = _factors(xproj[t, row] + w @ h_prev[t, row], c_prev[t, row], H)
+            else:
+                buf[t, row] = 0
+    return buf, cfac
+
+
 def _k8_replay(xproj, valid, w_f, w_b, h_prev, c_prev, grad_h, V):
     """K8 of csrc/lstm_bidir.cu in float64, its layout and schedule replayed.
     The step lists (``_k8_steps``).  The gates pass: each valid step's
@@ -679,15 +708,7 @@ def _k8_replay(xproj, valid, w_f, w_b, h_prev, c_prev, grad_h, V):
     B, H, R = B2 // 2, G // 4, BACKWARD_RING
     LR = 2 * R
     steps, counts = _k8_steps(valid)
-    buf = np.full((T, B2, G), np.nan)                    # d_xproj: F in, gradients out
-    cfac = np.full((T, B2, 2 * H), np.nan)
-    for t in range(T):
-        for row in range(B2):
-            if valid[t, row] > 0:
-                w = (w_f if row < B else w_b).astype(np.float64)
-                buf[t, row], cfac[t, row] = _factors(xproj[t, row] + w @ h_prev[t, row], c_prev[t, row], H)
-            else:
-                buf[t, row] = 0
+    buf, cfac = _k8_gates(xproj, valid, w_f, w_b, h_prev, c_prev)
     flats = [(buf.reshape(-1), G, 0), (cfac.reshape(-1), 2 * H, G),
              (h_prev.astype(np.float64).ravel(), H, 6 * H), (grad_h.astype(np.float64).ravel(), H, 7 * H)]
     dw = np.zeros((B2, G, H))
@@ -773,6 +794,201 @@ def test_k8_schedule_replayed_gives_the_plain_gradient(T, lengths, random_mask, 
     for got, want in ((got_f, want_f), (got_b, want_b)):
         assert np.abs(got - want.double().numpy()).max() <= 1e-5 * max(1.0, want.abs().max())
     assert np.all(got_dx[valid <= 0] == 0)
+
+
+def test_k8_h128_shared_memory():
+    """K8's layout at the LSTM head's H = 128: a CTA of the pair walk holds
+    K3's pair ring and gate gradients and the list ring of 2
+    ``BACKWARD_RING`` entries; H = 40's one-block layout is unchanged."""
+    H = PAIR_HIDDEN
+    assert stacked_backward_smem_bytes(H) == backward_smem_bytes(H) + 4 * 2 * BACKWARD_RING == 18496 \
+        <= STATIC_SMEM_LIMIT
+    assert stacked_backward_smem_bytes(40) == 4 * (BACKWARD_RING * 8 * 40 + 2 * 160) \
+        + 4 * 2 * BACKWARD_RING == 11584
+
+
+def _k8_dw_frame(steps, counts, d, bb, tt):
+    """(stacked row, t) of frame tt of direction d's row bb in K8's dW pass at
+    H = 128: the row's listed steps in original time, so a forward row's
+    list (t descending) is read from its end and a reverse row's (stacked t
+    descending is original t ascending) as it is."""
+    row = d * (len(counts) // 2) + bb
+    return row, int(steps[row, counts[row] - 1 - tt] if d == 0 else steps[row, tt])
+
+
+def _k8_pair_walk(buf, cfac, valid, w_f, w_b, grad_h, V):
+    """K8's H = 128 walk of csrc/lstm_bidir.cu (lstm_stacked_bwd_pair_kernel)
+    in float64: _pair_walk's two CTAs a stacked row, each a ring of its 448
+    floats a step copied V at a time from listed step list[s] (``_Ring``,
+    reading the d_xproj buffer as the walk rewrites it) and a list ring of 2
+    ``BACKWARD_RING`` entries (the first 2 ``BACKWARD_RING`` - 1 read before
+    the walk, each later one copied in a step's group, each iteration
+    reading the next one's entries).  Between two cluster barriers the CTAs
+    run one after the other, in turns, so that a gate-gradient buffer
+    published before its owner had read the step it held would show; each
+    buffer records the step it holds.  Writes the gradients into ``buf``."""
+    T, B2, G = buf.shape
+    B, H, R = B2 // 2, G // 4, BACKWARD_RING
+    U, LR = H // 2, 2 * R
+    steps, counts = _k8_steps(valid)
+    bf, cf, gf = buf.reshape(-1), cfac.reshape(-1), grad_h.astype(np.float64).ravel()
+    lane = np.arange(32)
+    kk = 4 * np.arange(16)[:, None] + (lane >> 3) % 4               # (warp, lane)
+    m = np.broadcast_to(lane % 4, kk.shape)
+    writer = np.broadcast_to(lane % 8 < 4, kk.shape)
+    i, e, u = np.arange(4)[:, None, None], np.arange(4)[None, :, None], np.arange(4)[None, None, :]
+    for row in range(B2):
+        n, lst = counts[row], steps[row].astype(np.float64)
+        w = (w_f if row < B else w_b).astype(np.float64)
+        wd = [w[(i * H + 4 * lane[:, None, None, None] + e)[None],
+                r * U + 4 * np.arange(16)[:, None, None, None, None] + u] for r in range(2)]
+        rings, lrings = [_Ring(7 * U), _Ring(7 * U)], [_Ring(1, LR), _Ring(1, LR)]
+
+        def copies(r, t):
+            t = int(t)
+            assert 0 <= t < T and valid[t, row] > 0, (row, t)
+            out = []
+            for o in range(0, 7 * U, V):
+                seg, off = o // U, r * U + o % U
+                if seg < 4:
+                    src = (t * B2 + row) * G + seg * H + off
+                    out.append((o, bf[src:src + V]))
+                elif seg < 6:
+                    src = (t * B2 + row) * 2 * H + (seg - 4) * H + off
+                    out.append((o, cf[src:src + V]))
+                else:
+                    src = (t * B2 + row) * H + off
+                    out.append((o, gf[src:src + V]))
+            return out
+
+        def cell(slot, carry_h, carry_c):                            # every lane of the CTA
+            dh = slot[6 * U + kk] + carry_h
+            dc = carry_c + dh * slot[4 * U + kk]
+            return np.where(m == 3, dh, dc) * slot[m * U + kk], dc * slot[5 * U + kk]
+
+        # dg[CTA][buffer] = [step held, its 4H gradients]; the first writer
+        # of a step into a buffer finds the step before last there, read
+        def publish(s, r, grads):
+            for dst in range(2):
+                held = dg[dst][s & 1]
+                if held[0] != s:
+                    assert held[0] is None or held[0] == s - 2 and read[dst] >= s - 2, (s, held[0])
+                    held[0], held[1] = s, np.full(G, np.nan)
+                held[1][m[writer] * H + r * U + kk[writer]] = grads[writer]
+
+        for r in range(2):
+            for k in range(min(T, LR - 1)):                          # read before the walk
+                lrings[r].slots[k], lrings[r].holds[k] = lst[k], k
+        for s in range(R - 1):
+            for r in range(2):
+                rings[r].commit(*((s, copies(r, lrings[r].read(s)[0])) if s < n else ()))
+                lrings[r].commit()
+        if n == 0:
+            continue
+        carry_c = [np.zeros(kk.shape), np.zeros(kk.shape)]
+        dg = [[[None, None], [None, None]] for _ in range(2)]
+        read = [-1, -1]                                              # the last step a CTA read
+        grads = [None, None]
+        t_dx, t_st = [None, None], [None, None]
+        for r in range(2):
+            rings[r].wait(R - 2)
+            lrings[r].wait(R - 2)
+            grads[r], carry_c[r] = cell(rings[r].read(0), 0.0, carry_c[r])
+            publish(0, r, grads[r])
+            t_dx[r] = int(lrings[r].read(0)[0])
+            t_st[r] = lrings[r].read(R - 1)[0] if R - 1 < n else None
+        for s in range(n):
+            for r in range(2):
+                rings[r].wait(R - 3)
+                lrings[r].wait(R - 3)
+            # the cluster barrier; then each CTA's iteration, in turns
+            for r in ((0, 1) if s % 2 == 0 else (1, 0)):
+                t_dx_next = int(lrings[r].read(s + 1)[0]) if s + 1 < n else None
+                t_st_next = lrings[r].read(s + R)[0] if s + R < n else None
+                buf[t_dx[r], row, m[writer] * H + r * U + kk[writer]] = grads[r][writer]
+                if s + 1 < n:
+                    step, dgs = dg[r][s & 1]
+                    assert step == s and not np.isnan(dgs).any()     # both halves landed
+                    read[r] = s
+                    P = np.einsum("lie,wlieu->wlu", dgs.reshape(4, 32, 4).transpose(1, 0, 2), wd[r])
+                    dh = np.take_along_axis(P.sum(axis=1), (lane >> 3)[None, :] % 4, axis=1)
+                    grads[r], carry_c[r] = cell(rings[r].read(s + 1), dh, carry_c[r])
+                    publish(s + 1, r, grads[r])
+                if s + R - 1 < n:
+                    rings[r].commit(s + R - 1, copies(r, t_st[r]))
+                    lrings[r].commit(*((s + LR - 1, [(0, lst[s + LR - 1:s + LR])]) if s + LR - 1 < T
+                                       else ()))
+                else:
+                    rings[r].commit()
+                    lrings[r].commit()
+                t_dx[r], t_st[r] = t_dx_next, t_st_next
+    return buf
+
+
+def _k8_dw_pass(buf, valid, h_prev):
+    """K8's H = 128 dW pass of csrc/lstm_bidir.cu (lstm_stacked_bwd_dw_kernel)
+    in float64: ``_dw_chunks`` over each direction's B rows and their listed
+    steps (``_k8_dw_frame``), h_prev read at the frame's own (t, row)."""
+    T, B2, G = buf.shape
+    B = B2 // 2
+    steps, counts = _k8_steps(valid)
+
+    def frame(d, bb, tt):
+        row, t = _k8_dw_frame(steps, counts, d, bb, tt)
+        assert valid[t, row] > 0 and not np.isnan(buf[t, row]).any()
+        return buf[t, row], h_prev[t, row].astype(np.float64)
+
+    dw = np.zeros((2, G, G // 4))
+    for d in range(2):
+        dw[d] = _dw_chunks([int(x) for x in counts[d * B:(d + 1) * B]],
+                           lambda bb, tt, d=d: frame(d, bb, tt))
+    return dw
+
+
+@pytest.mark.parametrize("V", [4, 1])
+@pytest.mark.parametrize("T,lengths,random_mask", [(20, [0, 1, 7, 8, 9, 20], False),
+                                                   (45, [45, 45], True)])
+def test_k8_h128_pair_walk_and_dw_pass_replayed_give_the_plain_gradient(T, lengths, random_mask, V):
+    """K8 at the LSTM head's H = 128: the step lists, the gates pass, the
+    pair walk and the dW pass replayed in numpy against the plain backward,
+    on stacked rows from lengths (0, 1, around the ring's 8 slots, T) and on
+    a random mask with holes."""
+    rng = np.random.default_rng(T + len(lengths) + 128)
+    H, B = PAIR_HIDDEN, len(lengths)
+    xproj = rng.standard_normal((T, 2 * B, 4 * H)).astype(np.float32)
+    w_f, w_b = ((rng.uniform(-1, 1, (4 * H, H)) / np.sqrt(H)).astype(np.float32) for _ in range(2))
+    grad_h = rng.standard_normal((T, 2 * B, H)).astype(np.float32)
+    lens, t = np.array(lengths), np.arange(T)[:, None]
+    valid = np.concatenate([t < lens[None], T - 1 - t < lens[None]], axis=1).astype(np.float32)
+    if random_mask:
+        valid = (rng.uniform(size=(T, 2 * B)) < 0.7).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (xproj, valid, w_f, w_b)]
+    _, h_prev, c_prev = lstm_recurrence_stacked_plain(*args)
+    buf, cfac = _k8_gates(xproj, valid, w_f, w_b, h_prev.numpy(), c_prev.numpy())
+    got_dx = _k8_pair_walk(buf, cfac, valid, w_f, w_b, grad_h, V)
+    got_dw = _k8_dw_pass(got_dx, valid, h_prev.numpy())
+    want_dx, want_f, want_b = lstm_backward_stacked_plain(*args, h_prev, c_prev, torch.from_numpy(grad_h))
+    # float64 here, float32 there, through at most 45 steps
+    assert np.abs(got_dx - want_dx.double().numpy()).max() <= 1e-5
+    for got, want in ((got_dw[0], want_f), (got_dw[1], want_b)):
+        assert np.abs(got - want.double().numpy()).max() <= 1e-5 * max(1.0, want.abs().max())
+    assert np.all(got_dx[valid <= 0] == 0)
+
+
+@pytest.mark.parametrize("T,lengths", [(20, [0, 1, 7, 8, 9, 20]), (33, [33, 16, 25, 9])])
+def test_k8_h128_dw_frames_in_k3_order(T, lengths):
+    """On a contiguous mask, the frames of K8's H = 128 dW pass, unstacked,
+    are K3's frames in K3's order (row, then time ascending) and each row
+    has K3's count, so the chunks and each tile's sums are K3's."""
+    B = len(lengths)
+    lens, t = np.array(lengths), np.arange(T)[:, None]
+    valid = np.concatenate([t < lens[None], T - 1 - t < lens[None]], axis=1).astype(np.float32)
+    steps, counts = _k8_steps(valid)
+    assert list(counts) == lengths + lengths
+    for d in range(2):
+        got = [_k8_dw_frame(steps, counts, d, bb, tt) for bb in range(B) for tt in range(counts[d * B + bb])]
+        unstacked = [(row - d * B, t if d == 0 else T - 1 - t) for row, t in got]
+        assert unstacked == [(b, t) for b in range(B) for t in range(lengths[b])]
 
 
 def test_k7_shared_memory_and_copy_width():

@@ -235,12 +235,11 @@ def test_k3_shared_memory_as_stated(dev):
     assert backward_smem_on_card(40, dev) == backward_smem_bytes(40)
 
 
-def _stacked_case(dev, T, lengths, seed, mask="lengths"):
+def _stacked_case(dev, T, lengths, seed, mask="lengths", H=40):
     """Stacked rows as ``ops/lstm.py`` builds them (forward rows valid at
     t < len, reverse rows at T-1-t < len); with ``mask="random"`` a random
     0/1 mask instead, with ``"holes"`` those rows with a hole every 8 steps
     (one ring of K8's walk apart)."""
-    H = 40
     g = torch.Generator().manual_seed(seed)
     B = len(lengths)
     xproj = torch.randn((T, 2 * B, 4 * H), generator=g)
@@ -306,6 +305,21 @@ def test_k8_inputs_off_16_bytes(dev):
 
 def test_k8_shared_memory_as_stated(dev):
     assert stacked_backward_smem_on_card(40, dev) == stacked_backward_smem_bytes(40)
+
+
+@pytest.mark.parametrize("T,lengths,mask", [(37, [37, 0, 1, 20], "lengths"), (50, [50, 50, 50], "random"),
+                                            (90, [90, 61, 30, 0], "holes")])
+def test_k8_h128_against_plain(dev, T, lengths, mask):
+    """K8 at the LSTM head's H = 128 (the pair walk and the dW pass) on
+    ragged rows, a random mask and holes against its plain version, with
+    16-byte copies and, on h_prev and grad_h one float off, one-float
+    copies."""
+    xproj, valid, w_f, w_b, grad_h = _stacked_case(dev, T, lengths, T, mask, H=128)
+    _, h_prev, c_prev = lstm_recurrence_stacked(xproj, valid, w_f, w_b)
+    _k8_check(xproj, valid, w_f, w_b, h_prev, c_prev, grad_h, h_prev, c_prev)
+    h_off, g_off = (torch.cat([a.new_zeros(1), a.flatten()])[1:].view(a.shape) for a in (h_prev, grad_h))
+    assert backward_copy_width(h_off, g_off) == 1
+    _k8_check(xproj, valid, w_f, w_b, h_off, c_prev, g_off, h_prev, c_prev)
 
 
 # K7's own cases: the training T' on ragged rows; lengths around its 8-slot
@@ -717,9 +731,10 @@ def test_lstm_kernels_refuse_other_hidden_sizes(dev, hidden):
                                        (5, (5, 1))])
 def test_lstm_kernels_at_h128_against_plain(dev, T, lengths):
     """K2, K3, K7 and K8 at the LSTM head's H = 128 (their gates pass
-    staging W_hh 16 rows at a time, their walks with spilled registers) on
-    ragged rows against their plain versions, K7's h equal to K2's bit for
-    bit, and their shared memory as stated."""
+    staging W_hh 16 rows at a time; K3's and K8's walks on a pair of CTAs
+    and their dW passes) on ragged rows against their plain versions, K7's
+    h equal to K2's and K8's gradients equal to K3's bit for bit, and their
+    shared memory as stated."""
     H, B = 128, len(lengths)
     g = torch.Generator().manual_seed(T)
     s = 1.0 / np.sqrt(H)
@@ -747,6 +762,7 @@ def test_lstm_kernels_at_h128_against_plain(dev, T, lengths):
     assert (dx8 - wdx).abs().max().item() <= 1e-4
     for got, want in ((dwf, wf), (dwb, wb)):
         assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    assert torch.equal(unstack_directions(dx8), d_x) and torch.equal(dwf, dw[0]) and torch.equal(dwb, dw[1])
     assert forward_smem_on_card(H, dev) == forward_smem_bytes(H)
     assert backward_smem_on_card(H, dev) == backward_smem_bytes(H)
     assert stacked_forward_smem_on_card(H, dev) == stacked_forward_smem_bytes(H)

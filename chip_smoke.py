@@ -210,9 +210,11 @@ Phases, in order; any failed check exits non-zero before the last line:
      plain versions, twice for the same bits, K7's h equal to K2's, their
      shared memory as stated, their times, bounds, cuDNN's packed BiLSTM at
      hidden 128 and the registers and spills of the H=128 instantiations;
-     K3's device time split into its gates pass, pair walk and dW pass, the
-     clusters of the walk and of the dW pass the card holds at once, and 0
-     bytes of spill in K3's H=128 kernels.  Then the head model
+     K2's device time (its pair walk, whose CTAs fill their pad frames
+     after the walk), K3's and K8's split into their passes, the clusters
+     of K2's walk and of K3's and K8's walks and dW passes the card holds
+     at once, and 0 bytes of spill in K2's, K3's and K8's H=128 kernels.
+     Then the head model
      (quartznet12_context with ``lstm_head=True``, bf16 convs, mask on,
      seeded by ``head_teeth``): an eval forward at the
      serving shape (8 rows of 2-16 s, 1601 frames), also with
@@ -298,7 +300,7 @@ from lightning_asr_torch.ops.frontend_kernels import (extend_preemph, extend_pre
                                                       window_range)
 from lightning_asr_torch.ops.lstm import stack_directions, stacked_valid, unstack_directions
 from lightning_asr_torch.ops.lstm_kernels import (backward_clusters_on_card, backward_smem_bytes,
-                                                  backward_smem_on_card,
+                                                  backward_smem_on_card, forward_clusters_on_card,
                                                   forward_smem_bytes, forward_smem_on_card,
                                                   lstm_backward, lstm_backward_plain,
                                                   lstm_backward_stacked, lstm_backward_stacked_plain,
@@ -448,7 +450,9 @@ BLANK = len(LABELS)
 TRAIN_BUCKET_S = 16.7                 # conf.yaml train_max_duration, a bucket
 T_TRAIN = 836                         # its frames after the stride-2 stem
 HEAD_HIDDEN = 128                     # the LSTM head's hidden size (build_model lstm_head)
-# K3's kernels at H=128 (csrc/lstm_bwd.cu), as ptxas names them
+# K2's kernels at H=128 (csrc/lstm.cu: the pair walk), as ptxas names them
+K2_H128_KERNELS = ("lstm_fwd_pair_kernel<128,4>", "lstm_fwd_pair_kernel<128,1>")
+# K3's kernels at H=128 (csrc/lstm_bwd.cu)
 K3_H128_KERNELS = ("lstm_bwd_gates_kernel<128>", "lstm_bwd_pair_kernel<128,4>",
                    "lstm_bwd_pair_kernel<128,1>", "lstm_bwd_dw_kernel<128,4>",
                    "lstm_bwd_dw_kernel<128,1>")
@@ -1133,6 +1137,7 @@ def _category(name: str) -> str:
                      ("lstm_stacked_steps_", "K8 lstm_stacked_bwd"),
                      ("lstm_stacked_bwd_", "K8 lstm_stacked_bwd"),
                      ("log_mel_kernel", "K1 log_mel"), ("lstm_fwd_kernel", "K2 lstm"),
+                     ("lstm_fwd_pair_kernel", "K2 lstm"),
                      ("lstm_bwd_kernel", "K3 lstm_bwd"), ("lstm_bwd_gates_kernel", "K3 lstm_bwd"),
                      ("lstm_bwd_pair_kernel", "K3 lstm_bwd"), ("lstm_bwd_dw_kernel", "K3 lstm_bwd"),
                      ("ctc_alpha_kernel", "K4 ctc_alpha"),
@@ -1792,10 +1797,10 @@ def h128_kernels(dev, reports: dict) -> dict:
     as the yardstick; K8 against K3 on the same rows (equal bits expected)
     and K8 on a mask with holes against its plain version; their shared
     memory against the stated layouts, and the registers and spills of the
-    H=128 instantiations (K3's and K8's must spill none); K3's and K8's
-    device time by kernel (step lists, gates pass, pair walk, dW pass) and
-    their walks' and dW passes' resident clusters.  Returns {"K2": row,
-    ...} of the kernels line's keys (launches: this call's)."""
+    H=128 instantiations (K2's, K3's and K8's must spill none); K2's, K3's
+    and K8's device time by kernel (step lists, gates pass, pair walk, dW
+    pass) and the resident clusters of their walks and dW passes.  Returns
+    {"K2": row, ...} of the kernels line's keys (launches: this call's)."""
     rng = np.random.default_rng(128)
     B, T, C, H, D = TRAIN_BATCH, T_TRAIN, 1024, HEAD_HIDDEN, 2
     x, (w_ih, w_hh, b_ih, b_hh), lens_np, lens, xproj = bilstm_inputs(dev, rng, B, T, C=C, H=H)
@@ -1907,31 +1912,33 @@ def h128_kernels(dev, reports: dict) -> dict:
                      "us_per_step": 1e3 * ms / int(lens_np.max())}
     ptxas = {k: v for name in ("lstm", "lstm_bwd", "lstm_bidir")
              for k, v in ptxas_kernels(reports.get(name, "")).items() if "<128" in k}
-    for key, source, names in (("K3", "lstm_bwd", K3_H128_KERNELS),
+    for key, source, names in (("K2", "lstm", K2_H128_KERNELS), ("K3", "lstm_bwd", K3_H128_KERNELS),
                                ("K8", "lstm_bidir", K8_H128_KERNELS)):
         got = {k: v for k, v in ptxas.items() if k.split("<")[0] in {n.split("<")[0] for n in names}}
         if reports.get(source):                     # built in this run: ptxas reported each kernel
             check(set(got) == set(names) and all(v.get("spill_bytes", -1) == 0 for v in got.values()),
                   f"{key}'s H=128 kernels must spill 0 bytes: {got}")
-    # K3's and K8's device time by kernel: the step lists (K8), the gates
-    # pass, the pair walk, the dW pass
+    # K2's, K3's and K8's device time by kernel: the step lists (K8), the
+    # gates pass, the pair walk (K2's with its pad frames), the dW pass
     splits, passes = {}, {}
-    for key, fn in (("K3", k3), ("K8", k8)):
+    for key, fn in (("K2", k2), ("K3", k3), ("K8", k8)):
         _, _, split, passes[key] = device_time(fn, 5)
         splits[key] = {("steps" if "steps_kernel" in k else "gates" if "gates_kernel" in k
                         else "walk" if "pair_kernel" in k else "dw" if "dw_kernel" in k
                         else k[:40]): v for k, v in split.items()}
-    clusters = {"K3": {"walk": backward_clusters_on_card(dev), "dw": backward_clusters_on_card(dev, True),
+    clusters = {"K2": {"walk": forward_clusters_on_card(dev), "walk_needed": B * D},
+                "K3": {"walk": backward_clusters_on_card(dev), "dw": backward_clusters_on_card(dev, True),
                        "walk_needed": B * D},
                 "K8": {"walk": stacked_backward_clusters_on_card(dev),
                        "dw": stacked_backward_clusters_on_card(dev, True), "walk_needed": 2 * B}}
-    check(all(min(c["walk"], c["dw"]) > 0 for c in clusters.values()),
-          f"K3's or K8's H=128 clusters do not fit: {clusters}")
+    check(all(min(c["walk"], c.get("dw", c["walk"])) > 0 for c in clusters.values()),
+          f"K2's, K3's or K8's H=128 clusters do not fit: {clusters}")
     print(json.dumps({"phase": "lstm_h128", "shape": [B, T, C, H, D], "tol": K2_TOL,
                       "tol_dx": K3_TOL_DX, "tol_dw_rel": K3_TOL_DW, **errs,
                       "cudnn_max_abs_diff": cudnn_diff, "valid_row_steps": steps,
                       "sequential_steps": int(lens_np.max()), "smem_bytes": smem,
-                      "K3_split_ms": splits["K3"], "K8_split_ms": splits["K8"],
+                      "K2_split_ms": splits["K2"], "K3_split_ms": splits["K3"],
+                      "K8_split_ms": splits["K8"],
                       "profiler_passes": passes, "resident_clusters": clusters,
                       "ptxas": ptxas, "check_launches": launches, "kernels": rows}), flush=True)
     return rows

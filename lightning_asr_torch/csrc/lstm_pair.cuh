@@ -1,11 +1,15 @@
-// The BiLSTM backward at H = 128 (the LSTM head), shared by K3 (lstm_bwd.cu)
-// and K8 (lstm_bidir.cu): the shape of a walk on a cluster of two CTAs and
-// of the dW pass, the pair's step (its cell, its dh_prev, its barrier), and
-// the dW pass's tile.  Each kernel keeps only its own addressing: K3's
-// frames at a fixed stride in (B, T, D, .), K8's listed steps of the
-// stacked rows in (T, 2B, .).  The layouts are stated once in Python
-// (ops/lstm_kernels.py PAIR_HIDDEN, DW_CHUNKS, backward_smem_bytes,
-// stacked_backward_smem_bytes) and checked on the card.
+// The BiLSTM walks at H = 128 (the LSTM head) on a cluster of two CTAs.
+// The forward's (K2, lstm.cu; K7 may take it): the split of W_hh's gate
+// rows over the pair and two lanes a row, the chain pair, the 8-lane cell,
+// the h buffer's layout and h's exchange (st.async and an mbarrier).  The
+// backward's, shared by K3 (lstm_bwd.cu) and K8 (lstm_bidir.cu): the shape
+// of a walk and of the dW pass, the pair's step (its cell, its dh_prev,
+// its barrier), and the dW pass's tile.  Each kernel keeps only its own addressing: K2's and K3's frames
+// at a fixed stride in (B, T, D, .), K8's listed steps of the stacked rows
+// in (T, 2B, .).  The layouts are stated once in Python
+// (ops/lstm_kernels.py PAIR_HIDDEN, DW_CHUNKS, forward_smem_bytes,
+// backward_smem_bytes, stacked_backward_smem_bytes) and checked on the
+// card.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -33,6 +37,138 @@ struct PairShape {
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n"
                "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The forward walk's split (K2 at H = 128): CTA r of the pair owns units rU
+// .. rU + U - 1 and their four gates, 4U gate rows, two lanes a row.  Lane
+// L of warp w steps unit 4w + (L >> 3) of the CTA's U, gate (L >> 1) & 3
+// (order i, f, g, o), and keeps the 64 weights of its row with k mod 4 in
+// {2p, 2p + 1}, p = L & 1: dot_h's chains a_2p and a_2p+1 (lstm_util.cuh).
+// A ring slot holds the CTA's 4U projections of a step, gate i's U at [iU,
+// (i + 1) U).  An h buffer holds all H units, h[k] at pair_h_index(k), so
+// that lane p reads its 64 values as the 16 float4s at 8q + 4p, q < H/8:
+// h[8q + 2p], h[8q + 2p + 1], h[8q + 4 + 2p], h[8q + 4 + 2p + 1], the two
+// halves of a warp's loads 16 bytes apart (no bank conflict).
+//
+// The exchange: h of step s + 1 goes into buffer (s + 1) & 1 of both CTAs,
+// the CTA's own half by st.shared (published in the CTA by __syncthreads),
+// the partner's by st.async, which also counts its 4 bytes on the partner's
+// mbarrier of that buffer; one thread a CTA arms its own mbarrier for the
+// partner's 4U floats (arrive.expect_tx), and step s + 1 waits on it
+// (try_wait.parity, acquire at cluster scope).  A barrier.cluster a step
+// in its place took 1,268 of a step's 2,270 cycles on an H100, this
+// exchange 398 of 1,405 (scripts/torch_k2_sync_probe.py).
+// No write can overtake a read: a CTA stores into the partner's buffer (s +
+// 1) & 1 only once the partner's whole h of step s has arrived, and every
+// lane of the partner that read that buffer at step s - 1 fed, through its
+// unit's shuffles, an h sent after the read.  Nothing goes to the partner
+// after the row's last step: the partner's last wait is for the step before.
+template <int H>
+struct PairForward {
+  static_assert(H % 8 == 0, "a lane reads float4s of h at 8q + 4p");
+  static constexpr int U = H / 2;                   // units a CTA of the pair owns
+  static constexpr int NT = 2 * 4 * U;              // threads: two a gate row
+  static constexpr int SLOT = 4 * U;                // a ring slot: the CTA's gates' projections
+  static constexpr int Q = H / 8;                   // float4s of h a lane reads
+};
+
+// where h[k] lies in an h buffer: bits 1 and 2 of k swapped
+__device__ __forceinline__ int pair_h_index(int k) {
+  return (k & ~6) | ((k & 2) << 1) | ((k & 4) >> 1);
+}
+
+// the shared::cluster address of the same variable in CTA `rank` of the cluster
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+
+// an mbarrier of one arrival a phase, before the cluster's first barrier
+__device__ __forceinline__ void mbar_init_one(void* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               "fence.mbarrier_init.release.cluster;\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// the phase's one arrival, expecting `bytes` from st.async
+__device__ __forceinline__ void mbar_arrive_expect(void* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(void* bar, int parity) {
+  asm volatile(
+      "{\n .reg .pred done;\n"
+      "WAIT%=:\n mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], %1;\n"
+      " @!done bra WAIT%=;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// v into another CTA's shared memory at `addr`, its 4 bytes counted on that
+// CTA's mbarrier at `bar` (both shared::cluster addresses)
+__device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(
+                   addr),
+               "r"(__float_as_uint(v)), "r"(bar)
+               : "memory");
+}
+
+// the weights lane p of gate row g keeps: wv[q][2a + e] = W_hh[g, 8q + 4a +
+// 2p + e] (wrow: row g of one direction's (4H, H) W_hh)
+template <int H>
+__device__ __forceinline__ void pair_fwd_weights(const float* wrow, int p,
+                                                 float (&wv)[PairForward<H>::Q][4]) {
+#pragma unroll
+  for (int q = 0; q < PairForward<H>::Q; ++q)
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const float2 v = *reinterpret_cast<const float2*>(wrow + 8 * q + 4 * a + 2 * p);
+      wv[q][2 * a] = v.x, wv[q][2 * a + 1] = v.y;
+    }
+}
+
+// One step of the forward chain for lane p of gate m's row (cell_forward's
+// step, lstm_util.cuh, on the pair's split): chains a_2p and a_2p+1 over the
+// lane's 64 products in dot_h's order; the lane pair's one xor shuffle gives
+// both lanes (a0 + a1) + (a2 + a3) (float addition commutes: the same bits
+// in each); pre = x + dot; both gate_act()s and the gate's kept by a select;
+// the unit's four activations from lanes 0, 2, 4, 6 of its eight; c = f c +
+// i g.  Returns h = o tanh(c), the same in all eight lanes.
+template <int H>
+__device__ __forceinline__ float pair_cell_forward(float x, const float (&wv)[PairForward<H>::Q][4],
+                                                   const float* h, int p, int m, float& c) {
+  float a0 = 0.f, a1 = 0.f;                         // chains 2p and 2p + 1
+#pragma unroll
+  for (int q = 0; q < PairForward<H>::Q; ++q) {
+    const float4 v = *reinterpret_cast<const float4*>(h + 8 * q + 4 * p);
+    a0 = fmaf(wv[q][0], v.x, a0);
+    a1 = fmaf(wv[q][1], v.y, a1);
+    a0 = fmaf(wv[q][2], v.z, a0);
+    a1 = fmaf(wv[q][3], v.w, a1);
+  }
+  const float half = a0 + a1;
+  const float pre = x + (half + __shfl_xor_sync(LSTM_FULL, half, 1));
+  const float sg = gate_act(pre, false), th = gate_act(pre, true);
+  const float a = m == 2 ? th : sg;
+  const float ig = __shfl_sync(LSTM_FULL, a, 0, 8), fg = __shfl_sync(LSTM_FULL, a, 2, 8);
+  const float gg = __shfl_sync(LSTM_FULL, a, 4, 8), og = __shfl_sync(LSTM_FULL, a, 6, 8);
+  c = fg * c + ig * gg;
+  return og * tanhf(c);
+}
+
+// h of unit k into buffer `buf` of both CTAs (the exchange above): h_s is
+// the CTA's two H-float buffers, peer_h and peer_bar the shared::cluster
+// addresses of the partner's h_s[0][pair_h_index(k)] and of its mbarrier of
+// buffer 0 (the next 8 bytes on)
+template <int H>
+__device__ __forceinline__ void pair_publish_h(float (&h_s)[2][H], int k, int buf, float h,
+                                               uint32_t peer_h, uint32_t peer_bar) {
+  h_s[buf][pair_h_index(k)] = h;
+  st_async(peer_h + 4 * H * buf, h, peer_bar + 8 * buf);
 }
 
 // W_hh's values a walk thread keeps: lane L of warp w of CTA r holds

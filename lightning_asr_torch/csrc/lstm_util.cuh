@@ -1,7 +1,10 @@
 // Device helpers of the BiLSTM kernels: the gate's dot in K2's and K7's
-// summation order and their one forward step (lstm.cu K2, lstm_bidir.cu
-// K7), the backward's gates pass body, and the walk's serial chain
-// (lstm_bwd.cu K3, lstm_bidir.cu K8).  The walks' rings and slot layouts
+// summation order and their one forward step (lstm.cu K2 at H = 40,
+// lstm_bidir.cu K7; K2 at H = 128 walks a pair of CTAs whose step,
+// lstm_pair.cuh pair_cell_forward, splits dot_h's four chains over two
+// lanes and keeps this order and cell_forward's cell), the backward's gates
+// pass body, and the walk's serial chain (lstm_bwd.cu K3, lstm_bidir.cu
+// K8).  The walks' rings and slot layouts
 // are stated once in Python (ops/lstm_kernels.py BACKWARD_RING,
 // forward_smem_bytes, backward_smem_bytes, ...) and checked on the card
 // through each library's C entry.

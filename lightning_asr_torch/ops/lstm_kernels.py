@@ -30,10 +30,10 @@ across the four gate groups).
 What the designs do about it (``csrc/lstm.cu``, ``csrc/lstm_bwd.cu``): one
 block per (row, direction), all rows and both directions in one launch, so
 the chains run in parallel; a thread keeps its row of W_hh in registers and
-h sits in shared memory; rows stop at their own length.  K2 is K7's walk
-(second half of this module) on K2's layout, without a step list, since a
-row's valid frames are contiguous: walk step s is frame s (direction 0) or
-len-1-s (direction 1), and its projection arrives in a ring of
+h sits in shared memory; rows stop at their own length.  K2 at H = 40 is
+K7's walk (second half of this module) on K2's layout, without a step
+list, since a row's valid frames are contiguous: walk step s is frame s
+(direction 0) or len-1-s (direction 1), and its projection arrives in a ring of
 ``BACKWARD_RING`` slots in shared memory by predicated ``cp.async``,
 ``BACKWARD_RING - 1`` steps ahead, so the chain loads nothing from device
 memory; thread 4k + m owns gate m of unit k, every lane takes both
@@ -56,7 +56,24 @@ walk, and the per-(row, direction) partials are summed over the batch in a
 fixed order (deterministic).  The TPU kernels' 128-lane padding of H, their
 32-step time blocks and the 32-row batch tiling (a VMEM cap) do not carry over.
 
-K3 at H = 128 (the LSTM head, ``PAIR_HIDDEN``): one block's W_hh columns
+K2 at H = 128 (the LSTM head, ``PAIR_HIDDEN``): a block of 4H = 512
+threads may hold 128 registers a thread, and its rows of W_hh (128 floats a
+thread) spilled, so the walk runs on a cluster of two CTAs a (row,
+direction), each owning 64 units and their 256 gate rows, two lanes a row
+and 64 W_hh values a thread: lane p keeps the weights with k mod 4 in {2p,
+2p + 1} and runs those two of the dot's four chains, and one shuffle adds
+the pair's halves as the one-block kernel adds its chains, so h and c keep
+its bits (and K7's equality with K2).  Each step a CTA stores its 64 units'
+h into its own shared memory and, by ``st.async``, into its partner's (two
+buffers, laid out in the order the lanes read them), where each store
+counts on the partner's mbarrier of that buffer; a step waits on that
+mbarrier for the partner's half and on a CTA barrier for its own.  A
+cluster barrier a step in its place made the walk 1.7x as long on an H100
+(``scripts/torch_k2_sync_probe.py``).  Its ring stages only the CTA's 256
+projections (``forward_smem_bytes(128)``); ``forward_clusters_on_card``
+reads how many pairs the card holds at once (B·D needed).
+
+K3 at H = 128: one block's W_hh columns
 (128 floats a thread) and dW_hh partials (128) would not fit 512 threads'
 128 registers, so the walk is split over a cluster of two CTAs a (row,
 direction), each owning 64 units and their four gates, 64 W_hh values a
@@ -84,14 +101,19 @@ import torch
 _LOCK = threading.Lock()
 _KERNEL_HIDDEN = (40, 128)  # hidden sizes instantiated in csrc/lstm*.cu (context BiLSTM, LSTM head)
 BACKWARD_RING = 8           # K2's, K3's, K7's and K8's ring slots (csrc/lstm_util.cuh LSTM_RING)
-PAIR_HIDDEN = 128           # K3's and K8's hidden size walked by a pair of CTAs (csrc/lstm_pair.cuh)
+PAIR_HIDDEN = 128           # K2's, K3's and K8's hidden size walked by a CTA pair (csrc/lstm_pair.cuh)
 DW_CHUNKS = 8               # frame chunks of their dW pass at PAIR_HIDDEN (PairShape::CHUNKS)
 
 
 def forward_smem_bytes(H: int) -> int:
-    """The static shared memory of K2's walk (csrc/lstm.cu): a ring of
-    ``BACKWARD_RING`` slots of one step's projection (4H floats), then h of
-    two steps."""
+    """The static shared memory of a CTA of K2's walk (csrc/lstm.cu): a ring
+    of ``BACKWARD_RING`` slots of one step's projection (4H floats), then h
+    of two steps.  At ``PAIR_HIDDEN`` a CTA of the pair (units U = H/2): its
+    slots hold the projections of its 4U gates, its two h buffers all H
+    units, then the two buffers' mbarriers, 8 bytes each (csrc/lstm_pair.cuh
+    PairForward)."""
+    if H == PAIR_HIDDEN:
+        return 4 * (BACKWARD_RING * 4 * (H // 2) + 2 * H) + 2 * 8
     return 4 * (BACKWARD_RING * 4 * H + 2 * H)
 
 
@@ -209,7 +231,8 @@ def lstm_recurrence(xproj: torch.Tensor, lengths: torch.Tensor, w_hh: torch.Tens
     lengths (B,) int32, w_hh (D, 4H, H) float32 -> h (B, T, D·H), direction
     1 (when D == 2) reversed; with ``with_cell`` also c (B, T, D, H), the
     cell state of each valid frame (0 at pad frames).  A CPU tensor runs the
-    plain version; a CUDA tensor launches the kernel or raises."""
+    plain version; a CUDA tensor launches the kernel (at ``PAIR_HIDDEN`` the
+    pair walk) or raises."""
     B, T, D, G, H = _check_recurrence_args(xproj, lengths, w_hh)
     if xproj.device.type == "cpu":
         return lstm_recurrence_plain(xproj, lengths, w_hh, with_cell)
@@ -341,6 +364,13 @@ def forward_smem_on_card(H: int, device: torch.device) -> int:
     hidden size H (-1 without an instantiation): the card's check of
     ``forward_smem_bytes``."""
     return _card_query("lstm", "lasr_lstm_fwd_smem", H, device)
+
+
+def forward_clusters_on_card(device: torch.device) -> int:
+    """How many clusters of K2's walk at ``PAIR_HIDDEN`` (pairs of CTAs) the
+    card holds at once (``cudaOccupancyMaxActiveClusters``; -1 on an
+    error)."""
+    return _card_query("lstm", "lasr_lstm_fwd_clusters", PAIR_HIDDEN, device)
 
 
 def backward_smem_on_card(H: int, device: torch.device) -> int:

@@ -6,7 +6,10 @@ inputs K3 (``lstm_backward``), K2 with its cell output and K7, at the
 training shape (B=32, T'=836, C=256, H=40) on ragged rows
 (``chip_smoke.train_rows``) and on rows that all fill T'; then K2, K3, K7 and K8
 at the LSTM head's H=128 on ``chip_smoke.h128_kernels``' inputs (B=32,
-T'=836, C=1024, ragged rows), K3's and K8's device time split by kernel.
+T'=836, C=1024, ragged rows), K2 with and without its cell output, K2's,
+K3's and K8's device time split by kernel, and K2 with its cell output at
+B=64 (``h128_b64``: 64 rows of ``train_rows``' lengths), where its pair
+walk needs 128 clusters of two CTAs.
 
 Each checkout runs in a process of its own, with the kernels built from its
 own sources and its own ``chip_smoke.py``'s row lengths.  Name them in the
@@ -22,8 +25,8 @@ registers and spills of the BiLSTM forward kernels from ptxas; and a
 digest of each kernel's outputs, so that runs of checkouts that share a
 kernel show whether its bits moved; K3's and K8's registers and spills at
 both hidden sizes; at H=128 the resident clusters of K8's walk and dW
-pass, where the checkout has them) and a summary line last.  Needs a
-card; imports no JAX.
+pass, and of K2's walk, where the checkout has them) and a summary line
+last.  Needs a card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -126,10 +129,13 @@ def run_one(root: Path) -> dict:
     w_f, w_b = w_hh[0].contiguous(), w_hh[1].contiguous()
     h7 = lstm_recurrence_stacked(xp, valid, w_f, w_b)
     k8 = lambda: lstm_backward_stacked(xp, valid, w_f, w_b, h7[1], h7[2], gs)  # noqa: E731
+    k2 = lambda: lstm_recurrence(xproj, lens, w_hh, with_cell=True)  # noqa: E731
     steps = int(lens_np.max())
-    ms = {"K3": chip_smoke.cuda_ms(k3, ITERS), "K8": chip_smoke.cuda_ms(k8, ITERS)}
+    ms = {"K2_with_cell": chip_smoke.cuda_ms(k2, ITERS),
+          "K2": chip_smoke.cuda_ms(lambda: lstm_recurrence(xproj, lens, w_hh), ITERS),
+          "K3": chip_smoke.cuda_ms(k3, ITERS), "K8": chip_smoke.cuda_ms(k8, ITERS)}
     splits = {}
-    for key, fn in (("K3", k3), ("K8", k8)):
+    for key, fn in (("K2", k2), ("K3", k3), ("K8", k8)):
         try:
             split = chip_smoke.device_time(fn, 5)[2]
         except SystemExit as e:
@@ -139,11 +145,25 @@ def run_one(root: Path) -> dict:
     out["h128"] = {"ms": ms, "sequential_steps": steps,
                    "us_per_step": {k: 1e3 * v / steps for k, v in ms.items()}, **splits,
                    "digest": {"K3": digest(*k3()), "K8": digest(*k8()), "K2_h": digest(h2),
-                              "K2_c": digest(cell), "K7": digest(*h7)}}
+                              "K2_c": digest(cell), "K7": digest(*h7),
+                              "K2_h_only": digest(lstm_recurrence(xproj, lens, w_hh))}}
     clusters = getattr(lstm_kernels, "stacked_backward_clusters_on_card", None)
     if clusters is not None:                    # the checkout's K8 walks at H=128 on a pair
         out["h128"]["K8_resident_clusters"] = {"walk": clusters(dev), "dw": clusters(dev, True),
                                                "walk_needed": 2 * B}
+    clusters = getattr(lstm_kernels, "forward_clusters_on_card", None)
+    if clusters is not None:                    # the checkout's K2 walks at H=128 on a pair
+        out["h128"]["K2_resident_clusters"] = {"walk": clusters(dev), "walk_needed": 2 * B}
+
+    B64 = 2 * B
+    _, (_, w_hh, _, _), lens_np, lens, xproj = chip_smoke.bilstm_inputs(
+        dev, np.random.default_rng(64), B64, T, C=1024, H=H128)
+    k2 = lambda: lstm_recurrence(xproj, lens, w_hh, with_cell=True)  # noqa: E731
+    ms = chip_smoke.cuda_ms(k2, ITERS)
+    steps = int(lens_np.max())
+    out["h128_b64"] = {"ms": {"K2_with_cell": ms}, "sequential_steps": steps,
+                       "us_per_step": {"K2_with_cell": 1e3 * ms / steps},
+                       "digest": {"K2_h": digest(k2()[0]), "K2_c": digest(k2()[1])}}
     return out
 
 

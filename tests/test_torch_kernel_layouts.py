@@ -1200,6 +1200,193 @@ def test_k2_walk_replayed_gives_the_plain_forward(length, V, D):
         assert np.all(got_h[b, n:] == 0) and np.all(got_c[b, n:] == 0)
 
 
+def _pair_h_index(k):
+    """csrc/lstm_pair.cuh pair_h_index: where h[k] lies in the pair's h
+    buffer (bits 1 and 2 of k swapped)."""
+    return (k & ~6) | ((k & 2) << 1) | ((k & 4) >> 1)
+
+
+def test_k2_h128_shared_memory_and_h_layout():
+    """K2's layout at the LSTM head's H = 128: a CTA of the pair stages the
+    projections of its 256 gates a step (four whole 64-float segments, one
+    copy a thread at either width) and holds h of all 128 units for two
+    steps, with an mbarrier for each of the two; the h buffer is a permutation of the units whose float4 at 8q +
+    4p holds what lane p's chains 2p and 2p + 1 read at q, in dot_h's
+    order; H = 40's one-block layout is unchanged."""
+    H, U = PAIR_HIDDEN, PAIR_HIDDEN // 2
+    assert forward_smem_bytes(H) == 4 * (BACKWARD_RING * 4 * U + 2 * H) + 2 * 8 == 9232 \
+        <= STATIC_SMEM_LIMIT
+    assert forward_smem_bytes(40) == 5440
+    assert U % 4 == 0 and 4 * U <= 512                       # 2 x 4U gate-row lanes, 4U copies of 1
+    k = np.arange(H)
+    assert sorted(_pair_h_index(k)) == list(k)
+    inv = np.empty(H, int)
+    inv[_pair_h_index(k)] = k
+    for p in range(2):
+        read = inv[(8 * np.arange(H // 8)[:, None] + 4 * p + np.arange(4)).ravel()]
+        assert sorted(read) == [j for j in k if j % 4 in (2 * p, 2 * p + 1)]
+        for chain in (2 * p, 2 * p + 1):                     # each chain's k ascending
+            mine = [j for j in read if j % 4 == chain]
+            assert mine == sorted(mine)
+
+
+def _k2_pair_replay(xproj, lengths, w_hh, V, order_seed=0):
+    """K2's H = 128 walk (csrc/lstm.cu lstm_fwd_pair_kernel) in float32, the
+    two CTAs r of each (row, direction) stepping in any order their waits
+    allow (a seeded choice, so that either runs a step ahead): CTA r's ring
+    of its 4U projections a step (gate i's U at [iU, (i + 1) U)), copied V
+    floats at a time (``_Ring``); thread 32w + L steps unit rU + 4w + (L >>
+    3), gate (L >> 1) & 3, and with p = L & 1 keeps W_hh[g, k] of the k it
+    reads from the h buffer's float4s at 8q + 4p, running chains 2p and 2p
+    + 1 in dot_h's order; the lane pair's halves summed in both lanes; the
+    unit's gates from lanes 0, 2, 4, 6 of its eight; h of step s + 1 stored
+    at ``_pair_h_index`` into the CTA's own buffer (s + 1) & 1 and into the
+    partner's, where its 4 bytes count on the partner's mbarrier of that
+    buffer, which the partner arms for U floats; step s waits for that
+    mbarrier's phase.  Each buffer is checked whole and of the right step
+    when read, and read by its CTA before anything is stored into it again;
+    nothing is stored into a CTA that has left; each CTA's pad frames after
+    its walk.  The outputs start as NaN, so a frame nobody writes would
+    show."""
+    B, T, D, G = xproj.shape
+    H, R = G // 4, BACKWARD_RING
+    U = H // 2
+    out = np.full((B, T, D * H), np.nan, np.float32)
+    cell = np.full((B, T, D, H), np.nan, np.float32)
+    xf = xproj.ravel()
+    order = np.random.default_rng(order_seed)
+    thread = np.arange(2 * 4 * U)
+    L = thread % 32
+    kk = 4 * (thread // 32) + (L >> 3)
+    m, p = (L >> 1) % 4, L % 2
+    pos = 8 * np.arange(H // 8)[None, :, None] + 4 * p[:, None, None] + np.arange(4)   # (NT, Q, 4)
+    inv = np.empty(H, int)
+    inv[_pair_h_index(np.arange(H))] = np.arange(H)
+    units = np.arange(U)
+    for b in range(B):
+        n = max(0, min(int(lengths[b]), T))
+        for d in range(D):
+            t0, dt = (n - 1, -1) if d else (0, 1)
+            wv = [w_hh[d][(m * H + r * U + kk)[:, None, None], inv[pos]] for r in range(2)]
+            rings = [_Ring(4 * U), _Ring(4 * U)]
+            # [CTA][buffer]: h, the step each value is of, the step the CTA last read it at
+            hbuf = [[np.full(H, np.nan, np.float32) for _ in range(2)] for _ in range(2)]
+            tag = [[np.full(H, -1) for _ in range(2)] for _ in range(2)]
+            read_at = [[None, None] for _ in range(2)]
+            # [CTA][buffer] mbarrier: phases completed, the open phase's arming and bytes
+            phases = [[0, 0] for _ in range(2)]
+            armed = [[False, False] for _ in range(2)]
+            got = [[0, 0] for _ in range(2)]
+            left = [False, False]
+            nxt = [0, 0]
+            c = [np.zeros(U, np.float32), np.zeros(U, np.float32)]
+
+            def copies(r, s):
+                t = t0 + s * dt
+                assert 0 <= t < n, (b, d, s, t)
+                base = ((b * T + t) * D + d) * G
+                return [(e, xf[base + e // U * H + r * U + e % U:][:V]) for e in range(0, 4 * U, V)]
+
+            def settle(r, buf):                              # the phase completes when armed and full
+                if armed[r][buf] and got[r][buf] == 4 * U:     # U floats from the partner
+                    phases[r][buf] += 1
+                    armed[r][buf], got[r][buf] = False, 0
+
+            def store(dst, buf, s, h, r):                    # h of step s + 1 of CTA r's units
+                assert not left[dst], (b, d, s, r)
+                assert read_at[dst][buf] == (s - 1 if s else None), (b, d, s, r, read_at)
+                hbuf[dst][buf][_pair_h_index(r * U + units)] = h
+                tag[dst][buf][_pair_h_index(r * U + units)] = s + 1
+
+            def ready(r):                                    # its wait at its next step holds
+                s = nxt[r]
+                return s == 0 or phases[r][s & 1] > (s - 1) >> 1
+
+            def step(r):
+                s, buf = nxt[r], nxt[r] & 1
+                assert np.all(tag[r][buf] == s), (b, d, s, r)    # both halves of step s landed
+                read_at[r][buf] = s
+                x = rings[r].read(s).astype(np.float32)[m * U + kk]
+                hv = hbuf[r][buf][pos]
+                a0, a1 = np.zeros(len(thread), np.float32), np.zeros(len(thread), np.float32)
+                for q in range(H // 8):
+                    a0 = a0 + wv[r][:, q, 0] * hv[:, q, 0]
+                    a1 = a1 + wv[r][:, q, 1] * hv[:, q, 1]
+                    a0 = a0 + wv[r][:, q, 2] * hv[:, q, 2]
+                    a1 = a1 + wv[r][:, q, 3] * hv[:, q, 3]
+                half = a0 + a1
+                pre = x + (half + half[thread ^ 1])
+                sg, th = _sig(pre).astype(np.float32), np.tanh(pre)
+                act = np.where(m == 2, th, sg).reshape(U, 8)
+                ig, fg, gg, og = act[:, 0], act[:, 2], act[:, 4], act[:, 6]
+                c[r] = fg * c[r] + ig * gg
+                h = og * np.tanh(c[r])
+                t = t0 + s * dt
+                out[b, t, d * H + r * U:d * H + (r + 1) * U] = h
+                cell[b, t, d, r * U:(r + 1) * U] = c[r]
+                nxt[r] += 1
+                if s + 1 == n:                               # the last step: nothing to publish
+                    out[b, n:, d * H + r * U:d * H + (r + 1) * U] = 0.0   # its pad frames
+                    cell[b, n:, d, r * U:(r + 1) * U] = 0.0
+                    left[r] = True
+                    return
+                nb = (s + 1) & 1
+                store(r, nb, s, h, r)                        # its own half, st.shared
+                store(r ^ 1, nb, s, h, r)                    # the partner's, st.async
+                assert got[r ^ 1][nb] == 0, (b, d, s, r)        # no bytes of a later phase early
+                got[r ^ 1][nb] += 4 * U
+                settle(r ^ 1, nb)
+                assert not armed[r][nb], (b, d, s, r)        # the phase before has completed
+                armed[r][nb] = True                          # thread 0 arms its own
+                settle(r, nb)
+                rings[r].commit(*((s + R - 1, copies(r, s + R - 1)) if s + R - 1 < n else ()))
+                rings[r].wait(R - 2)                         # step s + 1 landed; __syncthreads
+
+            for s in range(R - 1):
+                for r in range(2):
+                    rings[r].commit(*((s, copies(r, s)) if s < n else ()))
+            for r in range(2):                               # before the cluster barrier
+                if n > 0:
+                    rings[r].wait(R - 2)
+                    hbuf[r][0][:] = 0.0
+                    tag[r][0][:] = 0
+                else:
+                    out[b, :, d * H + r * U:d * H + (r + 1) * U] = 0.0
+                    cell[b, :, d, r * U:(r + 1) * U] = 0.0
+                    left[r] = True
+            while not all(left):
+                can = [r for r in range(2) if not left[r] and ready(r)]
+                assert can, (b, d, nxt)                      # no deadlock
+                step(can[order.integers(len(can))])
+    return out, cell
+
+
+# the pair walk at the LSTM head's width beside a full row: lengths 0, 1,
+# around the ring's 8 slots and T; copy widths 4 and 1; one direction and two
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("V", [4, 1])
+@pytest.mark.parametrize("length", [0, 1, 7, 8, 9, K2_REPLAY_T])
+def test_k2_h128_pair_walk_replayed_gives_the_one_block_bits(length, V, D):
+    """K2 at H = 128: the pair walk replayed equals the one-block walk's
+    replay (``_k2_replay``) bit for bit, and the plain forward within 1e-5."""
+    rng = np.random.default_rng(length + 10 * V + D + 128)
+    T, H = K2_REPLAY_T, PAIR_HIDDEN
+    lengths = np.array([length, T], np.int32)
+    xproj = rng.standard_normal((2, T, D, 4 * H)).astype(np.float32)
+    w_hh = (rng.uniform(-1, 1, (D, 4 * H, H)) / np.sqrt(H)).astype(np.float32)
+    got_h, got_c = _k2_pair_replay(xproj, lengths, w_hh, V, order_seed=length + D)
+    one_h, one_c = _k2_replay(xproj, lengths, w_hh, V)
+    assert np.array_equal(got_h, one_h) and np.array_equal(got_c, one_c)
+    want_h, want_c = lstm_recurrence_plain(torch.from_numpy(xproj), torch.from_numpy(lengths),
+                                           torch.from_numpy(w_hh), with_cell=True)
+    # float32 both, sums in another order, through at most 12 steps; |c| past 1
+    for got, want in ((got_h, want_h), (got_c, want_c)):
+        want = want.numpy()
+        assert np.abs(got - want).max() <= 1e-5 * max(1.0, np.abs(want).max())
+    for b, n in enumerate(lengths):
+        assert np.all(got_h[b, n:] == 0) and np.all(got_c[b, n:] == 0)
+
+
 def test_k5_ring_and_shared_memory_for_every_S():
     """Every S the wrapper takes on the card (S = 2L + 1 <= 4095): the most
     slots up to ``BETA_RING``, an even number, whose layout (the ring of

@@ -21,7 +21,8 @@ from lightning_asr_torch.ops.frontend_kernels import (extend_preemph, extend_pre
 from lightning_asr_torch.ops.lstm import (LSTMWeights, lstm, stack_directions, stacked_valid,
                                           unstack_directions)
 from lightning_asr_torch.ops.lstm_kernels import (backward_copy_width, backward_smem_bytes,
-                                                  backward_smem_on_card, forward_smem_bytes,
+                                                  backward_smem_on_card, forward_clusters_on_card,
+                                                  forward_smem_bytes,
                                                   forward_smem_on_card, lstm_backward,
                                                   lstm_backward_plain,
                                                   lstm_backward_stacked, lstm_backward_stacked_plain,
@@ -767,3 +768,28 @@ def test_lstm_kernels_at_h128_against_plain(dev, T, lengths):
     assert backward_smem_on_card(H, dev) == backward_smem_bytes(H)
     assert stacked_forward_smem_on_card(H, dev) == stacked_forward_smem_bytes(H)
     assert stacked_backward_smem_on_card(H, dev) == stacked_backward_smem_bytes(H)
+
+
+@pytest.mark.parametrize("D,offset", [(1, 0), (1, 1), (2, 1)])
+def test_k2_h128_pair_walk_one_direction_and_copy_width_one(dev, D, offset):
+    """K2's pair walk at H = 128 with one direction, and with xproj one float
+    off 16-byte alignment (copies of one float), against the plain forward:
+    the same bits as on an aligned copy and as a call without the cell
+    output, pad frames exactly 0; the card holds its pairs."""
+    H, T, lengths = 128, 40, (40, 9, 8, 7, 1, 0)
+    B = len(lengths)
+    g = torch.Generator().manual_seed(D + 10 * offset)
+    flat = torch.randn(B * T * D * 4 * H + offset, generator=g).to(dev)
+    xproj = flat[offset:].view(B, T, D, 4 * H)
+    w_hh = ((torch.rand((D, 4 * H, H), generator=g) * 2 - 1) / np.sqrt(H)).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    assert backward_copy_width(xproj) == (1 if offset else 4)
+    h, c = lstm_recurrence(xproj, lens, w_hh, with_cell=True)
+    want_h, want_c = lstm_recurrence_plain(xproj, lens, w_hh, with_cell=True)
+    assert (h - want_h).abs().max().item() <= 1e-4 and (c - want_c).abs().max().item() <= 1e-3
+    h4, c4 = lstm_recurrence(xproj.clone(), lens, w_hh, with_cell=True)
+    assert torch.equal(h4, h) and torch.equal(c4, c)
+    assert torch.equal(lstm_recurrence(xproj, lens, w_hh), h)
+    for b, n in enumerate(lengths):
+        assert bool((h[b, n:] == 0).all()) and bool((c[b, n:] == 0).all())
+    assert forward_clusters_on_card(dev) > 0

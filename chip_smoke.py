@@ -210,10 +210,11 @@ Phases, in order; any failed check exits non-zero before the last line:
      plain versions, twice for the same bits, K7's h equal to K2's, their
      shared memory as stated, their times, bounds, cuDNN's packed BiLSTM at
      hidden 128 and the registers and spills of the H=128 instantiations;
-     K2's device time (its pair walk, whose CTAs fill their pad frames
-     after the walk), K3's and K8's split into their passes, the clusters
-     of K2's walk and of K3's and K8's walks and dW passes the card holds
-     at once, and 0 bytes of spill in K2's, K3's and K8's H=128 kernels.
+     K7 and K8 on a mask with holes; K2's device time (its pair walk,
+     whose CTAs fill their pad frames after the walk), K3's, K7's and K8's
+     split into their passes, the clusters of K2's and K7's walks and of
+     K3's and K8's walks and dW passes the card holds at once, and 0 bytes
+     of spill in K2's, K3's, K7's and K8's H=128 kernels.
      Then the head model
      (quartznet12_context with ``lstm_head=True``, bf16 convs, mask on,
      seeded by ``head_teeth``): an eval forward at the
@@ -310,6 +311,7 @@ from lightning_asr_torch.ops.lstm_kernels import (backward_clusters_on_card, bac
                                                   stacked_backward_clusters_on_card,
                                                   stacked_backward_smem_bytes,
                                                   stacked_backward_smem_on_card,
+                                                  stacked_forward_clusters_on_card,
                                                   stacked_forward_smem_bytes,
                                                   stacked_forward_smem_on_card)
 from lightning_asr_torch.ops.sepconv_kernels import (sepconv_backward, sepconv_backward_plain,
@@ -452,6 +454,9 @@ T_TRAIN = 836                         # its frames after the stride-2 stem
 HEAD_HIDDEN = 128                     # the LSTM head's hidden size (build_model lstm_head)
 # K2's kernels at H=128 (csrc/lstm.cu: the pair walk), as ptxas names them
 K2_H128_KERNELS = ("lstm_fwd_pair_kernel<128,4>", "lstm_fwd_pair_kernel<128,1>")
+# K7's kernels at H=128 (csrc/lstm_bidir.cu: K2's pair walk on the stacked
+# rows; its step lists take no H)
+K7_H128_KERNELS = ("lstm_stacked_fwd_pair_kernel<128,4>", "lstm_stacked_fwd_pair_kernel<128,1>")
 # K3's kernels at H=128 (csrc/lstm_bwd.cu)
 K3_H128_KERNELS = ("lstm_bwd_gates_kernel<128>", "lstm_bwd_pair_kernel<128,4>",
                    "lstm_bwd_pair_kernel<128,1>", "lstm_bwd_dw_kernel<128,4>",
@@ -1795,10 +1800,10 @@ def h128_kernels(dev, reports: dict) -> dict:
     encoder's output) against their plain versions, twice for the same
     bits, with their times, bounds and cuDNN's packed BiLSTM at hidden 128
     as the yardstick; K8 against K3 on the same rows (equal bits expected)
-    and K8 on a mask with holes against its plain version; their shared
-    memory against the stated layouts, and the registers and spills of the
-    H=128 instantiations (K2's, K3's and K8's must spill none); K2's, K3's
-    and K8's device time by kernel (step lists, gates pass, pair walk, dW
+    and K7 and K8 on a mask with holes against their plain versions; their
+    shared memory against the stated layouts, and the registers and spills
+    of the H=128 instantiations (K2's, K3's, K7's and K8's must spill none);
+    their device time by kernel (step lists, gates pass, pair walk, dW
     pass) and the resident clusters of their walks and dW passes.  Returns
     {"K2": row, ...} of the kernels line's keys (launches: this call's)."""
     rng = np.random.default_rng(128)
@@ -1855,6 +1860,8 @@ def h128_kernels(dev, reports: dict) -> dict:
           and errs["K7_h_prev"] <= K2_TOL and errs["K7_c_prev"] <= 10 * K2_TOL,
           f"H=128 K2/K7 against plain: {errs}")
     check(errs["K7_h_vs_K2"] == 0.0, f"H=128 K7's h is not K2's bit for bit: {errs}")
+    check(errs["K7_holes_h"] <= K2_TOL and errs["K7_holes_h_prev"] <= K2_TOL
+          and errs["K7_holes_c_prev"] <= 10 * K2_TOL, f"H=128 K7 with holes against plain: {errs}")
     check(errs["K3_dx"] <= K3_TOL_DX and errs["K3_dw_rel"] <= K3_TOL_DW and errs["K8_dx"] <= K3_TOL_DX
           and errs["K8_dw_rel"] <= K3_TOL_DW and errs["K8_holes_dx"] <= K3_TOL_DX
           and errs["K8_holes_dw_rel"] <= K3_TOL_DW, f"H=128 K3/K8 against plain: {errs}")
@@ -1913,15 +1920,17 @@ def h128_kernels(dev, reports: dict) -> dict:
     ptxas = {k: v for name in ("lstm", "lstm_bwd", "lstm_bidir")
              for k, v in ptxas_kernels(reports.get(name, "")).items() if "<128" in k}
     for key, source, names in (("K2", "lstm", K2_H128_KERNELS), ("K3", "lstm_bwd", K3_H128_KERNELS),
+                               ("K7", "lstm_bidir", K7_H128_KERNELS),
                                ("K8", "lstm_bidir", K8_H128_KERNELS)):
         got = {k: v for k, v in ptxas.items() if k.split("<")[0] in {n.split("<")[0] for n in names}}
         if reports.get(source):                     # built in this run: ptxas reported each kernel
             check(set(got) == set(names) and all(v.get("spill_bytes", -1) == 0 for v in got.values()),
                   f"{key}'s H=128 kernels must spill 0 bytes: {got}")
-    # K2's, K3's and K8's device time by kernel: the step lists (K8), the
-    # gates pass, the pair walk (K2's with its pad frames), the dW pass
+    # K2's, K3's, K7's and K8's device time by kernel: the step lists (K7,
+    # K8), the gates pass, the pair walk (K2's with its pad frames, K7's with
+    # its gaps), the dW pass
     splits, passes = {}, {}
-    for key, fn in (("K2", k2), ("K3", k3), ("K8", k8)):
+    for key, fn in (("K2", k2), ("K3", k3), ("K7", k7), ("K8", k8)):
         _, _, split, passes[key] = device_time(fn, 5)
         splits[key] = {("steps" if "steps_kernel" in k else "gates" if "gates_kernel" in k
                         else "walk" if "pair_kernel" in k else "dw" if "dw_kernel" in k
@@ -1929,42 +1938,52 @@ def h128_kernels(dev, reports: dict) -> dict:
     clusters = {"K2": {"walk": forward_clusters_on_card(dev), "walk_needed": B * D},
                 "K3": {"walk": backward_clusters_on_card(dev), "dw": backward_clusters_on_card(dev, True),
                        "walk_needed": B * D},
+                "K7": {"walk": stacked_forward_clusters_on_card(dev), "walk_needed": 2 * B},
                 "K8": {"walk": stacked_backward_clusters_on_card(dev),
                        "dw": stacked_backward_clusters_on_card(dev, True), "walk_needed": 2 * B}}
     check(all(min(c["walk"], c.get("dw", c["walk"])) > 0 for c in clusters.values()),
-          f"K2's, K3's or K8's H=128 clusters do not fit: {clusters}")
+          f"K2's, K3's, K7's or K8's H=128 clusters do not fit: {clusters}")
     print(json.dumps({"phase": "lstm_h128", "shape": [B, T, C, H, D], "tol": K2_TOL,
                       "tol_dx": K3_TOL_DX, "tol_dw_rel": K3_TOL_DW, **errs,
                       "cudnn_max_abs_diff": cudnn_diff, "valid_row_steps": steps,
                       "sequential_steps": int(lens_np.max()), "smem_bytes": smem,
                       "K2_split_ms": splits["K2"], "K3_split_ms": splits["K3"],
-                      "K8_split_ms": splits["K8"],
+                      "K7_split_ms": splits["K7"], "K8_split_ms": splits["K8"],
                       "profiler_passes": passes, "resident_clusters": clusters,
                       "ptxas": ptxas, "check_launches": launches, "kernels": rows}), flush=True)
     return rows
 
 
 def _k8_holes(dev, w_f, w_b) -> dict:
-    """K8 at H=128 on a random mask with holes (HOLES_B rows, HOLES_T steps,
-    a share HOLES_VALID of them valid, every row's state carried through its
-    holes) against its plain version, twice for the same bits, with exact
-    zeros at the invalid steps."""
+    """K7 and K8 at H=128 on a random mask with holes (HOLES_B rows, HOLES_T
+    steps, a share HOLES_VALID of them valid, every row's state carried
+    through its holes) against their plain versions, twice for the same
+    bits, with exact zeros at the invalid steps."""
     rng = np.random.default_rng(70)
     G, H = w_f.shape
     B2 = 2 * HOLES_B
     xp = torch.from_numpy(rng.standard_normal((HOLES_T, B2, G)).astype(np.float32)).to(dev)
     valid = torch.from_numpy((rng.uniform(size=(HOLES_T, B2)) < HOLES_VALID).astype(np.float32)).to(dev)
     gs = torch.from_numpy(rng.standard_normal((HOLES_T, B2, H)).astype(np.float32)).to(dev)
-    _, h_prev, c_prev = lstm_recurrence_stacked(xp, valid, w_f, w_b)
+    fwd = lstm_recurrence_stacked(xp, valid, w_f, w_b)
+    _, h_prev, c_prev = fwd
     got = lstm_backward_stacked(xp, valid, w_f, w_b, h_prev, c_prev, gs)
+    fwd_again = lstm_recurrence_stacked(xp, valid, w_f, w_b)
+    want_fwd = lstm_recurrence_stacked_plain(xp, valid, w_f, w_b)
     again = lstm_backward_stacked(xp, valid, w_f, w_b, h_prev, c_prev, gs)
     want_dx, want_f, want_b = lstm_backward_stacked_plain(xp, valid, w_f, w_b, h_prev, c_prev, gs)
     torch.cuda.synchronize()
-    check(all(torch.equal(a, b) for a, b in zip(got, again)), "H=128 K8 with holes: two runs differ")
+    check(all(torch.equal(a, b) for a, b in zip(got + fwd, again + fwd_again)),
+          "H=128 K7/K8 with holes: two runs differ")
+    check(all(bool(torch.isfinite(t).all()) for t in fwd) and bool((fwd[0][valid == 0] == 0).all()),
+          "H=128 K7 with holes: outputs not finite or h at invalid steps not exactly 0")
     check(all(bool(torch.isfinite(t).all()) for t in got) and bool((got[0][valid == 0] == 0).all()),
           "H=128 K8 with holes: outputs not finite or d_xproj at invalid steps not exactly 0")
     rel = lambda a, b: (a - b).abs().max().item() / b.abs().max().item()  # noqa: E731
-    return {"K8_holes_dx": (got[0] - want_dx).abs().max().item(),
+    return {"K7_holes_h": (fwd[0] - want_fwd[0]).abs().max().item(),
+            "K7_holes_h_prev": (fwd[1] - want_fwd[1]).abs().max().item(),
+            "K7_holes_c_prev": (fwd[2] - want_fwd[2]).abs().max().item(),
+            "K8_holes_dx": (got[0] - want_dx).abs().max().item(),
             "K8_holes_dw_rel": max(rel(got[1], want_f), rel(got[2], want_b)),
             "K8_holes_valid_share": valid.mean().item()}
 

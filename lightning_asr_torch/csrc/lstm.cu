@@ -39,8 +39,9 @@
 // LSTM head, models/quartznet.py lstm_head) a block would be 512 threads of
 // at most 128 registers and a thread's 128 weights did not fit (ptxas
 // spilled 1.3 KB a thread), so the head's walk is lstm_fwd_pair_kernel, on
-// a cluster of two CTAs a (row, direction) (its split, its step and its h
-// layout are in lstm_pair.cuh PairForward):
+// a cluster of two CTAs a (row, direction) (its split, its step, its h
+// layout and its loop, which K7 at H = 128 shares, are in lstm_pair.cuh
+// PairForward and pair_forward_walk):
 //   CTA r owns units rU .. rU + U - 1 (U = 64) and their four gates, 256
 //   gate rows; two adjacent lanes a row, 512 threads, 64 weights a thread:
 //   lane p keeps the row's weights with k mod 4 in {2p, 2p + 1} and runs
@@ -178,7 +179,6 @@ lstm_fwd_pair_kernel(const float* __restrict__ xproj,   // (B, T, D, 4H)
   constexpr int U = S::U, NT = S::NT, SLOT = S::SLOT, G = 4 * H;
   constexpr int N = SLOT / V;                       // copies a step, one a thread
   static_assert(N <= NT && U % V == 0, "one copy a thread a step, none across two segments");
-  static_assert(RING >= 2 && RING % 2 == 0, "step s is read while step s + RING - 1 is staged");
   __shared__ __align__(16) float ring[RING][SLOT];  // a slot: the CTA's projections of a step
   __shared__ __align__(16) float h_s[2][H];         // h of two steps, all H units (pair_h_index)
   __shared__ __align__(8) unsigned long long full[2];   // the partner's half of each h buffer
@@ -228,37 +228,12 @@ lstm_fwd_pair_kernel(const float* __restrict__ xproj,   // (B, T, D, 4H)
     lasr::cp_async_commit();
   }
 
-  // both CTAs of a pair take this branch: a row's length is theirs
-  if (len > 0) {
-    lasr::cp_async_wait<RING - 2>();                // step 0 has landed
-    lasr::cluster_sync();                           // in every slot; h_s[0]; both mbarriers set up
-    float c = 0.f;
-    for (int s0 = 0; s0 < len; s0 += RING) {
-#pragma unroll
-      for (int u = 0; u < RING; ++u) {
-        const int s = s0 + u;
-        if (s >= len) break;
-        // the partner's half of h of step s (h of step 0 is zeros)
-        if (s > 0) lasr::mbar_wait(&full[u & 1], ((s - 1) >> 1) & 1);
-        const float h = lasr::pair_cell_forward<H>(ring[u][m * U + kk], wv, h_s[u & 1], p, m, c);
-        float* const o = dst + (ptrdiff_t)(t0 + s * dt) * o_step;
-        if (s + 1 == len) {                         // the last step: nothing to publish
-          if (stores) *o = l8 == 0 ? h : c;
-          break;
-        }
-        if (l8 == 0) lasr::pair_publish_h<H>(h_s, k, (u + 1) & 1, h, peer_h, peer_bar);
-        if (threadIdx.x == 0) lasr::mbar_arrive_expect(&full[(u + 1) & 1], 4 * U);
-        // off the chain: step s + RING - 1's copies into slot s - 1, free
-        // since every thread has passed the barrier of step s - 1; then the
-        // step's outputs
-        stage(ring[(u + RING - 1) % RING], s + RING - 1, s + RING - 1 < len);
-        lasr::cp_async_commit();
-        if (stores) *o = l8 == 0 ? h : c;
-        lasr::cp_async_wait<RING - 2>();            // step s + 1 has landed
-        __syncthreads();                            // in every slot; the CTA's half of h
-      }
-    }
-  }
+  lasr::pair_forward_walk<H>(
+      len, ring, h_s, full, wv, kk, m, p, k, peer_h, peer_bar,
+      [&](float* slot, int s) { stage(slot, s + RING - 1, s + RING - 1 < len); },
+      [&](int s, float h, float c, bool) {
+        if (stores) dst[(ptrdiff_t)(t0 + s * dt) * o_step] = l8 == 0 ? h : c;
+      });
 
   // the CTA's units' pad frames t >= len: h and c exactly 0
   for (int i = threadIdx.x; i < (T - len) * U; i += NT) {

@@ -14,7 +14,7 @@
 // keeps the row's state and gives h = 0; valid > 0 decides, and any row's
 // mask may have holes.
 //
-// K7: one block per stacked row, 4H threads, walking only the row's valid
+// K7 at H = 40: one block per stacked row, 4H threads, walking only the row's valid
 // steps in ascending t.  lstm_stacked_fwd_steps_kernel lists them on the
 // card (the body of K8's step lists, t descending), and the walk reads the
 // list from its end, so no sync with the host.  Thread 4k + m owns gate m
@@ -38,7 +38,7 @@
 // state), and the steps before the first listed one (all zeros) after the
 // walk, with no barrier between.
 //
-// K8 is K3's design (lstm_bwd.cu) on the stacked rows, in three kernels:
+// K8 at H = 40 is K3's design (lstm_bwd.cu) on the stacked rows, in three kernels:
 //
 // lstm_stacked_steps_kernel, each row's valid steps in walk order (t
 // descending) and their count, into int32 scratch (2B, T) and (2B,): one
@@ -71,13 +71,25 @@
 // pass through them untouched.  dW_hh leaves as per-row partials (2B, 4H,
 // H), which the wrapper sums over each direction's B rows in a fixed order.
 //
-// K7 is instantiated at H = 40 and H = 128 (the LSTM head); at H = 128
-// its weights spill from the registers to local memory, as K2's do
-// (lstm.cu).  That walk of K8 is instantiated at H = 40 only: at H = 128
-// its W_hh columns (128 floats a thread) and dW_hh partials (128) spilled
-// 16.6 KB a thread.  So at H = 128 K8 is K3's H = 128 design (lstm_bwd.cu,
-// lstm_pair.cuh) on the stacked rows, after the same step lists and gates
-// pass:
+// Those two walks run at H = 40 only.  At H = 128 (the LSTM head) a block
+// of 4H = 512 threads may hold 128 registers a thread: K7's rows of W_hh
+// (128 floats a thread) spilled 1.3 KB, K8's W_hh columns and dW_hh
+// partials (256 floats) 16.6 KB.  So at H = 128 K7 is K2's H = 128 walk and
+// K8 is K3's (lstm.cu, lstm_bwd.cu, lstm_pair.cuh), both on the stacked
+// rows and fed from the same step lists:
+//
+// lstm_stacked_fwd_pair_kernel, K7's walk on a cluster of two CTAs a
+// stacked row: K2's pair walk (lstm_pair.cuh pair_forward_walk: CTA r owns
+// units 64r .. 64r + 63 and their 256 gate rows, two lanes a row, 64 W_hh
+// values a thread in dot_h's chain order, so h is K2's bit for bit; each
+// step's h goes into the CTA's own shared memory and by st.async into the
+// partner's, counted on the partner's mbarrier), its ring of the CTA's 256
+// projections a step fed from the row's step list as the H = 40 walk feeds
+// its ring (each CTA its own list ring of 2 RING ints, filled by its
+// copies' own groups; the mbarrier's phases count listed steps, not
+// frames).  Lanes 0, 1 and 2 of a unit's eight store h, h_prev and c_prev
+// of the listed step and the gap up to the next one; each CTA writes its
+// own units' steps before the first listed one after the walk.
 //
 // lstm_stacked_bwd_pair_kernel, the walk on a cluster of two CTAs a
 // stacked row: K3's pair walk (CTA r owns units 64r .. 64r + 63, 64 W_hh
@@ -252,6 +264,105 @@ lstm_stacked_fwd_kernel(const int* __restrict__ steps,     // (2B, T): valid ste
       t_cur = t_next;
     }
   }
+  fill(0, t_first, 0.f, 0.f);
+}
+
+// K7's walk at H = 128: grid 2 2B, a cluster of 2 CTAs a stacked row, CTA
+// r = blockIdx.x & 1 of row blockIdx.x >> 1 stepping units rU .. rU + U - 1
+// (K2's pair walk, lstm_pair.cuh pair_forward_walk, on the row's listed steps).
+template <int H, int V>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(lasr::PairForward<H>::NT, 1)
+lstm_stacked_fwd_pair_kernel(const int* __restrict__ steps,     // (2B, T): valid steps, t descending
+                             const int* __restrict__ counts,    // (2B,)
+                             const float* __restrict__ xproj,   // (T, 2B, 4H)
+                             const float* __restrict__ w_hh_f,  // (4H, H)
+                             const float* __restrict__ w_hh_b,  // (4H, H)
+                             float* __restrict__ h_out,         // (T, 2B, H)
+                             float* __restrict__ hprev_out,     // (T, 2B, H)
+                             float* __restrict__ cprev_out,     // (T, 2B, H)
+                             int T, int B) {
+  using S = lasr::PairForward<H>;
+  constexpr int U = S::U, NT = S::NT, SLOT = S::SLOT, G = 4 * H;
+  constexpr int N = SLOT / V;                       // copies a step, one a thread
+  constexpr int LR = 2 * RING;                      // slots of the list ring
+  static_assert(N <= NT && U % V == 0, "one copy a thread a step, none across two segments");
+  __shared__ __align__(16) float ring[RING][SLOT];  // a slot: the CTA's projections of a step
+  __shared__ __align__(16) float h_s[2][H];         // h of two steps, all H units (pair_h_index)
+  __shared__ int list_s[LR];                        // ascending entry e in slot e % LR
+  __shared__ __align__(8) unsigned long long full[2];   // the partner's half of each h buffer
+
+  const int r = (int)cg::this_cluster().block_rank();
+  const int row = blockIdx.x >> 1;
+  const unsigned B2 = 2 * B;                        // offsets fit 32 bits: the wrapper checks
+  const int lane = threadIdx.x & 31;
+  const int kk = 4 * (threadIdx.x >> 5) + (lane >> 3);   // the unit (of the CTA's U) it steps
+  const int m = (lane >> 1) & 3;                    // its gate
+  const int p = lane & 1;                           // its half of the chains
+  const int l8 = lane & 7;                          // its lane of the unit's eight
+  const int k = r * U + kk;                         // the unit of H
+
+  float wv[S::Q][4];
+  lasr::pair_fwd_weights<H>((row < B ? w_hh_f : w_hh_b) + (size_t)(m * H + k) * H, p, wv);
+  // both CTAs of a pair read the row's count, so they take the same
+  // branches; each CTA's list ring as in the H = 40 walk: ascending entry e
+  // sits at list[-e], the first LR - 1 read here, each later one by cp.async
+  // in an iteration's group
+  const int n = counts[row];
+  const int* list = steps + (size_t)row * T + n - 1;
+  if (threadIdx.x < LR - 1 && threadIdx.x < n) list_s[threadIdx.x] = list[-(int)threadIdx.x];
+  if (threadIdx.x < H) h_s[0][threadIdx.x] = 0.f;
+  if (threadIdx.x == 0) lasr::mbar_init_one(&full[0]), lasr::mbar_init_one(&full[1]);
+  const uint32_t peer_h = lasr::cluster_addr(&h_s[0][lasr::pair_h_index(k)], r ^ 1);
+  const uint32_t peer_bar = lasr::cluster_addr(&full[0], r ^ 1);
+
+  // this thread's copy of a step: slot offset e, in gate e / U's segment
+  const int e = threadIdx.x * V;
+  const bool mine = threadIdx.x < N;
+  const float* xsrc = xproj + (size_t)row * G + (mine ? e / U * H + r * U + e % U : 0);
+  // step t's projections into a slot where `st`: predicated, no branch
+  auto stage = [&](float* slot, int t, bool st) {
+    const float* src = xsrc + (unsigned)t * (B2 * G);
+    if constexpr (V == 4) {
+      lasr::cp_async16_if(slot + e, src, st && mine);
+    } else {
+      lasr::cp_async4_if(slot + e, src, st && mine);
+    }
+  };
+  // lane l8 < 3 of a unit's eight stores h (l8 = 0), h_prev (1) or c_prev (2)
+  const unsigned o_step = B2 * H;
+  float* out = (l8 == 0 ? h_out : l8 == 1 ? hprev_out : cprev_out) + (size_t)row * H + k;
+  auto fill = [&](int t_from, int t_to, float hv, float cv) {   // h = 0, the state (hv, cv)
+    if (l8 >= 3) return;
+    const float val = l8 == 0 ? 0.f : l8 == 1 ? hv : cv;
+    for (int t = t_from; t < t_to; ++t) out[(unsigned)t * o_step] = val;
+  };
+  __syncthreads();                                  // the first list entries
+#pragma unroll
+  for (int s = 0; s < RING - 1; ++s) {
+    stage(ring[s], list_s[s], s < n);
+    lasr::cp_async_commit();
+  }
+
+  const int t_first = n > 0 ? list_s[0] : T;
+  int t_cur = t_first;
+  float h_old = 0.f, c_old = 0.f;                   // the state before the step
+  lasr::pair_forward_walk<H>(
+      n, ring, h_s, full, wv, kk, m, p, k, peer_h, peer_bar,
+      // step s + RING - 1's copies and list entry s + LR - 1 into list slot
+      // (s - 1) % LR, free since every thread of the CTA has passed the
+      // barrier of step s - 1 (entry s - 1 was last read at step s - 2)
+      [&](float* slot, int s) {
+        stage(slot, list_s[(s + RING - 1) % LR], s + RING - 1 < n);
+        lasr::cp_async4_if(&list_s[(s + LR - 1) % LR], list - (s + LR - 1),
+                           threadIdx.x == 0 && s + LR - 1 < n);
+      },
+      // the step's outputs at t_cur, then the gap up to the next listed step
+      [&](int s, float h, float c, bool last) {
+        const int t_next = last ? T : list_s[(s + 1) % LR];
+        if (l8 < 3) out[(unsigned)t_cur * o_step] = l8 == 0 ? h : l8 == 1 ? h_old : c_old;
+        if (t_next > t_cur + 1) fill(t_cur + 1, t_next, h, c);
+        t_cur = t_next, h_old = h, c_old = c;
+      });
   fill(0, t_first, 0.f, 0.f);
 }
 
@@ -693,7 +804,16 @@ cudaError_t launch_fwd(int V, int T, int B, cudaStream_t stream, const float* xp
   const int B2 = 2 * B;
   lstm_stacked_fwd_steps_kernel<<<(B2 + LIST_ROWS - 1) / LIST_ROWS, 32 * LIST_ROWS, 0, stream>>>(
       valid, steps, counts, T, B2);
-  if (V == 4) {
+  if constexpr (H == 128) {
+    constexpr int NT = lasr::PairForward<H>::NT;
+    if (V == 4) {
+      lstm_stacked_fwd_pair_kernel<H, 4><<<2 * B2, NT, 0, stream>>>(
+          steps, counts, xproj, w_hh_f, w_hh_b, h_out, hprev_out, cprev_out, T, B);
+    } else {
+      lstm_stacked_fwd_pair_kernel<H, 1><<<2 * B2, NT, 0, stream>>>(
+          steps, counts, xproj, w_hh_f, w_hh_b, h_out, hprev_out, cprev_out, T, B);
+    }
+  } else if (V == 4) {
     lstm_stacked_fwd_kernel<H, 4><<<B2, 4 * H, 0, stream>>>(
         steps, counts, xproj, w_hh_f, w_hh_b, h_out, hprev_out, cprev_out, T, B);
   } else {
@@ -806,7 +926,7 @@ int static_smem(Kernel kernel, int device) {
 
 extern "C" int lasr_lstm_stacked_fwd_smem(int H, int device) {
   return H == 40    ? static_smem(lstm_stacked_fwd_kernel<40, 4>, device)
-         : H == 128 ? static_smem(lstm_stacked_fwd_kernel<128, 4>, device)
+         : H == 128 ? static_smem(lstm_stacked_fwd_pair_kernel<128, 4>, device)
                     : -1;
 }
 
@@ -814,6 +934,21 @@ extern "C" int lasr_lstm_stacked_bwd_smem(int H, int device) {
   return H == 40    ? static_smem(lstm_stacked_bwd_walk_kernel<40, 4>, device)
          : H == 128 ? static_smem(lstm_stacked_bwd_pair_kernel<128, 4>, device)
                     : -1;
+}
+
+// How many clusters of K7's walk at hidden size H (pairs of CTAs; only H =
+// 128 walks on a cluster) the card holds at once
+// (cudaOccupancyMaxActiveClusters), -1 on an error or another H.
+extern "C" int lasr_lstm_stacked_fwd_clusters(int H, int device) {
+  if (H != 128 || cudaSetDevice(device) != cudaSuccess) return -1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(lasr::PairForward<128>::NT);
+  cfg.gridDim = dim3(2);
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, (const void*)lstm_stacked_fwd_pair_kernel<128, 4>,
+                                     &cfg) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 // How many clusters of K8's H = 128 walk (which == 0) or dW pass (which ==

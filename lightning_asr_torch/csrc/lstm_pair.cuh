@@ -1,15 +1,16 @@
 // The BiLSTM walks at H = 128 (the LSTM head) on a cluster of two CTAs.
-// The forward's (K2, lstm.cu; K7 may take it): the split of W_hh's gate
-// rows over the pair and two lanes a row, the chain pair, the 8-lane cell,
-// the h buffer's layout and h's exchange (st.async and an mbarrier).  The
-// backward's, shared by K3 (lstm_bwd.cu) and K8 (lstm_bidir.cu): the shape
-// of a walk and of the dW pass, the pair's step (its cell, its dh_prev,
-// its barrier), and the dW pass's tile.  Each kernel keeps only its own addressing: K2's and K3's frames
-// at a fixed stride in (B, T, D, .), K8's listed steps of the stacked rows
-// in (T, 2B, .).  The layouts are stated once in Python
+// The forward's, shared by K2 (lstm.cu) and K7 (lstm_bidir.cu): the split
+// of W_hh's gate rows over the pair and two lanes a row, the chain pair, the
+// 8-lane cell, the h buffer's layout, h's exchange (st.async and an
+// mbarrier) and the walk's loop (pair_forward_walk).  The backward's, shared
+// by K3 (lstm_bwd.cu) and K8 (lstm_bidir.cu): the shape of a walk and of the
+// dW pass, the pair's step (its cell, its dh_prev, its barrier), and the dW
+// pass's tile.  Each kernel keeps only its own addressing: K2's and K3's
+// frames at a fixed stride in (B, T, D, .), K7's and K8's listed steps of
+// the stacked rows in (T, 2B, .).  The layouts are stated once in Python
 // (ops/lstm_kernels.py PAIR_HIDDEN, DW_CHUNKS, forward_smem_bytes,
-// backward_smem_bytes, stacked_backward_smem_bytes) and checked on the
-// card.
+// backward_smem_bytes, stacked_forward_smem_bytes,
+// stacked_backward_smem_bytes) and checked on the card.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -169,6 +170,57 @@ __device__ __forceinline__ void pair_publish_h(float (&h_s)[2][H], int k, int bu
                                                uint32_t peer_h, uint32_t peer_bar) {
   h_s[buf][pair_h_index(k)] = h;
   st_async(peer_h + 4 * H * buf, h, peer_bar + 8 * buf);
+}
+
+// The forward walk of a pair CTA over its row's n steps (K2: a (row,
+// direction)'s frames; K7: a stacked row's listed steps), the step and the
+// exchange above.  Step s's 4U projections sit in ring slot s % LSTM_RING
+// (gate i's U at [iU, (i + 1) U)); the thread steps unit kk of the CTA's U
+// (k of H), gate m, chain half p.  Before it, the caller has committed the
+// first LSTM_RING - 1 steps' copies one group each, zeroed h_s[0],
+// initialised both mbarriers (mbar_init_one) and taken the partner's
+// addresses (cluster_addr).  Iteration s calls copies(slot, s), which issues
+// step s + LSTM_RING - 1's copies into `slot` (free: every thread of the CTA
+// has passed the barrier of step s - 1) where that step exists, and the
+// walk commits them as one group; then emit(s, h, c, last), the step's
+// outputs from h and c (the same in all eight lanes of the unit).  Both
+// CTAs of a pair see the same n, so they take the same branches; a CTA with
+// n = 0 passes no cluster barrier.  Nothing goes to the partner after the
+// row's last step.
+template <int H, typename Copies, typename Emit>
+__device__ __forceinline__ void pair_forward_walk(
+    int n, float (&ring)[LSTM_RING][PairForward<H>::SLOT], float (&h_s)[2][H],
+    unsigned long long (&full)[2], const float (&wv)[PairForward<H>::Q][4], int kk, int m, int p,
+    int k, uint32_t peer_h, uint32_t peer_bar, Copies&& copies, Emit&& emit) {
+  constexpr int U = PairForward<H>::U, RING = LSTM_RING;
+  static_assert(RING >= 2 && RING % 2 == 0, "step s is read while step s + RING - 1 is staged");
+  if (n <= 0) return;
+  cp_async_wait<RING - 2>();                        // step 0 has landed
+  cluster_sync();                                   // in every slot; h_s[0]; both mbarriers set up
+  float c = 0.f;
+  for (int s0 = 0; s0 < n; s0 += RING) {
+#pragma unroll
+    for (int u = 0; u < RING; ++u) {
+      const int s = s0 + u;
+      if (s >= n) break;
+      // the partner's half of h of step s (h of step 0 is zeros)
+      if (s > 0) mbar_wait(&full[u & 1], ((s - 1) >> 1) & 1);
+      const float h = pair_cell_forward<H>(ring[u][m * U + kk], wv, h_s[u & 1], p, m, c);
+      if (s + 1 == n) {                             // the last step: nothing to publish
+        emit(s, h, c, true);
+        break;
+      }
+      if ((threadIdx.x & 7) == 0) pair_publish_h<H>(h_s, k, (u + 1) & 1, h, peer_h, peer_bar);
+      if (threadIdx.x == 0) mbar_arrive_expect(&full[(u + 1) & 1], 4 * U);
+      // off the chain: step s + RING - 1's copies into slot s - 1; then the
+      // step's outputs
+      copies(ring[(u + RING - 1) % RING], s);
+      cp_async_commit();
+      emit(s, h, c, false);
+      cp_async_wait<RING - 2>();                    // step s + 1 has landed
+      __syncthreads();                              // in every slot; the CTA's half of h
+    }
+  }
 }
 
 // W_hh's values a walk thread keeps: lane L of warp w of CTA r holds

@@ -101,7 +101,7 @@ import torch
 _LOCK = threading.Lock()
 _KERNEL_HIDDEN = (40, 128)  # hidden sizes instantiated in csrc/lstm*.cu (context BiLSTM, LSTM head)
 BACKWARD_RING = 8           # K2's, K3's, K7's and K8's ring slots (csrc/lstm_util.cuh LSTM_RING)
-PAIR_HIDDEN = 128           # K2's, K3's and K8's hidden size walked by a CTA pair (csrc/lstm_pair.cuh)
+PAIR_HIDDEN = 128           # K2's, K3's, K7's, K8's H walked by a CTA pair (csrc/lstm_pair.cuh)
 DW_CHUNKS = 8               # frame chunks of their dW pass at PAIR_HIDDEN (PairShape::CHUNKS)
 
 
@@ -132,10 +132,11 @@ def backward_smem_bytes(H: int) -> int:
 
 
 def stacked_forward_smem_bytes(H: int) -> int:
-    """The static shared memory of K7's walk (csrc/lstm_bidir.cu): a ring of
-    ``BACKWARD_RING`` slots of one step's projection (4H floats), h of two
-    steps, then a ring of ``2 * BACKWARD_RING`` step-list entries (int32)."""
-    return 4 * (BACKWARD_RING * 4 * H + 2 * H + 2 * BACKWARD_RING)
+    """The static shared memory of a CTA of K7's walk (csrc/lstm_bidir.cu):
+    K2's layout at the same H (``forward_smem_bytes``: at H = 40 the
+    one-block walk's, at ``PAIR_HIDDEN`` a pair CTA's), then a ring of
+    ``2 * BACKWARD_RING`` step-list entries (int32)."""
+    return forward_smem_bytes(H) + 4 * 2 * BACKWARD_RING
 
 
 def stacked_backward_smem_bytes(H: int) -> int:
@@ -450,6 +451,20 @@ def lstm_core(xproj: torch.Tensor, lengths: torch.Tensor, w_hh: torch.Tensor) ->
 # the first after the walk.  Its shared memory is
 # ``stacked_forward_smem_bytes``, its copy width ``backward_copy_width``.
 #
+# At ``PAIR_HIDDEN`` that walk's rows of W_hh (128 floats a thread) spilled
+# 1.3 KB, so K7 takes K2's H = 128 walk after the same step lists: a
+# cluster of two CTAs a stacked row, each owning 64 units and their 256 gate
+# rows, two lanes a row and 64 W_hh values a thread in ``dot_h``'s chain
+# order (so h is K2's bit for bit), h sent to the partner by ``st.async``
+# and counted on its mbarrier (the one loop K2 and K7 share,
+# ``csrc/lstm_pair.cuh`` ``pair_forward_walk``), its ring of the CTA's 256
+# projections a step fed from the row's step list through each CTA's own
+# list ring.  The mbarrier's phases count listed steps, not frames.  Lanes
+# 0, 1 and 2 of a unit's eight store h, h_prev and c_prev and the gap after
+# the step; each CTA writes its own units' steps before the first listed
+# one.  ``stacked_forward_clusters_on_card`` reads how many of its pairs
+# (2B needed) the card holds at once.
+#
 # K8 is K3's design on the stacked rows, three kernels on the stream: each
 # row's valid steps listed in walk order (t descending) with their count,
 # on the card (no sync with the host); a gates pass that recomputes every
@@ -535,11 +550,14 @@ def lstm_recurrence_stacked(xproj: torch.Tensor, valid: torch.Tensor,
     """K7: xproj (T, 2B, 4H) float32 gate projections (biases folded in),
     valid (T, 2B) float32, w_hh_f and w_hh_b (4H, H) -> (h, h_prev, c_prev),
     each (T, 2B, H): the masked h and the state before each step.  A CPU
-    tensor runs the plain version; a CUDA tensor launches the kernel or
-    raises."""
+    tensor runs the plain version; a CUDA tensor launches the kernels (at
+    ``PAIR_HIDDEN`` the step lists and the pair walk) or raises."""
     T, B, G, H = _check_stacked_args(xproj, valid, w_hh_f, w_hh_b)
     if xproj.device.type == "cpu":
         return lstm_recurrence_stacked_plain(xproj, valid, w_hh_f, w_hh_b)
+    if H == PAIR_HIDDEN and xproj.numel() >= 2 ** 31:
+        raise ValueError(f"K7's pair walk indexes its (T, 2B, 4H) tensors with 32-bit offsets, got "
+                         f"{tuple(xproj.shape)}")
 
     from .kernel_build import library
 
@@ -656,6 +674,13 @@ def stacked_forward_smem_on_card(H: int, device: torch.device) -> int:
     hidden size H (-1 without an instantiation): the card's check of
     ``stacked_forward_smem_bytes``."""
     return _card_query("lstm_bidir", "lasr_lstm_stacked_fwd_smem", H, device)
+
+
+def stacked_forward_clusters_on_card(device: torch.device) -> int:
+    """How many clusters of K7's walk at ``PAIR_HIDDEN`` (pairs of CTAs) the
+    card holds at once (``cudaOccupancyMaxActiveClusters``; -1 on an
+    error)."""
+    return _card_query("lstm_bidir", "lasr_lstm_stacked_fwd_clusters", PAIR_HIDDEN, device)
 
 
 def stacked_backward_smem_on_card(H: int, device: torch.device) -> int:

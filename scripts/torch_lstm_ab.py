@@ -7,9 +7,9 @@ training shape (B=32, T'=836, C=256, H=40) on ragged rows
 (``chip_smoke.train_rows``) and on rows that all fill T'; then K2, K3, K7 and K8
 at the LSTM head's H=128 on ``chip_smoke.h128_kernels``' inputs (B=32,
 T'=836, C=1024, ragged rows), K2 with and without its cell output, K2's,
-K3's and K8's device time split by kernel, and K2 with its cell output at
-B=64 (``h128_b64``: 64 rows of ``train_rows``' lengths), where its pair
-walk needs 128 clusters of two CTAs.
+K3's, K7's and K8's device time split by kernel, and K2 with its cell
+output and K7 at B=64 (``h128_b64``: 64 rows of ``train_rows``' lengths),
+where their pair walks need 128 clusters of two CTAs.
 
 Each checkout runs in a process of its own, with the kernels built from its
 own sources and its own ``chip_smoke.py``'s row lengths.  Name them in the
@@ -18,19 +18,21 @@ git-ignored directory), the change, the change, the parent:
 
     python3 scripts/torch_lstm_ab.py build/archive/parent . . build/archive/parent
 
-Prints one JSON line a run (ms by CUDA events over ITERS calls with warm
+Prints one JSON line a run (the card's name and power limit from
+``nvidia-smi``; ms by CUDA events over ITERS calls with warm
 L2; K2's ``cold_ms``, each call after a 64 MB write that evicts L2; µs per
 sequential step; K8's device time by kernel from torch.profiler; the
 registers and spills of the BiLSTM forward kernels from ptxas; and a
 digest of each kernel's outputs, so that runs of checkouts that share a
 kernel show whether its bits moved; K3's and K8's registers and spills at
 both hidden sizes; at H=128 the resident clusters of K8's walk and dW
-pass, and of K2's walk, where the checkout has them) and a summary line
-last.  Needs a card; imports no JAX.
+pass, and of K2's and K7's walks, where the checkout has them) and a
+summary line last.  Needs a card; imports no JAX.
 """
 
 from __future__ import annotations
 
+import subprocess
 import sys
 from pathlib import Path
 
@@ -63,7 +65,10 @@ def run_one(root: Path) -> dict:
     ptxas = {k: v for name in ("lstm", "lstm_bidir")
              for k, v in chip_smoke.ptxas_kernels(reports.get(name, "")).items() if "fwd" in k}
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    out = {"root": str(root), "card": torch.cuda.get_device_name(0), "ptxas": ptxas,
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    out = {"root": str(root), "card": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+           "ptxas": ptxas,
            "K3_ptxas": chip_smoke.ptxas_kernels(reports.get("lstm_bwd", "")),
            "K8_ptxas": {k: v for k, v in chip_smoke.ptxas_kernels(reports.get("lstm_bidir", "")).items()
                         if k.startswith("lstm_stacked_") and "fwd" not in k}}
@@ -131,11 +136,13 @@ def run_one(root: Path) -> dict:
     k8 = lambda: lstm_backward_stacked(xp, valid, w_f, w_b, h7[1], h7[2], gs)  # noqa: E731
     k2 = lambda: lstm_recurrence(xproj, lens, w_hh, with_cell=True)  # noqa: E731
     steps = int(lens_np.max())
+    k7 = lambda: lstm_recurrence_stacked(xp, valid, w_f, w_b)  # noqa: E731
     ms = {"K2_with_cell": chip_smoke.cuda_ms(k2, ITERS),
           "K2": chip_smoke.cuda_ms(lambda: lstm_recurrence(xproj, lens, w_hh), ITERS),
-          "K3": chip_smoke.cuda_ms(k3, ITERS), "K8": chip_smoke.cuda_ms(k8, ITERS)}
+          "K3": chip_smoke.cuda_ms(k3, ITERS), "K7": chip_smoke.cuda_ms(k7, ITERS),
+          "K8": chip_smoke.cuda_ms(k8, ITERS)}
     splits = {}
-    for key, fn in (("K2", k2), ("K3", k3), ("K8", k8)):
+    for key, fn in (("K2", k2), ("K3", k3), ("K7", k7), ("K8", k8)):
         try:
             split = chip_smoke.device_time(fn, 5)[2]
         except SystemExit as e:
@@ -154,16 +161,24 @@ def run_one(root: Path) -> dict:
     clusters = getattr(lstm_kernels, "forward_clusters_on_card", None)
     if clusters is not None:                    # the checkout's K2 walks at H=128 on a pair
         out["h128"]["K2_resident_clusters"] = {"walk": clusters(dev), "walk_needed": 2 * B}
+    clusters = getattr(lstm_kernels, "stacked_forward_clusters_on_card", None)
+    if clusters is not None:                    # the checkout's K7 walks at H=128 on a pair
+        out["h128"]["K7_resident_clusters"] = {"walk": clusters(dev), "walk_needed": 2 * B}
 
     B64 = 2 * B
     _, (_, w_hh, _, _), lens_np, lens, xproj = chip_smoke.bilstm_inputs(
         dev, np.random.default_rng(64), B64, T, C=1024, H=H128)
     k2 = lambda: lstm_recurrence(xproj, lens, w_hh, with_cell=True)  # noqa: E731
-    ms = chip_smoke.cuda_ms(k2, ITERS)
+    xp = stack_directions(xproj).contiguous()
+    valid = stacked_valid(T, lens)
+    w_f, w_b = w_hh[0].contiguous(), w_hh[1].contiguous()
+    k7 = lambda: lstm_recurrence_stacked(xp, valid, w_f, w_b)  # noqa: E731
+    ms = {"K2_with_cell": chip_smoke.cuda_ms(k2, ITERS), "K7": chip_smoke.cuda_ms(k7, ITERS)}
     steps = int(lens_np.max())
-    out["h128_b64"] = {"ms": {"K2_with_cell": ms}, "sequential_steps": steps,
-                       "us_per_step": {"K2_with_cell": 1e3 * ms / steps},
-                       "digest": {"K2_h": digest(k2()[0]), "K2_c": digest(k2()[1])}}
+    out["h128_b64"] = {"ms": ms, "sequential_steps": steps,
+                       "us_per_step": {k: 1e3 * v / steps for k, v in ms.items()},
+                       "digest": {"K2_h": digest(k2()[0]), "K2_c": digest(k2()[1]),
+                                  "K7": digest(*k7())}}
     return out
 
 

@@ -36,6 +36,7 @@ from lightning_asr_torch.ops.depthwise_kernels import depthwise_wgrad_plain, wgr
 from lightning_asr_torch.ops import frontend_kernels as fk
 from lightning_asr_torch.ops.frontend import MelFrontendConfig, dft_filters, mel_filterbank
 from lightning_asr_torch.ops.kernel_build import SMEM_LIMIT
+from lightning_asr_torch.ops.lstm import stack_directions, stacked_valid, unstack_directions
 from lightning_asr_torch.ops.lstm_kernels import (BACKWARD_RING, DW_CHUNKS, PAIR_HIDDEN,
                                                   backward_copy_width,
                                                   backward_smem_bytes, forward_smem_bytes,
@@ -1385,6 +1386,204 @@ def test_k2_h128_pair_walk_replayed_gives_the_one_block_bits(length, V, D):
         assert np.abs(got - want).max() <= 1e-5 * max(1.0, np.abs(want).max())
     for b, n in enumerate(lengths):
         assert np.all(got_h[b, n:] == 0) and np.all(got_c[b, n:] == 0)
+
+
+def test_k7_h128_shared_memory():
+    """K7's layout at the LSTM head's H = 128: a CTA of the pair walk holds
+    K2's pair layout (its 256 gates' projections a slot, two h buffers of
+    all 128 units, their two mbarriers) and the list ring of 2
+    ``BACKWARD_RING`` entries; H = 40's one-block layout is unchanged."""
+    H, U = PAIR_HIDDEN, PAIR_HIDDEN // 2
+    assert stacked_forward_smem_bytes(H) == forward_smem_bytes(H) + 4 * 2 * BACKWARD_RING \
+        == 4 * (BACKWARD_RING * 4 * U + 2 * H + 2 * BACKWARD_RING) + 2 * 8 == 9296 <= STATIC_SMEM_LIMIT
+    assert stacked_forward_smem_bytes(40) == 5504
+
+
+def _k7_pair_replay(xproj, valid, w_f, w_b, V, order_seed=0):
+    """K7's H = 128 walk (csrc/lstm_bidir.cu lstm_stacked_fwd_pair_kernel,
+    the loop of csrc/lstm_pair.cuh pair_forward_walk) in float32:
+    ``_k2_pair_replay``'s two CTAs a stacked row, stepping in any order their
+    waits allow (a seeded choice), each with its ring of its 4U projections
+    a step copied V floats at a time from listed step list[s] (``_Ring``)
+    and its own list ring of 2 ``BACKWARD_RING`` entries (the list read from
+    its end: the first 2 ``BACKWARD_RING`` - 1 entries read before the
+    walk, each later one copied in an iteration's group, both rings' groups
+    committed and landed together).  The mbarrier's phases count listed
+    steps; each h buffer is checked whole and of the right step when read,
+    and read by its CTA before anything is stored into it again; nothing is
+    stored into a CTA that has left.  Lanes 0, 1, 2 of a unit's eight store
+    h, h_prev and c_prev at the listed step, then the gap up to the next one
+    (0, the state); each CTA's steps before the first listed one after its
+    walk.  The outputs start as NaN, so a step nobody writes would show."""
+    T, B2, G = xproj.shape
+    B, H, R = B2 // 2, G // 4, BACKWARD_RING
+    U, LR = H // 2, 2 * R
+    steps, counts = _k8_steps(valid)
+    outs = [np.full((T, B2, H), np.nan, np.float32) for _ in range(3)]     # h, h_prev, c_prev
+    xf = xproj.ravel()
+    order = np.random.default_rng(order_seed)
+    thread = np.arange(2 * 4 * U)
+    L = thread % 32
+    kk = 4 * (thread // 32) + (L >> 3)
+    m, p = (L >> 1) % 4, L % 2
+    pos = 8 * np.arange(H // 8)[None, :, None] + 4 * p[:, None, None] + np.arange(4)   # (NT, Q, 4)
+    inv = np.empty(H, int)
+    inv[_pair_h_index(np.arange(H))] = np.arange(H)
+    units = np.arange(U)
+    for row in range(B2):
+        n, lst = int(counts[row]), steps[row]
+        entry = lambda e: lst[n - 1 - e:n - e].astype(np.float64)   # noqa: E731 (ascending entry e)
+        w = w_f if row < B else w_b
+        wv = [w[(m * H + r * U + kk)[:, None, None], inv[pos]] for r in range(2)]
+        rings, lrings = [_Ring(4 * U), _Ring(4 * U)], [_Ring(1, LR), _Ring(1, LR)]
+        hbuf = [[np.full(H, np.nan, np.float32) for _ in range(2)] for _ in range(2)]
+        tag = [[np.full(H, -1) for _ in range(2)] for _ in range(2)]
+        read_at = [[None, None] for _ in range(2)]
+        phases = [[0, 0] for _ in range(2)]
+        armed = [[False, False] for _ in range(2)]
+        got = [[0, 0] for _ in range(2)]
+        left, nxt = [False, False], [0, 0]
+        c = [np.zeros(U, np.float32), np.zeros(U, np.float32)]
+        old = [(np.zeros(U, np.float32), np.zeros(U, np.float32)) for _ in range(2)]   # h_prev, c_prev
+        t_first, t_cur = [T, T], [T, T]
+
+        def cols(r):
+            return slice(r * U, (r + 1) * U)
+
+        def copies(r, t):
+            t = int(t)
+            assert 0 <= t < T and valid[t, row] > 0, (row, t)
+            base = (t * B2 + row) * G
+            return [(e, xf[base + e // U * H + r * U + e % U:][:V]) for e in range(0, 4 * U, V)]
+
+        def commit(r, s):                                # iteration s's group (both rings')
+            st = s + R - 1
+            rings[r].commit(*((st, copies(r, lrings[r].read(st)[0])) if st < n else ()))
+            lrings[r].commit(*((s + LR - 1, [(0, entry(s + LR - 1))]) if s + LR - 1 < n else ()))
+
+        def settle(r, buf):
+            if armed[r][buf] and got[r][buf] == 4 * U:
+                phases[r][buf] += 1
+                armed[r][buf], got[r][buf] = False, 0
+
+        def store(dst, buf, s, h, r):
+            assert not left[dst], (row, s, r)
+            assert read_at[dst][buf] == (s - 1 if s else None), (row, s, r, read_at)
+            hbuf[dst][buf][_pair_h_index(r * U + units)] = h
+            tag[dst][buf][_pair_h_index(r * U + units)] = s + 1
+
+        def ready(r):
+            s = nxt[r]
+            return s == 0 or phases[r][s & 1] > (s - 1) >> 1
+
+        def leave(r):                                    # the steps before the first listed one
+            for o in outs:
+                o[:t_first[r], row, cols(r)] = 0.0
+            left[r] = True
+
+        def emit(r, s, h, last):
+            t_next = T if last else int(lrings[r].read(s + 1)[0])
+            for o, v in zip(outs, (h, *old[r])):
+                o[t_cur[r], row, cols(r)] = v
+            for o, v in zip(outs, (0.0, h, c[r])):       # the gap up to the next listed step
+                o[t_cur[r] + 1:t_next, row, cols(r)] = v
+            t_cur[r], old[r] = t_next, (h, c[r].copy())
+
+        def step(r):
+            s, buf = nxt[r], nxt[r] & 1
+            assert np.all(tag[r][buf] == s), (row, s, r)
+            read_at[r][buf] = s
+            x = rings[r].read(s).astype(np.float32)[m * U + kk]
+            hv = hbuf[r][buf][pos]
+            a0, a1 = np.zeros(len(thread), np.float32), np.zeros(len(thread), np.float32)
+            for q in range(H // 8):
+                a0 = a0 + wv[r][:, q, 0] * hv[:, q, 0]
+                a1 = a1 + wv[r][:, q, 1] * hv[:, q, 1]
+                a0 = a0 + wv[r][:, q, 2] * hv[:, q, 2]
+                a1 = a1 + wv[r][:, q, 3] * hv[:, q, 3]
+            half = a0 + a1
+            pre = x + (half + half[thread ^ 1])
+            sg, th = _sig(pre).astype(np.float32), np.tanh(pre)
+            act = np.where(m == 2, th, sg).reshape(U, 8)
+            ig, fg, gg, og = act[:, 0], act[:, 2], act[:, 4], act[:, 6]
+            c[r] = fg * c[r] + ig * gg
+            h = og * np.tanh(c[r])
+            nxt[r] += 1
+            if s + 1 == n:                               # the last step: nothing to publish
+                emit(r, s, h, True)
+                leave(r)
+                return
+            nb = (s + 1) & 1
+            store(r, nb, s, h, r)
+            store(r ^ 1, nb, s, h, r)
+            assert got[r ^ 1][nb] == 0, (row, s, r)
+            got[r ^ 1][nb] += 4 * U
+            settle(r ^ 1, nb)
+            assert not armed[r][nb], (row, s, r)
+            armed[r][nb] = True
+            settle(r, nb)
+            commit(r, s)
+            emit(r, s, h, False)
+            rings[r].wait(R - 2)                         # step s + 1 landed; __syncthreads
+            lrings[r].wait(R - 2)
+
+        for r in range(2):
+            for e in range(min(n, LR - 1)):              # read before the walk
+                lrings[r].slots[e], lrings[r].holds[e] = entry(e), e
+            for s in range(R - 1):
+                rings[r].commit(*((s, copies(r, lrings[r].read(s)[0])) if s < n else ()))
+                lrings[r].commit()
+            if n > 0:                                    # before the cluster barrier
+                rings[r].wait(R - 2)
+                lrings[r].wait(R - 2)
+                hbuf[r][0][:] = 0.0
+                tag[r][0][:] = 0
+                t_first[r] = t_cur[r] = int(lrings[r].read(0)[0])
+            else:
+                leave(r)
+        while not all(left):
+            can = [r for r in range(2) if not left[r] and ready(r)]
+            assert can, (row, nxt)                       # no deadlock
+            step(can[order.integers(len(can))])
+    return outs
+
+
+K7_PAIR_T = 24
+
+
+# the pair walk at the LSTM head's width: a row of each length beside a
+# full one (0, 1, around the ring's 8 slots, around the list ring's 16
+# entries, T), or a random mask with holes; copy widths 4 and 1
+@pytest.mark.parametrize("V", [4, 1])
+@pytest.mark.parametrize("rows", [0, 1, 7, 8, 9, 15, 16, 17, K7_PAIR_T, "holes"])
+def test_k7_h128_pair_walk_replayed_gives_k2s_bits_and_the_plain_forward(rows, V):
+    """K7 at H = 128: the pair walk fed from the step lists, replayed, gives
+    h equal to K2's pair walk's replay (``_k2_pair_replay``) bit for bit on
+    a contiguous mask, and h, h_prev and c_prev within 1e-5 of the plain
+    forward, exactly 0 at the invalid steps."""
+    seed = (rows if rows != "holes" else 99) + 10 * V
+    rng = np.random.default_rng(seed + 128)
+    T, H = K7_PAIR_T, PAIR_HIDDEN
+    lengths = np.array([rows, T] if rows != "holes" else [T, T, T], np.int32)
+    B = len(lengths)
+    xproj = rng.standard_normal((B, T, 2, 4 * H)).astype(np.float32)
+    w_hh = (rng.uniform(-1, 1, (2, 4 * H, H)) / np.sqrt(H)).astype(np.float32)
+    xs = stack_directions(torch.from_numpy(xproj)).contiguous().numpy()
+    valid = stacked_valid(T, torch.from_numpy(lengths)).numpy()
+    if rows == "holes":
+        valid = (rng.uniform(size=(T, 2 * B)) < 0.7).astype(np.float32)
+    got = _k7_pair_replay(xs, valid, w_hh[0], w_hh[1], V, order_seed=seed)
+    if rows != "holes":
+        k2_h, _ = _k2_pair_replay(xproj, lengths, w_hh, V, order_seed=seed + 1)
+        assert np.array_equal(unstack_directions(torch.from_numpy(got[0])).reshape(B, T, 2 * H).numpy(),
+                              k2_h)
+    want = lstm_recurrence_stacked_plain(*(torch.from_numpy(a) for a in (xs, valid, w_hh[0], w_hh[1])))
+    # float32 both, sums in another order, through at most 24 steps; |c| past 1
+    for g, w in zip(got, want):
+        w = w.numpy()
+        assert not np.isnan(g).any()
+        assert np.abs(g - w).max() <= 1e-5 * max(1.0, np.abs(w).max())
+    assert np.all(got[0][valid <= 0] == 0)
 
 
 def test_k5_ring_and_shared_memory_for_every_S():

@@ -31,6 +31,7 @@ from lightning_asr_torch.ops.lstm_kernels import (backward_copy_width, backward_
                                                   lstm_recurrence_stacked_plain,
                                                   stacked_backward_smem_bytes,
                                                   stacked_backward_smem_on_card,
+                                                  stacked_forward_clusters_on_card,
                                                   stacked_forward_smem_bytes,
                                                   stacked_forward_smem_on_card)
 from lightning_asr_torch.ops.sepconv_kernels import (bf16_product_mismatches, sepconv_backward,
@@ -332,13 +333,13 @@ K7_CASES = [(836, [836, 790, 702, 655, 519, 418, 417, 330, 241, 100], "lengths")
             (50, [50, 50, 50], "random")]
 
 
-def _k7_check(xproj, valid, w_f, w_b):
+def _k7_check(xproj, valid, w_f, w_b, tol=1e-5):
     before = lstm_recurrence_stacked.launches
     got = lstm_recurrence_stacked(xproj, valid, w_f, w_b)
     assert lstm_recurrence_stacked.launches == before + 1
     want = lstm_recurrence_stacked_plain(xproj, valid, w_f, w_b)
     # float32; dot sums in another order, the card's expf/tanhf; |c| past 1
-    for a, ref, tol in zip(got, want, (1e-5, 1e-5, 1e-4)):
+    for a, ref, tol in zip(got, want, (tol, tol, 10 * tol)):
         assert (a - ref).abs().max().item() <= tol
     assert bool((got[0][valid <= 0] == 0).all())
     again = lstm_recurrence_stacked(xproj, valid, w_f, w_b)
@@ -380,6 +381,61 @@ def test_k7_h_equals_k2_bit_for_bit(dev, T, lengths):
 
 def test_k7_shared_memory_as_stated(dev):
     assert stacked_forward_smem_on_card(40, dev) == stacked_forward_smem_bytes(40)
+
+
+# K7 at the LSTM head's H = 128: the training T' on ragged rows with lengths
+# around the ring's 8 slots and the list ring's 16 entries, 0 and 1; holes
+# one ring apart and a random mask (gaps inside the walk)
+K7_H128_CASES = [(836, [836, 790, 519, 100, 17, 16, 15, 1, 0], "lengths"),
+                 (40, [0, 1, 7, 8, 9, 15, 16, 17, 40], "lengths"),
+                 (90, [90, 61, 30, 0], "holes"), (50, [50, 50, 50], "random")]
+
+
+@pytest.mark.parametrize("T,lengths,mask", K7_H128_CASES)
+def test_k7_h128_pair_walk_against_plain(dev, T, lengths, mask):
+    """K7's pair walk at H = 128 against its plain version (K2's tolerance
+    at that width: 128-term dots), twice for the same bits, exact zeros at
+    the invalid steps; with xproj one float off 16 bytes (copies of one
+    float) the same bits; its shared memory as stated, its pairs resident."""
+    xproj, valid, w_f, w_b, _ = _stacked_case(dev, T, lengths, T + 2, mask, H=128)
+    got = _k7_check(xproj, valid, w_f, w_b, tol=1e-4)
+    off = torch.cat([xproj.new_zeros(1), xproj.flatten()])[1:].view(xproj.shape)
+    assert backward_copy_width(off) == 1
+    assert all(torch.equal(a, b) for a, b in zip(lstm_recurrence_stacked(off, valid, w_f, w_b), got))
+    assert stacked_forward_smem_on_card(128, dev) == stacked_forward_smem_bytes(128) == 9296
+    assert stacked_forward_clusters_on_card(dev) > 0
+
+
+def test_k7_h128_refuses_what_32_bit_offsets_cannot_reach(dev):
+    """K7's pair walk indexes (T, 2B, 4H) with 32-bit offsets: 2 ** 31
+    projections (8 GiB) raise before any launch."""
+    T, B2, H = 2 ** 31 // (64 * 4 * 128), 64, 128
+    xproj = torch.empty((T, B2, 4 * H), device=dev)
+    w = torch.zeros((4 * H, H), device=dev)
+    before = lstm_recurrence_stacked.launches
+    with pytest.raises(ValueError, match="32-bit"):
+        lstm_recurrence_stacked(xproj, torch.ones((T, B2), device=dev), w, w)
+    assert lstm_recurrence_stacked.launches == before
+
+
+@pytest.mark.parametrize("T,lengths", [(836, [836, 790, 702, 655, 519, 418, 417, 330, 241, 100]),
+                                       (40, [40, 0, 1, 7, 8, 9, 15, 16, 17, 39])])
+def test_k7_h128_h_equals_k2_bit_for_bit(dev, T, lengths):
+    """At H = 128 K7's pair walk on the stacked rows and K2's on the same
+    projections and lengths run one loop (``pair_forward_walk``): h is equal
+    bit for bit, and K7's c_prev at each row's next step is K2's cell."""
+    H, B = 128, len(lengths)
+    g = torch.Generator().manual_seed(T + 128)
+    xproj = torch.randn((B, T, 2, 4 * H), generator=g).to(dev)
+    w_hh = ((torch.rand((2, 4 * H, H), generator=g) * 2 - 1) / np.sqrt(H)).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    h2, c2 = lstm_recurrence(xproj, lens, w_hh, with_cell=True)
+    h7, _, c_prev = lstm_recurrence_stacked(stack_directions(xproj).contiguous(), stacked_valid(T, lens),
+                                            w_hh[0].contiguous(), w_hh[1].contiguous())
+    assert torch.equal(unstack_directions(h7).reshape(h2.shape), h2)
+    c_next = unstack_directions(torch.cat([c_prev[1:], c_prev[:1]]))        # c after each step
+    for b, n in enumerate(lengths):
+        assert torch.equal(c_next[b, :max(n - 1, 0), 0], c2[b, :max(n - 1, 0), 0])
 
 
 def test_fused_bilstm_on_the_card_matches_k2_k3(dev):

@@ -1,31 +1,70 @@
 """Per-action wall-time profiler (port of
 ``lightning_asr_tpu/training/profiler.py``): the reference's
-``profiler="simple"`` table at the end of a fit, and ``torch_trace`` to
-capture a ``torch.profiler`` trace (Chrome format) of a region."""
+``profiler="simple"`` table at the end of a fit, and the port's spans.
+
+A span (``span(name)``) marks a phase of the program where its work
+happens (the train step's ``features``, ``forward``, ``backward``,
+``all_reduce`` and ``update``, ``training/steps.py``).  Spans are off by
+default: ``span`` then reads one module global and returns a shared no-op
+context, with no clock read, no allocation and no device work.  Inside
+``tracing(profiler)`` each span is recorded into ``profiler`` as
+``SimpleProfiler.profile`` records an action: its host time from
+``time.perf_counter_ns`` at entry and exit, under its nested name
+(``train_step/update``), with its parent kept so that its self time can be
+read, and inside ``torch.profiler.record_function("lasr/<nested name>")``,
+so that under an active torch.profiler it is an annotation on the clock of
+the CUDA runtime's and the kernels' records.  Spans nest per profiler, in
+the thread that opens them.
+"""
 
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import defaultdict
-from contextlib import contextmanager
-from pathlib import Path
 from typing import Optional
+
+from torch.profiler import record_function
+
+_clock = time.perf_counter_ns
+_OFF = contextlib.nullcontext()
+_TRACING: Optional["SimpleProfiler"] = None
+ANNOTATION_PREFIX = "lasr/"
 
 
 class SimpleProfiler:
+    """Host seconds and calls by action (``totals``, ``counts``), each
+    action under its nested name, with its enclosing action in
+    ``parents``."""
+
     def __init__(self):
         self.totals = defaultdict(float)
         self.counts = defaultdict(int)
+        self.parents = {}
+        self._open = []
         self._start = time.monotonic()
 
-    @contextmanager
+    @contextlib.contextmanager
     def profile(self, name: str):
-        t0 = time.perf_counter()
+        parent = self._open[-1] if self._open else None
+        full = name if parent is None else f"{parent}/{name}"
+        self.parents.setdefault(full, parent)
+        self._open.append(full)
         try:
-            yield
+            with record_function(ANNOTATION_PREFIX + full):
+                t0 = _clock()
+                try:
+                    yield
+                finally:
+                    self.totals[full] += (_clock() - t0) / 1e9
+                    self.counts[full] += 1
         finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+            self._open.pop()
+
+    def self_seconds(self, name: str) -> float:
+        """``name``'s host seconds less those of the actions inside it."""
+        inner = sum(t for n, t in self.totals.items() if self.parents.get(n) == name)
+        return self.totals[name] - inner
 
     def elapsed(self) -> float:
         return time.monotonic() - self._start
@@ -43,18 +82,19 @@ class SimpleProfiler:
         return "\n".join(lines)
 
 
-@contextmanager
-def torch_trace(log_dir: Optional[str]):
-    """Trace the region with ``torch.profiler`` (host and, on a card, device
-    activity) into ``<log_dir>/trace.json``; nothing without a log_dir."""
-    if not log_dir:
-        yield
-        return
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def span(name: str):
+    """A context that records the phase ``name`` into the profiler of the
+    enclosing ``tracing``; a shared no-op outside one."""
+    prof = _TRACING
+    return _OFF if prof is None else prof.profile(name)
 
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
-    with profile(activities=acts) as prof:
-        yield
-    Path(log_dir).mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
+
+@contextlib.contextmanager
+def tracing(profiler: SimpleProfiler):
+    """Route ``span``s into ``profiler`` inside the block."""
+    global _TRACING
+    prev, _TRACING = _TRACING, profiler
+    try:
+        yield profiler
+    finally:
+        _TRACING = prev

@@ -63,6 +63,13 @@ normalization on the mel stream, cutout on the features) and
 ``SSLRetrainAsrModel``, which holds the trainable wav2vec2 encoder and its
 cutout); their train steps take ``data_parallel`` as ``make_train_step``
 does (no model groups: the SSL entry points split rows only).
+
+Each train step marks its phases with the spans of ``training/profiler.py``:
+``train_step`` around the call, and inside it ``features`` (the supervised
+step's frontend), ``forward`` and ``backward`` (once a micro-batch),
+``all_reduce`` (``data_parallel``) and ``update`` (clipping, NovoGrad, the
+NaN guard and the step's metrics).  Outside a ``tracing`` block a span is
+one read of a module global.
 """
 
 from __future__ import annotations
@@ -80,6 +87,7 @@ from ..optim.novograd import GradientTransformation, apply_updates, global_norm
 from ..parallel import distributed, tp
 from ..parallel.mesh import RowShard, local_rows, row_shard
 from ..utils.device import resolve_device
+from .profiler import span
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -119,24 +127,26 @@ def _keep(finite: torch.Tensor, new, old):
 
 def _guarded_update(state: AsrTrainState, optimizer: GradientTransformation, loss, grads,
                     new_stats, log_probs, out_lens):
-    """Optimizer update + NaN-skip guard + step metrics."""
-    updates, new_opt_state = optimizer.update(grads, state.opt_state, state.params)
-    new_params = apply_updates(state.params, updates)
-    finite = torch.isfinite(loss)
-    new_state = AsrTrainState(
-        step=state.step + 1,
-        params=_keep(finite, new_params, state.params),
-        batch_stats=_keep(finite, new_stats, state.batch_stats),
-        opt_state=_keep(finite, new_opt_state, state.opt_state),
-        nan_count=state.nan_count + (~finite).to(torch.int32),
-    )
-    metrics = {
-        "loss": loss,
-        "grad_norm": global_norm(grads),
-        "finite": finite,
-        "preds": torch.argmax(log_probs, dim=-1).to(torch.int32),
-        "pred_lens": out_lens,
-    }
+    """Optimizer update + NaN-skip guard + step metrics (the ``update``
+    span)."""
+    with span("update"):
+        updates, new_opt_state = optimizer.update(grads, state.opt_state, state.params)
+        new_params = apply_updates(state.params, updates)
+        finite = torch.isfinite(loss)
+        new_state = AsrTrainState(
+            step=state.step + 1,
+            params=_keep(finite, new_params, state.params),
+            batch_stats=_keep(finite, new_stats, state.batch_stats),
+            opt_state=_keep(finite, new_opt_state, state.opt_state),
+            nan_count=state.nan_count + (~finite).to(torch.int32),
+        )
+        metrics = {
+            "loss": loss,
+            "grad_norm": global_norm(grads),
+            "finite": finite,
+            "preds": torch.argmax(log_probs, dim=-1).to(torch.int32),
+            "pred_lens": out_lens,
+        }
     return new_state, metrics
 
 
@@ -170,14 +180,17 @@ def _loss_and_grads(model: torch.nn.Module, blank_id: int, params: Tensors, stat
                     inputs: tuple, targets, target_lens, generator):
     """The model in train mode on ``inputs`` (its positional arguments; the
     generator goes by keyword) and the batch mean of the CTC losses: (loss,
-    gradients, new BatchNorm statistics, log-probs, out_lens)."""
+    gradients, new BatchNorm statistics, log-probs, out_lens); the spans
+    ``forward`` and ``backward``."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     new_stats = {k: v.clone() for k, v in stats.items()}
     with torch.enable_grad():
-        log_probs, out_lens = functional_call(model, {**leaves, **new_stats}, inputs,
-                                              {"generator": generator})
-        loss = torch.mean(ctc_loss(log_probs, out_lens, targets, target_lens, blank_id))
-        grads = torch.autograd.grad(loss, list(leaves.values()))
+        with span("forward"):
+            log_probs, out_lens = functional_call(model, {**leaves, **new_stats}, inputs,
+                                                  {"generator": generator})
+            loss = torch.mean(ctc_loss(log_probs, out_lens, targets, target_lens, blank_id))
+        with span("backward"):
+            grads = torch.autograd.grad(loss, list(leaves.values()))
     return loss.detach(), dict(zip(leaves, grads)), new_stats, log_probs.detach(), out_lens
 
 
@@ -205,14 +218,16 @@ def _mean_over(group: str, tensors: list) -> list:
 def _mean_over_ranks(loss: torch.Tensor, grads: Tensors):
     """(loss, gradients) averaged over the ranks (the module docstring): one
     flat all-reduce over the data group, and with model groups one more
-    over the world for the whole leaves and the loss."""
+    over the world for the whole leaves and the loss (the ``all_reduce``
+    span)."""
     shard = tp.current()
     split = [] if shard is None else [k for k in grads if k in shard.specs]
     whole = [k for k in grads if k not in split]
-    means = _mean_over("data" if shard is None else "world",
-                       [grads[k] for k in whole] + [loss])
-    if split:
-        means[len(whole):len(whole)] = _mean_over("data", [grads[k] for k in split])
+    with span("all_reduce"):
+        means = _mean_over("data" if shard is None else "world",
+                           [grads[k] for k in whole] + [loss])
+        if split:
+            means[len(whole):len(whole)] = _mean_over("data", [grads[k] for k in split])
     out = dict(zip(whole + split, means))
     return means[len(whole) + len(split)].reshape(()), {k: out[k].view(grads[k].shape)
                                                         for k in grads}
@@ -298,7 +313,7 @@ def make_train_step(
 
     def train_step(state: AsrTrainState, batch: dict,
                    generator: Optional[torch.Generator] = None):
-        with tp.model_parallel(shard):
+        with span("train_step"), tp.model_parallel(shard):
             return _train_step(state, batch, generator)
 
     def _train_step(state: AsrTrainState, batch: dict, generator: Optional[torch.Generator]):
@@ -309,7 +324,7 @@ def make_train_step(
         whole = micro = None
         if data_parallel:
             whole, micro = _rank_shards(B, batch["waves"].device, accum_steps)
-        with row_shard(whole):
+        with row_shard(whole), span("features"):
             feats, percents = _features(batch, frontend, from_features, normalize, generator,
                                         augment, freq_mask, time_mask,
                                         crop_weight if crop else None)
@@ -399,15 +414,15 @@ def make_dual_train_step(model: torch.nn.Module, optimizer: GradientTransformati
 
     def train_step(state: AsrTrainState, batch: dict,
                    generator: Optional[torch.Generator] = None):
-        model.train()
-
         def loss_and_grads():
             inputs = _dual_inputs(batch, mel_frontend, generator, True, freq_mask, time_mask)
             return _loss_and_grads(model, blank_id, state.params, state.batch_stats, inputs,
                                    batch["targets"], batch["target_lens"], generator)
 
-        return _guarded_update(state, optimizer,
-                               *_rows_loss_and_grads(data_parallel, batch, loss_and_grads))
+        with span("train_step"):
+            model.train()
+            return _guarded_update(state, optimizer,
+                                   *_rows_loss_and_grads(data_parallel, batch, loss_and_grads))
 
     return train_step
 
@@ -433,15 +448,15 @@ def make_raw_ssl_train_step(model: torch.nn.Module, optimizer: GradientTransform
 
     def train_step(state: AsrTrainState, batch: dict,
                    generator: Optional[torch.Generator] = None):
-        model.train()
-
         def loss_and_grads():
             return _loss_and_grads(model, blank_id, state.params, state.batch_stats,
                                    (batch["waves"], batch["wave_lens"]), batch["targets"],
                                    batch["target_lens"], generator)
 
-        return _guarded_update(state, optimizer,
-                               *_rows_loss_and_grads(data_parallel, batch, loss_and_grads))
+        with span("train_step"):
+            model.train()
+            return _guarded_update(state, optimizer,
+                                   *_rows_loss_and_grads(data_parallel, batch, loss_and_grads))
 
     return train_step
 

@@ -67,10 +67,23 @@ from ..optim.novograd import InjectHyperparamsState
 from ..parallel import distributed, tp
 from .checkpoint import CheckpointManager
 from .loggers import BaseLogger, MultiLogger
-from .profiler import SimpleProfiler
+from .profiler import SimpleProfiler, span, tracing
 from .steps import AsrTrainState, create_train_state, make_eval_step, make_train_step
 
 logger = logging.getLogger(__name__)
+_END = object()
+
+
+def _waited(items, name: str):
+    """``items``, each wait for the next one (the last for the end) in the
+    span ``name``."""
+    it = iter(items)
+    while True:
+        with span(name):
+            item = next(it, _END)
+        if item is _END:
+            return
+        yield item
 
 
 def _resolve_batch_limit(limit, batcher) -> Optional[int]:
@@ -215,6 +228,13 @@ class Trainer:
     # ------------------------------------------------------------------
     def fit(self, resume: Optional[str] = None,
             initial_state: Optional[AsrTrainState] = None) -> AsrTrainState:
+        """Train from ``initial_state``, a checkpoint (``resume``) or the
+        module's weights; the spans of the steps and of the data wait go to
+        ``self.profiler``, whose table ends the fit."""
+        with tracing(self.profiler):
+            return self._fit(resume, initial_state)
+
+    def _fit(self, resume: Optional[str], initial_state: Optional[AsrTrainState]) -> AsrTrainState:
         state = initial_state if initial_state is not None else self.init_state()
         start_epoch = 0
         if resume:
@@ -338,9 +358,8 @@ class Trainer:
         t_epoch = time.monotonic()
         audio_seconds, losses = 0.0, []
         first_step = self.global_step + 1
-        for i, (batch, dev_batch) in enumerate(batch_iter):
-            with self.profiler.profile("train_step"):
-                state, metrics = self._train_step(state, dev_batch, self._seeded(self.global_step))
+        for i, (batch, dev_batch) in enumerate(_waited(batch_iter, "train_data_wait")):
+            state, metrics = self._train_step(state, dev_batch, self._seeded(self.global_step))
             audio_seconds += batch.audio_seconds
             losses.append(metrics["loss"])
             self.global_step += 1

@@ -20,7 +20,7 @@ from lightning_asr_torch.metrics.wer import WER, editdistance_eval, word_error_r
 from lightning_asr_torch.optim import ReduceLROnPlateau, novograd_with_runtime_lr
 from lightning_asr_torch.training.callbacks import EarlyStopping
 from lightning_asr_torch.training.loggers import init_loggers
-from lightning_asr_torch.training.profiler import SimpleProfiler, torch_trace
+from lightning_asr_torch.training.profiler import SimpleProfiler
 from lightning_asr_torch.utils.config import load_config, parse_overrides
 from lightning_asr_torch.utils.yaml_subset import safe_load
 
@@ -157,6 +157,3 @@ def test_callbacks_loggers_profiler(tmp_path):
         with prof.profile("step"):
             pass
     assert prof.counts["step"] == 3 and "step" in prof.summary()
-    with torch_trace(str(tmp_path / "trace")):
-        torch.ones(3).sum()
-    assert json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]

@@ -125,6 +125,8 @@ def test_fit_logs_the_steps_of_make_train_step(corpus, tmp_path):
     val = [m for _, m in trainer.loggers.rows if "val_loss" in m][0]
     assert np.isfinite(val["val_loss"]) and np.isfinite(val["val_wer"])
     assert trainer.profiler.counts["train_step"] == 2
+    summary = trainer.profiler.summary()
+    assert "train_step/backward" in summary and "train_data_wait" in summary
 
 
 def test_checkpoints_keep_top_k_and_last(corpus, tmp_path):

@@ -2424,6 +2424,10 @@ def phase_training(dev, conv_kernel=None, steps: int = TRAIN_STEPS, fuse_directi
           f"{name}: the training loss did not fall: {losses}")
     want = {fn.__name__: n * steps for fn, n in per_step.items()}
     check(launches == want, f"{name}: kernel launches over {steps} steps: {launches}, want {want}")
+    # one batch shape and generator: the first step runs eagerly and records
+    # the graph, the others replay it (training/graphs.py)
+    routes = dict(step.graphs.counts)
+    check(routes == {"capture": 1, "replay": steps - 1}, f"{name}: the step's routes {routes}")
 
     steady = times[2:]
     median_ms = 1e3 * statistics.median(steady)
@@ -2436,7 +2440,7 @@ def phase_training(dev, conv_kernel=None, steps: int = TRAIN_STEPS, fuse_directi
     device_ms, by_cat, top, passes = device_time(one_step, TRAIN_PROFILE_STEPS)
     res = {"phase": name, "encoder": encoder, "lstm_head": lstm_head, "batch": TRAIN_BATCH,
            "bucket_s": TRAIN_BUCKET_S, "audio_s_per_batch": audio_s,
-           "steps": steps, "losses": losses, "launches": launches,
+           "steps": steps, "losses": losses, "launches": launches, "routes": routes,
            "step_ms": {"median": median_ms, "min": 1e3 * min(steady), "max": 1e3 * max(steady),
                        "mean": 1e3 * steady_s / len(steady), "first": 1e3 * times[0],
                        "n": len(steady)},

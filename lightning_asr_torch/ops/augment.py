@@ -92,7 +92,8 @@ def wave_crop(waves: torch.Tensor, wave_lens: torch.Tensor,
         if generator is None:
             raise ValueError("wave_crop needs a torch.Generator or explicit uniforms")
         u = draw((2, B), generator, dev, axis=-1)
-        scale = torch.maximum(u[0] * (1.0 - weight) + weight, torch.tensor(weight, device=dev))
+        scale = torch.maximum(u[0] * (1.0 - weight) + weight,
+                              torch.full((), weight, device=dev))
         uniforms = (scale, u[1])
     scale, u_off = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in uniforms)
     lens_f = wave_lens.to(device=dev, dtype=torch.float32)

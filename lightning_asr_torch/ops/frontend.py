@@ -19,6 +19,7 @@ Layouts: waves (B, S), features (B, T, n_mels).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -251,12 +252,20 @@ def log_mel_spectrogram(
 
         return mel_from_extended(q, cfg, T), mel_lens
 
-    filters = torch.from_numpy(dft_filters(cfg)).to(q.device)
+    filters, fbank = _tables(cfg, q.device)
     spec = _frame_dft(q, filters, cfg, T)                  # (B, T, 2F) fp32
     F = cfg.n_freqs
     power = spec[..., :F] ** 2 + spec[..., F:] ** 2
-    mel = torch.matmul(power, torch.from_numpy(mel_filterbank(cfg)).to(q.device))
+    mel = torch.matmul(power, fbank)
     return 10.0 * torch.log10(torch.clamp(mel, min=cfg.amin)), mel_lens
+
+
+@functools.lru_cache(maxsize=8)
+def _tables(cfg: MelFrontendConfig, device: torch.device):
+    """(DFT filters, mel filterbank) float32 on ``device``, uploaded once:
+    a step uploads nothing, so a captured CUDA graph can hold it."""
+    return (torch.from_numpy(dft_filters(cfg)).to(device),
+            torch.from_numpy(mel_filterbank(cfg)).to(device))
 
 
 def normalize_features(feats: torch.Tensor, feat_lens: torch.Tensor) -> torch.Tensor:

@@ -132,8 +132,12 @@ class FlatLayout:
 
 
 def _lr_at(learning_rate, count: torch.Tensor) -> torch.Tensor:
+    """The learning rate at ``count``, a float32 scalar on its device; a
+    constant is filled there, not uploaded."""
     lr = learning_rate(count) if callable(learning_rate) else learning_rate
-    return torch.as_tensor(lr, dtype=torch.float32, device=count.device)
+    if not torch.is_tensor(lr):
+        return torch.full((), lr, dtype=torch.float32, device=count.device)
+    return lr.to(device=count.device, dtype=torch.float32)
 
 
 def novograd(

@@ -6,7 +6,8 @@ cycle_mult 2, min_lr 1e-4, warmup 1000, gamma 0.5, stepped per optimizer
 step).  It is a pure function of the step count, evaluated in float32 on
 the count's device, so the optimizer reads it without a host round trip:
 cycle boundaries are precomputed on the host, the cycle index is a
-``searchsorted``.
+``searchsorted``.  Its constants go to the device once, on the first
+call there: a call uploads nothing, so a captured CUDA graph can hold it.
 
 ``ReduceLROnPlateau`` is the host-side controller of the plateau recipe
 (the trainer writes its lr into ``novograd_with_runtime_lr``'s state).
@@ -59,20 +60,22 @@ def cosine_annealing_warmup_restarts(
     def schedule(step) -> torch.Tensor:
         stepf = torch.as_tensor(step).to(torch.float32)
         dev = stepf.device
+        if dev not in tables:
+            tables[dev] = [torch.tensor(v, dtype=torch.float32).to(dev)
+                           for v in (starts, lengths32, float(first_cycle_steps), gamma)]
+        starts_t, lengths_t, first_len, gamma_t = tables[dev]
         if cycle_repeats:
             cycle = torch.floor(stepf / first_cycle_steps)
             sic = stepf - cycle * first_cycle_steps
-            cycle_len = torch.tensor(float(first_cycle_steps), dtype=torch.float32, device=dev)
+            cycle_len = first_len
         else:
-            if dev not in tables:
-                tables[dev] = (torch.from_numpy(starts).to(dev), torch.from_numpy(lengths32).to(dev))
-            starts_t, lengths_t = tables[dev]
-            cycle = torch.clamp(torch.searchsorted(starts_t, stepf.reshape(1), right=True)[0] - 1,
+            # indexed by a (1,) tensor: a 0-d index is read back to the host
+            cycle = torch.clamp(torch.searchsorted(starts_t, stepf.reshape(1), right=True) - 1,
                                 0, len(lengths) - 1)
-            sic = stepf - starts_t[cycle]
-            cycle_len = lengths_t[cycle]
-        cur_max = max_lr * torch.pow(torch.tensor(gamma, dtype=torch.float32, device=dev),
-                                     cycle.to(torch.float32))
+            sic = stepf - starts_t[cycle][0]
+            cycle_len = lengths_t[cycle][0]
+            cycle = cycle[0]
+        cur_max = max_lr * torch.pow(gamma_t, cycle.to(torch.float32))
         warm = min_lr + (cur_max - min_lr) * sic / max(warmup_steps, 1)
         cos = min_lr + (cur_max - min_lr) * (
             1.0 + torch.cos(math.pi * (sic - warmup_steps) / (cycle_len - warmup_steps))) / 2.0

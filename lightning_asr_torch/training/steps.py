@@ -64,12 +64,19 @@ normalization on the mel stream, cutout on the features) and
 cutout); their train steps take ``data_parallel`` as ``make_train_step``
 does (no model groups: the SSL entry points split rows only).
 
+On the card ``make_train_step``'s step runs as one CUDA graph per batch
+shape (``training/graphs.py``): a shape's first call runs eagerly and then
+records the step, later calls replay it; the CPU, ``data_parallel`` and
+``accum_steps > 1`` stay eager, as do the dual and raw-SSL steps.
+
 Each train step marks its phases with the spans of ``training/profiler.py``:
 ``train_step`` around the call, and inside it ``features`` (the supervised
 step's frontend), ``forward`` and ``backward`` (once a micro-batch),
 ``all_reduce`` (``data_parallel``) and ``update`` (clipping, NovoGrad, the
-NaN guard and the step's metrics).  Outside a ``tracing`` block a span is
-one read of a module global.
+NaN guard and the step's metrics); these open where the step runs as
+written, eagerly or while it is recorded (the span ``capture``).  A replay
+is the span ``replay``.  Outside a ``tracing`` block a span is one read of
+a module global.
 """
 
 from __future__ import annotations
@@ -78,6 +85,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.utils._pytree as pytree
 from torch.func import functional_call
 
 from ..ops.augment import cutout, spec_augment, wave_crop
@@ -87,6 +95,7 @@ from ..optim.novograd import GradientTransformation, apply_updates, global_norm
 from ..parallel import distributed, tp
 from ..parallel.mesh import RowShard, local_rows, row_shard
 from ..utils.device import resolve_device
+from .graphs import GraphedStep
 from .profiler import span
 
 Tensors = Dict[str, torch.Tensor]
@@ -99,6 +108,12 @@ class AsrTrainState:
     batch_stats: Tensors
     opt_state: Any
     nan_count: torch.Tensor     # () int32
+
+
+# a pytree node, so that the graphed step flattens a state (training/graphs.py)
+pytree.register_pytree_node(AsrTrainState, lambda s: (list(vars(s).values()), list(vars(s))),
+                            lambda values, names: AsrTrainState(**dict(zip(names, values))),
+                            serialized_type_name=f"{__name__}.AsrTrainState")
 
 
 def create_train_state(model: torch.nn.Module, optimizer: GradientTransformation) -> AsrTrainState:
@@ -300,7 +315,14 @@ def make_train_step(
     On a CUDA model this turns TF32 off for float32 matmuls and convolutions
     (``resolve_device``): the CTC gradient's one-hot scatter to classes and
     NovoGrad's segment sums are float32 matmuls that TF32 would round to 10
-    mantissa bits.  A caller must not turn TF32 back on while it trains."""
+    mantissa bits.  A caller must not turn TF32 back on while it trains.
+
+    On the card, without ``data_parallel`` and with ``accum_steps`` 1, the
+    step replays one CUDA graph per batch shape and generator object
+    (``training/graphs.py``; ``train_step.graphs`` holds them and counts
+    each call's route): the eager step's bits on the same state, batch and
+    generator state (under cuDNN's deterministic algorithms, as two eager
+    calls need), a fresh state and metrics each call."""
     if crop and from_features:
         raise ValueError("crop=True crops waveforms; a from_features batch holds features")
     resolve_device(next(model.parameters()).device)
@@ -314,7 +336,7 @@ def make_train_step(
     def train_step(state: AsrTrainState, batch: dict,
                    generator: Optional[torch.Generator] = None):
         with span("train_step"), tp.model_parallel(shard):
-            return _train_step(state, batch, generator)
+            return graphed(state, batch, generator)
 
     def _train_step(state: AsrTrainState, batch: dict, generator: Optional[torch.Generator]):
         model.train()
@@ -354,6 +376,9 @@ def make_train_step(
             loss, grads = _mean_over_ranks(loss, grads)
         return _guarded_update(state, optimizer, loss, grads, new_stats, log_probs, out_lens)
 
+    graphed = GraphedStep(_train_step, "data_parallel" if data_parallel else
+                          "accum_steps" if accum_steps > 1 else None)
+    train_step.graphs = graphed
     return train_step
 
 

@@ -1,5 +1,7 @@
 """Building blocks of the QuartzNet encoders (port of
-``lightning_asr_tpu/models/layers.py``), eval and train paths.
+``lightning_asr_tpu/models/layers.py``), eval and train paths, and the
+Conformer's holders (``Conv2d``, ``Linear``, ``LayerNorm``: the port's own,
+``models/conformer.py``).
 
 Modules take and return NCT tensors (B, C, T), the layout of ``F.conv1d``;
 the model's public functions keep the JAX package's (B, T, C).
@@ -143,6 +145,72 @@ class Conv(nn.Module):
         groups = self.groups if self.groups == 1 else x.shape[1] // self.weight.shape[1]
         return F.conv1d(x.to(dt), self.weight.to(dt), bias, self.stride,
                         self.padding, 1, groups)
+
+
+class Conv2d(nn.Module):
+    """2-D convolution weight (out, in, kh, kw) + bias, run in a compute
+    dtype as ``Conv`` runs its 1-D one (the Conformer's subsampling)."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int, stride: int = 1, padding: int = 0,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, k, k))
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+        self.stride, self.padding, self.dtype = stride, padding, dtype
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        bound = 1.0 / math.sqrt(self.weight[0].numel())
+        _uniform_(self.weight, bound, generator)
+        _uniform_(self.bias, bound, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or x.dtype
+        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride, self.padding)
+
+
+class Linear(nn.Module):
+    """``torch.nn.Linear``'s weight (out, in) [+ bias] on the last axis, run
+    in a compute dtype (bf16 GEMMs; the parameters stay float32), drawn
+    U(±1/sqrt(in)).  Unlike ``Dense`` its bits may depend on the row count
+    (a library GEMM)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+        self.dtype = dtype
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        bound = 1.0 / math.sqrt(self.weight.shape[1])
+        _uniform_(self.weight, bound, generator)
+        if self.bias is not None:
+            _uniform_(self.bias, bound, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or x.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), None if self.bias is None
+                        else self.bias.to(dt))
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis, computed in float32 and cast back to
+    the input's dtype; scale and shift float32, ones and zeros."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.weight.shape, self.weight, self.bias,
+                            self.eps).to(x.dtype)
 
 
 class MaskedBatchNorm(nn.Module):

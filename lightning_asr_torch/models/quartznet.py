@@ -14,6 +14,10 @@
   * ``QuartNet105`` (``quartznet10x5``): a SepConv stem 64->256 k33 stride
     2; ten repeat-5 blocks; the epilog of 15x5.
 
+``conformer_ctc_large`` (``models/conformer.py``) is the port's own
+encoder, Conformer-CTC Large, with no counterpart in the JAX package:
+``MODEL_REGISTRY`` names the JAX package's four, ``ENCODERS`` all five.
+
 ``AsrModel`` adds the 1x1-conv decoder to (vocab+1) classes and
 log-softmax, both in float32; with ``feature_in`` (the SSL path) a float32
 ``Dense`` ``feature_mapping`` (feature_in -> in_c, with bias) runs before
@@ -48,8 +52,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import tp
-from .layers import (BatchLSTM, Conv, Dense, MaskedBatchNorm, QuartNetBlock, SepConv,
-                     _lengths_from_percents, dropout, sep_conv)
+from .conformer import NAME as CONFORMER, ConformerEncoder, RelPositionAttention
+from .layers import (BatchLSTM, Conv, Conv2d, Dense, LayerNorm, Linear, MaskedBatchNorm,
+                     QuartNetBlock, SepConv, _lengths_from_percents, dropout, sep_conv)
 
 _BLOCKS = ([(n, 256, 256, 33) for n in ("block1", "block12", "block13")]
            + [(n, 256, 256, 39) for n in ("block2", "block22", "block23")])
@@ -62,9 +67,6 @@ _PLAN_10X5 = ([(256, 256, 33)] * 2 + [(256, 256, 39)] * 2 + [(256, 512, 51), (51
               + [(512, 512, 63)] * 2 + [(512, 512, 75)] * 2)
 
 
-ENCODER_OUT = 1024                    # channels of every encoder's output
-
-
 def epilog_input(conv: Conv, x: torch.Tensor) -> torch.Tensor:
     """The input of a 1x1 epilog conv: the trunk gathered, for this rank's
     output rows (``parallel/tp.py``; ``x`` itself outside it)."""
@@ -75,6 +77,8 @@ class QuartNet12Context(nn.Module):
     """QuartzNet 12x1 with BiLSTM context branch (the default encoder; with
     ``use_se`` the squeeze-excite variant).  (B, C, T) -> (B, 1024, T') with
     T' = ceil(T / 2)."""
+
+    in_c, out_ch = 64, 1024
 
     def __init__(self, in_c: int = 64, mask: bool = False, lstm_hidden: int = 40,
                  drop_rate: float = 0.0, dtype: Optional[torch.dtype] = None,
@@ -116,6 +120,8 @@ class _Repeat5(nn.Module):
     ``QuartNet105``): a stride-2 stem, repeat-5 blocks ``block1``, ... on
     ``plan``, the k87 SepConv ``last_cnn`` and the 1x1 conv 512->1024 with
     bias + BN + ReLU, without a final dropout.  (B, C, T) -> (B, 1024, T')."""
+
+    in_c, out_ch = 64, 1024
 
     def __init__(self, stem: nn.Module, plan, mask: bool, drop_rate: float,
                  dtype: Optional[torch.dtype], conv_kernel: Optional[str]):
@@ -168,15 +174,20 @@ class QuartNet105(_Repeat5):
                          _PLAN_10X5, mask, drop_rate, dtype, conv_kernel)
 
 
-# encoder name -> (class, its own arguments), as the JAX package's _ENCODERS
+# encoder name -> (class, its own arguments): the JAX package's _ENCODERS,
+# then the port's own, which have no JAX counterpart (no weight bridge, no
+# tensor-parallel layout)
 _ENCODERS = {
     "quartznet12_context": (QuartNet12Context, {}),
     "quartznet12_context_se": (QuartNet12Context, {"use_se": True}),
     "quartznet15x5": (QuartNet15x5, {}),
     "quartznet10x5": (QuartNet105, {}),
+    CONFORMER: (ConformerEncoder, {}),
 }
-MODEL_REGISTRY = tuple(_ENCODERS)
+PORT_ONLY_ENCODERS = (CONFORMER,)
+MODEL_REGISTRY = tuple(k for k in _ENCODERS if k not in PORT_ONLY_ENCODERS)   # the JAX package's
 PORTED_ENCODERS = MODEL_REGISTRY
+ENCODERS = tuple(_ENCODERS)
 
 
 class AsrModel(nn.Module):
@@ -184,34 +195,39 @@ class AsrModel(nn.Module):
 
     ``forward(feats (B, T, in_c), percents (B,))`` returns
     ``(log_probs (B, T', num_classes), out_lengths (B,) int32)``; with
-    ``feature_in`` the features are (B, T, feature_in)."""
+    ``feature_in`` the features are (B, T, feature_in).  ``in_c`` None is
+    the encoder's own input width (64 mels for the QuartzNets, 80 for the
+    Conformer); the head reads the encoder's output width (``out_ch``:
+    1024 for the QuartzNets, 512 for the Conformer)."""
 
     def __init__(self, num_classes: int, encoder_name: str = "quartznet12_context",
-                 in_c: int = 64, drop_rate: float = 0.0, mask: bool = False,
+                 in_c: Optional[int] = None, drop_rate: float = 0.0, mask: bool = False,
                  dtype: Optional[torch.dtype] = None, conv_kernel: Optional[str] = None,
                  fuse_directions: bool = False, feature_in: Optional[int] = None,
                  lstm_head: bool = False, lstm_head_hidden: int = 128):
         super().__init__()
         self.dtype = dtype                                          # conv compute type
+        in_c = in_c or _ENCODERS[encoder_name][0].in_c
         self.feature_mapping = None if feature_in is None else Dense(feature_in, in_c, bias=True)
         self.encoder = make_encoder(encoder_name, in_c, mask, drop_rate, dtype, conv_kernel,
                                     fuse_directions)
+        self.width = width = self.encoder.out_ch
         self.lstm_head = lstm_head
         if lstm_head:                                               # float32 head
-            self.head_rnn = BatchLSTM(1024, lstm_head_hidden, fuse_directions)
+            self.head_rnn = BatchLSTM(width, lstm_head_hidden, fuse_directions)
             self.head_bn = MaskedBatchNorm(2 * lstm_head_hidden)
             self.head_fc = Dense(2 * lstm_head_hidden, num_classes, bias=True)
         else:
-            self.decoder = Conv(1024, num_classes, 1, bias=True)   # float32 head
+            self.decoder = Conv(width, num_classes, 1, bias=True)  # float32 head
 
     def forward(self, x: torch.Tensor, percents: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.feature_mapping is not None:
             x = self.feature_mapping(x)
-        x = tp.full(self.encoder(x.transpose(1, 2), percents, generator), ENCODER_OUT)
+        x = tp.full(self.encoder(x.transpose(1, 2), percents, generator), self.width)
         if not self.lstm_head:
             return ctc_head(self.decoder, x, percents)
-        x = x.float().transpose(1, 2)                               # (B, T', 1024)
+        x = x.float().transpose(1, 2)                               # (B, T', C)
         x = self.head_rnn(x, _lengths_from_percents(x.shape[1], percents))
         x = self.head_fc(self.head_bn(x.transpose(1, 2)).transpose(1, 2))
         log_probs = F.log_softmax(x, dim=-1)
@@ -231,13 +247,14 @@ def make_encoder(encoder_name: str, in_c: int, mask: bool, drop_rate: float,
 
 
 def ctc_head(decoder: Conv, x: torch.Tensor, percents: torch.Tensor):
-    """The float32 1x1-conv decoder and log-softmax on the encoder's (B, 1024,
+    """The float32 1x1-conv decoder and log-softmax on the encoder's (B, C,
     T'): (log_probs (B, T', V+1), out_lengths (B,) int32)."""
     log_probs = F.log_softmax(decoder(x.float()), dim=1).transpose(1, 2)
     return log_probs, _lengths_from_percents(log_probs.shape[1], percents)
 
 
-def build_model(num_classes: int, encoder: str = "quartznet12_context", in_c: int = 64,
+def build_model(num_classes: int, encoder: str = "quartznet12_context",
+                in_c: Optional[int] = None,
                 drop_rate: float = 0.0, mask: bool = False, feature_in: Optional[int] = None,
                 dtype: Optional[torch.dtype] = None, conv_kernel: Optional[str] = None,
                 fuse_directions: bool = False, lstm_head: bool = False,
@@ -251,9 +268,12 @@ def build_model(num_classes: int, encoder: str = "quartznet12_context", in_c: in
     ``feature_in`` maps SSL features (wav2vec2's 512) to ``in_c`` first.
     ``lstm_head`` replaces the 1x1-conv decoder by the BiLSTM head of
     hidden size ``lstm_head_hidden`` (the LSTM kernels are built for 40 and
-    128); as in the JAX package no CLI or config reaches it."""
-    if encoder not in MODEL_REGISTRY:
-        raise ValueError(f"unknown encoder {encoder!r}; choose from {sorted(MODEL_REGISTRY)}")
+    128); as in the JAX package no CLI or config reaches it.  ``in_c`` None
+    is the encoder's own input width.  ``conformer_ctc_large``
+    (``models/conformer.py``) is the port's own encoder, without a JAX
+    counterpart; it takes no ``conv_kernel``."""
+    if encoder not in ENCODERS:
+        raise ValueError(f"unknown encoder {encoder!r}; choose from {sorted(ENCODERS)}")
     return AsrModel(num_classes, encoder, in_c=in_c, drop_rate=drop_rate, mask=mask, dtype=dtype,
                     conv_kernel=conv_kernel, fuse_directions=fuse_directions,
                     feature_in=feature_in, lstm_head=lstm_head, lstm_head_hidden=lstm_head_hidden)
@@ -263,9 +283,11 @@ def reset_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Draw every weight as the JAX package's initializers do (torch's
     default U(±1/sqrt(fan_in)); the wav2vec2 convs flax's default
     lecun-normal and zero bias; BatchNorm, LayerNorm and GroupNorm
-    ones/zeros), from ``generator``."""
+    ones/zeros; the Conformer's ``pos_bias_u``/``pos_bias_v`` zeros, as
+    NeMo's), from ``generator``."""
     for m in model.modules():
-        if isinstance(m, (Conv, Dense, MaskedBatchNorm, BatchLSTM)):
+        if isinstance(m, (Conv, Conv2d, Dense, Linear, LayerNorm, MaskedBatchNorm, BatchLSTM,
+                          RelPositionAttention)):
             m.reset_parameters(generator)
         elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
             m.reset_parameters()

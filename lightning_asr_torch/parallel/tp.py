@@ -43,6 +43,10 @@ Here the layout is written out, Megatron's way:
     sums no int16).  An integer sum with zeros is the identity on every
     bit pattern; a float sum is not (-0.0 + 0.0 is +0.0).
 
+An encoder whose class says ``tensor_parallel = False`` (the port's own
+``conformer_ctc_large``) has no layout: ``model_shard`` refuses it in a
+model group of more than one rank.
+
 Outside ``model_parallel`` (the default) every helper returns its input, so
 a model runs exactly as it does without this module.  The scope is entered
 by the train and eval steps and left when they return, so a tensor-parallel
@@ -126,6 +130,10 @@ def model_shard(model: torch.nn.Module) -> Optional[ModelShard]:
     size = distributed.model_size()
     if size == 1:
         return None
+    encoder = getattr(model, "encoder", None)
+    if not getattr(encoder, "tensor_parallel", True):
+        raise ValueError(f"train.tp={size}: the {encoder.name} encoder has no "
+                         "tensor-parallel layout; train it with train.tp=1")
     return ModelShard(distributed.model_index(), size, model_specs(model, size))
 
 

@@ -39,6 +39,10 @@ once, in this entry point, and become ``build_model`` arguments:
 ``LASR_SEPCONV_PALLAS=1`` -> ``conv_kernel="sepconv"`` (K9, K10),
 ``LASR_DW_WGRAD_PALLAS=1`` -> ``conv_kernel="dw_wgrad"`` (K11).
 The resolved config is printed as JSON.
+
+The encoder is ``model.encoder`` (``conf/conf.yaml``'s list, and the port's
+own ``conformer_ctc_large``, which wants ``data.n_mels=80
+data.win_length=400``); the model's input width follows ``data.n_mels``.
 """
 
 from __future__ import annotations
@@ -74,6 +78,16 @@ def kernel_switches(environ=os.environ) -> dict:
     conv_kernel = "sepconv" if on("LASR_SEPCONV_PALLAS") else (
         "dw_wgrad" if on("LASR_DW_WGRAD_PALLAS") else None)
     return {"fuse_directions": on("LASR_LSTM_FUSED_BIDIR"), "conv_kernel": conv_kernel}
+
+
+def frontend_config(data_cfg) -> MelFrontendConfig:
+    """The training frontend: ``data.frontend_precision`` (default
+    "default"), ``data.n_mels`` (64) and ``data.win_length`` (320 samples),
+    the rest ``MelFrontendConfig``'s defaults.  The model's input width is
+    ``n_mels``."""
+    return MelFrontendConfig(precision=data_cfg.get("frontend_precision", "default"),
+                             n_mels=int(data_cfg.get("n_mels", 64)),
+                             win_length=int(data_cfg.get("win_length", 320)))
 
 
 def main(argv=None) -> dict:
@@ -120,9 +134,11 @@ def _train(cfg, device: torch.device) -> dict:
         cache_dir=data_cfg.get("cache_dir"),
         wire=data_cfg.get("wire", "int16"),
     )
+    frontend = frontend_config(data_cfg)
     model = build_model(
         num_classes=dm.vocab.num_classes,
         encoder=model_cfg.get("encoder", "quartznet12_context"),
+        in_c=frontend.n_mels,
         drop_rate=model_cfg.get("drop_rate", 0.0),
         mask=model_cfg.get("mask", True),
         dtype=_COMPUTE_DTYPES[model_cfg.get("compute_dtype", "bf16")],
@@ -168,7 +184,7 @@ def _train(cfg, device: torch.device) -> dict:
         run_dir=run_dir,
         loggers=init_loggers(cfg.get("loggers"), run_dir) if primary else None,
         lr_schedule=schedule,
-        frontend=MelFrontendConfig(precision=data_cfg.get("frontend_precision", "default")),
+        frontend=frontend,
         augment=data_cfg.get("augment", True),
         freq_mask=data_cfg.get("freq_mask", 27),
         time_mask=data_cfg.get("time_mask", 0.07),
@@ -182,6 +198,7 @@ def _train(cfg, device: torch.device) -> dict:
             "labels": dm.vocab.labels,
             "use_cer": dm.vocab.use_cer,
             "encoder": model_cfg.get("encoder", "quartznet12_context"),
+            "in_c": frontend.n_mels,
             "drop_rate": model_cfg.get("drop_rate", 0.0),
             "mask": model_cfg.get("mask", True),
             "learning_rate": lr,

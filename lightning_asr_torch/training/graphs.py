@@ -50,7 +50,10 @@ and moves the offset on by the graph's draws, as the eager step does, so a
 replay gives the eager step's bits on the same state, batch and generator
 state (with cuDNN's deterministic algorithms, fixed when the graph is
 recorded: without them two eager calls differ too, in the 1x1
-convolutions' weight gradients).
+convolutions' weight gradients; the Conformer's step needs PyTorch's
+deterministic algorithms, ``torch.use_deterministic_algorithms(True)``
+with ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, for the same reason: its
+memory-efficient attention's backward sums in any order otherwise).
 
 A capture that fails (an op that syncs the host or uploads from it, or
 cannot be captured) leaves its key eager, counted under ``eager/failed``;

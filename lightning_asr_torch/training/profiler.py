@@ -15,14 +15,21 @@ read, and inside ``torch.profiler.record_function("lasr/<nested name>")``,
 so that under an active torch.profiler it is an annotation on the clock of
 the CUDA runtime's and the kernels' records.  Spans nest per profiler, in
 the thread that opens them.
+
+A route counter (``count(name, route)``) counts, tracing or not, which way
+a piece of the program went each time Python ran it, as
+``train_step.graphs.counts`` counts the step's routes: ``COUNTERS[name]``
+is a ``collections.Counter`` of routes (``conformer.attention.backend``:
+the attention's forced SDPA backend set, ``models/conformer.py``).  A
+replayed CUDA graph runs no Python, so it counts nothing.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from collections import defaultdict
-from typing import Optional
+from collections import Counter, defaultdict
+from typing import Dict, Optional
 
 from torch.profiler import record_function
 
@@ -30,6 +37,7 @@ _clock = time.perf_counter_ns
 _OFF = contextlib.nullcontext()
 _TRACING: Optional["SimpleProfiler"] = None
 ANNOTATION_PREFIX = "lasr/"
+COUNTERS: Dict[str, Counter] = defaultdict(Counter)
 
 
 class SimpleProfiler:
@@ -98,3 +106,8 @@ def tracing(profiler: SimpleProfiler):
         yield profiler
     finally:
         _TRACING = prev
+
+
+def count(name: str, route: str) -> None:
+    """One more ``route`` in the counter ``name`` (``COUNTERS``)."""
+    COUNTERS[name][route] += 1

@@ -118,9 +118,11 @@ pytree.register_pytree_node(AsrTrainState, lambda s: (list(vars(s).values()), li
 
 def create_train_state(model: torch.nn.Module, optimizer: GradientTransformation) -> AsrTrainState:
     """A state from the module's current weights (``reset_parameters`` or a
-    loaded checkpoint), on the module's device."""
+    loaded checkpoint), on the module's device.  A buffer outside the
+    state_dict (the Conformer's position table) stays the module's own."""
     params = {k: p.detach().clone() for k, p in model.named_parameters()}
-    stats = {k: b.detach().clone() for k, b in model.named_buffers()}
+    persistent = model.state_dict(keep_vars=True)
+    stats = {k: b.detach().clone() for k, b in model.named_buffers() if k in persistent}
     dev = next(iter(params.values())).device
     return AsrTrainState(step=torch.zeros((), dtype=torch.int32, device=dev), params=params,
                          batch_stats=stats, opt_state=optimizer.init(params),
@@ -322,7 +324,8 @@ def make_train_step(
     (``training/graphs.py``; ``train_step.graphs`` holds them and counts
     each call's route): the eager step's bits on the same state, batch and
     generator state (under cuDNN's deterministic algorithms, as two eager
-    calls need), a fresh state and metrics each call."""
+    calls need; the Conformer's under PyTorch's, ``training/graphs.py``), a
+    fresh state and metrics each call."""
     if crop and from_features:
         raise ValueError("crop=True crops waveforms; a from_features batch holds features")
     resolve_device(next(model.parameters()).device)

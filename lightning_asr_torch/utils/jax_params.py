@@ -15,6 +15,9 @@ documents).
     their names and shapes; so do the LSTM head's ``head_rnn`` tensors, whose
     ``head_bn`` is a BatchNorm and ``head_fc`` a Dense as above.
 
+The port's own encoder ``conformer_ctc_large`` has no flax counterpart:
+``from_jax`` and ``to_jax`` refuse its tensors (``ValueError``).
+
 Keys are the flax paths joined with dots (``encoder.block1.sep_last.bn``),
 which are the port's module names.  Trees are nested dicts of numpy arrays
 (``jax.device_get`` of the flax variables, or an orbax restore).
@@ -58,9 +61,21 @@ def _set(tree: dict, path: Tuple[str, ...], value: np.ndarray) -> None:
     tree[path[-1]] = value
 
 
+# the Conformer's top-level encoder modules (models/conformer.py)
+_CONFORMER_MODULES = ("pre_encode", "layers", "pos_enc")
+
+
+def _refuse_conformer(paths) -> None:
+    """``ValueError`` where a path (a tuple of names) is a Conformer's."""
+    if any(len(p) > 1 and p[0] == "encoder" and p[1] in _CONFORMER_MODULES for p in paths):
+        raise ValueError("conformer_ctc_large has no JAX counterpart: its weights do not "
+                         "cross to or from a flax tree")
+
+
 def from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
     """flax ``params`` + ``batch_stats`` -> torch state_dict (copies)."""
     flat = _flatten(params)
+    _refuse_conformer(flat)
     bn_modules = {path[:-1] for path in _flatten(batch_stats)}
     sd: Dict[str, torch.Tensor] = {}
     for path, value in flat.items():
@@ -88,6 +103,7 @@ def from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
 
 def to_jax(state_dict: Dict[str, torch.Tensor]) -> Tuple[dict, dict]:
     """torch state_dict -> (flax ``params``, ``batch_stats``) of numpy arrays."""
+    _refuse_conformer(tuple(k.split(".")) for k in state_dict)
     stats_of = {v: k for k, v in _BN_STATS.items()}
     bn_modules = {k.rsplit(".", 1)[0] for k in state_dict if k.endswith(".running_mean")}
     params: dict = {}
